@@ -1,0 +1,76 @@
+"""The dense pre-norm transformer stack.
+
+Params keep the reference's tree: one ``sub0`` unit per layer, each leaf
+stacked over the layers (leading dim ``num_layers``).  The stack runs as a
+plain loop over the layers, slicing each stacked leaf (a view, no copy).
+The scan-unit machinery the reference needs for MoE periods and hybrid
+interleaves is not ported yet: those configs raise.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.core.config import ModelConfig
+from repro_torch.core.module import stack_tree, tree_map
+from repro_torch.models import layers as L
+from repro_torch.models.attention import attention_apply, attention_defs
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the architectures the port does not run yet."""
+    unported = [
+        (cfg.num_experts > 0, "MoE layers (ROADMAP: MoE slice, grouped matmul)"),
+        (cfg.family in ("ssm", "hybrid"), "SSM / hybrid stacks (ROADMAP: SSM slice, SSD scan)"),
+        (cfg.is_encoder_decoder or bool(cfg.frontend),
+         "encoder-decoder and frontend models (ROADMAP: enc-dec/frontend slice)"),
+        (cfg.parallel_residual, "parallel_residual blocks (ROADMAP: port queue, dense stack)"),
+    ]
+    for hit, what in unported:
+        if hit:
+            raise NotImplementedError(f"{cfg.name}: {what} are not ported yet")
+
+
+def _layer_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    defs: Dict[str, Any] = {"norm1": L.norm_defs(cfg, d), "attn": attention_defs(cfg)}
+    if cfg.d_ff > 0:
+        defs["norm2"] = L.norm_defs(cfg, d)
+        defs["ffn"] = L.mlp_defs(cfg, d, cfg.d_ff)
+    return defs
+
+
+def stack_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    check_supported(cfg)
+    return stack_tree({"sub0": _layer_defs(cfg)}, cfg.num_layers)
+
+
+def _apply_layer(cfg, params, x, *, mode, positions, causal):
+    h = L.norm_apply(cfg, params["norm1"], x)
+    mix, cache = attention_apply(cfg, params["attn"], h, positions=positions,
+                                 mode=mode, causal=causal)
+    x = x + mix
+    if "ffn" in params:
+        x = x + L.mlp_apply(cfg, params["ffn"], L.norm_apply(cfg, params["norm2"], x))
+    return x, cache
+
+
+def decoder_stack(
+    cfg: ModelConfig,
+    stacked_params: Dict[str, Any],
+    x: torch.Tensor,
+    *,
+    mode: str = "train",
+    positions: Optional[torch.Tensor] = None,
+    causal: Optional[bool] = None,
+) -> Tuple[torch.Tensor, Optional[List[Dict[str, torch.Tensor]]]]:
+    """Runs every layer.  Returns (x, caches): one {"k", "v"} per layer in
+    prefill mode, None in train mode."""
+    check_supported(cfg)
+    caches = []
+    for j in range(cfg.num_layers):
+        layer = tree_map(lambda p: p[j], stacked_params["sub0"])
+        x, cache = _apply_layer(cfg, layer, x, mode=mode, positions=positions, causal=causal)
+        caches.append(cache)
+    return x, (caches if mode == "prefill" else None)
