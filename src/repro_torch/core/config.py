@@ -110,6 +110,51 @@ class ModelConfig:
         total += self.padded_vocab * d * (1 if self.tie_embeddings else 2)
         return total
 
+    def active_param_count(self) -> int:
+        """Params touched per token: all of them for the dense stack (the
+        MoE form comes with the MoE slice)."""
+        return self.param_count()
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """The reference's mesh layout knobs that a single GPU reads: only the
+    optimizer-moment dtype so far (the mesh fields come with multi-GPU)."""
+
+    optimizer_state_dtype: str = "float32"   # float32 | bfloat16
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The reference's training knobs, same fields and defaults."""
+
+    global_batch: int = 256
+    seq_len: int = 4096
+    # microbatch gradient accumulation: each optimizer step runs
+    # accum_steps microbatches of global_batch/accum_steps rows with fp32
+    # grad accumulators, token-weighted, so accum_steps=N equals one
+    # N×-larger batch (training/train_step.py)
+    accum_steps: int = 1
+    learning_rate: float = 1e-3
+    min_lr: float = 1e-5
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    decay_steps: int = 1000
+    total_steps: int = 1000
+    schedule: str = "wsd"      # wsd | cosine | noam | const
+    seed: int = 0
+    log_every: int = 10
+    ckpt_every: int = 0        # 0 = disabled
+    ckpt_dir: str = ""
+    # non-finite guard: a step whose loss or global grad-norm is not finite
+    # applies no update and is counted as a skip; this many consecutive
+    # skips abort the run (training/loop.py)
+    max_nonfinite_skips: int = 10
+
 
 @dataclass(frozen=True)
 class ServeConfig:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import math
 import zlib
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -67,6 +67,14 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a nested dict in sorted-key order (the reference's
+    ``jax.tree.leaves`` order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
 def stack_tree(tree: Dict[str, Any], n: int) -> Dict[str, Any]:
     return tree_map(lambda p: stacked(p, n), tree)
 
@@ -96,8 +104,10 @@ def materialize(defs: Dict[str, Any], seed: int, param_dtype: torch.dtype,
 
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors held as modules (dict nodes) and
-    parameters (leaves), keyed by the same paths."""
+    """A nested dict of tensors held as modules (dict nodes) and trainable
+    parameters (leaves), keyed by the same paths.  Serving runs under
+    ``torch.inference_mode``, so the leaves' ``requires_grad`` costs it
+    nothing; the train step differentiates through them."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
@@ -105,7 +115,7 @@ class ParamTree(nn.Module):
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v))
             else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v, requires_grad=v.is_floating_point()))
 
     def tree(self) -> Dict[str, Any]:
         out: Dict[str, Any] = dict(self._parameters)

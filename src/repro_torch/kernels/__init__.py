@@ -1,9 +1,14 @@
 """Hand-written Hopper kernels of the port, their plain PyTorch versions
 (``ref.py``) and the dispatch between them (``ops.py``).
 
-* flash-attention forward: ``csrc/flash_attention_fwd.cu`` (CUDA C++ for
-  sm_90a), wrapped by ``flash_attention.py``; replaces the reference's TPU
-  kernel ``flash_attention.py::flash_attention_fwd``.
+* flash-attention forward and backward: ``csrc/flash_attention_fwd.cu`` and
+  ``csrc/flash_attention_bwd.cu`` (CUDA C++ for sm_90a), wrapped by
+  ``flash_attention.py``; replace the reference's TPU kernels
+  ``flash_attention.py::flash_attention_fwd`` / ``flash_attention_bwd``.
+* fused cross-entropy forward and backward: ``csrc/cross_entropy.cu``
+  (CUDA C++ for sm_90a), wrapped by ``cross_entropy.py``; replace the
+  reference's ``cross_entropy.py::fused_cross_entropy`` /
+  ``fused_cross_entropy_bwd``.
 * LayerNorm: Triton, in ``rmsnorm.py``; replaces the reference's TPU
   kernel ``rmsnorm.py::layernorm``.
 """

@@ -3,8 +3,8 @@
 Each source in ``csrc/`` has a plain C interface (no PyTorch headers), so
 nvcc compiles it in seconds.  It is built at first use into ``build/``
 beside this file (listed in ``.gitignore``), under a name keyed by the
-hash of the source and the flags: an edited source is rebuilt, an
-unchanged one is loaded as it is.  ``start_builds`` launches one nvcc per
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags: an
+edited source or header is rebuilt, an unchanged one is loaded as it is.  ``start_builds`` launches one nvcc per
 source, all at once, and ``finish_builds`` waits for them, so a caller can
 build every kernel in parallel.
 """
@@ -40,7 +40,7 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(f.read_bytes() for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     key = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
@@ -75,6 +75,14 @@ def finish_builds(jobs: List[Tuple[str, Path, subprocess.Popen]]) -> Dict[str, s
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return logs
+
+
+def check_device(name: str, *tensors) -> None:
+    """Raise unless every operand of kernel ``name`` lies on one CUDA device."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: operands must share one CUDA device; got "
+                         f"{[str(t.device) for t in tensors]}")
 
 
 def load(name: str) -> ctypes.CDLL:

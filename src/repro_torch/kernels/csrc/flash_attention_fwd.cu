@@ -30,17 +30,15 @@
 // 1.7e11 FLOP (0.17 ms) against q, k, v read once and out written once,
 // 4*B*S*H*D*2 B + lse = 0.34 GB (0.10 ms): operations bound it.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
 constexpr int kBlockQ = 64;    // query rows per block: 4 warps x 16 rows
 constexpr int kBlockK = 64;    // keys per tile
 constexpr int kThreads = 128;
-constexpr int kPad = 8;        // row padding (16-bit elements): conflict-free fragment reads
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -56,42 +54,6 @@ struct Params {
   int causal, window, q_offset;
   float scale;    // 1/sqrt(D)
   float softcap;  // 0 = off
-};
-
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  // two floats -> one register, the first in the low half
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
 };
 
 // rows [row0, row0+64) of a (rows, D) matrix with the given row stride into
@@ -126,13 +88,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(const Par
   __syncthreads();
   uint32_t qa[D / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(&sK[wrow + g][c]);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(&sK[wrow + g + 8][c]);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(&sK[wrow + g][c + 8]);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(&sK[wrow + g + 8][c + 8]);
-  }
+  for (int kk = 0; kk < D / 16; ++kk) a_frag<D>(qa[kk], &sK[0][0], wrow, kk * 16, g, t);
 
   // this thread's rows are g and g + 8 of the warp's 16. m is the running
   // max in log2 units; l is this thread's partial row sum (its 2 of every
@@ -170,8 +126,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(const Par
     for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
       for (int n = 0; n < kBlockK / 8; ++n) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&sK[n * 8 + g][kk * 16 + 2 * t]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&sK[n * 8 + g][kk * 16 + 8 + 2 * t]);
+        uint32_t b0, b1;
+        b_frag_rows<D>(b0, b1, &sK[0][0], n * 8, kk * 16, g, t);
         Mma<T>::run(s[n], qa[kk], b0, b1);
       }
     }
@@ -223,7 +179,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(const Par
     }
 
     // O += P V: the S accumulators of two adjacent 8-key tiles are the A
-    // fragment of one 16-key step; V's B fragment pairs rows key, key + 1
+    // fragment of one 16-key step
 #pragma unroll
     for (int kk = 0; kk < kBlockK / 16; ++kk) {
       uint32_t pa[4];
@@ -231,12 +187,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(const Par
       pa[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
       pa[2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pa[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int key = kk * 16 + 2 * t;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        const int col = j * 8 + g;
-        const uint32_t b0 = uint32_t(sV[key][col]) | (uint32_t(sV[key + 1][col]) << 16);
-        const uint32_t b1 = uint32_t(sV[key + 8][col]) | (uint32_t(sV[key + 9][col]) << 16);
+        uint32_t b0, b1;
+        b_frag_cols<D>(b0, b1, &sV[0][0], kk * 16, j * 8, g, t);
         Mma<T>::run(acc[j], pa, b0, b1);
       }
     }

@@ -1,21 +1,25 @@
 """Dispatch of the port's hot-path ops.
 
 ``impl="auto"`` (the default, and ``ModelConfig.kernel_impl``'s) hands the
-tensors to the kernel wrapper: a CUDA tensor launches the hand-written
-kernel — a failed launch raises, nothing falls back — and a CPU tensor
-runs the plain PyTorch version.  ``impl="torch"`` runs the plain version on
-any device; only the tests and ``chip_smoke.py`` use it, to hold the
-kernels against it.
+tensors to the kernel wrappers: a CUDA tensor launches the hand-written
+kernels — a failed launch raises, nothing falls back — and a CPU tensor
+runs the plain PyTorch versions.  ``impl="torch"`` runs the plain versions
+on any device; only the tests and ``chip_smoke.py`` use it, to hold the
+kernels against it.  Every op here is differentiable on both
+implementations: attention and cross-entropy pair their forward and
+backward kernels (or plain versions) in a ``torch.autograd.Function``, as
+the reference's custom VJPs do; LayerNorm pairs its forward kernel with
+the reference's hand-written backward formulas.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.kernels.rmsnorm import layernorm as _layernorm_kernel
+from repro_torch.kernels import cross_entropy as _ce
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rmsnorm as _ln
 
 IMPLS = ("auto", "torch")
 
@@ -38,9 +42,8 @@ def attention(
     impl: str = "auto",
 ) -> torch.Tensor:
     """q (B,S,H,D), k/v (B,T,Hkv,D) -> (B,S,H,D) in q.dtype."""
-    fn = ref.attention_ref if _plain(impl) else flash_attention_fwd
-    out, _ = fn(q, k, v, causal=causal, window=window, softcap=softcap, q_offset=q_offset)
-    return out
+    return _fa.attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                         q_offset=q_offset, plain=_plain(impl))
 
 
 def layernorm(
@@ -51,5 +54,18 @@ def layernorm(
     *,
     impl: str = "auto",
 ) -> torch.Tensor:
-    fn = ref.layernorm_ref if _plain(impl) else _layernorm_kernel
-    return fn(x, w, b, eps)
+    return _ln.layernorm_ad(x, w, b, eps, plain=_plain(impl))
+
+
+def cross_entropy(
+    hidden: torch.Tensor,
+    w: torch.Tensor,
+    targets: torch.Tensor,
+    *,
+    vocab: int = 0,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """hidden (T, D) · w (D, Vpad) -> per-token (loss, lse), both (T,) fp32;
+    columns >= vocab are masked.  The (T, Vpad) logits never materialize on
+    the kernel path."""
+    return _ce.cross_entropy(hidden, w, targets, vocab=vocab, plain=_plain(impl))

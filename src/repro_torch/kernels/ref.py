@@ -3,7 +3,11 @@
 Each function here is the semantic definition its kernel is held to: the
 CPU path runs it, the CPU tests hold it against the reference package, and
 ``chip_smoke.py`` holds each kernel against it on the card.  Written for
-clarity — attention materializes the full (B, H, S, T) fp32 score tensor.
+clarity — attention materializes the full (B, H, S, T) fp32 score tensor,
+cross-entropy the full (T, Vpad) fp32 logits.  The backward versions are
+explicit formulas, not autograd of the forward: they keep the reference
+kernels' fp32 math and edge cases (clamped exponents, masked rows and
+vocab columns).
 """
 from __future__ import annotations
 
@@ -39,20 +43,123 @@ def attention_ref(
     s = torch.einsum("bshd,bthd->bhst", q.float(), kf) * (1.0 / math.sqrt(D))
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
-    q_pos = torch.arange(S, device=q.device)[:, None] + q_offset
-    k_pos = torch.arange(T, device=q.device)[None, :]
-    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window > 0:
-        mask &= k_pos > q_pos - window
-    s = torch.where(mask, s, NEG_INF)
+    s = torch.where(_mask(S, T, causal, window, q_offset, q.device), s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(s - m))
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhst,bthd->bshd", p, vf) / l.transpose(1, 2)
     lse = (m + torch.log(l)).reshape(B * H, S)
     return out.to(q.dtype), lse
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,          # (B, S, H, D)
+    k: torch.Tensor,          # (B, T, Hkv, D)
+    v: torch.Tensor,          # (B, T, Hkv, D)
+    out: torch.Tensor,        # (B, S, H, D) forward output
+    lse: torch.Tensor,        # (B·H, S) fp32 forward residual
+    do: torch.Tensor,         # (B, S, H, D) output cotangent
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention backward: (dq, dk, dv) in the input dtypes.
+
+    The reference's ``_recompute_p_ds`` over the whole (S, T) plane in fp32:
+    p = exp(min(z − lse, 0)) gated by the mask (a fully-masked row, lse =
+    −1e30, gives zero gradient), Δ = rowsum(dO∘O), ds = p·(dP − Δ) times
+    (1 − t²) under a softcap and the logit scale; dK and dV of a kv head
+    are summed over its GQA group."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=2)
+    vf = v.float().repeat_interleave(group, dim=2)
+    s = torch.einsum("bshd,bthd->bhst", qf, kf) * scale
+    if softcap > 0.0:
+        t = torch.tanh(s / softcap)
+        z = softcap * t
+    else:
+        z = s
+    mask = _mask(S, T, causal, window, q_offset, q.device)
+    lse4 = lse.reshape(B, H, S, 1)
+    p = torch.where(mask, torch.exp(torch.clamp(torch.where(mask, z, 0.0) - lse4, max=0.0)), 0.0)
+    delta = (out.float() * dof).sum(-1).transpose(1, 2)[..., None]     # (B, H, S, 1)
+    dp = torch.einsum("bshd,bthd->bhst", dof, vf)
+    ds = p * (dp - delta)
+    if softcap > 0.0:
+        ds = ds * (1.0 - t * t)
+    ds = ds * scale
+    dq = torch.einsum("bhst,bthd->bshd", ds, kf)
+    dk = torch.einsum("bhst,bshd->bthd", ds, qf).reshape(B, T, Hkv, group, D).sum(3)
+    dv = torch.einsum("bhst,bshd->bthd", p, dof).reshape(B, T, Hkv, group, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _mask(S: int, T: int, causal: bool, window: int, q_offset: int,
+          device: torch.device) -> torch.Tensor:
+    """(S, T) validity of (query, key): causal, sliding window, q_offset."""
+    q_pos = torch.arange(S, device=device)[:, None] + q_offset
+    k_pos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def cross_entropy_ref(
+    h: torch.Tensor,          # (T, D)
+    w: torch.Tensor,          # (D, Vpad)
+    targets: torch.Tensor,    # (T,) integer
+    vocab: int = 0,           # true vocab (<= Vpad); 0 -> Vpad
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused cross-entropy forward: (loss, lse), both (T,) fp32.
+
+    The reference's ``_ce_kernel`` in one block: fp32 logits of the upcast
+    operands, columns >= vocab masked to −1e30, lse = m + log(max(l,
+    1e-30)), and the target logit as the max over the (masked) target
+    column — a target outside [0, vocab) gives −1e30, as in the kernel."""
+    vocab = vocab or w.shape[1]
+    logits = h.float() @ w.float()
+    col = torch.arange(w.shape[1], device=h.device)
+    logits = torch.where(col < vocab, logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = (m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True).clamp_min(1e-30)))[:, 0]
+    hit = col[None, :] == targets.long()[:, None]
+    tgt_logit = torch.where(hit, logits, NEG_INF).amax(dim=-1)
+    return lse - tgt_logit, lse
+
+
+def cross_entropy_bwd_ref(
+    h: torch.Tensor,          # (T, D)
+    w: torch.Tensor,          # (D, Vpad)
+    targets: torch.Tensor,    # (T,) integer
+    lse: torch.Tensor,        # (T,) fp32 forward residual
+    g_loss: torch.Tensor,     # (T,) cotangent of the per-token loss
+    g_lse: torch.Tensor,      # (T,) cotangent of the lse output
+    vocab: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused cross-entropy backward: (dh (T, D), dw (D, Vpad)) in the input
+    dtypes, following the reference's ``_block_dlogits``: dlogits =
+    (g_loss + g_lse)·p − g_loss·onehot in fp32, with p = exp(min(logit −
+    lse, 0)) on valid columns; padded columns get exactly zero."""
+    vocab = vocab or w.shape[1]
+    hf, wf = h.float(), w.float()
+    logits = hf @ wf
+    col = torch.arange(w.shape[1], device=h.device)
+    valid = col < vocab
+    p = torch.where(valid, torch.exp(torch.clamp(
+        torch.where(valid, logits, 0.0) - lse[:, None], max=0.0)), 0.0)
+    onehot = valid & (col[None, :] == targets.long()[:, None])
+    gl, gs = g_loss.float()[:, None], g_lse.float()[:, None]
+    dlogits = (gl + gs) * p - gl * onehot
+    return (dlogits @ wf.T).to(h.dtype), (hf.T @ dlogits).to(w.dtype)
 
 
 def layernorm_ref(
@@ -68,3 +175,27 @@ def layernorm_ref(
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype)
+
+
+def layernorm_bwd_ref(
+    x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], dy: torch.Tensor,
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """LayerNorm backward: (dx in x.dtype, dw and db in w's dtype; db None
+    without a bias), the reference's ``_ln_bwd`` with the moments
+    recomputed from x.  As there, ``dy * w`` is formed in the inputs'
+    dtype (bf16 under the compute view) before the fp32 cast."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mu
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    dyw = (dy * w).float()
+    c1 = dyw.mean(dim=-1, keepdim=True)
+    c2 = (dyw * xhat).mean(dim=-1, keepdim=True)
+    dx = ((dyw - c1 - xhat * c2) * rstd).to(x.dtype)
+    dyf = dy.float()
+    rows = tuple(range(x.dim() - 1))
+    dw = (dyf * xhat).sum(dim=rows).to(w.dtype)
+    db = None if b is None else dyf.sum(dim=rows).to(b.dtype)
+    return dx, dw, db

@@ -22,7 +22,8 @@ Bound on an H100 SXM (3.35 TB/s): memory.  At the ESM-2 serving shape
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises.  ``layernorm.launches`` counts kernel launches.  ``triton`` is
 imported inside the launching function, so this module imports on a
-machine without it.
+machine without it.  ``layernorm_ad`` is the differentiable op: the kernel
+forward and a plain PyTorch backward (see ``_LayerNorm``).
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.ref import layernorm_ref
+from repro_torch.kernels.ref import layernorm_bwd_ref, layernorm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -92,3 +93,30 @@ def layernorm(
 
 
 layernorm.launches = 0
+
+
+class _LayerNorm(torch.autograd.Function):
+    """Forward: the kernel (or the plain version); backward: the
+    reference's hand-written ``_ln_bwd`` formulas (``ref.layernorm_bwd_ref``)
+    with the moments recomputed from x.  The reference pairs its Pallas
+    norm with that same XLA backward, outside any kernel, so the backward
+    here is plain PyTorch too."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, eps, plain):
+        ctx.save_for_backward(x, w, b)
+        ctx.eps = eps
+        return (layernorm_ref if plain else layernorm)(x, w, b, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b = ctx.saved_tensors
+        dx, dw, db = layernorm_bwd_ref(x, w, b, dy, ctx.eps)
+        return dx, dw, db, None, None
+
+
+def layernorm_ad(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+                 eps: float = 1e-5, *, plain: bool = False) -> torch.Tensor:
+    """Differentiable LayerNorm: the kernel, or with ``plain`` the plain
+    version on any device."""
+    return _LayerNorm.apply(x, w, b, eps, plain)

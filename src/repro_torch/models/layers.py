@@ -105,6 +105,27 @@ def embedding_defs(cfg: ModelConfig) -> Dict[str, P]:
     return defs
 
 
+class _Lookup(torch.autograd.Function):
+    """Row gather whose backward is a one-hot matmul, the same bits on every
+    run: the scatter-add that indexing's backward runs instead accumulates
+    repeated tokens in an order that changes from run to run (atomics on
+    the GPU, threads on the CPU), and a train step must be repeatable.
+    The matmul costs 2·tokens·rows·d FLOP: small at ESM-2's 256 rows."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, dy):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        onehot = (flat[:, None] == torch.arange(ctx.rows, device=flat.device)).to(dy.dtype)
+        return onehot.T @ dy.reshape(flat.shape[0], -1), None
+
+
 def embed_apply(
     cfg: ModelConfig,
     params: Dict[str, Any],
@@ -113,7 +134,7 @@ def embed_apply(
 ) -> torch.Tensor:
     """Table lookup in the stored dtype, then a cast to the compute dtype;
     learned positions (``pos``) are added for positions 0..S-1."""
-    x = params["tok"][tokens.long()].to(compute_dtype)
+    x = _Lookup.apply(params["tok"], tokens.long()).to(compute_dtype)
     if "pos" in params:
         x = x + params["pos"][: tokens.shape[1]].to(compute_dtype)[None]
     return x
@@ -124,3 +145,12 @@ def lm_head_defs(cfg: ModelConfig) -> Dict[str, P]:
     if cfg.tie_embeddings:
         return {}
     return {"w": P((cfg.d_model, cfg.padded_vocab), ("fsdp", "tp"), fan_in=cfg.d_model)}
+
+
+def lm_head_weight(cfg: ModelConfig, params: Dict[str, Any], embed_params: Dict[str, Any]
+                   ) -> torch.Tensor:
+    """The (d_model, Vpad) output weight; the tied head is the transposed
+    view ``embed/tok.T``, no copy."""
+    if cfg.tie_embeddings:
+        return embed_params["tok"].T
+    return params["w"]

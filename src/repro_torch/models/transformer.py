@@ -2,9 +2,11 @@
 
 Params keep the reference's tree: one ``sub0`` unit per layer, each leaf
 stacked over the layers (leading dim ``num_layers``).  The stack runs as a
-plain loop over the layers, slicing each stacked leaf (a view, no copy).
+plain loop over the layers, each stacked leaf unbound into per-layer views
+once per call (no copy).
 The scan-unit machinery the reference needs for MoE periods and hybrid
-interleaves is not ported yet: those configs raise.
+interleaves is not ported yet: those configs raise.  The same loop runs
+under autograd for training.
 """
 from __future__ import annotations
 
@@ -68,9 +70,13 @@ def decoder_stack(
     """Runs every layer.  Returns (x, caches): one {"k", "v"} per layer in
     prefill mode, None in train mode."""
     check_supported(cfg)
+    # one unbind per stacked leaf: under autograd its backward stacks the
+    # per-layer grads once, where slicing p[j] per layer would write a
+    # zero-filled copy of the whole stacked leaf for each layer
+    per_layer = tree_map(lambda p: p.unbind(0), stacked_params["sub0"])
     caches = []
     for j in range(cfg.num_layers):
-        layer = tree_map(lambda p: p[j], stacked_params["sub0"])
+        layer = tree_map(lambda ps: ps[j], per_layer)
         x, cache = _apply_layer(cfg, layer, x, mode=mode, positions=positions, causal=causal)
         caches.append(cache)
     return x, (caches if mode == "prefill" else None)

@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``repro_torch`` nor ``chip_smoke.py``
-imports JAX or the reference package, the port calls no library attention
-or norm, the kernel wrappers have no fallback, entry points refuse to run
-on the CPU unless asked, and CPU runs launch no kernel."""
+imports JAX or the reference package, the port calls no library attention,
+norm, cross-entropy or optimizer, the kernel wrappers have no fallback,
+entry points refuse to run on the CPU unless asked, and CPU runs launch no
+kernel."""
 import ast
 import os
 import subprocess
@@ -13,11 +14,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core.config import TrainConfig  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+from repro_torch.kernels.cross_entropy import cross_entropy_bwd, cross_entropy_fwd  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.rmsnorm import layernorm  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.serving.api import LLM  # noqa: E402
+from repro_torch.training.loop import Trainer  # noqa: E402
+
+KERNELS = (flash_attention_fwd, flash_attention_bwd, cross_entropy_fwd, cross_entropy_bwd, layernorm)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -52,8 +58,43 @@ def test_port_calls_no_library_attention_norm_or_compile():
                 assert not (is_torch and node.attr == "compile"), f"{path}: uses torch.compile"
 
 
+def _dotted(node):
+    """``a.b.c`` of an attribute chain, or None."""
+    parts = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    return ".".join([node.id] + parts[::-1]) if isinstance(node, ast.Name) else None
+
+
+def test_port_calls_no_library_cross_entropy_or_optimizer():
+    """``F.cross_entropy``, ``functional.nll_loss`` and ``torch.optim``
+    are banned; the port's own ``ops.cross_entropy`` is not."""
+    losses = {"cross_entropy", "nll_loss", "binary_cross_entropy", "log_softmax"}
+    for path in PORT_FILES:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Attribute):
+                name = _dotted(node) or ""
+                owner = name.rsplit(".", 1)[0]
+                assert not (node.attr in losses and (owner == "F" or owner.endswith("functional"))), \
+                    f"{path}: uses {name}"
+                assert not name.startswith("torch.optim"), f"{path}: uses {name}"
+        for mod in _imported_modules(path):
+            assert not mod.startswith("torch.optim"), f"{path}: imports {mod}"
+
+
+def test_the_ban_catches_library_calls_but_not_the_ports_op():
+    def hits(src):
+        return [_dotted(n) for n in ast.walk(ast.parse(src)) if isinstance(n, ast.Attribute)]
+
+    assert "F.cross_entropy" in hits("F.cross_entropy(x, y)")
+    assert "torch.nn.functional.nll_loss" in hits("torch.nn.functional.nll_loss(x, y)")
+    assert "torch.optim.AdamW" in hits("torch.optim.AdamW(p)")
+    assert hits("ops.cross_entropy(h, w, t)") == ["ops.cross_entropy"]
+
+
 def test_kernel_wrappers_have_no_fallback():
-    for name in ("flash_attention.py", "rmsnorm.py", "ops.py"):
+    for name in ("flash_attention.py", "cross_entropy.py", "rmsnorm.py", "ops.py"):
         tree = ast.parse((PORT / "kernels" / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
 
@@ -80,10 +121,23 @@ def test_build_model_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     assert model_mod.build_model(cfg, device="cpu").device.type == "cpu"
 
 
+def test_trainer_needs_a_gpu_unless_the_model_is_on_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("esm2-650m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(model_mod.build_model(cfg), TrainConfig())
+    tr = Trainer(model_mod.build_model(cfg, device="cpu"), TrainConfig(), verbose=False)
+    assert tr.model.device.type == "cpu"
+
+
 def test_cpu_runs_launch_no_kernel():
     model = model_mod.build_model(get_smoke_config("esm2-650m"), device="cpu")
     LLM(model, slots=2, max_len=32).embed([[1, 5, 6, 2], list(range(5, 25))])
-    assert flash_attention_fwd.launches == 0 and layernorm.launches == 0
+    toks = torch.tensor([[1, 5, 6, 7, 8, 2, 0, 0]] * 2, dtype=torch.int32)
+    batch = {"tokens": toks, "targets": toks, "loss_mask": (toks > 4).float()}
+    loss, _ = model.loss_fn(model.params.tree(), batch)
+    loss.backward()
+    assert all(k.launches == 0 for k in KERNELS), [k.launches for k in KERNELS]
 
 
 def test_cuda_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -91,3 +145,21 @@ def test_cuda_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
+
+
+def test_build_key_covers_the_shared_header(monkeypatch, tmp_path):
+    sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    for name in sources + ["mma.cuh"]:
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    for name in sources:       # one copy of the tensor-core wrappers, in the header
+        text = (tmp_path / name).read_text()
+        assert '#include "mma.cuh"' in text and "struct Mma" not in text, name
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    stems = [n[:-3] for n in sources]
+    before = {n: _build.lib_path(n) for n in stems}
+    (tmp_path / "mma.cuh").write_text((tmp_path / "mma.cuh").read_text() + "\n// edited\n")
+    after = {n: _build.lib_path(n) for n in stems}
+    assert all(before[n] != after[n] for n in stems)     # a header edit rebuilds every source
+    (tmp_path / sources[0]).write_text((tmp_path / sources[0]).read_text() + "\n// edited\n")
+    again = {n: _build.lib_path(n) for n in stems}
+    assert [n for n in stems if again[n] != after[n]] == [stems[0]]
