@@ -4,19 +4,24 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from the sources in this checkout and holds each
-kernel against its plain PyTorch version on the card.  Then drives the two
-paths ported so far at the full width and depth of ESM-2 650M (seeded
-random weights): embedding serving through ``LLM.embed``, and MLM
-pre-training through ``Trainer.run`` (about 10 optimizer steps), and checks
-what comes out of each.  Prints per-kernel times beside their bounds, the
-embedding throughput, the training step time, tokens/s, MFU and peak memory,
-a profile of each path, then one JSON line of kernel records and, last,
-``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
-there is no CUDA device or a phase fails.  Imports nothing of JAX.
+of the eight kernels against its plain PyTorch version on the card.  Then
+drives the three paths ported so far: embedding serving through
+``LLM.embed`` and MLM pre-training through ``Trainer.run`` (about 10
+optimizer steps) at the full width and depth of ESM-2 650M, and generation
+through ``LLM.generate`` at the full width and depth of Qwen2-7B (bf16
+parameters, 32 slots, a dense 2048-token cache, 64 prompts of 256 new
+tokens), all with seeded random weights, and checks what comes out of
+each.  Prints per-kernel times beside their bounds, the embedding
+throughput, the training step time, tokens/s, MFU and peak memory, the
+generation tokens/s, TTFT, decode-step time and idle share, a profile of
+each path, then one JSON line of kernel records and, last, ``{"ok": true,
+"device": {...}}``.  Exits non-zero, printing no result, when there is no
+CUDA device or a phase fails.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -54,6 +59,25 @@ def time_ms(torch, fn, trials: int = 20, per_trial: int = 10, warmup: int = 3) -
     return statistics.median(times)
 
 
+def device_ms(torch, fn, *names: str, n: int = 20) -> float:
+    """Device time of one call of ``fn``: the summed time of the kernels
+    whose name holds one of ``names`` in a torch.profiler window of ``n``
+    back-to-back calls, over ``n``.  Unlike ``time_ms`` it leaves out the
+    host's launch path, which a small kernel can take longer than to run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and any(m in e.key.lower() for m in names))
+    return us / 1e3 / n
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
@@ -80,7 +104,8 @@ def kernel_groups(prof, DeviceType):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
             and "Command Buffer Full" not in e.key]
     groups = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0, "cross_entropy": 0.0,
-              "layernorm": 0.0, "matmul": 0.0, "other": 0.0}
+              "layernorm": 0.0, "rmsnorm": 0.0, "flash_decode": 0.0, "fused_sample": 0.0,
+              "matmul": 0.0, "other": 0.0}
     for name, t, _ in kern:
         low = name.lower()
         if "flash_attention_fwd" in low:
@@ -91,6 +116,12 @@ def kernel_groups(prof, DeviceType):
             groups["cross_entropy"] += t
         elif "layernorm" in low:
             groups["layernorm"] += t
+        elif "rmsnorm" in low:
+            groups["rmsnorm"] += t
+        elif "flash_decode" in low:
+            groups["flash_decode"] += t
+        elif "fused_sample" in low:
+            groups["fused_sample"] += t
         elif any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
             groups["matmul"] += t
         else:
@@ -148,6 +179,8 @@ def check_attention_bwd(torch, F, ref, flash_attention_fwd, flash_attention_bwd,
     q, k, v, do = (randn(B, S, H, D) for _ in range(4))
     out, lse = flash_attention_fwd(q, k, v, causal=False)
     ms = time_ms(torch, lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=False))
+    dev_ms = device_ms(torch, lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=False),
+                       "dq_kernel", "dkv_kernel", "delta_kernel")
     plain_ms = time_ms(torch, lambda: ref.attention_bwd_ref(q, k, v, out, lse, do, causal=False),
                        trials=5, per_trial=2)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
@@ -158,12 +191,13 @@ def check_attention_bwd(torch, F, ref, flash_attention_fwd, flash_attention_bwd,
     # dK, dV); bytes: q, k, v, out, dO, lse read, dq, dk, dv written
     bound_ms, bound_by = bound(10 * B * H * S * S * D, 8 * B * S * H * D * 2 + B * H * S * 4)
     print(f"flash_attention_bwd B={B} S=T={S} H={H} D={D} bf16 on {card}: {ms:.4f} ms "
+          f"(device {dev_ms:.4f} ms) "
           f"(bound {bound_ms:.4f} ms by {bound_by}, {10 * B * H * S * S * D / ms / 1e9:.1f} TFLOP/s), "
           f"plain {plain_ms:.4f} ms, scaled_dot_product_attention backward {lib_ms:.4f} ms")
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:451",
-            "launches": 0, "max_abs_err": first_err, "ms": ms, "plain_ms": plain_ms,
+            "launches": 0, "max_abs_err": first_err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
@@ -214,6 +248,9 @@ def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, ran
     loss, lse = cross_entropy_fwd(h, w, tgt, vocab=vocab)
     fwd_ms = time_ms(torch, lambda: cross_entropy_fwd(h, w, tgt, vocab=vocab))
     bwd_ms = time_ms(torch, lambda: cross_entropy_bwd(h, w, tgt, lse, gl, gs, vocab=vocab))
+    fwd_dev = device_ms(torch, lambda: cross_entropy_fwd(h, w, tgt, vocab=vocab), "ce_fwd_kernel")
+    bwd_dev = device_ms(torch, lambda: cross_entropy_bwd(h, w, tgt, lse, gl, gs, vocab=vocab),
+                        "ce_dh_kernel", "ce_dw_kernel", "ce_dw_sum_kernel")
     fwd_plain = time_ms(torch, lambda: ref.cross_entropy_ref(h, w, tgt, vocab), trials=5, per_trial=5)
     bwd_plain = time_ms(torch, lambda: ref.cross_entropy_bwd_ref(h, w, tgt, lse, gl, gs, vocab),
                         trials=5, per_trial=5)
@@ -230,19 +267,21 @@ def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, ran
     reads = T * D * 2 + D * vocab * 2 + T * 4
     fwd_bound, fwd_by = bound(2 * T * D * vocab, reads + 2 * T * 4)
     bwd_bound, bwd_by = bound(6 * T * D * vocab, reads + 3 * T * 4 + T * D * 2 + D * Vp * 2)
-    print(f"cross_entropy_fwd T={T} D={D} Vpad={Vp} bf16 on {card}: {fwd_ms:.4f} ms (bound "
+    print(f"cross_entropy_fwd T={T} D={D} Vpad={Vp} bf16 on {card}: {fwd_ms:.4f} ms (device "
+          f"{fwd_dev:.4f} ms; bound "
           f"{fwd_bound:.4f} ms by {fwd_by}), plain {fwd_plain:.4f} ms, F.cross_entropy(h @ W) "
           f"{fwd_lib:.4f} ms")
-    print(f"cross_entropy_bwd T={T} D={D} Vpad={Vp} bf16 on {card}: {bwd_ms:.4f} ms (bound "
+    print(f"cross_entropy_bwd T={T} D={D} Vpad={Vp} bf16 on {card}: {bwd_ms:.4f} ms (device "
+          f"{bwd_dev:.4f} ms; bound "
           f"{bwd_bound:.4f} ms by {bwd_by}), plain {bwd_plain:.4f} ms, F.cross_entropy(h @ W) "
           f"backward {bwd_lib:.4f} ms")
     rec = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/cross_entropy.cu", "launches": 0}
     return [
         dict(rec, name="cross_entropy_fwd", replaces="src/repro/kernels/cross_entropy.py:120",
-             max_abs_err=errs0["fwd"], ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd_bound,
+             max_abs_err=errs0["fwd"], ms=fwd_ms, device_ms=fwd_dev, plain_ms=fwd_plain, bound_ms=fwd_bound,
              bound_by=fwd_by, library_ms=fwd_lib),
         dict(rec, name="cross_entropy_bwd", replaces="src/repro/kernels/cross_entropy.py:266",
-             max_abs_err=errs0["bwd"], ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bwd_bound,
+             max_abs_err=errs0["bwd"], ms=bwd_ms, device_ms=bwd_dev, plain_ms=bwd_plain, bound_ms=bwd_bound,
              bound_by=bwd_by, library_ms=bwd_lib),
     ]
 
@@ -407,6 +446,362 @@ def train_phase(torch, model, counters, card):
     return launches
 
 
+def check_rmsnorm(torch, F, ref, rmsnorm, randn, card):
+    """Row 6 against ``rmsnorm_ref`` at Qwen2-7B's decode and prefill
+    shapes; times both.  Returns its kernel record, timed at the decode
+    shape the main path runs most (launches filled in later)."""
+    d = 3584
+    rec = None
+    for rows in (32, 2048):
+        for dt in (torch.bfloat16, torch.float32):
+            x = randn(rows, d, dtype=dt, scale=3.0, shift=0.5)
+            w = randn(d, dtype=dt)
+            y = rmsnorm(x, w)
+            torch.cuda.synchronize()
+            r = ref.rmsnorm_ref(x, w)
+            err = (y.float() - r.float()).abs()
+            # bf16: at most one bf16 step apart (2^-7 of |y|), from the output
+            # rounding; fp32: the same moments summed in another order
+            rtol = 2**-7 if dt == torch.bfloat16 else 1e-5
+            ok = bool((err <= 1e-5 + rtol * r.float().abs()).all())
+            print(f"rmsnorm ({rows}, {d}) {str(dt)[6:]}: max err {err.max().item():.3g} "
+                  f"(tol 1e-5 + {rtol:.3g}*|y|)")
+            check(ok, f"rmsnorm ({rows}, {d}) {dt}")
+        x = randn(rows, d, scale=3.0, shift=0.5)
+        w = randn(d)
+        ms = time_ms(torch, lambda: rmsnorm(x, w))
+        dev_ms = device_ms(torch, lambda: rmsnorm(x, w), "rmsnorm")
+        plain_ms = time_ms(torch, lambda: ref.rmsnorm_ref(x, w))
+        lib_ms = time_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-5))
+        nbytes = 2 * rows * d * 2 + d * 2
+        bound_ms, bound_by = bound(4 * rows * d, nbytes, PEAK_FP32_FLOPS)
+        print(f"rmsnorm ({rows}, {d}) bf16 on {card}: {ms:.4f} ms back to back, device {dev_ms:.4f} "
+              f"ms (bound {bound_ms:.5f} ms by {bound_by}, {nbytes / dev_ms / 1e6:.0f} GB/s on the "
+              f"device), plain {plain_ms:.4f} ms, "
+              f"F.rms_norm {lib_ms:.4f} ms")
+        if rec is None:
+            err = (rmsnorm(x, w).float() - ref.rmsnorm_ref(x, w).float()).abs().max().item()
+            rec = {"name": "rmsnorm", "route": "triton", "source": "src/repro_torch/kernels/rmsnorm.py",
+                   "replaces": "src/repro/kernels/rmsnorm.py:54", "launches": 0,
+                   "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": lib_ms}
+    return rec
+
+
+def check_flash_decode(torch, F, ref, flash_decode, randn, card):
+    """Row 8 against ``decode_attention_ref`` at Qwen2-7B's decode shape
+    with ragged lengths (0, 1 and T among them), at group 1 and at D 64, in
+    bf16 (the only dtype the kernel takes); times the main shape.  Returns
+    its kernel record."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    # the plain version rounds the normalized P to the input dtype before
+    # PV (2^-9 relative in bf16) where the kernel keeps fp32
+    tol = 2e-2
+    cases = [
+        ("qwen2-7b decode shape", dict(B=32, T=2048, H=28, Hkv=4, D=128)),
+        ("group 1", dict(B=8, T=700, H=8, Hkv=8, D=128)),
+        ("D=64, group 4", dict(B=8, T=333, H=16, Hkv=4, D=64)),
+    ]
+    main = None
+    for label, c in cases:
+        B, T, H, Hkv, D = c["B"], c["T"], c["H"], c["Hkv"], c["D"]
+        lens = rng.integers(0, T + 1, size=B)
+        lens[:3] = [0, 1, T]
+        lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        q = randn(B, 1, H, D)
+        k = randn(B, T, Hkv, D)
+        v = randn(B, T, Hkv, D)
+        out = flash_decode(q, k, v, lengths)
+        torch.cuda.synchronize()
+        want = ref.decode_attention_ref(q, k, v, lengths)
+        err = rel_err(out, want)
+        zero = bool((out[0] == 0).all())
+        print(f"flash_decode {label} (B={B}, T={T}, H={H}, Hkv={Hkv}, D={D}) bf16: rel err "
+              f"{err:.3g} (tol {tol} of max|ref|), length-0 row exactly 0: {zero}")
+        check(err <= tol and zero and bool(out.isfinite().all()), f"flash_decode {label}")
+        if main is None:
+            main = (q, k, v, lengths, lens, (out.float() - want.float()).abs().max().item())
+    q, k, v, lengths, lens, err0 = main
+    B, T, Hkv, D = k.shape
+    H = q.shape[2]
+    ms = time_ms(torch, lambda: flash_decode(q, k, v, lengths))
+    dev_ms = device_ms(torch, lambda: flash_decode(q, k, v, lengths), "flash_decode")
+    plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, lengths), trials=5, per_trial=5)
+    qt = q.transpose(1, 2)                                   # (B, H, 1, D)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)            # (B, Hkv, T, D)
+    mask = (torch.arange(T, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                   enable_gqa=True))
+    live = int(lens.sum())
+    # this run's data: q and out once, each live cache row of K and V once,
+    # the lengths; QK and PV of every query head over its live rows
+    nbytes = 2 * B * H * D * 2 + 2 * live * Hkv * D * 2 + B * 4
+    bound_ms, bound_by = bound(4 * H * D * live, nbytes)
+    print(f"flash_decode B={B} T={T} H={H} Hkv={Hkv} D={D} bf16, {live} live rows of {B * T}, on "
+          f"{card}: {ms:.4f} ms back to back, device {dev_ms:.4f} ms (bound {bound_ms:.4f} ms by "
+          f"{bound_by}, {nbytes / dev_ms / 1e6:.0f} GB/s on the device), "
+          f"plain {plain_ms:.4f} ms, scaled_dot_product_attention (length mask, GQA) {lib_ms:.4f} ms")
+    return {"name": "flash_decode", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:116", "launches": 0, "max_abs_err": err0,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def check_sampling(torch, ref, fused_sample, randn, card):
+    """Row 7 against ``sample_ref`` at Qwen2-7B's decode shape (32, 152064)
+    with -1e30 columns: identical tokens, logp within 1e-4.  Times the mix,
+    all-greedy and all-sampled rows.  Returns its kernel record."""
+    B, V = 32, 152064
+    dev = torch.device("cuda")
+    x = randn(B, V, scale=2.0)
+    x[:, torch.arange(0, V, 97, device=dev)] = -1e30
+    x[5, : V // 2] = -1e30
+    # per row, in turn: greedy, top-k only, top-p only, both, temperature 0
+    # with filters set, plain temperature; seeds past 2^31
+    mix = [(0.0, 0, 1.0), (0.8, 50, 1.0), (1.0, 0, 0.95), (0.8, 50, 0.95), (0.0, 50, 0.9),
+           (1.3, 0, 1.0)]
+    rows = [mix[i % len(mix)] for i in range(B)]
+    temp = torch.tensor([r[0] for r in rows], device=dev)
+    top_k = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+    top_p = torch.tensor([r[2] for r in rows], device=dev)
+    seed = torch.tensor([(2**31 + 977 * i) % 2**32 for i in range(B)], device=dev)
+    step = torch.tensor([3 * i for i in range(B)], device=dev)
+    tok, logp = fused_sample(x, temp, top_k, top_p, seed, step)
+    torch.cuda.synchronize()
+    r_tok, r_logp = ref.sample_ref(x, temp, top_k, top_p, seed, step)
+    same = int((tok == r_tok).sum())
+    err = (logp - r_logp).abs().max().item()
+    masked = bool((x.gather(1, tok.long()[:, None]) > -1e29).all())
+    greedy = temp <= 0
+    argmax_ok = bool((tok[greedy] == x[greedy].float().argmax(dim=-1).to(torch.int32)).all())
+    print(f"fused_sample ({B}, {V}) bf16 mix: {same}/{B} tokens equal to the plain version's, "
+          f"logp err {err:.3g} (tol 1e-4), no masked column drawn: {masked}, greedy rows = "
+          f"first-index argmax: {argmax_ok}")
+    check(same == B and err <= 1e-4 and masked and argmax_ok, "fused_sample")
+    ms = time_ms(torch, lambda: fused_sample(x, temp, top_k, top_p, seed, step))
+    dev_ms = device_ms(torch, lambda: fused_sample(x, temp, top_k, top_p, seed, step), "fused_sample")
+    plain_ms = time_ms(torch, lambda: ref.sample_ref(x, temp, top_k, top_p, seed, step),
+                       trials=5, per_trial=2)
+    zeros = torch.zeros_like(temp)
+    greedy_ms = time_ms(torch, lambda: fused_sample(x, zeros, top_k, top_p, seed, step))
+    hot = torch.full_like(temp, 0.8)
+    sampled_ms = time_ms(torch, lambda: fused_sample(x, hot, top_k, top_p, seed, step), trials=5)
+    # the function reads the logits once and writes two scalars a row
+    bound_ms, bound_by = bound(0, B * V * 2 + B * 20 + B * 8)
+    print(f"fused_sample ({B}, {V}) bf16 on {card}: mix {ms:.4f} ms (device {dev_ms:.4f} ms; bound "
+          f"{bound_ms:.5f} ms by "
+          f"{bound_by}), all greedy {greedy_ms:.4f} ms, all sampled {sampled_ms:.4f} ms; plain "
+          f"{plain_ms:.4f} ms; no single PyTorch call samples with this hash (library: none)")
+    return {"name": "fused_sample", "route": "cuda", "source": "src/repro_torch/kernels/csrc/sampling.cu",
+            "replaces": "src/repro/kernels/sampling.py:217", "launches": 0, "max_abs_err": err,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def generate_phase(torch, counters, card):
+    """Slice 4a: Qwen2-7B generation at full width and depth through
+    ``LLM.generate`` over the dense KV cache.  Returns the launch counts of
+    the first generate call (the main path's run)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, build_model
+    from repro_torch.serving.api import LLM
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.sampling import SamplingParams
+
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    cfg = dataclasses.replace(get_config("qwen2-7b"), param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    print(f"built {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads, {cfg.param_count() / 1e9:.2f}B params, bf16) on cuda in "
+          f"{t_build:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    slots, max_len, n, max_new = 32, 2048, 64, 256
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(64, 1025, size=n)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(L)).tolist() for L in lengths]
+    params = [SamplingParams(max_new=max_new) if i % 2 == 0 else
+              SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=i, max_new=max_new,
+                             logprobs=True) for i in range(n)]
+    llm = LLM(model, slots=slots, max_len=max_len)
+    eng = llm.engine
+    L = cfg.num_layers
+    names = ("flash_attention_fwd", "rmsnorm", "flash_decode", "fused_sample")
+
+    def zero():
+        for name in names:
+            counters[name].launches = 0
+
+    def read():
+        return {name: counters[name].launches for name in names}
+
+    # the main path: every count set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    dec0 = eng.decode_steps
+    t0 = time.perf_counter()
+    first = llm.generate(prompts, params)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = read()
+    n_dec = eng.decode_steps - dec0
+    want = {"flash_attention_fwd": L * n, "rmsnorm": (2 * L + 1) * (n + n_dec),
+            "flash_decode": L * n_dec, "fused_sample": n + n_dec}
+    print(f"main path: LLM.generate of {n} prompts ({int(lengths.sum())} prompt tokens, "
+          f"max_new {max_new}) on {slots} slots: {n} admissions, {n_dec} decode steps, "
+          f"{t_first:.2f} s (first call, set-up included); launches {launches} (want {want})")
+    expect(launches == want, "generation launch counts")
+    gen = [len(c.tokens) for c in first]
+    expect(all(c.finish_reason == "length" for c in first) and gen == [max_new] * n,
+           "finish reasons / lengths")
+    expect(all(np.isfinite(c.logprobs).all() for c in first if c.logprobs), "non-finite logprobs")
+
+    t0 = time.perf_counter()
+    second = llm.generate(prompts, params)
+    torch.cuda.synchronize()
+    t_steady = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    same = all(a.tokens == b.tokens and a.finish_reason == b.finish_reason
+               for a, b in zip(first, second))
+    print(f"second generate call: tokens and finish reasons identical: {same}")
+    expect(same, "a repeated generate differs")
+    ttft = sorted(c.ttft_s for c in second)
+    toks = sum(len(c.tokens) for c in second)
+    print(f"Qwen2-7B LLM.generate on {card}: {toks / t_steady:.1f} generated tokens/s ({toks} tokens "
+          f"in {t_steady:.3f} s, steady call), TTFT p50 {1e3 * ttft[n // 2]:.1f} ms, p95 "
+          f"{1e3 * ttft[int(0.95 * (n - 1))]:.1f} ms, peak memory {peak_gb:.2f} GB; build "
+          f"{t_build:.1f} s, first call {t_first:.2f} s")
+
+    # a seeded request alone: the same tokens as in the mix
+    alone = llm.generate([prompts[1]], [params[1]])[0]
+    print(f"seeded request 1 alone vs in the mix: identical {alone.tokens == first[1].tokens}")
+    expect(alone.tokens == first[1].tokens, "a seeded request depends on its batch mates")
+
+    # the steady decode loop: per-step launches, no host sync but the one
+    # transfer, the step time, and a profile
+    for i in range(slots):
+        eng.submit(Request(uid=10_000 + i, prompt=np.asarray(prompts[i], np.int32),
+                           params=dataclasses.replace(params[i], max_new=64)))
+    eng.step()                       # admits every slot, then decodes
+    zero()
+    eng.step()
+    per_step = read()
+    print(f"one steady decode step: launches {per_step} (want flash_decode {L}, rmsnorm "
+          f"{2 * L + 1}, fused_sample 1, flash_attention_fwd 0)")
+    expect(per_step == {"flash_attention_fwd": 0, "rmsnorm": 2 * L + 1, "flash_decode": L,
+                        "fused_sample": 1}, "launches per decode step")
+    for _ in range(8):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    print("8 steady decode steps under torch.cuda.set_sync_debug_mode('error'): no host sync "
+          "outside the one transfer")
+    t0 = time.perf_counter()
+    for _ in range(16):
+        eng.step()              # each step ends in its one device-to-host copy
+    step_ms = (time.perf_counter() - t0) / 16 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            eng.step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, groups, kern = kernel_groups(prof, DeviceType)
+    print(f"decode step of {slots} slots on {card}: {step_ms:.2f} ms ({slots / step_ms * 1e3:.0f} "
+          f"tokens/s at full slots)")
+    if busy_ms == 0:
+        print("profile: the profiler saw no device time")
+    else:
+        print(f"profile of 8 decode steps on {card}: wall {wall_ms:.1f} ms (under the profiler), "
+              f"device busy {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+        print("profile by group: " + ", ".join(
+            f"{k} {v:.2f} ms ({v / busy_ms:.1%})" for k, v in groups.items() if v))
+        for name, t, cnt in sorted(kern, key=lambda r: -r[1])[:12]:
+            print(f"  {t:9.2f} ms {cnt:6d}x  {name[:110]}")
+        host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)[:10]
+        print("host time by op (self CPU ms, calls): " + ", ".join(
+            f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ({e.count})" for e in host))
+    eng.run()
+    del prof
+
+    # kernel path against plain path (kernel_impl="torch", the same
+    # weights), through the engine's own route: bucketed batch-1 prefills
+    # written into 32 slots, then lockstep decode steps with per-slot
+    # positions and idle slots reset, each slot fed the tokens the main run
+    # drew for its prompt (teacher forcing)
+    del llm, eng
+    picks = [int(i) for i in np.argsort(lengths)[:: n // 8]]   # 8 prompts, short to long
+    n_forced = 32
+    forced = torch.zeros((n_forced, slots), dtype=torch.int32, device=model.device)
+    for slot, i in enumerate(picks):
+        forced[:, slot] = torch.tensor(first[i].tokens[:n_forced], dtype=torch.int32)
+    plain = Model(dataclasses.replace(cfg, kernel_impl="torch"), model.params.tree())
+
+    def run(m):
+        seen = []
+        prefill, decode_step = m.prefill, m.decode_step
+
+        def prefill_spy(*a, **kw):
+            lg, c = prefill(*a, **kw)
+            seen.append(lg[:, -1].float())
+            return lg, c
+
+        def decode_spy(*a, **kw):
+            lg, c = decode_step(*a, **kw)
+            seen.append(lg[: len(picks), -1].float())
+            return lg, c
+
+        m.prefill, m.decode_step = prefill_spy, decode_spy
+        try:
+            e = LLM(m, slots=slots, max_len=max_len).engine
+            for slot, i in enumerate(picks):
+                e.submit(Request(uid=20_000 + slot, prompt=np.asarray(prompts[i], np.int32),
+                                 params=SamplingParams(max_new=n_forced + 8)))
+            e._admit()                  # one bucketed prefill per slot
+            for t in range(n_forced):
+                e._last_tok = forced[t].clone()
+                e.step()
+        finally:
+            del m.prefill, m.decode_step
+        first_lg = torch.cat(seen[: len(picks)])[None]          # (1, 8, V)
+        return torch.cat([first_lg, torch.stack(seen[len(picks):])])   # (1 + steps, 8, V)
+
+    k_lg, p_lg = run(model), run(plain)
+    cos = torch.nn.functional.cosine_similarity(k_lg, p_lg, dim=-1)
+    dmax = (k_lg - p_lg).abs().amax(dim=-1)
+    top2 = p_lg.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > dmax
+    agree = k_lg.argmax(-1) == p_lg.argmax(-1)
+    print(f"kernel path vs plain path through the engine (8 slots of 32, prompts of "
+          f"{sorted(int(lengths[i]) for i in picks)} tokens, bucketed prefill + {n_forced} "
+          f"teacher-forced decode steps with per-slot positions): logits cosine min "
+          f"{cos.min().item():.6f} (floor 0.999), max |dlogit| {dmax.max().item():.4f}; top-1 "
+          f"agrees on {int((agree & decided).sum())} of {int(decided.sum())} slot-steps whose plain "
+          f"top-2 gap exceeds the slot-step's max |dlogit|; {int((~decided).sum())} slot-steps "
+          f"closer than that ({int((agree & ~decided).sum())} agree)")
+    expect(bool((cos >= 0.999).all()), "kernel path logits disagree with the plain path")
+    expect(bool(agree[decided].all()), "kernel path top-1 differs where the plain path is decided")
+    del plain, model
+    check(not failed, "generation phase: " + "; ".join(failed))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -422,7 +817,9 @@ def main() -> int:
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.cross_entropy import cross_entropy_bwd, cross_entropy_fwd
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
-    from repro_torch.kernels.rmsnorm import layernorm
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.rmsnorm import layernorm, rmsnorm
+    from repro_torch.kernels.sampling import fused_sample
     from repro_torch.models.model import Model, build_model
     from repro_torch.obs.trace import TraceRecorder
     from repro_torch.serving.api import LLM
@@ -443,7 +840,7 @@ def main() -> int:
     # together; the Triton norm compiles at its first launch
     t0 = time.perf_counter()
     logs = _build.finish_builds(_build.start_builds(
-        ["flash_attention_fwd", "flash_attention_bwd", "cross_entropy"]))
+        ["flash_attention_fwd", "flash_attention_bwd", "cross_entropy", "flash_decode", "sampling"]))
     t_nvcc = time.perf_counter() - t0
     for name, log in logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill stores" in ln
@@ -452,8 +849,9 @@ def main() -> int:
     t0 = time.perf_counter()
     xw = torch.ones(8, 1280, device=dev, dtype=torch.bfloat16)
     layernorm(xw, torch.ones(1280, device=dev), torch.zeros(1280, device=dev))
+    rmsnorm(xw, torch.ones(1280, device=dev))
     torch.cuda.synchronize()
-    print(f"compiled layernorm (Triton) in {time.perf_counter() - t0:.1f} s")
+    print(f"compiled layernorm and rmsnorm (Triton) in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. each kernel against its plain version, on the card
     g = torch.Generator(device=dev).manual_seed(0)
@@ -468,6 +866,11 @@ def main() -> int:
     lse_tol = 1e-4
     fa_cases = [
         ("esm2-650m serving shape", dict(B=32, S=1024, T=1024, H=20, Hkv=20, D=64), dict(causal=False)),
+        # the generation prefill: batch 1, a power-of-2 bucket, GQA group 7
+        ("qwen2-7b prefill, largest bucket", dict(B=1, S=1024, T=1024, H=28, Hkv=4, D=128),
+         dict(causal=True)),
+        ("qwen2-7b prefill, smallest bucket", dict(B=1, S=64, T=64, H=28, Hkv=4, D=128),
+         dict(causal=True)),
         ("causal", dict(B=2, S=128, T=128, H=4, Hkv=4, D=64), dict(causal=True)),
         ("causal window", dict(B=2, S=200, T=200, H=4, Hkv=4, D=64), dict(causal=True, window=48)),
         ("softcap", dict(B=2, S=96, T=96, H=4, Hkv=4, D=64), dict(causal=False, softcap=20.0)),
@@ -497,14 +900,32 @@ def main() -> int:
     B, S, H, D = 32, 1024, 20, 64
     q, k, v = (randn(B, S, H, D) for _ in range(3))
     fa_ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=False))
+    fa_dev_ms = device_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=False), "flash_attention_fwd")
     fa_plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=False))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     fa_lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
     fa_flops = 4 * B * H * S * S * D
     fa_bound_ms, fa_bound_by = bound(fa_flops, 4 * B * S * H * D * 2 + B * H * S * 4)
     print(f"flash_attention_fwd B={B} S=T={S} H={H} D={D} bf16 on {card}: {fa_ms:.4f} ms "
-          f"(bound {fa_bound_ms:.4f} ms by {fa_bound_by}, {fa_flops / fa_ms / 1e9:.1f} TFLOP/s), "
-          f"plain {fa_plain_ms:.4f} ms, scaled_dot_product_attention {fa_lib_ms:.4f} ms")
+          f"(device {fa_dev_ms:.4f} ms; bound {fa_bound_ms:.4f} ms by {fa_bound_by}, "
+          f"{fa_flops / fa_ms / 1e9:.1f} TFLOP/s), plain {fa_plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {fa_lib_ms:.4f} ms")
+    # the same kernel at the generation prefill's largest bucket
+    S, H, Hkv, D = 1024, 28, 4, 128
+    q = randn(1, S, H, D)
+    k, v = randn(1, S, Hkv, D), randn(1, S, Hkv, D)
+    pf_ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True))
+    pf_dev_ms = device_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True), "flash_attention_fwd")
+    pf_plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pf_lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                      enable_gqa=True))
+    pf_flops = 4 * H * D * S * (S + 1) // 2          # the causal half of QK^T and PV
+    pf_bound_ms, pf_bound_by = bound(pf_flops, (2 * S * H * D + 2 * S * Hkv * D) * 2 + S * H * 4)
+    print(f"flash_attention_fwd qwen2-7b prefill B=1 S=T={S} H={H} Hkv={Hkv} D={D} causal bf16 on "
+          f"{card}: {pf_ms:.4f} ms (device {pf_dev_ms:.4f} ms; bound {pf_bound_ms:.4f} ms by "
+          f"{pf_bound_by}), plain {pf_plain_ms:.4f} ms, scaled_dot_product_attention (causal, "
+          f"GQA) {pf_lib_ms:.4f} ms")
     del q, k, v, qt, kt, vt
 
     rows, d = 32 * 1024, 1280
@@ -534,10 +955,12 @@ def main() -> int:
     w, b = randn(d, dtype=torch.float32), randn(d, dtype=torch.float32)
     wl, bl = w.to(torch.bfloat16), b.to(torch.bfloat16)
     ln_ms = time_ms(torch, lambda: layernorm(x, w, b))
+    ln_dev_ms = device_ms(torch, lambda: layernorm(x, w, b), "layernorm")
     ln_plain_ms = time_ms(torch, lambda: ref.layernorm_ref(x, w, b))
     ln_lib_ms = time_ms(torch, lambda: F.layer_norm(x, (d,), wl, bl, 1e-5))
     ln_bound_ms, ln_bound_by = bound(8 * rows * d, 2 * rows * d * 2 + 2 * d * 4, PEAK_FP32_FLOPS)
-    print(f"layernorm ({rows}, {d}) bf16 on {card}: {ln_ms:.4f} ms (bound {ln_bound_ms:.4f} ms by {ln_bound_by}, "
+    print(f"layernorm ({rows}, {d}) bf16 on {card}: {ln_ms:.4f} ms (device {ln_dev_ms:.4f} ms; "
+          f"bound {ln_bound_ms:.4f} ms by {ln_bound_by}, "
           f"{(2 * rows * d * 2 + 2 * d * 4) / ln_ms / 1e6:.0f} GB/s), plain {ln_plain_ms:.4f} ms, "
           f"F.layer_norm {ln_lib_ms:.4f} ms")
     del x
@@ -545,6 +968,9 @@ def main() -> int:
     fa_bwd_rec = check_attention_bwd(torch, F, ref, flash_attention_fwd, flash_attention_bwd,
                                      randn, card)
     ce_recs = check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, randn, g, card)
+    gen_recs = [check_rmsnorm(torch, F, ref, rmsnorm, randn, card),
+                check_sampling(torch, ref, fused_sample, randn, card),
+                check_flash_decode(torch, F, ref, flash_decode, randn, card)]
     torch.cuda.empty_cache()
 
     # ---- 4. slice 1: ESM-2 650M embedding serving through LLM.embed
@@ -635,15 +1061,24 @@ def main() -> int:
                 "layernorm": layernorm, "cross_entropy_fwd": cross_entropy_fwd,
                 "cross_entropy_bwd": cross_entropy_bwd}
     train_launches = train_phase(torch, model, counters, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # launches: the training run's (this slice's main path); the embed
-    # run's counts were checked in phase 4
+    # ---- 7. slice 4a: Qwen2-7B generation through LLM.generate
+    counters.update(rmsnorm=rmsnorm, flash_decode=flash_decode, fused_sample=fused_sample)
+    gen_launches = generate_phase(torch, counters, card)
+
+    # launches: each kernel's count in the run of its path — the training
+    # run for rows 1-5 (the embed and generation runs' counts of the
+    # attention forward were checked in phases 4 and 7), the generation run
+    # for rows 6-8
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:211",
          "launches": 0, "max_abs_err": fa_serving_err,
-         "ms": fa_ms, "plain_ms": fa_plain_ms, "bound_ms": fa_bound_ms,
+         "ms": fa_ms, "device_ms": fa_dev_ms, "plain_ms": fa_plain_ms, "bound_ms": fa_bound_ms,
          "bound_by": fa_bound_by, "library_ms": fa_lib_ms},
         fa_bwd_rec,
         *ce_recs,
@@ -651,11 +1086,14 @@ def main() -> int:
          "source": "src/repro_torch/kernels/rmsnorm.py",
          "replaces": "src/repro/kernels/rmsnorm.py:83",
          "launches": 0, "max_abs_err": ln_serving_err,
-         "ms": ln_ms, "plain_ms": ln_plain_ms, "bound_ms": ln_bound_ms,
+         "ms": ln_ms, "device_ms": ln_dev_ms, "plain_ms": ln_plain_ms, "bound_ms": ln_bound_ms,
          "bound_by": ln_bound_by, "library_ms": ln_lib_ms},
     ]
     for rec in kernels:
         rec["launches"] = train_launches[rec["name"]]
+    for rec in gen_recs:
+        rec["launches"] = gen_launches[rec["name"]]
+    kernels += gen_recs
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """Model-zoo registry of the port: one module per architecture.
 
-Only the ESM-2 protein LMs are registered so far — the architectures the
-port's kernels and layers cover (bidirectional dense stack, LayerNorm,
-RoPE, GELU MLP).  ``get_config(name)`` returns the full config,
+Registered so far: the architectures the port's kernels and layers cover —
+the ESM-2 protein LMs (bidirectional dense stack, LayerNorm, GELU MLP) and
+Qwen2-7B (causal GQA stack, RMSNorm, SwiGLU MLP), all with RoPE.  ``get_config(name)`` returns the full config,
 ``get_smoke_config(name)`` the reduced same-family variant the CPU tests
 use.
 """
@@ -15,7 +15,7 @@ from repro_torch.core.config import ModelConfig, reduced
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
-_MODULES = ["esm2_650m", "esm2_3b"]
+_MODULES = ["esm2_650m", "esm2_3b", "qwen2_7b"]
 
 
 def register(fn: Callable[[], ModelConfig]) -> Callable[[], ModelConfig]:

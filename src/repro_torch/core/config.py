@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 
 def _round_up(x: int, m: int) -> int:
@@ -158,11 +158,26 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """Serving knobs of embedding extraction.  The reference's sampling,
-    cache-layout and fault-tolerance fields come with the generation slice."""
+    """Serving knobs: the reference's fields for the dense layout.  The
+    paged layout's fields (page size, prefix cache, chunked prefill,
+    preemption) come with it (ROADMAP: slice 4b)."""
 
     max_seq_len: int = 32768
     batch_size: int = 128
+    # default sampling knobs, mapped into a default SamplingParams by the
+    # LLM facade; each request may carry its own SamplingParams
+    temperature: float = 0.0   # 0 = greedy
+    top_k: int = 0             # 0 = disabled
+    top_p: float = 1.0         # 1.0 = disabled
+    seed: int = 0              # keys the counter-based sampling hash
+    # KV-cache layout of the continuous-batching engine: "dense" per-slot
+    # buffers; "paged" raises until the paged slice is ported
+    cache_layout: str = "dense"
+    # bounded admission queue (0 = unbounded): a full queue rejects at
+    # submit with the retriable EngineOverloaded
+    max_queue: int = 0
+    # default per-request wall-clock SLO from submit, in ms (None = none)
+    deadline_ms: Optional[float] = None
 
 
 def reduced(mc: ModelConfig, **over: Any) -> ModelConfig:

@@ -9,6 +9,10 @@
   (CUDA C++ for sm_90a), wrapped by ``cross_entropy.py``; replace the
   reference's ``cross_entropy.py::fused_cross_entropy`` /
   ``fused_cross_entropy_bwd``.
-* LayerNorm: Triton, in ``rmsnorm.py``; replaces the reference's TPU
-  kernel ``rmsnorm.py::layernorm``.
+* LayerNorm and RMSNorm: Triton, in ``rmsnorm.py``; replace the
+  reference's TPU kernels ``rmsnorm.py::layernorm`` / ``rmsnorm``.
+* flash-decoding: ``csrc/flash_decode.cu`` (CUDA C++ for sm_90a), wrapped
+  by ``flash_decode.py``; replaces ``flash_decode.py::flash_decode``.
+* fused sampling: ``csrc/sampling.cu`` (CUDA C++ for sm_90a), wrapped by
+  ``sampling.py``; replaces ``sampling.py::fused_sample``.
 """

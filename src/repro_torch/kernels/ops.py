@@ -9,7 +9,10 @@ kernels against it.  Every op here is differentiable on both
 implementations: attention and cross-entropy pair their forward and
 backward kernels (or plain versions) in a ``torch.autograd.Function``, as
 the reference's custom VJPs do; LayerNorm pairs its forward kernel with
-the reference's hand-written backward formulas.
+the reference's hand-written backward formulas.  The serving ops —
+RMSNorm, decode attention and sampling — are forward-only: the RMSNorm
+kernel raises when asked for a gradient (its plain version stays
+differentiable).
 """
 from __future__ import annotations
 
@@ -19,7 +22,10 @@ import torch
 
 from repro_torch.kernels import cross_entropy as _ce
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _ln
+from repro_torch.kernels import sampling as _sp
 
 IMPLS = ("auto", "torch")
 
@@ -69,3 +75,44 @@ def cross_entropy(
     columns >= vocab are masked.  The (T, Vpad) logits never materialize on
     the kernel path."""
     return _ce.cross_entropy(hidden, w, targets, vocab=vocab, plain=_plain(impl))
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5, *,
+            impl: str = "auto") -> torch.Tensor:
+    """RMSNorm over the last dim, fp32 math, output in x.dtype."""
+    return _ref.rmsnorm_ref(x, w, eps) if _plain(impl) else _ln.rmsnorm(x, w, eps)
+
+
+def decode_attention(
+    q: torch.Tensor,          # (B, 1, H, D)
+    k_cache: torch.Tensor,    # (B, T, Hkv, D)
+    v_cache: torch.Tensor,
+    length: torch.Tensor,     # (B,) valid cache length per row
+    *,
+    softcap: float = 0.0,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Single-token attention over a dense KV cache -> (B, 1, H, D); a row
+    of length 0 (an idle serving slot) gives zeros."""
+    if _plain(impl):
+        return _ref.decode_attention_ref(q, k_cache, v_cache, length, softcap=softcap)
+    return _fd.flash_decode(q, k_cache, v_cache, length.to(torch.int32).contiguous(),
+                            softcap=softcap)
+
+
+def sample_tokens(
+    logits: torch.Tensor,       # (B, V) last-position logits
+    temperature: torch.Tensor,  # (B,) <= 0 means greedy argmax
+    top_k: torch.Tensor,        # (B,) 0 disables the top-k filter
+    top_p: torch.Tensor,        # (B,) 1.0 disables the top-p filter
+    seed: torch.Tensor,         # (B,) per-request seed, taken mod 2^32
+    step: torch.Tensor,         # (B,) generation index (tokens emitted so far)
+    *,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token per row with per-row params -> (tok (B,) int32, logp (B,)
+    fp32), selected on the device: logp is the chosen token's
+    log-probability under the filtered, temperature-scaled, renormalized
+    distribution (greedy rows: under the full T=1 softmax)."""
+    fn = _ref.sample_ref if _plain(impl) else _sp.fused_sample
+    return fn(logits, temperature, top_k, top_p, seed, step)

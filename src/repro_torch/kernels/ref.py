@@ -4,7 +4,8 @@ Each function here is the semantic definition its kernel is held to: the
 CPU path runs it, the CPU tests hold it against the reference package, and
 ``chip_smoke.py`` holds each kernel against it on the card.  Written for
 clarity — attention materializes the full (B, H, S, T) fp32 score tensor,
-cross-entropy the full (T, Vpad) fp32 logits.  The backward versions are
+cross-entropy the full (T, Vpad) fp32 logits, sampling sweeps the whole
+(B, V) row once per bisection step.  The backward versions are
 explicit formulas, not autograd of the forward: they keep the reference
 kernels' fp32 math and edge cases (clamped exponents, masked rows and
 vocab columns).
@@ -199,3 +200,137 @@ def layernorm_bwd_ref(
     dw = (dyf * xhat).sum(dim=rows).to(w.dtype)
     db = None if b is None else dyf.sum(dim=rows).to(b.dtype)
     return dx, dw, db
+
+
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Row RMSNorm over the last dim: fp32 mean of squares, output in
+    x.dtype (the reference's ``ref.rmsnorm_ref``)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def decode_attention_ref(
+    q: torch.Tensor,          # (B, 1, H, D)
+    k: torch.Tensor,          # (B, T, Hkv, D)
+    v: torch.Tensor,          # (B, T, Hkv, D)
+    lengths: torch.Tensor,    # (B,) valid cache length per row
+    *,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """One-token attention over a dense cache: (B, 1, H, D) in q.dtype.
+
+    The reference's ``ops._decode_attention_xla``: the grouped-head form
+    (query head h reads kv head h // group; the cache is never repeated),
+    fp32 scores, keys at positions >= length masked, and a row with
+    length 0 (an idle serving slot) gives exactly zeros.  As there, the
+    normalized probabilities are rounded to q.dtype before the PV product,
+    which accumulates in fp32."""
+    B, _, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qg = q[:, 0].reshape(B, Hkv, H // Hkv, D).float()
+    s = torch.einsum("bhgd,bthd->bhgt", qg, k.float()) * (1.0 / math.sqrt(D))
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    valid = torch.arange(T, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(s - m))
+    p = (p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
+    out = torch.einsum("bhgt,bthd->bhgd", p.float(), v.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# --------------------------------------------------------------------- #
+# sampling: the counter-hash Gumbel noise and the bisection row math
+# --------------------------------------------------------------------- #
+_BISECT_ITERS = 32
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h * c) mod 2^32 for int64 h in [0, 2^32): the product is split at
+    16 bits so that no intermediate leaves int64's range."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on int64 tensors holding uint32 values."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def hash_bits(seed: torch.Tensor, step: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The uint32 draw (as int64) of the reference's ``gumbel_noise`` for
+    (seed, step) of shape (R, 1) and vocab ids idx (R, V); every input is
+    taken mod 2^32."""
+    h = fmix32((seed.long() + 0x9E3779B9) & _M32)
+    h = fmix32(h ^ _mul32(step.long() & _M32, 0x85EBCA77))
+    return fmix32(h ^ _mul32(idx.long() & _M32, 0x9E3779B1))
+
+
+def gumbel_noise(seed: torch.Tensor, step: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gumbel(0, 1) noise, a pure function of (seed, step, vocab id): the
+    top 24 bits of the hash, +0.5, scaled into (0, 1), then -log(-log u),
+    all in fp32 as in the reference."""
+    u = ((hash_bits(seed, step, idx) >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def sample_ref(
+    logits: torch.Tensor,       # (B, V) any float dtype; masked entries -1e30
+    temperature: torch.Tensor,  # (B,) <= 0: greedy
+    top_k: torch.Tensor,        # (B,) 0 disables
+    top_p: torch.Tensor,        # (B,) 1.0 disables
+    seed: torch.Tensor,         # (B,) integer, taken mod 2^32
+    step: torch.Tensor,         # (B,) integer generation index
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row temperature / top-k / top-p sampling: (tok (B,) int32,
+    logp (B,) fp32).
+
+    The reference's ``sampling._sample_rows`` over all rows at once: fp32
+    z = x / t on the valid columns; thresholds for top-k (count) and top-p
+    (mass) found by a 32-step bisection over [min z, max z + 1]; kept set
+    z >= min(max(tau_k, tau_p), max z); Gumbel-max over the kept set with
+    the counter-hash noise, the first index on ties.  A greedy row keeps
+    every valid column and adds no noise, so its token is the first-index
+    argmax.  logp is the chosen token's log-probability under the kept,
+    temperature-scaled, renormalized distribution."""
+    x = logits.float()
+    B, V = x.shape
+    dev = x.device
+    temp = temperature.float()[:, None]
+    valid = x > NEG_INF / 2
+    greedy = temp <= 0.0
+    z = torch.where(valid, x / torch.where(greedy, 1.0, temp), NEG_INF)
+    m = z.amax(dim=-1, keepdim=True)
+    mn = torch.where(valid, z, m).amin(dim=-1, keepdim=True)
+    e = torch.where(valid, torch.exp(z - m), 0.0)
+    Z = e.sum(dim=-1, keepdim=True)
+    tk = top_k.long()[:, None]
+    k = torch.where(tk <= 0, V, tk.clamp(1, V)).float()
+    pZ = top_p.float()[:, None].clamp(1e-9, 1.0) * Z
+    lo_k, hi_k, lo_p, hi_p = mn, m + 1.0, mn, m + 1.0
+    for _ in range(_BISECT_ITERS):
+        mid = 0.5 * (lo_k + hi_k)
+        ok = (z >= mid).float().sum(dim=-1, keepdim=True) >= k
+        lo_k, hi_k = torch.where(ok, mid, lo_k), torch.where(ok, hi_k, mid)
+        mid = 0.5 * (lo_p + hi_p)
+        ok = torch.where(z >= mid, e, 0.0).sum(dim=-1, keepdim=True) >= pZ
+        lo_p, hi_p = torch.where(ok, mid, lo_p), torch.where(ok, hi_p, mid)
+    tau = torch.where(greedy, mn, torch.minimum(torch.maximum(lo_k, lo_p), m))
+    idx = torch.arange(V, device=dev)[None, :]
+    g = torch.where(greedy, 0.0, gumbel_noise(seed[:, None], step[:, None], idx))
+    keep = valid & (z >= tau)
+    y = torch.where(keep, z + g, NEG_INF)
+    ymax = y.amax(dim=-1, keepdim=True)
+    tok = torch.where(y == ymax, idx, V).amin(dim=-1, keepdim=True)
+    z_tok = torch.gather(z, 1, tok.clamp_max(V - 1))
+    Zf = torch.where(keep, e, 0.0).sum(dim=-1, keepdim=True)
+    logp = z_tok - m - torch.log(Zf.clamp_min(1e-30))
+    return tok[:, 0].to(torch.int32), logp[:, 0]

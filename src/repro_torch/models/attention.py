@@ -1,12 +1,20 @@
 """GQA self-attention: projections with optional biases, RoPE, and the
-flash-attention op, for the full-sequence ``train`` / ``prefill`` modes.
+attention ops, for the full-sequence ``train`` / ``prefill`` modes and the
+one-token ``decode`` mode over a dense KV cache.
 
-Decode, paged and chunked-prefill modes and cross-attention come with the
-generation slice (ROADMAP: port queue); they raise here.
+Cache layout: {"k": (B, T, Hkv, D), "v": (B, T, Hkv, D)}, the reference's.
+A decode step writes the new token's K/V into the cache in place — one
+indexed write of B rows, where the reference's per-slot path selects over
+the whole (B, T) buffer; the same values land in the same places — and
+returns the same tensors.  Sliding-window caches are rolling: the write
+goes to ``pos % T``.
+
+The paged layout, the chunked-prefill mode and cross-attention come with
+later slices (ROADMAP); they raise here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -66,25 +74,72 @@ def attention_apply(
     x: torch.Tensor,                      # (B, S, d_model)
     *,
     positions: Optional[torch.Tensor] = None,
-    mode: str = "train",                  # train | prefill
+    mode: str = "train",                  # train | prefill | decode
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_pos: Union[None, int, torch.Tensor] = None,   # int, or (B,) per slot
     causal: Optional[bool] = None,
     window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Returns (out (B,S,d_model), cache): cache is {"k", "v"} in prefill
-    mode and None in train mode."""
-    if mode not in ("train", "prefill"):
+    """Returns (out (B,S,d_model), cache): {"k", "v"} of this call's rows in
+    prefill mode, the updated cache in decode mode, None in train mode.
+
+    Decode: ``cache_pos`` is the write position — an int for lockstep rows
+    (every row at the same position) or a (B,) tensor for per-slot
+    positions (the serving engine); row b then attends over its first
+    min(pos_b + 1, T) cache rows."""
+    if mode not in ("train", "prefill", "decode") or (
+            cache is not None and ("k_pool" in cache or "len" in cache)):
         raise NotImplementedError(
-            f"attention mode {mode!r} is not ported yet (ROADMAP: generation slice)"
+            f"attention mode {mode!r} with this cache is not ported yet "
+            f"(ROADMAP: paged layout, chunked prefill and cross-attention slices)"
         )
     causal = cfg.causal if causal is None else causal
     window = cfg.sliding_window if window is None else window
     q, k, v = _project_qkv(cfg, params, x)
+    per_slot = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
     if cfg.use_rope:
         if positions is None:
-            positions = torch.arange(x.shape[1], device=x.device)
+            if mode == "decode":
+                positions = (cache_pos[:, None] if per_slot
+                             else torch.full((x.shape[1],), int(cache_pos), device=x.device))
+            else:
+                positions = torch.arange(x.shape[1], device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+
+    if mode == "decode":
+        if cache is None or cache_pos is None:
+            raise ValueError("decode mode needs a cache and cache_pos")
+        k_cache, v_cache = cache["k"], cache["v"]
+        B, T = k_cache.shape[0], k_cache.shape[1]
+        rolling = bool(window) and window <= T
+        # a position past a non-rolling cache writes its last row (the
+        # reference's scalar write clamps there; the engine never gets there)
+        if per_slot:
+            widx = cache_pos.long() % T if rolling else cache_pos.long().clamp(max=T - 1)
+            rows = torch.arange(B, device=x.device)
+            k_cache.index_put_((rows, widx), k[:, 0].to(k_cache.dtype))
+            v_cache.index_put_((rows, widx), v[:, 0].to(v_cache.dtype))
+            lengths = torch.clamp(cache_pos + 1, max=T).to(torch.int32)
+        else:
+            pos = int(cache_pos)
+            widx = pos % T if rolling else min(pos, T - 1)
+            k_cache[:, widx] = k[:, 0].to(k_cache.dtype)
+            v_cache[:, widx] = v[:, 0].to(v_cache.dtype)
+            lengths = torch.full((B,), min(pos + 1, T), dtype=torch.int32, device=x.device)
+        o = ops.decode_attention(q, k_cache, v_cache, lengths,
+                                 softcap=cfg.attn_logit_softcap, impl=cfg.kernel_impl)
+        return _out_proj(cfg, params, o), cache
+
     o = ops.attention(q, k, v, causal=causal, window=window,
                       softcap=cfg.attn_logit_softcap, impl=cfg.kernel_impl)
     out = _out_proj(cfg, params, o)
     return out, ({"k": k, "v": v} if mode == "prefill" else None)
+
+
+def cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> Tuple[int, int, int, int]:
+    """(batch, T, Hkv, D) of a dense cache; T = min(max_len, window) for a
+    sliding-window model (a rolling cache)."""
+    T = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    return (batch, T, cfg.num_kv_heads, cfg.resolved_head_dim)
+

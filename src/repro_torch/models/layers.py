@@ -28,11 +28,11 @@ def norm_defs(cfg: ModelConfig, d: int) -> Dict[str, P]:
 
 
 def norm_apply(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """LayerNorm (eps 1e-5) in fp32, output in x.dtype."""
+    """RMSNorm or LayerNorm (eps 1e-5) in fp32, output in x.dtype.  The
+    reference calls its norms without ``impl=``; the port passes
+    ``cfg.kernel_impl``, which gives the same results."""
     if cfg.norm_type == "rmsnorm":
-        raise NotImplementedError(
-            "RMSNorm models are not ported yet (ROADMAP: port queue, RMSNorm kernel)"
-        )
+        return ops.rmsnorm(x, params["scale"], impl=cfg.kernel_impl)
     return ops.layernorm(x, params["scale"], params.get("bias"), impl=cfg.kernel_impl)
 
 

@@ -1,22 +1,27 @@
 """Top-level model: the param tree as an ``nn.Module`` plus the entry points
-ported so far — embedding extraction and the training loss.
+ported so far — embedding extraction, the training loss, and generation
+over a dense KV cache (``prefill``, ``decode_step``, ``init_cache``).
 
 ``build_model(cfg)`` materializes seeded random weights on the GPU; pass
 ``device="cpu"`` to run on the CPU (the tests do).  Weights from the
 reference package cross in through ``checkpoint/bridge.py``:
 ``Model(cfg, from_jax_params(tree))``.  ``loss_fn(params, batch)`` takes the
 param tree explicitly, as the reference's does, so the train step can run
-it on the compute-dtype view of its master copy.
+it on the compute-dtype view of its master copy; the serving entry points
+take it too.  To serve, build the model with bf16 parameters
+(``dataclasses.replace(cfg, param_dtype="bfloat16")``): each weight's cast
+to the compute dtype is then a no-op, instead of a re-read and re-cast of
+the fp32 master copy in every decode step.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from repro_torch.core.config import ModelConfig
-from repro_torch.core.module import ParamTree, materialize
+from repro_torch.core.module import ParamTree, materialize, tree_map
 from repro_torch.core.precision import policy_for
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -49,10 +54,11 @@ class Model(nn.Module):
     def _decoder_input(self, params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
         return L.embed_apply(self.cfg, params["embed"], tokens, compute_dtype=self.policy.cdt)
 
-    def _backbone(self, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-        """Full-sequence forward in train mode, then the final norm."""
-        x, _ = T.decoder_stack(self.cfg, params["layers"], x, mode="train")
-        return L.norm_apply(self.cfg, params["final_norm"], x)
+    def _backbone(self, params: Dict[str, Any], x: torch.Tensor, **kw):
+        """The stack (train mode unless ``kw`` says otherwise), then the
+        final norm; returns (x, caches)."""
+        x, caches = T.decoder_stack(self.cfg, params["layers"], x, **kw)
+        return L.norm_apply(self.cfg, params["final_norm"], x), caches
 
     def head_weight(self, params: Dict[str, Any]) -> torch.Tensor:
         return L.lm_head_weight(self.cfg, params["head"], params["embed"])
@@ -65,8 +71,8 @@ class Model(nn.Module):
         if cfg.logit_softcap > 0:
             lg = cfg.logit_softcap * torch.tanh(lg / cfg.logit_softcap)
         if cfg.padded_vocab != cfg.vocab_size:
-            pad_mask = torch.arange(cfg.padded_vocab, device=lg.device) < cfg.vocab_size
-            lg = torch.where(pad_mask, lg, torch.tensor(-1e30, dtype=lg.dtype, device=lg.device))
+            pad = torch.arange(cfg.padded_vocab, device=lg.device) >= cfg.vocab_size
+            lg = lg.masked_fill(pad, -1e30)
         return lg
 
     # ------------------------------------------------------------ training
@@ -82,7 +88,7 @@ class Model(nn.Module):
         reference; ``metrics`` holds ``ce_loss``, ``aux_loss`` (0 for the
         dense stack) and ``tokens`` (the mask's sum, at least 1)."""
         cfg = self.cfg
-        x = self._backbone(params, self._decoder_input(params, batch["tokens"]))
+        x, _ = self._backbone(params, self._decoder_input(params, batch["tokens"]))
         B, S, D = x.shape
         if cfg.objective == "mlm":
             hidden = x.reshape(B * S, D)
@@ -113,11 +119,71 @@ class Model(nn.Module):
         training — no key-padding mask — and only positions < lengths[b]
         enter the fp32 mean, as in the reference."""
         p = self.params.tree()
-        x = self._backbone(p, self._decoder_input(p, tokens))
+        x, _ = self._backbone(p, self._decoder_input(p, tokens))
         mask = torch.arange(x.shape[1], device=x.device)[None, :] < lengths.to(x.device)[:, None]
         x = x.float() * mask[..., None]
         denom = mask.sum(dim=1).clamp_min(1).float()
         return x.sum(dim=1) / denom[:, None]
+
+
+    # ------------------------------------------------------------ generation
+    @torch.no_grad()
+    def prefill(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor], max_len: int,
+                *, length: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Full-sequence forward -> (last logits (B, 1, Vpad), cache).
+
+        ``length``: the number of valid tokens when the prompt is
+        right-padded to a bucket (the engine's prompt bucketing); the logits
+        then come from row ``length - 1`` and the cache position is
+        ``length``.  Right padding is sound only for causal attention (pad
+        rows lie in every real row's future); the engine gates it.  The
+        cache is ``{"layers": stacked K/V placed in max_len (or rolling
+        window) buffers, "pos": int}``."""
+        x = self._decoder_input(params, batch["tokens"])
+        S = x.shape[1]
+        x, caches = self._backbone(params, x, mode="prefill")
+        pos = S if length is None else int(length)
+        lg = self.logits(params, x[:, pos - 1 : pos, :])
+        return lg, {"layers": self._pad_caches(caches, S, max_len), "pos": pos}
+
+    @torch.no_grad()
+    def decode_step(self, params: Dict[str, Any], cache: Dict[str, Any], tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One-token step: tokens (B, 1) -> (logits (B, 1, Vpad), cache).
+        ``cache["pos"]`` is an int (lockstep rows) or a (B,) tensor (the
+        continuous-batching engine); the K/V buffers are updated in place and
+        the returned cache holds them with ``pos + 1``."""
+        pos = cache["pos"]
+        x = self._decoder_input(params, tokens)
+        rope_pos = None if torch.is_tensor(pos) else torch.full((1,), int(pos), device=x.device)
+        x, layers = self._backbone(params, x, mode="decode", positions=rope_pos,
+                                   caches=cache["layers"], cache_pos=pos)
+        return self.logits(params, x), {"layers": layers, "pos": pos + 1}
+
+    @torch.no_grad()
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
+        """A zeroed dense decode cache in the compute dtype, position 0."""
+        return {"layers": T.init_stack_cache(self.cfg, batch, max_len, self.policy.cdt,
+                                             self.device),
+                "pos": 0}
+
+    def _pad_caches(self, caches: Dict[str, Any], S: int, max_len: int) -> Dict[str, Any]:
+        """Place prefill K/V (S rows) into preallocated buffers of W = max_len
+        rows (the window, if smaller): zero-padded when S <= W, else rolling
+        — slot j holds token S - W + ((j - S) mod W), so the next write at
+        S mod W overwrites the oldest."""
+        cfg = self.cfg
+        W = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+        def place(leaf):
+            if S <= W:
+                buf = leaf.new_zeros((*leaf.shape[:2], W, *leaf.shape[3:]))
+                buf[:, :, :S] = leaf
+                return buf
+            slots = torch.arange(W, device=leaf.device)
+            return leaf.index_select(2, S - W + (slots - S) % W)
+
+        return tree_map(place, caches)
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:

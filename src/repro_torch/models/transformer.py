@@ -10,14 +10,14 @@ under autograd for training.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.module import stack_tree, tree_map
 from repro_torch.models import layers as L
-from repro_torch.models.attention import attention_apply, attention_defs
+from repro_torch.models.attention import attention_apply, attention_defs, cache_shape
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -48,10 +48,10 @@ def stack_defs(cfg: ModelConfig) -> Dict[str, Any]:
     return stack_tree({"sub0": _layer_defs(cfg)}, cfg.num_layers)
 
 
-def _apply_layer(cfg, params, x, *, mode, positions, causal):
+def _apply_layer(cfg, params, x, *, mode, positions, causal, cache, cache_pos):
     h = L.norm_apply(cfg, params["norm1"], x)
-    mix, cache = attention_apply(cfg, params["attn"], h, positions=positions,
-                                 mode=mode, causal=causal)
+    mix, cache = attention_apply(cfg, params["attn"], h, positions=positions, mode=mode,
+                                 causal=causal, cache=cache, cache_pos=cache_pos)
     x = x + mix
     if "ffn" in params:
         x = x + L.mlp_apply(cfg, params["ffn"], L.norm_apply(cfg, params["norm2"], x))
@@ -65,18 +65,40 @@ def decoder_stack(
     *,
     mode: str = "train",
     positions: Optional[torch.Tensor] = None,
+    caches: Optional[Dict[str, Any]] = None,
+    cache_pos: Union[None, int, torch.Tensor] = None,
     causal: Optional[bool] = None,
-) -> Tuple[torch.Tensor, Optional[List[Dict[str, torch.Tensor]]]]:
-    """Runs every layer.  Returns (x, caches): one {"k", "v"} per layer in
-    prefill mode, None in train mode."""
+) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """Runs every layer.  Returns (x, caches), caches in the reference's
+    stacked tree ``{"sub0": {"attn": {"k", "v"}}}`` with leaves (num_layers,
+    B, T, Hkv, D): this call's K/V in prefill mode; in decode mode the
+    ``caches`` passed in, updated in place (each layer writes through its
+    view of the stacked buffers); None in train mode."""
     check_supported(cfg)
     # one unbind per stacked leaf: under autograd its backward stacks the
     # per-layer grads once, where slicing p[j] per layer would write a
     # zero-filled copy of the whole stacked leaf for each layer
     per_layer = tree_map(lambda p: p.unbind(0), stacked_params["sub0"])
-    caches = []
+    per_cache = tree_map(lambda c: c.unbind(0), caches["sub0"]) if mode == "decode" else None
+    new = []
     for j in range(cfg.num_layers):
         layer = tree_map(lambda ps: ps[j], per_layer)
-        x, cache = _apply_layer(cfg, layer, x, mode=mode, positions=positions, causal=causal)
-        caches.append(cache)
-    return x, (caches if mode == "prefill" else None)
+        cache = tree_map(lambda cs: cs[j], per_cache["attn"]) if per_cache else None
+        x, cache = _apply_layer(cfg, layer, x, mode=mode, positions=positions, causal=causal,
+                                cache=cache, cache_pos=cache_pos)
+        new.append(cache)
+    if mode == "decode":
+        return x, caches
+    if mode == "prefill":
+        return x, {"sub0": {"attn": {n: torch.stack([c[n] for c in new]) for n in ("k", "v")}}}
+    return x, None
+
+
+def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
+                     device: torch.device) -> Dict[str, Any]:
+    """The dense decode cache, stacked over the layers: leaves (num_layers,
+    batch, T, Hkv, D), zeroed (the reference builds one layer's
+    ``attention.init_cache`` and broadcasts it)."""
+    shape = (cfg.num_layers, *cache_shape(cfg, batch, max_len))
+    return {"sub0": {"attn": {n: torch.zeros(shape, dtype=dtype, device=device)
+                              for n in ("k", "v")}}}

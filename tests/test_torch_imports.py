@@ -18,12 +18,15 @@ from repro_torch.core.config import TrainConfig  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cross_entropy import cross_entropy_bwd, cross_entropy_fwd  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd  # noqa: E402
-from repro_torch.kernels.rmsnorm import layernorm  # noqa: E402
+from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
+from repro_torch.kernels.rmsnorm import layernorm, rmsnorm  # noqa: E402
+from repro_torch.kernels.sampling import fused_sample  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.serving.api import LLM  # noqa: E402
 from repro_torch.training.loop import Trainer  # noqa: E402
 
-KERNELS = (flash_attention_fwd, flash_attention_bwd, cross_entropy_fwd, cross_entropy_bwd, layernorm)
+KERNELS = (flash_attention_fwd, flash_attention_bwd, cross_entropy_fwd, cross_entropy_bwd, layernorm,
+           rmsnorm, flash_decode, fused_sample)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -49,7 +52,7 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_port_calls_no_library_attention_norm_or_compile():
-    banned = {"scaled_dot_product_attention", "layer_norm", "cudnn"}
+    banned = {"scaled_dot_product_attention", "layer_norm", "rms_norm", "cudnn"}
     for path in PORT_FILES:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Attribute):
@@ -94,7 +97,8 @@ def test_the_ban_catches_library_calls_but_not_the_ports_op():
 
 
 def test_kernel_wrappers_have_no_fallback():
-    for name in ("flash_attention.py", "cross_entropy.py", "rmsnorm.py", "ops.py"):
+    for name in ("flash_attention.py", "cross_entropy.py", "rmsnorm.py", "flash_decode.py",
+                 "sampling.py", "ops.py"):
         tree = ast.parse((PORT / "kernels" / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
 
@@ -137,6 +141,8 @@ def test_cpu_runs_launch_no_kernel():
     batch = {"tokens": toks, "targets": toks, "loss_mask": (toks > 4).float()}
     loss, _ = model.loss_fn(model.params.tree(), batch)
     loss.backward()
+    qwen = model_mod.build_model(get_smoke_config("qwen2-7b"), device="cpu")
+    LLM(qwen, slots=2, max_len=48).generate([[1, 5, 6], [7, 8, 9, 10]])
     assert all(k.launches == 0 for k in KERNELS), [k.launches for k in KERNELS]
 
 

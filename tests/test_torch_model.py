@@ -190,6 +190,3 @@ def test_unported_architectures_raise():
                  dict(is_encoder_decoder=True, encoder_layers=2)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_model(dataclasses.replace(cfg, **over), device="cpu")
-    with pytest.raises(NotImplementedError, match="RMSNorm"):
-        build_model(dataclasses.replace(cfg, norm_type="rmsnorm"), device="cpu").embed_pool(
-            torch.ones(1, 8, dtype=torch.int32), torch.tensor([8]))
