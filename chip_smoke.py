@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from the sources in this checkout and holds each
-of the eight kernels against its plain PyTorch version on the card.  Then
-drives the three paths ported so far: embedding serving through
+of the eleven kernels against its plain PyTorch version on the card.  Then
+drives the four paths ported so far: embedding serving through
 ``LLM.embed`` and MLM pre-training through ``Trainer.run`` (about 10
 optimizer steps) at the full width and depth of ESM-2 650M, and generation
 through ``LLM.generate`` at the full width and depth of Qwen2-7B (bf16
-parameters, 32 slots, a dense 2048-token cache, 64 prompts of 256 new
-tokens), all with seeded random weights, and checks what comes out of
+parameters, 32 slots, 64 prompts of 256 new tokens) over a dense
+2048-token cache, then over the paged cache with prefix caching and
+512-token chunked prefill (half the prompts behind one shared 512-token
+preamble), all with seeded random weights, and checks what comes out of
 each.  Prints per-kernel times beside their bounds, the embedding
 throughput, the training step time, tokens/s, MFU and peak memory, the
 generation tokens/s, TTFT, decode-step time and idle share, a profile of
@@ -59,23 +61,38 @@ def time_ms(torch, fn, trials: int = 20, per_trial: int = 10, warmup: int = 3) -
     return statistics.median(times)
 
 
-def device_ms(torch, fn, *names: str, n: int = 20) -> float:
+def device_ms(torch, fn, *names: str, n: int = 20):
     """Device time of one call of ``fn``: the summed time of the kernels
     whose name holds one of ``names`` in a torch.profiler window of ``n``
     back-to-back calls, over ``n``.  Unlike ``time_ms`` it leaves out the
-    host's launch path, which a small kernel can take longer than to run."""
+    host's launch path, which a small kernel can take longer than to run.
+    A window that records none of the kernels (the profiler has dropped a
+    window's device records) is taken again, up to three times; then the
+    time is None: not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and any(m in e.key.lower() for m in names))
-    return us / 1e3 / n
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and any(m in e.key.lower() for m in names))
+        if us > 0:
+            return us / 1e3 / n
+    return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def per_device_ms(amount: float, ms, unit: str, scale: float) -> str:
+    """``amount`` over a device time as a rate, or "not measured"."""
+    return f"{amount / ms / scale:.1f} {unit} on the device" if ms else "device rate not measured"
 
 
 def check(ok: bool, what: str) -> None:
@@ -95,20 +112,35 @@ def rel_err(got, want) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30)).item()
 
 
+def row_rel_err(got, want, dims: int = 1) -> float:
+    """The largest over the rows (the first ``dims`` axes) of max |got_r -
+    want_r| over max |want_r|, in fp32: each row held to its own scale, so
+    that a row of large values (one that attends to a single key) does not
+    cover errors in the others.  A row that should be all 0 must be exactly
+    0 (its error is then 0, else about 1e30)."""
+    g, w = got.float().flatten(0, dims - 1).flatten(1), want.float().flatten(0, dims - 1).flatten(1)
+    return ((g - w).abs().amax(1) / w.abs().amax(1).clamp_min(1e-30)).max().item()
+
+
 def kernel_groups(prof, DeviceType):
     """Device time by group from a torch.profiler run: (busy ms, {group: ms},
     [(name, ms, count)]).  CPU ops report their kernels' time too, so only
     device-side entries count; "Command Buffer Full" marks the host waiting
-    on a full launch queue."""
+    on a full launch queue, and the engine's named scopes (``engine/...``,
+    ``obs.profile.annotate``) span kernels counted already."""
     kern = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and "Command Buffer Full" not in e.key]
+            and "Command Buffer Full" not in e.key and not e.key.startswith("engine/")]
     groups = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0, "cross_entropy": 0.0,
               "layernorm": 0.0, "rmsnorm": 0.0, "flash_decode": 0.0, "fused_sample": 0.0,
+              "paged_decode": 0.0, "paged_prefill": 0.0, "paged_kv_write": 0.0,
               "matmul": 0.0, "other": 0.0}
     for name, t, _ in kern:
         low = name.lower()
-        if "flash_attention_fwd" in low:
+        paged = [g for g in ("paged_decode", "paged_prefill", "paged_kv_write") if g in low]
+        if paged:
+            groups[paged[0]] += t
+        elif "flash_attention_fwd" in low:
             groups["flash_attention_fwd"] += t
         elif any(w in low for w in ("dq_kernel", "dkv_kernel", "delta_kernel")):
             groups["flash_attention_bwd"] += t
@@ -191,7 +223,7 @@ def check_attention_bwd(torch, F, ref, flash_attention_fwd, flash_attention_bwd,
     # dK, dV); bytes: q, k, v, out, dO, lse read, dq, dk, dv written
     bound_ms, bound_by = bound(10 * B * H * S * S * D, 8 * B * S * H * D * 2 + B * H * S * 4)
     print(f"flash_attention_bwd B={B} S=T={S} H={H} D={D} bf16 on {card}: {ms:.4f} ms "
-          f"(device {dev_ms:.4f} ms) "
+          f"(device {fmt_ms(dev_ms)} ms) "
           f"(bound {bound_ms:.4f} ms by {bound_by}, {10 * B * H * S * S * D / ms / 1e9:.1f} TFLOP/s), "
           f"plain {plain_ms:.4f} ms, scaled_dot_product_attention backward {lib_ms:.4f} ms")
     return {"name": "flash_attention_bwd", "route": "cuda",
@@ -268,11 +300,11 @@ def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, ran
     fwd_bound, fwd_by = bound(2 * T * D * vocab, reads + 2 * T * 4)
     bwd_bound, bwd_by = bound(6 * T * D * vocab, reads + 3 * T * 4 + T * D * 2 + D * Vp * 2)
     print(f"cross_entropy_fwd T={T} D={D} Vpad={Vp} bf16 on {card}: {fwd_ms:.4f} ms (device "
-          f"{fwd_dev:.4f} ms; bound "
+          f"{fmt_ms(fwd_dev)} ms; bound "
           f"{fwd_bound:.4f} ms by {fwd_by}), plain {fwd_plain:.4f} ms, F.cross_entropy(h @ W) "
           f"{fwd_lib:.4f} ms")
     print(f"cross_entropy_bwd T={T} D={D} Vpad={Vp} bf16 on {card}: {bwd_ms:.4f} ms (device "
-          f"{bwd_dev:.4f} ms; bound "
+          f"{fmt_ms(bwd_dev)} ms; bound "
           f"{bwd_bound:.4f} ms by {bwd_by}), plain {bwd_plain:.4f} ms, F.cross_entropy(h @ W) "
           f"backward {bwd_lib:.4f} ms")
     rec = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/cross_entropy.cu", "launches": 0}
@@ -475,9 +507,9 @@ def check_rmsnorm(torch, F, ref, rmsnorm, randn, card):
         lib_ms = time_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-5))
         nbytes = 2 * rows * d * 2 + d * 2
         bound_ms, bound_by = bound(4 * rows * d, nbytes, PEAK_FP32_FLOPS)
-        print(f"rmsnorm ({rows}, {d}) bf16 on {card}: {ms:.4f} ms back to back, device {dev_ms:.4f} "
-              f"ms (bound {bound_ms:.5f} ms by {bound_by}, {nbytes / dev_ms / 1e6:.0f} GB/s on the "
-              f"device), plain {plain_ms:.4f} ms, "
+        print(f"rmsnorm ({rows}, {d}) bf16 on {card}: {ms:.4f} ms back to back, device {fmt_ms(dev_ms)} "
+              f"ms (bound {bound_ms:.5f} ms by {bound_by}, "
+              f"{per_device_ms(nbytes, dev_ms, 'GB/s', 1e6)}), plain {plain_ms:.4f} ms, "
               f"F.rms_norm {lib_ms:.4f} ms")
         if rec is None:
             err = (rmsnorm(x, w).float() - ref.rmsnorm_ref(x, w).float()).abs().max().item()
@@ -518,10 +550,10 @@ def check_flash_decode(torch, F, ref, flash_decode, randn, card):
         out = flash_decode(q, k, v, lengths)
         torch.cuda.synchronize()
         want = ref.decode_attention_ref(q, k, v, lengths)
-        err = rel_err(out, want)
+        err = row_rel_err(out, want)
         zero = bool((out[0] == 0).all())
         print(f"flash_decode {label} (B={B}, T={T}, H={H}, Hkv={Hkv}, D={D}) bf16: rel err "
-              f"{err:.3g} (tol {tol} of max|ref|), length-0 row exactly 0: {zero}")
+              f"{err:.3g} (tol {tol} of each row's max|ref|), length-0 row exactly 0: {zero}")
         check(err <= tol and zero and bool(out.isfinite().all()), f"flash_decode {label}")
         if main is None:
             main = (q, k, v, lengths, lens, (out.float() - want.float()).abs().max().item())
@@ -542,8 +574,8 @@ def check_flash_decode(torch, F, ref, flash_decode, randn, card):
     nbytes = 2 * B * H * D * 2 + 2 * live * Hkv * D * 2 + B * 4
     bound_ms, bound_by = bound(4 * H * D * live, nbytes)
     print(f"flash_decode B={B} T={T} H={H} Hkv={Hkv} D={D} bf16, {live} live rows of {B * T}, on "
-          f"{card}: {ms:.4f} ms back to back, device {dev_ms:.4f} ms (bound {bound_ms:.4f} ms by "
-          f"{bound_by}, {nbytes / dev_ms / 1e6:.0f} GB/s on the device), "
+          f"{card}: {ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (bound {bound_ms:.4f} ms by "
+          f"{bound_by}, {per_device_ms(nbytes, dev_ms, 'GB/s', 1e6)}), "
           f"plain {plain_ms:.4f} ms, scaled_dot_product_attention (length mask, GQA) {lib_ms:.4f} ms")
     return {"name": "flash_decode", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode.py:116", "launches": 0, "max_abs_err": err0,
@@ -592,7 +624,7 @@ def check_sampling(torch, ref, fused_sample, randn, card):
     sampled_ms = time_ms(torch, lambda: fused_sample(x, hot, top_k, top_p, seed, step), trials=5)
     # the function reads the logits once and writes two scalars a row
     bound_ms, bound_by = bound(0, B * V * 2 + B * 20 + B * 8)
-    print(f"fused_sample ({B}, {V}) bf16 on {card}: mix {ms:.4f} ms (device {dev_ms:.4f} ms; bound "
+    print(f"fused_sample ({B}, {V}) bf16 on {card}: mix {ms:.4f} ms (device {fmt_ms(dev_ms)} ms; bound "
           f"{bound_ms:.5f} ms by "
           f"{bound_by}), all greedy {greedy_ms:.4f} ms, all sampled {sampled_ms:.4f} ms; plain "
           f"{plain_ms:.4f} ms; no single PyTorch call samples with this hash (library: none)")
@@ -602,10 +634,248 @@ def check_sampling(torch, ref, fused_sample, randn, card):
             "bound_by": bound_by, "library_ms": None}
 
 
+def _paged_layout(torch, np, rng, lens, page, n_tables, num_pages, dev):
+    """A block table for ragged ``lens`` over a pool of ``num_pages``: each
+    row's pages drawn without replacement in shuffled order (page 0, the
+    null page, never), the null page past each row's length."""
+    table = np.zeros((len(lens), n_tables), np.int32)
+    free = list(rng.permutation(np.arange(1, num_pages)))
+    for b, L in enumerate(lens):
+        n = -(-int(L) // page)
+        table[b, :n] = [free.pop() for _ in range(n)]
+    return torch.as_tensor(table, device=dev)
+
+
+def check_paged_decode(torch, F, ref, paged_decode, randn, card):
+    """Row 9 against ``paged_decode_attention_ref`` at Qwen2-7B's decode
+    shape over the default pool (4 097 pages of 16, 128 a row): ragged
+    lengths that are not page multiples, a length-0 row, null-page entries
+    past each length, shuffled page order; and at group 1 and at D 64.
+    Times the main shape.  Returns its kernel record."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    tol = 2e-2   # the plain version rounds the normalized P to bf16 before PV
+    cases = [
+        ("qwen2-7b decode shape", dict(B=32, cap=2048, H=28, Hkv=4, D=128, page=16, P=4097)),
+        ("group 1, page 8", dict(B=8, cap=704, H=8, Hkv=8, D=128, page=8, P=712)),
+        ("D=64, group 4", dict(B=8, cap=336, H=16, Hkv=4, D=64, page=16, P=170)),
+    ]
+    main = None
+    for label, c in cases:
+        B, cap, H, Hkv, D, page, P = (c[x] for x in ("B", "cap", "H", "Hkv", "D", "page", "P"))
+        if main is None:     # the lengths of flash_decode's main case (31 163 live rows)
+            lens = np.random.default_rng(1).integers(0, cap + 1, size=B)
+        else:
+            lens = rng.integers(1, cap + 1, size=B)
+            lens[3] = page * 5 + 3                      # not a page multiple
+        lens[:3] = [0, 1, cap]
+        check(bool((lens % page).any()), "paged_decode: every length a page multiple")
+        bt = _paged_layout(torch, np, rng, lens, page, cap // page, P, dev)
+        lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        q = randn(B, 1, H, D)
+        k_pool, v_pool = randn(P, page, Hkv, D), randn(P, page, Hkv, D)
+        out = paged_decode(q, k_pool, v_pool, bt, lengths)
+        torch.cuda.synchronize()
+        want = ref.paged_decode_attention_ref(q, k_pool, v_pool, bt, lengths)
+        err = row_rel_err(out, want)
+        zero = bool((out[0] == 0).all())
+        print(f"paged_decode {label} (B={B}, capacity {cap}, H={H}, Hkv={Hkv}, D={D}, page {page}, "
+              f"{P} pages) bf16: rel err {err:.3g} (tol {tol} of each row's max|ref|), length-0 row "
+              f"exactly 0: {zero}")
+        check(err <= tol and zero and bool(out.isfinite().all()), f"paged_decode {label}")
+        if main is None:
+            main = (q, k_pool, v_pool, bt, lengths, lens,
+                    (out.float() - want.float()).abs().max().item())
+    q, k_pool, v_pool, bt, lengths, lens, err0 = main
+    B, _, H, D = q.shape
+    page, Hkv = k_pool.shape[1], k_pool.shape[2]
+    T = bt.shape[1] * page
+    ms = time_ms(torch, lambda: paged_decode(q, k_pool, v_pool, bt, lengths))
+    dev_ms = device_ms(torch, lambda: paged_decode(q, k_pool, v_pool, bt, lengths), "paged_decode")
+    plain_ms = time_ms(torch, lambda: ref.paged_decode_attention_ref(q, k_pool, v_pool, bt, lengths),
+                       trials=5, per_trial=5)
+    # the yardstick: no single PyTorch call reads through a block table, so
+    # SDPA over the cache gathered beforehand (the gather is not timed)
+    kt = ref._gather_pages(k_pool, bt).transpose(1, 2)
+    vt = ref._gather_pages(v_pool, bt).transpose(1, 2)
+    mask = (torch.arange(T, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                   enable_gqa=True))
+    live = int(lens.sum())
+    # this run's data: q and out once, each live K and V row once, the
+    # lengths and the table rows; QK and PV of every query head over its
+    # live rows
+    nbytes = 2 * B * H * D * 2 + 2 * live * Hkv * D * 2 + B * 4 + bt.numel() * 4
+    bound_ms, bound_by = bound(4 * H * D * live, nbytes)
+    print(f"paged_decode B={B} capacity {T} H={H} Hkv={Hkv} D={D} page {page} bf16, {live} live rows "
+          f"of {B * T}, on {card}: {ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (bound "
+          f"{bound_ms:.4f} ms by {bound_by}, {per_device_ms(nbytes, dev_ms, 'GB/s', 1e6)}), "
+          f"plain {plain_ms:.4f} ms, scaled_dot_product_attention over the pre-gathered dense "
+          f"cache (length mask, GQA) {lib_ms:.4f} ms")
+    return {"name": "paged_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:135", "launches": 0,
+            "max_abs_err": err0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def check_paged_prefill(torch, F, ref, paged_prefill, randn, card):
+    """Row 10 against ``paged_prefill_attention_ref`` at Qwen2-7B's chunk
+    shape (a 512-token chunk, H 28, Hkv 4, D 128, pages of 16): at start 0,
+    at start 512 over pages shared with another row (a cached preamble),
+    with fewer valid rows than the bucket, and at a 64-token bucket; and at
+    page 8, group 1.  Times the start-512 chunk.  Returns its kernel
+    record."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(10)
+    tol = 2e-2   # as the attention forward: P rounded to bf16 before PV
+    H, Hkv, D, page, P, n_tables = 28, 4, 128, 16, 4097, 128
+    pools = (randn(P, page, Hkv, D), randn(P, page, Hkv, D))
+    # two rows that share their first 32 pages (a 512-token preamble)
+    base = _paged_layout(torch, np, rng, [2048, 2048], page, n_tables, P, dev)
+    base[1, :32] = base[0, :32]
+    cases = [  # label, S, starts, valid rows, table
+        ("512-token chunk at start 0", 512, [0, 0], [512, 512], base),
+        ("512-token chunk at start 512 over shared pages", 512, [512, 512], [512, 300], base),
+        ("64-token bucket, 37 valid, start 1000", 64, [1000, 530], [37, 64], base),
+    ]
+    main = None
+    for label, S, starts, valid, bt in cases:
+        B = len(starts)
+        q = randn(B, S, H, D)
+        st = torch.tensor(starts, dtype=torch.int32, device=dev)
+        ln = torch.tensor([s + v for s, v in zip(starts, valid)], dtype=torch.int32, device=dev)
+        out = paged_prefill(q, *pools, bt, st, ln)
+        torch.cuda.synchronize()
+        want = ref.paged_prefill_attention_ref(q, *pools, bt, st, ln)
+        err = row_rel_err(out, want, dims=2)
+        print(f"paged_prefill {label} (B={B}, S={S}, valid {valid}, H={H}, Hkv={Hkv}, D={D}, page "
+              f"{page}) bf16: rel err {err:.3g} (tol {tol} of each query row's max|ref|)")
+        check(err <= tol and bool(out.isfinite().all()), f"paged_prefill {label}")
+        if "start 512" in label:
+            main = (q[:1], bt[:1], st[:1], ln[:1], (out.float() - want.float()).abs().max().item())
+    # page 8, group 1, D 64, a fully masked row (length 0)
+    k8, v8 = randn(300, 8, 4, 64), randn(300, 8, 4, 64)
+    bt8 = _paged_layout(torch, np, rng, [200, 0], 8, 30, 300, dev)
+    q8 = randn(2, 40, 4, 64)
+    st8 = torch.tensor([150, 0], dtype=torch.int32, device=dev)
+    ln8 = torch.tensor([190, 0], dtype=torch.int32, device=dev)
+    out8 = paged_prefill(q8, k8, v8, bt8, st8, ln8)
+    torch.cuda.synchronize()
+    err8 = row_rel_err(out8, ref.paged_prefill_attention_ref(q8, k8, v8, bt8, st8, ln8), dims=2)
+    zero = bool((out8[1] == 0).all())
+    print(f"paged_prefill page 8, group 1, D=64: rel err {err8:.3g} (tol {tol} of each query "
+          f"row's max|ref|), fully masked row exactly 0: {zero}")
+    check(err8 <= tol and zero, "paged_prefill page 8")
+
+    q, bt, st, ln, err0 = main
+    S = q.shape[1]
+    start, L = int(st[0]), int(ln[0])
+    fn = lambda: paged_prefill(q, *pools, bt, st, ln)     # noqa: E731
+    ms = time_ms(torch, fn)
+    dev_ms = device_ms(torch, fn, "paged_prefill")
+    plain_ms = time_ms(torch, lambda: ref.paged_prefill_attention_ref(q, *pools, bt, st, ln),
+                       trials=5, per_trial=2)
+    T = bt.shape[1] * page
+    kt = ref._gather_pages(pools[0], bt).transpose(1, 2)
+    vt = ref._gather_pages(pools[1], bt).transpose(1, 2)
+    kpos = torch.arange(T, device=dev)
+    qpos = start + torch.arange(S, device=dev)
+    mask = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < L)
+    qt = q.transpose(1, 2)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                   enable_gqa=True))
+    # QK and PV over each query row's visible keys; q and out once, the live
+    # K and V rows once, the table row
+    visible = sum(min(start + i + 1, L) for i in range(S))
+    nbytes = 2 * S * H * D * 2 + 2 * L * Hkv * D * 2 + bt.numel() * 4 + 8
+    bound_ms, bound_by = bound(4 * H * D * visible, nbytes)
+    print(f"paged_prefill S={S} at start {start} (context {L}) H={H} Hkv={Hkv} D={D} page {page} "
+          f"bf16 on {card}: {ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (bound {bound_ms:.4f} "
+          f"ms by {bound_by}, {per_device_ms(4 * H * D * visible, dev_ms, 'TFLOP/s', 1e9)}), "
+          f"plain {plain_ms:.4f} ms, scaled_dot_product_attention over the pre-gathered dense cache "
+          f"(causal offset mask, GQA) {lib_ms:.4f} ms")
+    return {"name": "paged_prefill", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:258", "launches": 0,
+            "max_abs_err": err0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def check_paged_kv_write(torch, ref, paged_kv_write, randn, card):
+    """Row 11 against ``paged_kv_write_ref`` at the decode shape (B 32, the
+    default pool of 4 097 pages of 16, Hkv 4, D 128): live slots on distinct
+    pages, idle slots colliding on row 0 of the null page.  The written rows
+    must be equal bit for bit; the null page's row 0 holds idle slots' data.
+    Returns its kernel record."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    B, P, page, Hkv, D = 32, 4097, 16, 4, 128
+    k_pool, v_pool = randn(P, page, Hkv, D), randn(P, page, Hkv, D)
+    k_new, v_new = randn(B, 1, Hkv, D), randn(B, 1, Hkv, D)
+    pages = rng.choice(np.arange(1, P), size=B, replace=False)
+    rows = rng.integers(0, page, size=B)
+    idle = np.arange(B) % 5 == 3
+    pages[idle], rows[idle] = 0, 0
+    pi = torch.as_tensor(pages, dtype=torch.int32, device=dev)
+    ri = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+    gk, gv = k_pool.clone(), v_pool.clone()
+    paged_kv_write(gk, gv, k_new, v_new, pi, ri)
+    torch.cuda.synchronize()
+    wk, wv = k_pool.clone(), v_pool.clone()
+    ref.paged_kv_write_ref(wk, wv, k_new, v_new, pi, ri)
+    same = bool(torch.equal(gk[1:], wk[1:]) and torch.equal(gv[1:], wv[1:]))
+    # the idle slots race on the null page's row 0, 16 bytes a store: each
+    # 16-byte piece of it holds that piece of one of their rows
+    cand = torch.as_tensor(np.flatnonzero(idle), device=dev)
+
+    def pieces_from_idle(pool, new):
+        got = pool[0, 0].reshape(-1, 8)                            # (Hkv * D / 8, 8)
+        want = new[cand, 0].reshape(len(cand), -1, 8)
+        return bool((got[None] == want).all(-1).any(0).all())
+
+    null_ok = (pieces_from_idle(gk, k_new) and pieces_from_idle(gv, v_new)
+               and torch.equal(gk[0, 1:], k_pool[0, 1:]) and torch.equal(gv[0, 1:], v_pool[0, 1:]))
+    print(f"paged_kv_write B={B} ({int(idle.sum())} idle slots on the null page) bf16: live rows "
+          f"equal to the plain version's {same}, each 16-byte piece of the null page's row 0 from "
+          f"an idle slot's row {null_ok}")
+    check(same and null_ok, "paged_kv_write")
+    fn = lambda: paged_kv_write(gk, gv, k_new, v_new, pi, ri)     # noqa: E731
+    ms = time_ms(torch, fn)
+    dev_ms = device_ms(torch, fn, "paged_kv_write")
+    plain_ms = time_ms(torch, lambda: ref.paged_kv_write_ref(wk, wv, k_new, v_new, pi, ri))
+    idx = (pi.long(), ri.long())
+    kn, vn = k_new[:, 0], v_new[:, 0]
+
+    def index_put_pair():
+        wk.index_put_(idx, kn)
+        wv.index_put_(idx, vn)
+
+    lib_ms = time_ms(torch, index_put_pair)
+    nbytes = 2 * (2 * B * Hkv * D * 2) + 2 * B * 4       # new rows read, pool rows written
+    bound_ms, bound_by = bound(0, nbytes)
+    print(f"paged_kv_write B={B} Hkv={Hkv} D={D} bf16 on {card}: {ms:.4f} ms back to back, device "
+          f"{fmt_ms(dev_ms)} ms (bound {bound_ms:.6f} ms by {bound_by}), plain {plain_ms:.4f} ms, "
+          f"index_put_ pair {lib_ms:.4f} ms")
+    return {"name": "paged_kv_write", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:340", "launches": 0,
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
 def generate_phase(torch, counters, card):
     """Slice 4a: Qwen2-7B generation at full width and depth through
     ``LLM.generate`` over the dense KV cache.  Returns the launch counts of
-    the first generate call (the main path's run)."""
+    the first generate call (the main path's run), the model, and the load
+    (prompts, their lengths, their sampling params) for the paged phase."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -752,53 +1022,363 @@ def generate_phase(torch, counters, card):
     for slot, i in enumerate(picks):
         forced[:, slot] = torch.tensor(first[i].tokens[:n_forced], dtype=torch.int32)
     plain = Model(dataclasses.replace(cfg, kernel_impl="torch"), model.params.tree())
-
-    def run(m):
-        seen = []
-        prefill, decode_step = m.prefill, m.decode_step
-
-        def prefill_spy(*a, **kw):
-            lg, c = prefill(*a, **kw)
-            seen.append(lg[:, -1].float())
-            return lg, c
-
-        def decode_spy(*a, **kw):
-            lg, c = decode_step(*a, **kw)
-            seen.append(lg[: len(picks), -1].float())
-            return lg, c
-
-        m.prefill, m.decode_step = prefill_spy, decode_spy
-        try:
-            e = LLM(m, slots=slots, max_len=max_len).engine
-            for slot, i in enumerate(picks):
-                e.submit(Request(uid=20_000 + slot, prompt=np.asarray(prompts[i], np.int32),
-                                 params=SamplingParams(max_new=n_forced + 8)))
-            e._admit()                  # one bucketed prefill per slot
-            for t in range(n_forced):
-                e._last_tok = forced[t].clone()
-                e.step()
-        finally:
-            del m.prefill, m.decode_step
-        first_lg = torch.cat(seen[: len(picks)])[None]          # (1, 8, V)
-        return torch.cat([first_lg, torch.stack(seen[len(picks):])])   # (1 + steps, 8, V)
-
-    k_lg, p_lg = run(model), run(plain)
-    cos = torch.nn.functional.cosine_similarity(k_lg, p_lg, dim=-1)
-    dmax = (k_lg - p_lg).abs().amax(dim=-1)
-    top2 = p_lg.topk(2, dim=-1).values
-    decided = (top2[..., 0] - top2[..., 1]) > dmax
-    agree = k_lg.argmax(-1) == p_lg.argmax(-1)
-    print(f"kernel path vs plain path through the engine (8 slots of 32, prompts of "
-          f"{sorted(int(lengths[i]) for i in picks)} tokens, bucketed prefill + {n_forced} "
-          f"teacher-forced decode steps with per-slot positions): logits cosine min "
-          f"{cos.min().item():.6f} (floor 0.999), max |dlogit| {dmax.max().item():.4f}; top-1 "
-          f"agrees on {int((agree & decided).sum())} of {int(decided.sum())} slot-steps whose plain "
-          f"top-2 gap exceeds the slot-step's max |dlogit|; {int((~decided).sum())} slot-steps "
-          f"closer than that ({int((agree & ~decided).sum())} agree)")
-    expect(bool((cos >= 0.999).all()), "kernel path logits disagree with the plain path")
-    expect(bool(agree[decided].all()), "kernel path top-1 differs where the plain path is decided")
-    del plain, model
+    route = dict(slots=slots, max_len=max_len)
+    route_prompts = [prompts[i] for i in picks]
+    k_lg, _ = engine_logits(torch, np, model, route, route_prompts, forced)
+    p_lg, _ = engine_logits(torch, np, plain, route, route_prompts, forced)
+    compare_logits(torch, k_lg, p_lg,
+                   f"kernel path vs plain path through the engine (8 slots of 32, prompts of "
+                   f"{sorted(int(lengths[i]) for i in picks)} tokens, bucketed prefill + "
+                   f"{n_forced} teacher-forced decode steps with per-slot positions)", expect)
+    del plain
     check(not failed, "generation phase: " + "; ".join(failed))
+    return launches, model, (prompts, lengths, params)
+
+
+def engine_logits(torch, np, m, engine_kw, prompts, forced, warm=0):
+    """Logits of ``m`` through the engine's own route: the prompts admitted
+    to slots 0.. in order (the first ``warm`` of them prefilled to the end
+    before the others are admitted, so that the later ones can hit their
+    registered blocks), every prefill run to its end, then one decode step
+    per row of ``forced`` (teacher forcing: ``forced[t]`` is each slot's
+    input token).  Returns (1 + steps, len(prompts), V) fp32: the logits
+    each slot's first token was drawn from, then each decode step's."""
+    from repro_torch.serving.api import LLM
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.sampling import SamplingParams
+
+    n = len(prompts)
+    first, seen = {}, []
+    decode_step = m.decode_step
+
+    def decode_spy(*a, **kw):
+        lg, c = decode_step(*a, **kw)
+        seen.append(lg[:n, -1].float())
+        return lg, c
+
+    m.decode_step = decode_spy
+    try:
+        e = LLM(m, **engine_kw).engine
+        emit_first = e._emit_first
+
+        def first_spy(slot, logits):
+            first[slot] = logits[:, -1].float()
+            emit_first(slot, logits)
+
+        e._emit_first = first_spy
+
+        def admit(idx):
+            for i in idx:
+                e.submit(Request(uid=50_000 + i, prompt=np.asarray(prompts[i], np.int32),
+                                 params=SamplingParams(max_new=forced.shape[0] + 8)))
+            e._admit()
+            while e._prefilling:
+                e._advance_prefill(e._prefilling[0])
+
+        admit(range(warm))
+        admit(range(warm, n))
+        for t in range(forced.shape[0]):
+            e._last_tok = forced[t].clone()
+            e.step()
+        stats = dict(e.alloc.stats) if e.alloc is not None else {}
+        del e
+    finally:
+        del m.decode_step
+    lg = torch.cat([torch.cat([first[i] for i in range(n)])[None], torch.stack(seen)])
+    return lg[..., : m.cfg.vocab_size], stats      # the -1e30 vocab padding left out
+
+
+def first_token_logits(torch, np, eng, prompts):
+    """The logits each prompt's first token is drawn from, through the
+    engine's own admission over whatever its prefix cache holds: every
+    prompt submitted for one greedy token and run to its end.  Returns
+    ((len(prompts), V) fp32, the prefix-cache stats of this run)."""
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.sampling import SamplingParams
+
+    got, emit_first = {}, eng._emit_first
+    before = dict(eng.alloc.stats)
+
+    def first_spy(slot, logits):
+        got[eng.slot_req[slot].uid] = logits[0, -1].float()
+        emit_first(slot, logits)
+
+    eng._emit_first = first_spy
+    try:
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=60_000 + i, prompt=np.asarray(p, np.int32),
+                               params=SamplingParams(max_new=1)))
+        eng.run()
+    finally:
+        del eng._emit_first
+    stats = {k: v - before[k] for k, v in eng.alloc.stats.items()}
+    lg = torch.stack([got[60_000 + i] for i in range(len(prompts))])
+    return lg[:, : eng.model.cfg.vocab_size], stats
+
+
+def compare_logits(torch, got, want, label, expect):
+    """Cosine >= 0.999 at every slot-step, and the same top-1 wherever the
+    reference side's top-2 gap exceeds that slot-step's max |dlogit|."""
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    dmax = (got - want).abs().amax(dim=-1)
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > dmax
+    agree = got.argmax(-1) == want.argmax(-1)
+    print(f"{label}: logits cosine min {cos.min().item():.6f} (floor 0.999), max |dlogit| "
+          f"{dmax.max().item():.4f}; top-1 agrees on {int((agree & decided).sum())} of "
+          f"{int(decided.sum())} decided slot-steps; {int((~decided).sum())} closer than that "
+          f"({int((agree & ~decided).sum())} agree)")
+    expect(bool((cos >= 0.999).all()), f"{label}: cosine below 0.999")
+    expect(bool(agree[decided].all()), f"{label}: top-1 differs where decided")
+
+
+def paged_phase(torch, counters, card, model, load):
+    """Slice 4b: Qwen2-7B generation at full width and depth through
+    ``LLM.generate`` over the paged KV cache with prefix caching and
+    512-token chunked prefill, on the dense phase's model and load, half of
+    the prompts behind one shared 512-token preamble.  Returns the launch
+    counts of the first generate call (the main path's run)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import Model
+    from repro_torch.serving.api import LLM
+    from repro_torch.serving.engine import Request, to_host
+    from repro_torch.serving.sampling import SamplingParams
+
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    cfg = model.cfg
+    L = cfg.num_layers
+    base_prompts, lengths, params = load
+    n, slots, max_len, chunk, page = len(base_prompts), 32, 2048, 512, 16
+    # one shared preamble in front of half the prompts, as the reference's
+    # serve launcher builds its shared-scaffold load
+    rng = np.random.default_rng(1)
+    preamble = rng.integers(0, cfg.vocab_size, size=512).tolist()
+    prompts = [preamble + p if i % 2 else list(p) for i, p in enumerate(base_prompts)]
+    plens = [len(p) for p in prompts]
+    kw = dict(slots=slots, max_len=max_len, cache_layout="paged", page_size=page,
+              prefix_cache=True, prefill_chunk=chunk)
+    llm = LLM(model, profile=True, **kw)
+    eng = llm.engine
+    names = ("flash_attention_fwd", "flash_decode", "rmsnorm", "fused_sample", "paged_decode",
+             "paged_prefill", "paged_kv_write")
+
+    def zero():
+        for name in names:
+            counters[name].launches = 0
+
+    def read():
+        return {name: counters[name].launches for name in names}
+
+    # the main path: every count set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    dec0, ch0 = eng.decode_steps, eng.prefill_chunks
+    t0 = time.perf_counter()
+    first = llm.generate(prompts, params)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = read()
+    n_dec, n_chunk = eng.decode_steps - dec0, eng.prefill_chunks - ch0
+    want = {"flash_attention_fwd": 0, "flash_decode": 0, "rmsnorm": (2 * L + 1) * (n_dec + n_chunk),
+            "fused_sample": n + n_dec, "paged_decode": L * n_dec, "paged_prefill": L * n_chunk,
+            "paged_kv_write": L * n_dec}
+    stats1 = dict(eng.alloc.stats)
+    print(f"paged main path: LLM.generate of {n} prompts ({sum(plens)} prompt tokens, half behind "
+          f"a 512-token preamble) on {slots} slots, pages of {page} ({eng.alloc.num_pages} pages, "
+          f"prefix cache, {chunk}-token chunks): {n_chunk} prefill chunks, {n_dec} decode steps, "
+          f"{t_first:.2f} s (first call, set-up included); prefix cache {stats1}; launches "
+          f"{launches} (want {want})")
+    expect(launches == want, "paged launch counts")
+    expect(stats1["hit_tokens"] > 0, "no prefix-cache hit in the main run")
+    gen = [len(c.tokens) for c in first]
+    max_new = params[0].max_new
+    expect(all(c.finish_reason == "length" for c in first) and gen == [max_new] * n,
+           "paged finish reasons / lengths")
+    expect(all(np.isfinite(c.logprobs).all() for c in first if c.logprobs),
+           "paged non-finite logprobs")
+
+    # the steady call: the same load from a cold prefix cache (only the
+    # preamble is shared), so it repeats the main call's hits exactly
+    eng.alloc.drop_cache()
+    t0 = time.perf_counter()
+    second = llm.generate(prompts, params)
+    torch.cuda.synchronize()
+    t_steady = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    same = all(a.tokens == b.tokens for a, b in zip(first, second))
+    stats2 = {k: v - stats1[k] for k, v in eng.alloc.stats.items()}
+    print(f"second call after alloc.drop_cache(): tokens identical to the first {same}; its "
+          f"prefix cache {stats2}")
+    expect(same, "a repeat after drop_cache differs")
+    ttft = sorted(c.ttft_s for c in second)
+    toks = sum(len(c.tokens) for c in second)
+    print(f"Qwen2-7B paged LLM.generate on {card}: {toks / t_steady:.1f} generated tokens/s "
+          f"({toks} tokens in {t_steady:.3f} s, steady call), TTFT p50 {1e3 * ttft[n // 2]:.1f} ms, "
+          f"p95 {1e3 * ttft[int(0.95 * (n - 1))]:.1f} ms, peak memory {peak_gb:.2f} GB; first call "
+          f"{t_first:.2f} s")
+    # a warm call: every prompt's full blocks are cached by now
+    stats_before = dict(eng.alloc.stats)
+    t0 = time.perf_counter()
+    third = llm.generate(prompts, params)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    # not held to the first call's tokens: a warm prompt recomputes only its
+    # tail past the last full cached page (the last token alone on a
+    # whole-prompt hit), and cuBLAS sums a short chunk's products in another
+    # order than the 512-row chunk that first computed them; held instead at
+    # the logits below, and where the tokens first part is printed
+    same3 = sum(a.tokens == b.tokens for a, b in zip(first, third))
+    ttft3 = sorted(c.ttft_s for c in third)
+    stats3 = {k: v - stats_before[k] for k, v in eng.alloc.stats.items()}
+    print(f"warm call (whole prompts cached): {same3} of {n} requests with the first call's "
+          f"tokens, "
+          f"{sum(len(c.tokens) for c in third) / t_warm:.1f} generated tokens/s, TTFT p50 "
+          f"{1e3 * ttft3[n // 2]:.1f} ms, p95 {1e3 * ttft3[int(0.95 * (n - 1))]:.1f} ms; its prefix "
+          f"cache {stats3}")
+    for kind, pick in (("greedy", lambda i: params[i].temperature == 0),
+                       ("sampled", lambda i: params[i].temperature > 0)):
+        part = sorted(next((j for j, (x, y) in enumerate(zip(first[i].tokens, third[i].tokens))
+                            if x != y), max_new) for i in range(n) if pick(i))
+        print(f"warm call, {kind} requests: index of the first token that differs from the first "
+              f"call's (of {max_new}; {max_new} = none): min {part[0]}, median "
+              f"{part[len(part) // 2]}, max {part[-1]}")
+    eng.alloc.check_invariants()
+    # the warm call's witness: each prompt's first-token logits with every
+    # full block cached (the tail recomputed from a page-aligned start, a
+    # whole-prompt hit through copy-on-write) against a cold cache's
+    warm_lg, warm_stats = first_token_logits(torch, np, eng, prompts)
+    eng.alloc.drop_cache()
+    cold_lg, _ = first_token_logits(torch, np, eng, prompts)
+    print(f"first-token logits of the {n} prompts from a warm prefix cache (its prefix cache "
+          f"{warm_stats}) and after alloc.drop_cache()")
+    compare_logits(torch, warm_lg, cold_lg, "warm-cache vs cold-cache first-token logits", expect)
+    del warm_lg, cold_lg
+    eng.alloc.check_invariants()
+
+    # the steady decode loop: per-step launches, no host sync but the one
+    # transfer, the step time, the StepTimer spans, a profile
+    for i in range(slots):
+        eng.submit(Request(uid=10_000 + i, prompt=np.asarray(prompts[i], np.int32),
+                           params=dataclasses.replace(params[i], max_new=max_len - plens[i])))
+    eng.step()
+    while eng._prefilling or eng.queue:
+        eng.step()
+    zero()
+    eng.step()
+    per_step = read()
+    want_step = {"flash_attention_fwd": 0, "flash_decode": 0, "rmsnorm": 2 * L + 1,
+                 "fused_sample": 1, "paged_decode": L, "paged_prefill": 0, "paged_kv_write": L}
+    print(f"one steady paged decode step: launches {per_step} (want {want_step})")
+    expect(per_step == want_step, "launches per paged decode step")
+    table = eng.cache["block_table"]
+    transfers = to_host.transfers
+    for _ in range(8):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    expect(to_host.transfers - transfers == 8, "a steady paged step made another host transfer")
+    expect(eng.cache["block_table"] is table, "the block table moved in a steady step")
+    print(f"8 steady paged decode steps under torch.cuda.set_sync_debug_mode('error'): no host "
+          f"sync outside the one transfer a step ({to_host.transfers - transfers} transfers); the "
+          f"block table did not move")
+    eng.step_timer.totals.clear()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        eng.step()
+    step_ms = (time.perf_counter() - t0) / 16 * 1e3
+    spans = {k: round(v["mean_s"] * 1e3, 3) for k, v in eng.step_timer.summary().items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            eng.step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, groups, kern = kernel_groups(prof, DeviceType)
+    print(f"paged decode step of {slots} slots on {card}: {step_ms:.2f} ms "
+          f"({slots / step_ms * 1e3:.0f} tokens/s at full slots); StepTimer span means (ms) {spans}")
+    if busy_ms == 0:
+        print("profile: the profiler saw no device time")
+    else:
+        print(f"profile of 8 paged decode steps on {card}: wall {wall_ms:.1f} ms (under the "
+              f"profiler), device busy {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+        print("profile by group: " + ", ".join(
+            f"{k} {v:.2f} ms ({v / busy_ms:.1%})" for k, v in groups.items() if v))
+        for name, t, cnt in sorted(kern, key=lambda r: -r[1])[:12]:
+            print(f"  {t:9.2f} ms {cnt:6d}x  {name[:110]}")
+        host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)[:10]
+        print("host time by op (self CPU ms, calls): " + ", ".join(
+            f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ({e.count})" for e in host))
+    del prof
+    for r in list(eng.slot_req):
+        if r is not None:
+            eng.cancel(r)
+    eng.alloc.check_invariants()
+    expect(eng.alloc.free_pages == eng.alloc.num_pages - 1, "pages leaked after the paged run")
+    del llm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the paged kernel route against the plain route (kernel_impl="torch")
+    # and against the dense kernel route, through the engine: 8 prompts
+    # (four behind the preamble, one the preamble alone: a whole-prompt hit,
+    # copy-on-write), chunked prefill, 32 teacher-forced decode steps with
+    # per-slot positions and 24 idle slots
+    order = [int(i) for i in np.argsort(lengths)]
+    # short to long; a preamble prompt first, so that it registers its
+    # blocks before the others are admitted
+    picks = [i for i in order if i % 2][::8][:4] + [i for i in order if i % 2 == 0][::11][:3]
+    route_prompts = [prompts[i] for i in picks] + [list(preamble)]
+    n_forced = 32
+    forced = torch.zeros((n_forced, slots), dtype=torch.int32, device=model.device)
+    for slot, i in enumerate(picks + [picks[-1]]):
+        forced[:, slot] = torch.tensor(first[i].tokens[:n_forced], dtype=torch.int32)
+    plain = Model(dataclasses.replace(cfg, kernel_impl="torch"), model.params.tree())
+    k_lg, k_stats = engine_logits(torch, np, model, kw, route_prompts, forced, warm=1)
+    p_lg, _ = engine_logits(torch, np, plain, kw, route_prompts, forced, warm=1)
+    d_lg, _ = engine_logits(torch, np, model, dict(slots=slots, max_len=max_len), route_prompts,
+                            forced)
+    print(f"paged route: 8 slots of {slots}, prompts of {[len(p) for p in route_prompts]} tokens, "
+          f"prefix cache {k_stats}")
+    expect(k_stats.get("cow_copies", 0) >= 1 and k_stats.get("hit_tokens", 0) > 0,
+           "the paged route check had no prefix hit or no copy-on-write")
+    compare_logits(torch, k_lg, p_lg, "paged kernel route vs paged plain route", expect)
+    compare_logits(torch, k_lg, d_lg, "paged kernel route vs dense kernel route", expect)
+    del plain, k_lg, p_lg, d_lg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # preemption at full width: a tight pool, 12 requests
+    tight = LLM(model, slots=8, max_len=max_len, cache_layout="paged", page_size=page,
+                num_pages=1 + 100, prefix_cache=True, prefill_chunk=chunk, preempt=True)
+    mid = order[20:44:2]
+    pre_prompts = [prompts[i] for i in mid]
+    pre_params = [dataclasses.replace(params[i], max_new=48) for i in mid]
+    t0 = time.perf_counter()
+    outs = tight.generate(pre_prompts, pre_params)
+    c = tight.engine.health().counters
+    a = tight.engine.alloc
+    a.check_invariants()
+    print(f"preemption: {len(pre_prompts)} requests of {sorted(len(p) for p in pre_prompts)} "
+          f"prompt tokens on 8 slots and {a.num_pages - 1} pages: preempted {c['preempted']}, "
+          f"resumed {c['resumed']}, finish reasons {sorted({o.finish_reason for o in outs})}, "
+          f"free pages at the end {a.free_pages} of {a.num_pages - 1}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    expect(c["preempted"] >= 1 and c["resumed"] == c["preempted"], "no preemption / resume")
+    expect(all(o.finish_reason in ("length", "stop") for o in outs), "preempted run finish reasons")
+    a.drop_cache()
+    expect(a.free_pages == a.num_pages - 1, "pages leaked after the preempting run")
+    del tight
+    check(not failed, "paged generation phase: " + "; ".join(failed))
     return launches
 
 
@@ -818,6 +1398,7 @@ def main() -> int:
     from repro_torch.kernels.cross_entropy import cross_entropy_bwd, cross_entropy_fwd
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.paged_attention import paged_decode, paged_kv_write, paged_prefill
     from repro_torch.kernels.rmsnorm import layernorm, rmsnorm
     from repro_torch.kernels.sampling import fused_sample
     from repro_torch.models.model import Model, build_model
@@ -840,7 +1421,8 @@ def main() -> int:
     # together; the Triton norm compiles at its first launch
     t0 = time.perf_counter()
     logs = _build.finish_builds(_build.start_builds(
-        ["flash_attention_fwd", "flash_attention_bwd", "cross_entropy", "flash_decode", "sampling"]))
+        ["flash_attention_fwd", "flash_attention_bwd", "cross_entropy", "flash_decode", "sampling",
+         "paged_attention"]))
     t_nvcc = time.perf_counter() - t0
     for name, log in logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill stores" in ln
@@ -907,7 +1489,7 @@ def main() -> int:
     fa_flops = 4 * B * H * S * S * D
     fa_bound_ms, fa_bound_by = bound(fa_flops, 4 * B * S * H * D * 2 + B * H * S * 4)
     print(f"flash_attention_fwd B={B} S=T={S} H={H} D={D} bf16 on {card}: {fa_ms:.4f} ms "
-          f"(device {fa_dev_ms:.4f} ms; bound {fa_bound_ms:.4f} ms by {fa_bound_by}, "
+          f"(device {fmt_ms(fa_dev_ms)} ms; bound {fa_bound_ms:.4f} ms by {fa_bound_by}, "
           f"{fa_flops / fa_ms / 1e9:.1f} TFLOP/s), plain {fa_plain_ms:.4f} ms, "
           f"scaled_dot_product_attention {fa_lib_ms:.4f} ms")
     # the same kernel at the generation prefill's largest bucket
@@ -923,7 +1505,7 @@ def main() -> int:
     pf_flops = 4 * H * D * S * (S + 1) // 2          # the causal half of QK^T and PV
     pf_bound_ms, pf_bound_by = bound(pf_flops, (2 * S * H * D + 2 * S * Hkv * D) * 2 + S * H * 4)
     print(f"flash_attention_fwd qwen2-7b prefill B=1 S=T={S} H={H} Hkv={Hkv} D={D} causal bf16 on "
-          f"{card}: {pf_ms:.4f} ms (device {pf_dev_ms:.4f} ms; bound {pf_bound_ms:.4f} ms by "
+          f"{card}: {pf_ms:.4f} ms (device {fmt_ms(pf_dev_ms)} ms; bound {pf_bound_ms:.4f} ms by "
           f"{pf_bound_by}), plain {pf_plain_ms:.4f} ms, scaled_dot_product_attention (causal, "
           f"GQA) {pf_lib_ms:.4f} ms")
     del q, k, v, qt, kt, vt
@@ -959,7 +1541,7 @@ def main() -> int:
     ln_plain_ms = time_ms(torch, lambda: ref.layernorm_ref(x, w, b))
     ln_lib_ms = time_ms(torch, lambda: F.layer_norm(x, (d,), wl, bl, 1e-5))
     ln_bound_ms, ln_bound_by = bound(8 * rows * d, 2 * rows * d * 2 + 2 * d * 4, PEAK_FP32_FLOPS)
-    print(f"layernorm ({rows}, {d}) bf16 on {card}: {ln_ms:.4f} ms (device {ln_dev_ms:.4f} ms; "
+    print(f"layernorm ({rows}, {d}) bf16 on {card}: {ln_ms:.4f} ms (device {fmt_ms(ln_dev_ms)} ms; "
           f"bound {ln_bound_ms:.4f} ms by {ln_bound_by}, "
           f"{(2 * rows * d * 2 + 2 * d * 4) / ln_ms / 1e6:.0f} GB/s), plain {ln_plain_ms:.4f} ms, "
           f"F.layer_norm {ln_lib_ms:.4f} ms")
@@ -971,6 +1553,9 @@ def main() -> int:
     gen_recs = [check_rmsnorm(torch, F, ref, rmsnorm, randn, card),
                 check_sampling(torch, ref, fused_sample, randn, card),
                 check_flash_decode(torch, F, ref, flash_decode, randn, card)]
+    paged_recs = [check_paged_decode(torch, F, ref, paged_decode, randn, card),
+                  check_paged_prefill(torch, F, ref, paged_prefill, randn, card),
+                  check_paged_kv_write(torch, ref, paged_kv_write, randn, card)]
     torch.cuda.empty_cache()
 
     # ---- 4. slice 1: ESM-2 650M embedding serving through LLM.embed
@@ -1067,12 +1652,20 @@ def main() -> int:
 
     # ---- 7. slice 4a: Qwen2-7B generation through LLM.generate
     counters.update(rmsnorm=rmsnorm, flash_decode=flash_decode, fused_sample=fused_sample)
-    gen_launches = generate_phase(torch, counters, card)
+    gen_launches, model, load = generate_phase(torch, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 8. slice 4b: the same model and load through the paged KV cache
+    counters.update(paged_decode=paged_decode, paged_prefill=paged_prefill,
+                    paged_kv_write=paged_kv_write)
+    paged_launches = paged_phase(torch, counters, card, model, load)
+    del model
 
     # launches: each kernel's count in the run of its path — the training
     # run for rows 1-5 (the embed and generation runs' counts of the
-    # attention forward were checked in phases 4 and 7), the generation run
-    # for rows 6-8
+    # attention forward were checked in phases 4 and 7), the dense
+    # generation run for rows 6-8, the paged one for rows 9-11
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -1093,7 +1686,9 @@ def main() -> int:
         rec["launches"] = train_launches[rec["name"]]
     for rec in gen_recs:
         rec["launches"] = gen_launches[rec["name"]]
-    kernels += gen_recs
+    for rec in paged_recs:
+        rec["launches"] = paged_launches[rec["name"]]
+    kernels += gen_recs + paged_recs
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -158,9 +158,8 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """Serving knobs: the reference's fields for the dense layout.  The
-    paged layout's fields (page size, prefix cache, chunked prefill,
-    preemption) come with it (ROADMAP: slice 4b)."""
+    """Serving knobs: the reference's fields, for the dense and the paged
+    layout."""
 
     max_seq_len: int = 32768
     batch_size: int = 128
@@ -171,11 +170,25 @@ class ServeConfig:
     top_p: float = 1.0         # 1.0 = disabled
     seed: int = 0              # keys the counter-based sampling hash
     # KV-cache layout of the continuous-batching engine: "dense" per-slot
-    # buffers; "paged" raises until the paged slice is ported
+    # buffers, or "paged" block-table pages over a shared pool
+    # (serving/paged_cache.py + kernels/paged_attention.py)
     cache_layout: str = "dense"
+    page_size: int = 16        # tokens per page in the paged layout
+    # paged-layout features:
+    #   prefix_cache — content-addressed sharing of full prompt blocks
+    #   (refcounted pages, copy-on-write, LRU eviction of unreferenced
+    #   cached pages); prefill skips hash-hit blocks entirely.
+    #   prefill_chunk — bound each prefill step to N tokens, interleaved
+    #   with decode iterations (0 = prefill the suffix in one chunk).
+    prefix_cache: bool = False
+    prefill_chunk: int = 0
     # bounded admission queue (0 = unbounded): a full queue rejects at
     # submit with the retriable EngineOverloaded
     max_queue: int = 0
+    # under page pressure, evict the newest in-flight decode and replay it
+    # later (token-identical resume) instead of blocking the queue head;
+    # paged layout only
+    preempt: bool = False
     # default per-request wall-clock SLO from submit, in ms (None = none)
     deadline_ms: Optional[float] = None
 

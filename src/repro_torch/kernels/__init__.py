@@ -15,4 +15,8 @@
   by ``flash_decode.py``; replaces ``flash_decode.py::flash_decode``.
 * fused sampling: ``csrc/sampling.cu`` (CUDA C++ for sm_90a), wrapped by
   ``sampling.py``; replaces ``sampling.py::fused_sample``.
+* paged-KV attention: ``csrc/paged_attention.cu`` (CUDA C++ for sm_90a),
+  wrapped by ``paged_attention.py``; its decode, chunk-prefill and
+  K/V-insert kernels replace ``paged_attention.py::paged_flash_decode``,
+  ``paged_flash_prefill`` and ``paged_kv_write``.
 """

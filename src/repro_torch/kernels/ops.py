@@ -10,9 +10,10 @@ implementations: attention and cross-entropy pair their forward and
 backward kernels (or plain versions) in a ``torch.autograd.Function``, as
 the reference's custom VJPs do; LayerNorm pairs its forward kernel with
 the reference's hand-written backward formulas.  The serving ops —
-RMSNorm, decode attention and sampling — are forward-only: the RMSNorm
-kernel raises when asked for a gradient (its plain version stays
-differentiable).
+RMSNorm, decode attention, the paged-KV ops and sampling — are
+forward-only: the RMSNorm kernel raises when asked for a gradient (its
+plain version stays differentiable).  The paged-KV writes update the pools
+in place (the reference donates them and returns new ones).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 from repro_torch.kernels import cross_entropy as _ce
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _ln
 from repro_torch.kernels import sampling as _sp
@@ -34,6 +36,10 @@ def _plain(impl: str) -> bool:
     if impl not in IMPLS:
         raise ValueError(f"unknown kernel impl {impl!r}; expected one of {IMPLS}")
     return impl == "torch"
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
 
 
 def attention(
@@ -98,6 +104,85 @@ def decode_attention(
         return _ref.decode_attention_ref(q, k_cache, v_cache, length, softcap=softcap)
     return _fd.flash_decode(q, k_cache, v_cache, length.to(torch.int32).contiguous(),
                             softcap=softcap)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,            # (B, 1, H, D)
+    k_pool: torch.Tensor,       # (num_pages, page, Hkv, D)
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,  # (B, pages_per_seq) int32
+    length: torch.Tensor,       # (B,) valid cache length per sequence
+    *,
+    softcap: float = 0.0,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Single-token attention through a block-table paged KV pool ->
+    (B, 1, H, D); the kernel reads K/V through the table (no dense cache is
+    built), the plain version gathers the pages first."""
+    if _plain(impl):
+        return _ref.paged_decode_attention_ref(q, k_pool, v_pool, block_table, length,
+                                               softcap=softcap)
+    return _pa.paged_decode(q, k_pool, v_pool, _i32(block_table), _i32(length), softcap=softcap)
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,            # (B, S, H, D) chunk queries
+    k_pool: torch.Tensor,       # (num_pages, page, Hkv, D)
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,  # (B, pages_per_seq) int32
+    starts: torch.Tensor,       # (B,) position of each chunk's row 0
+    lengths: torch.Tensor,      # (B,) valid context length (start + valid rows)
+    *,
+    softcap: float = 0.0,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Chunk attention through a block-table paged KV pool -> (B, S, H, D):
+    query row i sits at ``starts[b] + i`` and attends to every position
+    ``<= starts[b] + i`` and ``< lengths[b]`` — pages shared from the
+    prefix cache and earlier chunks included.  The chunk's own K/V must
+    already be in the pool (``paged_kv_update_rows``)."""
+    if _plain(impl):
+        return _ref.paged_prefill_attention_ref(q, k_pool, v_pool, block_table, starts, lengths,
+                                                softcap=softcap)
+    return _pa.paged_prefill(q, k_pool, v_pool, _i32(block_table), _i32(starts), _i32(lengths),
+                             softcap=softcap)
+
+
+def paged_kv_update_rows(
+    k_pool: torch.Tensor,       # (num_pages, page, Hkv, D)
+    v_pool: torch.Tensor,
+    k_new: torch.Tensor,        # (S, Hkv, D) a batch-1 chunk's K rows
+    v_new: torch.Tensor,
+    page_idx: torch.Tensor,     # (S,) physical page per row (null page = masked)
+    row: torch.Tensor,          # (S,) row within each page
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter a prefill chunk's K/V rows into the pools, in place; returns
+    the pools.  O(S) rows move whatever the implementation, so this is an
+    indexed write on both (the reference's is a jnp scatter, not a
+    kernel).  Masked rows target the null page 0, where collisions are
+    harmless."""
+    idx = (page_idx.long(), row.long())
+    k_pool.index_put_(idx, k_new.to(k_pool.dtype))
+    v_pool.index_put_(idx, v_new.to(v_pool.dtype))
+    return k_pool, v_pool
+
+
+def paged_kv_update(
+    k_pool: torch.Tensor,       # (num_pages, page, Hkv, D)
+    v_pool: torch.Tensor,
+    k_new: torch.Tensor,        # (B, 1, Hkv, D) decode-token K per slot
+    v_new: torch.Tensor,
+    page_idx: torch.Tensor,     # (B,) physical page holding each slot's write pos
+    row: torch.Tensor,          # (B,) row within the page (pos % page)
+    *,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Insert one decode token per slot at (page_idx, row), in place;
+    returns the pools.  One kernel launch writes K and V."""
+    k_new, v_new = k_new.to(k_pool.dtype), v_new.to(v_pool.dtype)
+    fn = _ref.paged_kv_write_ref if _plain(impl) else _pa.paged_kv_write
+    fn(k_pool, v_pool, k_new, v_new, _i32(page_idx), _i32(row))
+    return k_pool, v_pool
 
 
 def sample_tokens(

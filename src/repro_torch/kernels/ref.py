@@ -242,6 +242,83 @@ def decode_attention_ref(
 
 
 # --------------------------------------------------------------------- #
+# paged KV cache: the page gather, attention through a block table, and the
+# per-token insert
+# --------------------------------------------------------------------- #
+def _gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """(num_pages, page, Hkv, D) + (B, n) table -> dense (B, n·page, Hkv, D)."""
+    B, n = block_table.shape
+    return pool[block_table.reshape(-1).long()].reshape(B, n * pool.shape[1], *pool.shape[2:])
+
+
+def paged_decode_attention_ref(
+    q: torch.Tensor,            # (B, 1, H, D)
+    k_pool: torch.Tensor,       # (num_pages, page, Hkv, D)
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,  # (B, pages_per_seq) physical page ids
+    lengths: torch.Tensor,      # (B,) valid cache length per row
+    *,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """One-token attention through a block table: the pages gathered into a
+    dense cache, then ``decode_attention_ref`` (the reference's XLA path of
+    ``ops.paged_decode_attention``).  A row of length 0 gives zeros."""
+    return decode_attention_ref(q, _gather_pages(k_pool, block_table),
+                                _gather_pages(v_pool, block_table), lengths, softcap=softcap)
+
+
+def paged_prefill_attention_ref(
+    q: torch.Tensor,            # (B, S, H, D) chunk queries
+    k_pool: torch.Tensor,       # (num_pages, page, Hkv, D)
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,  # (B, pages_per_seq)
+    starts: torch.Tensor,       # (B,) position of each chunk's row 0
+    lengths: torch.Tensor,      # (B,) valid context length (start + valid rows)
+    *,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Chunk attention through a block table: (B, S, H, D) in q.dtype.
+
+    Query row i of batch b sits at position ``starts[b] + i`` and attends
+    to the cache positions ``k <= starts[b] + i`` with ``k < lengths[b]``
+    (the reference's XLA path of ``ops.paged_prefill_attention``): fp32
+    scores, a fully masked row gives zeros, and the normalized
+    probabilities are rounded to q.dtype before the PV product, which
+    accumulates in fp32."""
+    B, S, H, D = q.shape
+    Hkv = k_pool.shape[2]
+    k = _gather_pages(k_pool, block_table).float()        # (B, T, Hkv, D)
+    v = _gather_pages(v_pool, block_table).float()
+    T = k.shape[1]
+    qg = q.reshape(B, S, Hkv, H // Hkv, D).float()
+    s = torch.einsum("bshgd,bthd->bhgst", qg, k) * (1.0 / math.sqrt(D))
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    dev = q.device
+    q_pos = starts.to(dev).long()[:, None] + torch.arange(S, device=dev)[None, :]   # (B, S)
+    k_pos = torch.arange(T, device=dev)
+    mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
+            & (k_pos[None, None, :] < lengths.to(dev).long()[:, None, None]))     # (B, S, T)
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(s - m))
+    p = (p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
+    out = torch.einsum("bhgst,bthd->bshgd", p.float(), v)
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def paged_kv_write_ref(k_pool: torch.Tensor, v_pool: torch.Tensor, k_new: torch.Tensor,
+                       v_new: torch.Tensor, page_idx: torch.Tensor, row: torch.Tensor) -> None:
+    """In place: ``pool[page_idx[b], row[b]] = new[b, 0]`` for K and V.
+    k_new, v_new (B, 1, Hkv, D).  Idle slots all write to the null page 0,
+    which holds no sequence; where two of them collide, either write may
+    land."""
+    idx = (page_idx.long(), row.long())
+    k_pool.index_put_(idx, k_new[:, 0].to(k_pool.dtype))
+    v_pool.index_put_(idx, v_new[:, 0].to(v_pool.dtype))
+
+
+# --------------------------------------------------------------------- #
 # sampling: the counter-hash Gumbel noise and the bisection row math
 # --------------------------------------------------------------------- #
 _BISECT_ITERS = 32

@@ -1,6 +1,7 @@
 """Top-level model: the param tree as an ``nn.Module`` plus the entry points
 ported so far — embedding extraction, the training loss, and generation
-over a dense KV cache (``prefill``, ``decode_step``, ``init_cache``).
+over a dense or a paged KV cache (``prefill``, ``prefill_chunk``,
+``decode_step``, ``init_cache``).
 
 ``build_model(cfg)`` materializes seeded random weights on the GPU; pass
 ``device="cpu"`` to run on the CPU (the tests do).  Weights from the
@@ -24,6 +25,7 @@ from repro_torch.core.config import ModelConfig
 from repro_torch.core.module import ParamTree, materialize, tree_map
 from repro_torch.core.precision import policy_for
 from repro_torch.kernels import ops
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -147,22 +149,75 @@ class Model(nn.Module):
         return lg, {"layers": self._pad_caches(caches, S, max_len), "pos": pos}
 
     @torch.no_grad()
+    def prefill_chunk(self, params: Dict[str, Any], layers: Dict[str, Any], tokens: torch.Tensor,
+                      block_row: torch.Tensor, start: int, n_valid: int
+                      ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One bounded chunk of an incremental prefill over the paged
+        engine cache (prefix caching and chunked prefill).
+
+        ``layers`` is the engine cache's ``"layers"`` tree (the shared page
+        pools); ``tokens`` (1, C) is a chunk right-padded to a bucket;
+        ``block_row`` (1, pages_per_seq) is the slot's row of the block
+        table; ``start`` is the position of the chunk's first token (> 0
+        when a cached prefix was skipped or an earlier chunk ran);
+        ``n_valid`` (<= C) is the number of real rows.  The chunk's K/V rows
+        go into the slot's pages in place, and attention runs causally over
+        positions [0, start + n_valid) through the block table — pages
+        shared from the prefix cache included.  Returns (logits (1, 1,
+        Vpad) of the last valid row — meaningful on the final chunk —,
+        layers).  Sound only for causal attention-only stacks; the engine
+        gates it."""
+        C = tokens.shape[1]
+        x = self._decoder_input(params, tokens)
+        positions = start + torch.arange(C, device=x.device)
+        page = layers["sub0"]["attn"]["k_pool"].shape[2]
+        paged = A.paged_chunk_addressing(block_row, int(start), C, int(n_valid), page)
+        x, layers = self._backbone(params, x, mode="chunk", positions=positions, caches=layers,
+                                   cache_pos=int(start), paged=paged)
+        return self.logits(params, x[:, n_valid - 1 : n_valid, :]), layers
+
+    @torch.no_grad()
     def decode_step(self, params: Dict[str, Any], cache: Dict[str, Any], tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One-token step: tokens (B, 1) -> (logits (B, 1, Vpad), cache).
         ``cache["pos"]`` is an int (lockstep rows) or a (B,) tensor (the
-        continuous-batching engine); the K/V buffers are updated in place and
-        the returned cache holds them with ``pos + 1``."""
+        continuous-batching engine); the K/V buffers (or page pools, read
+        and written through ``cache["block_table"]``) are updated in place
+        and the returned cache holds them with ``pos + 1``."""
         pos = cache["pos"]
+        block_table = cache.get("block_table")
+        paged = None
+        if block_table is not None:     # the paging arithmetic, once for all layers
+            page = cache["layers"]["sub0"]["attn"]["k_pool"].shape[2]
+            paged = A.paged_decode_addressing(block_table, pos, page)
         x = self._decoder_input(params, tokens)
         rope_pos = None if torch.is_tensor(pos) else torch.full((1,), int(pos), device=x.device)
         x, layers = self._backbone(params, x, mode="decode", positions=rope_pos,
-                                   caches=cache["layers"], cache_pos=pos)
-        return self.logits(params, x), {"layers": layers, "pos": pos + 1}
+                                   caches=cache["layers"], cache_pos=pos, paged=paged)
+        new = {"layers": layers, "pos": pos + 1}
+        if block_table is not None:
+            new["block_table"] = block_table
+        return self.logits(params, x), new
 
     @torch.no_grad()
-    def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
-        """A zeroed dense decode cache in the compute dtype, position 0."""
+    def init_cache(self, batch: int, max_len: int, *, layout: str = "dense", page_size: int = 0,
+                   num_pages: int = 0) -> Dict[str, Any]:
+        """A zeroed decode cache in the compute dtype.  Dense: K/V buffers,
+        position 0.  ``layout="paged"``: page pools shared by the slots, a
+        top-level (batch, pages_per_seq) ``block_table`` of the null page 0
+        that the engine's allocator maintains, and a per-slot (batch,)
+        ``pos``."""
+        if layout == "paged":
+            if page_size <= 0 or num_pages <= 1:
+                raise ValueError("paged layout needs page_size>0, num_pages>1")
+            pages_per_seq = -(-max_len // page_size)
+            dev = self.device
+            return {"layers": T.init_stack_cache(self.cfg, batch, max_len, self.policy.cdt, dev,
+                                                 layout="paged", page_size=page_size,
+                                                 num_pages=num_pages),
+                    "block_table": torch.zeros((batch, pages_per_seq), dtype=torch.int32,
+                                               device=dev),
+                    "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
         return {"layers": T.init_stack_cache(self.cfg, batch, max_len, self.policy.cdt,
                                              self.device),
                 "pos": 0}

@@ -17,7 +17,12 @@ import torch
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.module import stack_tree, tree_map
 from repro_torch.models import layers as L
-from repro_torch.models.attention import attention_apply, attention_defs, cache_shape
+from repro_torch.models.attention import (
+    attention_apply,
+    attention_defs,
+    cache_shape,
+    init_paged_cache,
+)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -48,10 +53,11 @@ def stack_defs(cfg: ModelConfig) -> Dict[str, Any]:
     return stack_tree({"sub0": _layer_defs(cfg)}, cfg.num_layers)
 
 
-def _apply_layer(cfg, params, x, *, mode, positions, causal, cache, cache_pos):
+def _apply_layer(cfg, params, x, *, mode, positions, causal, cache, cache_pos, paged):
     h = L.norm_apply(cfg, params["norm1"], x)
     mix, cache = attention_apply(cfg, params["attn"], h, positions=positions, mode=mode,
-                                 causal=causal, cache=cache, cache_pos=cache_pos)
+                                 causal=causal, cache=cache, cache_pos=cache_pos,
+                                 paged=paged)
     x = x + mix
     if "ffn" in params:
         x = x + L.mlp_apply(cfg, params["ffn"], L.norm_apply(cfg, params["norm2"], x))
@@ -68,26 +74,31 @@ def decoder_stack(
     caches: Optional[Dict[str, Any]] = None,
     cache_pos: Union[None, int, torch.Tensor] = None,
     causal: Optional[bool] = None,
+    paged: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Runs every layer.  Returns (x, caches), caches in the reference's
-    stacked tree ``{"sub0": {"attn": {"k", "v"}}}`` with leaves (num_layers,
-    B, T, Hkv, D): this call's K/V in prefill mode; in decode mode the
-    ``caches`` passed in, updated in place (each layer writes through its
-    view of the stacked buffers); None in train mode."""
+    stacked tree ``{"sub0": {"attn": {...}}}``: in prefill mode this call's
+    K/V, leaves ``k``/``v`` (num_layers, B, T, Hkv, D); in decode and chunk
+    modes the ``caches`` passed in — dense ``k``/``v`` or paged
+    ``k_pool``/``v_pool`` (num_layers, P, page, Hkv, D) — updated in place
+    (each layer writes through its view of the stacked buffers); None in
+    train mode.  ``paged``, the paged layout's addresses of this step or
+    chunk (``attention.paged_*_addressing``), reaches every layer."""
     check_supported(cfg)
     # one unbind per stacked leaf: under autograd its backward stacks the
     # per-layer grads once, where slicing p[j] per layer would write a
     # zero-filled copy of the whole stacked leaf for each layer
     per_layer = tree_map(lambda p: p.unbind(0), stacked_params["sub0"])
-    per_cache = tree_map(lambda c: c.unbind(0), caches["sub0"]) if mode == "decode" else None
+    in_place = mode in ("decode", "chunk")
+    per_cache = tree_map(lambda c: c.unbind(0), caches["sub0"]) if in_place else None
     new = []
     for j in range(cfg.num_layers):
         layer = tree_map(lambda ps: ps[j], per_layer)
         cache = tree_map(lambda cs: cs[j], per_cache["attn"]) if per_cache else None
         x, cache = _apply_layer(cfg, layer, x, mode=mode, positions=positions, causal=causal,
-                                cache=cache, cache_pos=cache_pos)
+                                cache=cache, cache_pos=cache_pos, paged=paged)
         new.append(cache)
-    if mode == "decode":
+    if in_place:
         return x, caches
     if mode == "prefill":
         return x, {"sub0": {"attn": {n: torch.stack([c[n] for c in new]) for n in ("k", "v")}}}
@@ -95,10 +106,16 @@ def decoder_stack(
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
-                     device: torch.device) -> Dict[str, Any]:
-    """The dense decode cache, stacked over the layers: leaves (num_layers,
-    batch, T, Hkv, D), zeroed (the reference builds one layer's
-    ``attention.init_cache`` and broadcasts it)."""
+                     device: torch.device, *, layout: str = "dense", page_size: int = 0,
+                     num_pages: int = 0) -> Dict[str, Any]:
+    """The decode cache, stacked over the layers, zeroed (the reference
+    builds one layer's cache and broadcasts it).  Dense: leaves ``k``/``v``
+    (num_layers, batch, T, Hkv, D).  Paged: leaves ``k_pool``/``v_pool``
+    (num_layers, num_pages, page_size, Hkv, D), shared by every slot; each
+    layer works on a contiguous view."""
+    if layout == "paged":
+        return {"sub0": {"attn": init_paged_cache(cfg, num_pages, page_size, dtype, device,
+                                                  stack=(cfg.num_layers,))}}
     shape = (cfg.num_layers, *cache_shape(cfg, batch, max_len))
     return {"sub0": {"attn": {n: torch.zeros(shape, dtype=dtype, device=device)
                               for n in ("k", "v")}}}

@@ -2,16 +2,18 @@
 
     model = build_model(dataclasses.replace(get_config("qwen2-7b"),
                                             param_dtype="bfloat16"))   # on the GPU
-    llm = LLM(model, slots=32, max_len=2048)
+    llm = LLM(model, slots=32, max_len=2048)                     # dense KV cache
     outs = llm.generate(prompts, SamplingParams(temperature=0.8, top_k=40))
+    paged = LLM(model, slots=32, max_len=2048, cache_layout="paged",
+                prefix_cache=True, prefill_chunk=512)           # page pool
     for chunk in llm.stream(prompts, SamplingParams(max_new=64)):
         print(chunk.index, chunk.token)
 
     esm = LLM(build_model(get_config("esm2-650m")), slots=32, max_len=1024)
     vecs = esm.embed([tok.encode(seq) for seq in sequences])   # (n, 1280) fp32
 
-The port's copy of the reference's ``repro.serving.api`` for the dense
-cache layout:
+The port's copy of the reference's ``repro.serving.api``, for the dense
+and the paged cache layouts:
 
 * ``LLM.generate(prompts, params)`` — batch completion: submits every
   prompt with its own ``SamplingParams`` (one shared instance or a
@@ -91,14 +93,18 @@ class LLM:
     """
 
     def __init__(self, model, *, slots: int = 4, max_len: int = 512,
-                 cache_layout: str = "dense", max_queue: int = 0, faults: Optional[Any] = None,
+                 cache_layout: str = "dense", page_size: int = 16, num_pages: int = 0,
+                 prefix_cache: bool = False, prefill_chunk: int = 0, max_queue: int = 0,
+                 preempt: bool = False, faults: Optional[Any] = None,
                  default_params: Optional[SamplingParams] = None,
                  clock: Callable[[], float] = time.time,
-                 metrics: Optional[Any] = None, trace: Optional[Any] = None):
+                 metrics: Optional[Any] = None, trace: Optional[Any] = None,
+                 profile: bool = False):
         self.engine = Engine(
             model, slots=slots, max_len=max_len, cache_layout=cache_layout,
-            max_queue=max_queue, faults=faults,
-            clock=clock, metrics=metrics, trace=trace,
+            page_size=page_size, num_pages=num_pages, prefix_cache=prefix_cache,
+            prefill_chunk=prefill_chunk, max_queue=max_queue, preempt=preempt, faults=faults,
+            clock=clock, metrics=metrics, trace=trace, profile=profile,
         )
         self.default_params = default_params or SamplingParams()
         self._uid = 0
@@ -106,15 +112,17 @@ class LLM:
     @classmethod
     def from_config(cls, model, sc: ServeConfig, *, slots: Optional[int] = None,
                     **kw) -> "LLM":
-        """Build from a ``ServeConfig``: its sampling knobs (temperature,
-        top_k, top_p, seed, deadline_ms) become the default
-        ``SamplingParams``; extra keyword args (``clock``, ``metrics``,
-        ``trace``, ``faults``) pass through to the constructor."""
+        """Build from a ``ServeConfig``: its layout and scheduling fields map
+        onto the engine, its sampling knobs (temperature, top_k, top_p, seed,
+        deadline_ms) become the default ``SamplingParams``; extra keyword
+        args (``num_pages``, ``clock``, ``metrics``, ``trace``, ``faults``,
+        ``profile``) pass through to the constructor."""
         return cls(
             model,
             slots=slots if slots is not None else sc.batch_size,
             max_len=sc.max_seq_len, cache_layout=sc.cache_layout,
-            max_queue=sc.max_queue,
+            page_size=sc.page_size, prefix_cache=sc.prefix_cache,
+            prefill_chunk=sc.prefill_chunk, max_queue=sc.max_queue, preempt=sc.preempt,
             default_params=SamplingParams(
                 temperature=sc.temperature, top_k=sc.top_k, top_p=sc.top_p,
                 seed=sc.seed, deadline_ms=sc.deadline_ms,

@@ -1,7 +1,7 @@
 """Serving engine of the port: continuous-batching generation over a dense
-KV cache, and batched embedding extraction.
+or a paged KV cache, and batched embedding extraction.
 
-The dense half of the reference's ``repro.serving.engine``:
+The port's copy of the reference's ``repro.serving.engine``:
 
   * a fixed pool of B slots shares one preallocated KV cache
     (``Model.init_cache`` with a (B,) position vector), allocated at the
@@ -12,6 +12,41 @@ The dense half of the reference's ``repro.serving.engine``:
   * every ``step`` decodes ALL slots in lockstep with per-slot positions;
     finished slots (stop / length) are released and refilled from the
     queue at the next step.
+
+Two cache layouts:
+
+``cache_layout="dense"``
+    One (B, max_len) K/V buffer per layer; the decode write is an indexed
+    write of B rows.
+
+``cache_layout="paged"``
+    Fixed-size pages of a pool shared by the slots, mapped per slot by a
+    block table (``paged_cache.PageAllocator``, host-side).  Admission
+    reserves the request's whole budget (prompt + max_new): a request that
+    does not fit waits in the queue, one that can never fit is rejected at
+    submit.  The decode write and attention go through the table
+    (``kernels/paged_attention.py``); the device copy of the table moves
+    only at admission, chunk completion, release and preemption.  With it:
+
+    * ``prefix_cache=True`` — admission hashes the prompt's full blocks
+      against the allocator's content-addressed page index; hash-hit
+      blocks are shared (refcounted) and prefill runs over the suffix
+      only; a fully cached prompt recomputes its last token in a private
+      copy of its last page (copy-on-write).  A finished prompt's full
+      blocks are registered for later requests.
+    * ``prefill_chunk=N`` — prompts prefill in chunks of at most N tokens,
+      one chunk per engine step while decodes are in flight, so a long
+      prompt delays each decode step by at most one chunk.  Mid-prefill
+      slots are invisible to the lockstep decode: their table rows are
+      masked to the null page in the device copy.
+    * ``preempt=True`` — when the queue head is blocked on pages, the
+      newest in-flight decode is evicted and re-queued behind it; on
+      re-admission it replays prompt + generated tokens, and its
+      generation index keys the same sampling noise, so it resumes token
+      for token.
+
+    Prefix caching and chunked prefill need a causal attention-only stack
+    (the condition of prompt bucketing); they are rejected otherwise.
 
 Token-in/token-out: selection runs on the device (``ops.sample_tokens``:
 the fused per-slot sampler, greedy rows degrade to argmax), the sampled
@@ -33,12 +68,13 @@ Telemetry: ``metrics=MetricsRegistry()`` makes the lifecycle counters,
 gauges and TTFT / ITL / queue-wait / end-to-end histograms registry-backed;
 ``trace=TraceRecorder()`` records one event per lifecycle transition,
 stamped by the engine's clock.  Both are host-side appends.
-
-The paged layout (prefix caching, chunked prefill, preemption) comes with
-the next slice (ROADMAP: slice 4b); ``cache_layout="paged"`` raises.
+``profile=True`` wraps the decode dispatch and the prefills in named
+``torch.profiler`` scopes and accumulates the ``decode`` and ``host_sync``
+spans of each step in ``Engine.step_timer`` (host clock, no device sync).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -49,7 +85,15 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.model import Model
 from repro_torch.obs.metrics import LATENCY_BUCKETS, MetricsRegistry
+from repro_torch.obs.profile import StepTimer, annotate
 from repro_torch.obs.trace import TraceRecorder
+from repro_torch.serving.paged_cache import (
+    NULL_PAGE,
+    PageAllocator,
+    copy_pages,
+    pages_for,
+    write_slot_paged,
+)
 from repro_torch.serving.sampling import SamplingParams, StopChecker, effective_params
 
 
@@ -77,11 +121,15 @@ class EngineHealth:
     """One snapshot of engine liveness (``Engine.health()``).
 
     ``steps_since_progress`` is the watchdog: engine steps since any
-    request was admitted, emitted a token, or finished."""
+    request was admitted, advanced a prefill chunk, emitted a token, or
+    finished."""
 
     queue_depth: int
     slots: int
     active_slots: int
+    prefilling: int
+    free_pages: Optional[int]       # None for the dense layout
+    total_pages: Optional[int]
     steps: int
     steps_since_progress: int
     counters: Dict[str, int]
@@ -104,10 +152,22 @@ class Request:
     logprobs: Optional[List[float]] = None   # per-token, if params.logprobs
     # "stop" | "length" | "timeout" | "error" | "cancelled" once done
     finish_reason: str = ""
+    preempted: int = 0           # times evicted and re-queued
     t_submit: float = 0.0
-    t_admit: float = 0.0         # admission to a slot (0 = never ran)
+    t_admit: float = 0.0         # first admission to a slot (0 = never ran)
     t_first: float = 0.0
     t_done: float = 0.0
+    _seq: int = -1               # submit order (engine-assigned)
+
+
+@dataclasses.dataclass
+class _Prefill:
+    """A slot mid-way through an incremental (chunked or suffix) prefill."""
+
+    req: Request
+    prompt: np.ndarray           # the prompt (+ the generated tokens of a
+                                 # resumed request), unpadded
+    done: int                    # tokens whose K/V is already in the pages
 
 
 def to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
@@ -156,26 +216,53 @@ to_host.transfers = 0
 
 class Engine:
     def __init__(self, model: Model, *, slots: int, max_len: int,
-                 cache_layout: str = "dense", max_queue: int = 0, faults: Optional[Any] = None,
+                 cache_layout: str = "dense", page_size: int = 16, num_pages: int = 0,
+                 prefix_cache: bool = False, prefill_chunk: int = 0, max_queue: int = 0,
+                 preempt: bool = False, faults: Optional[Any] = None,
                  clock: Callable[[], float] = time.time,
                  metrics: Optional[MetricsRegistry] = None,
-                 trace: Optional[TraceRecorder] = None):
-        if cache_layout == "paged":
-            raise NotImplementedError(
-                "cache_layout='paged' is not ported yet (ROADMAP: slice 4b, the paged "
-                "layout with prefix caching, chunked prefill and preemption)")
-        if cache_layout != "dense":
+                 trace: Optional[TraceRecorder] = None, profile: bool = False):
+        if cache_layout not in ("dense", "paged"):
             raise ValueError(f"unknown cache_layout {cache_layout!r}")
         self.model = model
         self.slots = slots
         self.max_len = max_len
+        self.layout = cache_layout
         cfg = model.cfg
-        # right-padding a prompt to a bucket is sound only when pad rows stay
-        # in every real row's future: causal attention, no rolling cache
-        self.bucket_prompts = cfg.causal and not cfg.sliding_window
+        # right-padding (prompt buckets, chunk buckets, prefix skips) is sound
+        # only when pad rows stay in every real row's future: causal
+        # attention, no rolling cache
+        paddable = cfg.causal and not cfg.sliding_window
+        self.bucket_prompts = paddable
+        self.prefix_cache = prefix_cache
+        self.prefill_chunk = prefill_chunk
+        self._incremental = prefix_cache or prefill_chunk > 0
+        if self._incremental:
+            if cache_layout != "paged":
+                raise ValueError("prefix_cache / prefill_chunk require cache_layout='paged'")
+            if not paddable:
+                raise ValueError("prefix_cache / prefill_chunk require a causal "
+                                 "attention-only decoder")
         self.max_queue = int(max_queue)
+        self.preempt = bool(preempt)
+        if self.preempt and cache_layout != "paged":
+            raise ValueError(
+                "preempt=True requires cache_layout='paged' — preemption frees "
+                "page-pool pressure, which the dense layout has none of"
+            )
         self.faults = faults
         self._clock = clock
+        self.alloc: Optional[PageAllocator] = None
+        if cache_layout == "paged":
+            if cfg.sliding_window:
+                raise ValueError("cache_layout='paged' does not support sliding-window "
+                                 "(rolling) caches — use the dense layout")
+            # default pool: every slot can hold a full max_len sequence, +1
+            # for the reserved null page — admission then only queues on
+            # slot pressure, like the dense layout
+            num_pages = num_pages or 1 + slots * pages_for(max_len, page_size)
+            self.alloc = PageAllocator(num_pages, page_size, slots, max_len,
+                                       prefix_cache=prefix_cache)
 
         # device state, allocated at the first submit (_ensure_state)
         self.cache: Optional[Dict[str, Any]] = None
@@ -190,8 +277,17 @@ class Engine:
         self.slot_stop: List[Optional[StopChecker]] = [None] * slots
         self.queue: List[Request] = []
         self.done: List[Request] = []
+        # slots mid-prefill, in admission order (FIFO chunk scheduling)
+        self._prefilling: List[int] = []
+        self._prefill_state: Dict[int, _Prefill] = {}
+        # submit order (a preempted request re-queues among the younger
+        # ones) and admission recency (the preemption victim is the newest)
+        self._next_seq = 0
+        self._admit_counter = 0
+        self._admit_order: List[int] = [-1] * slots
         self.steps = 0
         self.decode_steps = 0        # steps that ran the lockstep decode
+        self.prefill_chunks = 0      # chunks of incremental prefills run
         self._steps_since_progress = 0
         self._progress = False
         self.counters: Dict[str, int] = {
@@ -201,6 +297,8 @@ class Engine:
 
         self.metrics = metrics
         self.trace = trace
+        self.profile = bool(profile)
+        self.step_timer = StepTimer() if self.profile else None
         self._mc = None
         if metrics is not None:
             fam = metrics.counter(
@@ -213,6 +311,8 @@ class Engine:
                 for name, help in (
                     ("queue_depth", "requests waiting for admission"),
                     ("active_slots", "slots holding an in-flight request"),
+                    ("prefilling", "slots mid incremental prefill"),
+                    ("free_pages", "KV pool pages on the free list"),
                     ("steps_since_progress",
                      "watchdog: engine steps since any request advanced"),
                 )
@@ -250,20 +350,29 @@ class Engine:
     def _observe_gauges(self) -> None:
         self._g["queue_depth"].set(len(self.queue))
         self._g["active_slots"].set(sum(r is not None for r in self.slot_req))
+        self._g["prefilling"].set(len(self._prefilling))
+        if self.alloc is not None:
+            self._g["free_pages"].set(self.alloc.free_pages)
         self._g["steps_since_progress"].set(self._steps_since_progress)
 
     # ---------------------------------------------------------- device state
     @torch.no_grad()
     def _ensure_state(self) -> None:
-        """Allocate the dense cache and the per-slot device vectors once.
-        The numeric sampling params live on the device as (B,) vectors;
+        """Allocate the cache (dense buffers, or the page pools and the block
+        table) and the per-slot device vectors once.  The numeric sampling
+        params live on the device as (B,) vectors;
         ``gen`` is each slot's generation index (tokens emitted so far),
         which keys the counter-hash sampling noise; ``seed`` holds the
         uint32 seed's bits as int32."""
         if self.cache is not None:
             return
         B, dev = self.slots, self.model.device
-        cache = self.model.init_cache(B, self.max_len)
+        if self.alloc is not None:
+            cache = self.model.init_cache(B, self.max_len, layout="paged",
+                                          page_size=self.alloc.page_size,
+                                          num_pages=self.alloc.num_pages)
+        else:
+            cache = self.model.init_cache(B, self.max_len)
         cache["pos"] = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.cache = cache
         self._samp = {
@@ -296,6 +405,12 @@ class Engine:
                 f"request {req.uid}: prompt+max_new = {need} tokens "
                 f"overflows max_len {self.max_len}"
             )
+        if self.alloc is not None and not self.alloc.fits_slot(need):
+            raise ValueError(
+                f"request {req.uid}: {need} tokens can never fit the page "
+                f"pool ({self.alloc.num_pages - 1} usable pages of "
+                f"{self.alloc.page_size})"
+            )
         # bounded backpressure: the typed rejection tells the caller to back
         # off and retry; validation errors above can never succeed and are
         # not rejections
@@ -306,6 +421,8 @@ class Engine:
             raise EngineOverloaded(req.uid, len(self.queue), self.max_queue)
         self._ensure_state()
         req.t_submit = self._clock()
+        req._seq = self._next_seq
+        self._next_seq += 1
         self._bump("submitted")
         self.queue.append(req)
         self._emit("submit", req, ts=req.t_submit,
@@ -379,23 +496,49 @@ class Engine:
         return max(n, min(b, max(self.max_len, 1)))
 
     def _write_slot(self, slot: int, one_cache: Dict[str, Any], pos: int) -> None:
-        """Copy a batch-1 prefilled cache into slot `slot`."""
+        """Copy a batch-1 prefilled cache into slot `slot` (dense)."""
         dst = self.cache["layers"]["sub0"]["attn"]
         src = one_cache["layers"]["sub0"]["attn"]
         for name in ("k", "v"):
             dst[name][:, slot].copy_(src[name][:, 0])
         self.cache["pos"][slot].fill_(pos)
 
+    def _push_table(self) -> None:
+        """Copy the block table to the device cache, masking mid-prefill
+        slots to the null page: the lockstep decode must neither read nor
+        write their half-built pages (their writes land on page 0, which
+        belongs to no sequence)."""
+        tbl = self.alloc.table
+        if self._prefilling:
+            tbl = tbl.copy()
+            tbl[self._prefilling, :] = NULL_PAGE
+        self.cache["block_table"] = torch.tensor(tbl, device=self.model.device)
+
+    def _write_slot_paged(self, slot: int, one_cache: Dict[str, Any], pos: int,
+                          pages: np.ndarray, n_tiles: int) -> None:
+        """Scatter a batch-1 prefilled cache into `slot`'s pool pages."""
+        ids = np.full((n_tiles,), NULL_PAGE, np.int32)
+        ids[: min(n_tiles, len(pages))] = pages[:n_tiles]
+        write_slot_paged(self.cache["layers"], one_cache["layers"],
+                         torch.tensor(ids, device=self.model.device))
+        self._push_table()
+        self.cache["pos"][slot].fill_(pos)
+
     def _set_slot_params(self, slot: int, req: Request) -> None:
         """Bind a request's sampling intent to its slot on the host (the
-        stop machinery, the deadline); ``_emit_first`` writes the device
-        side."""
+        stop machinery, the deadline, admission recency); ``_emit_first``
+        writes the device side."""
         sp = effective_params(req)
         self.slot_sp[slot] = sp
         self.slot_stop[slot] = StopChecker(sp, req.eos_id)
         self.slot_deadline[slot] = self._abs_deadline(req)
+        self._admit_order[slot] = self._admit_counter
+        self._admit_counter += 1
+        first_admission = req.t_admit == 0.0
         req.t_admit = self._clock()
-        if self.metrics is not None:
+        if self.metrics is not None and first_admission:
+            # queue wait is the time to the first admission; a preempted
+            # request's re-admission is scheduler churn, not queueing delay
             self._h_queue.observe(req.t_admit - req.t_submit)
 
     def _abs_deadline(self, req: Request) -> Optional[float]:
@@ -409,16 +552,19 @@ class Engine:
         return [s for s in self.faults.nan_slots(self.steps) if 0 <= s < self.slots]
 
     def _emit_first(self, slot: int, logits: torch.Tensor) -> None:
-        """Sample the first generated token from the prefill logits on the
-        device, bind the slot's device-side sampling state, record the
-        token, and flip the slot to lockstep decoding (or finish it at
-        once on stop, budget or poisoned logits)."""
+        """Sample the next generated token from the prefill logits on the
+        device, at the request's generation index — 0 for a fresh prompt,
+        the number of tokens already emitted for a resumed one —, bind the
+        slot's device-side sampling state, record the token, and flip the
+        slot to lockstep decoding (or finish it at once on stop, budget or
+        poisoned logits)."""
         req, sp, s = self.slot_req[slot], self.slot_sp[slot], self._samp
+        gen0 = len(req.output) if req.output else 0
         s["temp"][slot].fill_(sp.temperature)
         s["top_k"][slot].fill_(sp.top_k)
         s["top_p"][slot].fill_(sp.top_p)
         s["seed"][slot].fill_(int(np.uint32(sp.seed & 0xFFFFFFFF).view(np.int32)))
-        s["gen"][slot].fill_(0)
+        s["gen"][slot].fill_(gen0)
         row = logits[:, -1]
         if slot in self._nan_slots():
             row = torch.full_like(row, float("nan"))
@@ -428,7 +574,7 @@ class Engine:
         tok, logp = ops.sample_tokens(row, s["temp"][one], s["top_k"][one], s["top_p"][one],
                                       s["seed"][one], s["gen"][one],
                                       impl=self.model.cfg.kernel_impl)
-        s["gen"][slot].fill_(1)
+        s["gen"][slot].fill_(gen0 + 1)
         s["active"][slot].fill_(True)
         self._last_tok[one].copy_(tok)
         nxt, lp, bad_h = to_host(tok, logp, bad)
@@ -438,36 +584,164 @@ class Engine:
             self._emit("quarantine", req, slot=slot, where="prefill")
             self._finish(slot)
             return
-        req.output = [int(nxt[0])]
-        req.logprobs = [float(lp[0])] if sp.logprobs else None
-        req.t_first = self._clock()
+        if gen0 == 0:
+            req.output = [int(nxt[0])]
+            req.logprobs = [float(lp[0])] if sp.logprobs else None
+            req.t_first = self._clock()
+            if self.metrics is not None:
+                self._h_ttft.observe(req.t_first - req.t_submit)
+            self._emit("decode", req, ts=req.t_first, slot=slot,
+                       ttft_s=req.t_first - req.t_submit)
+        else:
+            # a preempted request resuming: the replayed prefill gave the
+            # logits its next token would have seen, and gen0 keys the same
+            # sampling noise, so the token stream continues exactly
+            self._bump("resumed")
+            self._emit("resume", req, slot=slot, replayed_tokens=gen0)
+            req.output.append(int(nxt[0]))
+            if req.logprobs is not None:
+                req.logprobs.append(float(lp[0]))
         if self.metrics is not None:
-            self._h_ttft.observe(req.t_first - req.t_submit)
             self._c_toks.inc()
-        self._emit("decode", req, ts=req.t_first, slot=slot, ttft_s=req.t_first - req.t_submit)
         self.slot_left[slot] = req.max_new - len(req.output)
         fin = self.slot_stop[slot].check(req.output, self.slot_left[slot])
         if fin:
             req.finish_reason = fin
             self._finish(slot)
 
+    # ------------------------------------------------------------ preemption
+    def _replay_prompt(self, req: Request) -> np.ndarray:
+        """The tokens a (possibly preempted) request prefills: the prompt,
+        and for a resumed request its generated tokens too, so their K/V
+        is rebuilt and decoding continues where it was evicted."""
+        if req.output:
+            return np.concatenate([req.prompt, np.asarray(req.output, np.int32)])
+        return req.prompt
+
+    def _requeue(self, req: Request) -> None:
+        """Re-queue a preempted request in submit order among the entries
+        behind the blocked head (position 0): the head keeps the front —
+        putting the older victim ahead of it would only re-admit the victim
+        into the pages it just freed."""
+        i = len(self.queue)
+        for j in range(1, len(self.queue)):
+            if self.queue[j]._seq > req._seq:
+                i = j
+                break
+        self.queue.insert(max(i, 1) if self.queue else 0, req)
+
+    def _release_slot(self, slot: int) -> None:
+        """Deactivate `slot` on the device and reset its position."""
+        self._samp["active"][slot].fill_(False)
+        self.cache["pos"][slot].fill_(0)
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Evict an in-flight decode: deactivate the slot, release its pages
+        (exclusive ones free; prefix-registered ones park in the evictable
+        set, still indexed, so a replay may hit them), and re-queue the
+        request.  No sampling state needs saving: the generation index is
+        the resume cursor."""
+        req = self.slot_req[slot]
+        req.preempted += 1
+        self._bump("preempted")
+        self._emit("preempt", req, slot=slot, generated_tokens=len(req.output or []))
+        self.slot_req[slot] = None
+        self.slot_left[slot] = 0
+        self.slot_sp[slot] = None
+        self.slot_stop[slot] = None
+        self.slot_deadline[slot] = None
+        self._release_slot(slot)
+        self.alloc.release(slot)
+        self._push_table()
+        self._requeue(req)
+
+    def _preempt_for(self, head: Request, need: int, pp: Optional[np.ndarray]) -> bool:
+        """Make room for the blocked queue head by evicting the newest
+        in-flight decode(s); True iff the head fits afterwards.  Off unless
+        ``preempt=True``; a once-preempted request neither triggers nor
+        suffers preemption, so the cycle ends; prechecked, so pages are
+        never freed without an admission to use them."""
+        if not self.preempt or head.preempted:
+            return False
+        victims = [s for s in range(self.slots)
+                   if self.slot_req[s] is not None and s not in self._prefill_state
+                   and self.slot_req[s].preempted == 0]
+        if not victims:
+            return False
+        plan = self.alloc.plan(need, pp)
+        avail = self.alloc.free_pages + sum(self.alloc.releasable(s) for s in victims)
+        if plan.cost > avail:
+            return False
+        victims.sort(key=lambda s: self._admit_order[s])
+        while victims:
+            if self.alloc.can_admit(need, self.alloc.plan(need, pp)):
+                return True
+            self._preempt_slot(victims.pop())    # newest-admitted first
+        return self.alloc.can_admit(need, self.alloc.plan(need, pp))
+
+    # ------------------------------------------------------------ admission
     def _admit(self) -> None:
-        """Fill free slots from the queue head: batch-1 prefill, slot write,
-        first token."""
+        """Fill free slots from the queue head.  Dense, or paged without
+        prefix caching and chunking: batch-1 prefill, slot write, first
+        token.  Incremental (paged, prefix cache or chunks): plan and
+        allocate the pages (copy-on-write of a fully cached last page) and
+        queue the slot for chunked prefill."""
         if self.faults is not None and self.faults.alloc_blocked(self.steps):
             return  # injected allocator outage: no admissions this step
         params = self.model.params.tree()
+        dev = self.model.device
         for slot in range(self.slots):
             if self.slot_req[slot] is not None or not self.queue:
                 continue
-            req = self.queue.pop(0)
-            L = len(req.prompt)
-            prompt = np.zeros((self._bucket(L),), np.int32)
-            prompt[:L] = req.prompt
-            tokens = torch.as_tensor(prompt[None, :], device=self.model.device)
-            logits, one_cache = self.model.prefill(params, {"tokens": tokens}, self.max_len,
-                                                   length=L)
-            self._write_slot(slot, one_cache, one_cache["pos"])
+            req = self.queue[0]
+            pp = self._replay_prompt(req)
+            L = len(pp)
+            # the budget is invariant under replay: prompt + max_new
+            # (generated tokens move from the budget to the prompt)
+            need = len(req.prompt) + req.max_new
+            if self._incremental:
+                plan = self.alloc.plan(need, pp)
+                if not self.alloc.can_admit(need, plan):
+                    if not self._preempt_for(req, need, pp):
+                        break  # head-of-line blocking keeps FIFO order
+                    plan = self.alloc.plan(need, pp)
+                self.queue.pop(0)
+                self.alloc.alloc(slot, need, plan)
+                if self.alloc.last_cow is not None:
+                    # the last page of a fully cached prompt is shared:
+                    # privatize it before the last-token recompute writes
+                    src, dst = self.alloc.last_cow
+                    copy_pages(self.cache["layers"], torch.tensor([src], device=dev),
+                               torch.tensor([dst], device=dev))
+                self.slot_req[slot] = req
+                self._set_slot_params(slot, req)
+                self._emit("prefill", req, ts=req.t_admit, slot=slot, prompt_tokens=L,
+                           cached_tokens=plan.cached_tokens)
+                self._prefill_state[slot] = _Prefill(req=req, prompt=pp,
+                                                     done=plan.cached_tokens)
+                self._prefilling.append(slot)
+                self._push_table()
+                self._progress = True
+                continue
+            if self.alloc is not None and not self.alloc.can_admit(need):
+                if not self._preempt_for(req, need, None):
+                    break  # head-of-line blocking keeps FIFO order: wait for pages
+            self.queue.pop(0)
+            Sb = self._bucket(L)
+            prompt = np.zeros((Sb,), np.int32)
+            prompt[:L] = pp
+            tokens = torch.as_tensor(prompt[None, :], device=dev)
+            n_tiles = pages_for(Sb, self.alloc.page_size) if self.alloc is not None else 0
+            # the paged layout takes the prefill's K/V in whole page tiles
+            buf_len = n_tiles * self.alloc.page_size if self.alloc is not None else self.max_len
+            with annotate("engine/prefill", enabled=self.profile):
+                logits, one_cache = self.model.prefill(params, {"tokens": tokens}, buf_len,
+                                                       length=L)
+            if self.alloc is not None:
+                pages = self.alloc.alloc(slot, need)
+                self._write_slot_paged(slot, one_cache, L, pages, n_tiles)
+            else:
+                self._write_slot(slot, one_cache, one_cache["pos"])
             del one_cache
             self.slot_req[slot] = req
             self._set_slot_params(slot, req)
@@ -475,6 +749,33 @@ class Engine:
                        cached_tokens=0)
             self._progress = True
             self._emit_first(slot, logits)
+
+    def _advance_prefill(self, slot: int) -> None:
+        """Run ONE bounded prefill chunk of mid-prefill slot `slot`; when the
+        prompt is complete, register its full blocks, make the slot's pages
+        visible to the lockstep decode and emit the first token."""
+        st = self._prefill_state[slot]
+        L = len(st.prompt)
+        remaining = L - st.done
+        c = min(self.prefill_chunk or remaining, remaining)
+        toks = np.zeros((1, self._bucket(c)), np.int32)
+        toks[0, :c] = st.prompt[st.done : st.done + c]
+        dev = self.model.device
+        with annotate("engine/prefill_chunk", enabled=self.profile):
+            logits, self.cache["layers"] = self.model.prefill_chunk(
+                self.model.params.tree(), self.cache["layers"], torch.as_tensor(toks, device=dev),
+                torch.tensor(self.alloc.table[slot : slot + 1], device=dev), st.done, c)
+        st.done += c
+        self.prefill_chunks += 1
+        self._progress = True
+        if st.done < L:
+            return
+        self.alloc.register(slot, st.prompt)
+        self._prefilling.remove(slot)
+        del self._prefill_state[slot]
+        self._push_table()
+        self.cache["pos"][slot].fill_(L)
+        self._emit_first(slot, logits)
 
     # ------------------------------------------------------------ finishing
     @torch.no_grad()
@@ -496,6 +797,9 @@ class Engine:
                 return
         for slot in range(self.slots):
             if self.slot_req[slot] is req:
+                if slot in self._prefill_state:
+                    del self._prefill_state[slot]
+                    self._prefilling.remove(slot)
                 req.finish_reason = "cancelled"
                 self._finish(slot)
                 return
@@ -527,8 +831,10 @@ class Engine:
         self.slot_stop[slot] = None
         self.slot_deadline[slot] = None
         # deactivate and reset pos, so the slot comes back clean at once
-        self._samp["active"][slot].fill_(False)
-        self.cache["pos"][slot].fill_(0)
+        self._release_slot(slot)
+        if self.alloc is not None:
+            self.alloc.release(slot)
+            self._push_table()
 
     def _expire_queued(self) -> None:
         """Finish queued requests whose deadline passed before they ever
@@ -560,6 +866,9 @@ class Engine:
             dl = self.slot_deadline[s]
             if dl is None or self.slot_req[s] is None or now < dl:
                 continue
+            if s in self._prefill_state:
+                del self._prefill_state[s]
+                self._prefilling.remove(s)    # _finish re-pushes the table
             self.slot_req[s].finish_reason = "timeout"
             self._emit("timeout", self.slot_req[s], ts=now, where="in_flight", slot=s)
             self._finish(s)
@@ -590,17 +899,32 @@ class Engine:
         s["gen"] += s["active"].to(torch.int32)
         return nxt, logp, bad
 
+    def _span(self, name: str):
+        """The step timer's span ``name``; nothing when profiling is off."""
+        return self.step_timer.span(name) if self.step_timer is not None else contextlib.nullcontext()
+
     @torch.no_grad()
     def step(self) -> int:
-        """Expire queued deadlines, admit, run one lockstep decode over the
-        decoding slots, expire in-flight deadlines.  Returns the number of
-        slots decoded."""
+        """Expire queued deadlines, admit (possibly preempting), advance
+        prefill chunks, run one lockstep decode over the decoding slots,
+        expire in-flight deadlines.  Returns the number of slots decoded.
+
+        With decodes in flight, only the longest-waiting mid-prefill slot
+        advances, by ONE chunk, per step, so a long prompt delays each
+        decode step by at most one chunk; with none, every mid-prefill slot
+        advances a chunk."""
         self.steps += 1
         self._progress = False
         done0 = len(self.done)
         self._expire_queued()
         self._admit()
-        active = [s for s in range(self.slots) if self.slot_req[s] is not None]
+        if self._prefilling:
+            decoding = any(self.slot_req[s] is not None and s not in self._prefill_state
+                           for s in range(self.slots))
+            for slot in (self._prefilling[:1] if decoding else list(self._prefilling)):
+                self._advance_prefill(slot)
+        active = [s for s in range(self.slots)
+                  if self.slot_req[s] is not None and s not in self._prefill_state]
         if active:
             inject = self._no_inject
             bad_slots = self._nan_slots()
@@ -608,9 +932,11 @@ class Engine:
                 inject = torch.zeros_like(self._no_inject)
                 for b in bad_slots:
                     inject[b].fill_(True)
-            tok_d, logp_d, bad_d = self._decode(inject)
-            self._last_tok = tok_d
-            nxt, logps, bads = to_host(tok_d, logp_d, bad_d)   # the step's one transfer
+            with self._span("decode"), annotate("engine/decode", enabled=self.profile):
+                tok_d, logp_d, bad_d = self._decode(inject)
+            with self._span("host_sync"):
+                self._last_tok = tok_d
+                nxt, logps, bads = to_host(tok_d, logp_d, bad_d)   # the step's one transfer
             self.decode_steps += 1
             emitted = 0
             for s in active:
@@ -649,6 +975,9 @@ class Engine:
             queue_depth=len(self.queue),
             slots=self.slots,
             active_slots=sum(r is not None for r in self.slot_req),
+            prefilling=len(self._prefilling),
+            free_pages=self.alloc.free_pages if self.alloc is not None else None,
+            total_pages=self.alloc.num_pages - 1 if self.alloc is not None else None,
             steps=self.steps,
             steps_since_progress=self._steps_since_progress,
             counters=dict(self.counters),

@@ -273,6 +273,10 @@ def test_to_host_round_trips_dtypes():
 
 
 def test_serve_config_maps_and_paged_layout_raises(pair):
+    """The dense fields map onto the engine; so do the paged layout's
+    (page size, prefix cache, chunked prefill, preemption), and the paged
+    layout raises where the reference's does: for a sliding-window model,
+    and its features on the dense layout."""
     _, _, model = pair
     sc = ServeConfig(max_seq_len=96, batch_size=3, temperature=0.7, top_k=5, top_p=0.9,
                      seed=11, max_queue=7, deadline_ms=500.0)
@@ -281,8 +285,17 @@ def test_serve_config_maps_and_paged_layout_raises(pair):
     assert llm.default_params == SamplingParams(temperature=0.7, top_k=5, top_p=0.9, seed=11,
                                                 deadline_ms=500.0)
     assert llm.engine.cache is None     # the cache comes with the first submit
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        LLM.from_config(model, dataclasses.replace(sc, cache_layout="paged"))
+    paged = LLM.from_config(model, dataclasses.replace(
+        sc, cache_layout="paged", page_size=8, prefix_cache=True, prefill_chunk=32,
+        preempt=True)).engine
+    assert (paged.layout, paged.alloc.page_size, paged.prefix_cache, paged.prefill_chunk,
+            paged.preempt, paged.max_queue) == ("paged", 8, True, 32, True, 7)
+    assert paged.alloc.num_pages == 1 + 3 * 12 and paged.cache is None
+    with pytest.raises(ValueError, match="sliding-window"):
+        LLM.from_config(Model(dataclasses.replace(model.cfg, sliding_window=8),
+                              model.params.tree()), dataclasses.replace(sc, cache_layout="paged"))
+    with pytest.raises(ValueError, match="require cache_layout='paged'"):
+        LLM.from_config(model, dataclasses.replace(sc, prefix_cache=True))
     with pytest.raises(ValueError, match="overflows"):
         llm.generate([[1] * 90], SamplingParams(max_new=10))
     assert llm.engine.cache is None and llm.engine.counters["submitted"] == 0

@@ -19,6 +19,11 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cross_entropy import cross_entropy_bwd, cross_entropy_fwd  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    paged_decode,
+    paged_kv_write,
+    paged_prefill,
+)
 from repro_torch.kernels.rmsnorm import layernorm, rmsnorm  # noqa: E402
 from repro_torch.kernels.sampling import fused_sample  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
@@ -26,7 +31,7 @@ from repro_torch.serving.api import LLM  # noqa: E402
 from repro_torch.training.loop import Trainer  # noqa: E402
 
 KERNELS = (flash_attention_fwd, flash_attention_bwd, cross_entropy_fwd, cross_entropy_bwd, layernorm,
-           rmsnorm, flash_decode, fused_sample)
+           rmsnorm, flash_decode, fused_sample, paged_decode, paged_prefill, paged_kv_write)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -98,7 +103,7 @@ def test_the_ban_catches_library_calls_but_not_the_ports_op():
 
 def test_kernel_wrappers_have_no_fallback():
     for name in ("flash_attention.py", "cross_entropy.py", "rmsnorm.py", "flash_decode.py",
-                 "sampling.py", "ops.py"):
+                 "sampling.py", "paged_attention.py", "ops.py"):
         tree = ast.parse((PORT / "kernels" / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
 
@@ -143,6 +148,8 @@ def test_cpu_runs_launch_no_kernel():
     loss.backward()
     qwen = model_mod.build_model(get_smoke_config("qwen2-7b"), device="cpu")
     LLM(qwen, slots=2, max_len=48).generate([[1, 5, 6], [7, 8, 9, 10]])
+    LLM(qwen, slots=2, max_len=48, cache_layout="paged", page_size=8, prefix_cache=True,
+        prefill_chunk=4).generate([[1, 5, 6, 7, 8, 9, 10, 11, 12], [1, 5, 6, 7, 8, 9, 10, 11]])
     assert all(k.launches == 0 for k in KERNELS), [k.launches for k in KERNELS]
 
 
