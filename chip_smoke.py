@@ -4,21 +4,24 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from the sources in this checkout and holds each
-of the eleven kernels against its plain PyTorch version on the card.  Then
-drives the four paths ported so far: embedding serving through
+of the twelve kernels against its plain PyTorch version on the card.  Then
+drives the five paths ported so far: embedding serving through
 ``LLM.embed`` and MLM pre-training through ``Trainer.run`` (about 10
-optimizer steps) at the full width and depth of ESM-2 650M, and generation
+optimizer steps) at the full width and depth of ESM-2 650M; generation
 through ``LLM.generate`` at the full width and depth of Qwen2-7B (bf16
 parameters, 32 slots, 64 prompts of 256 new tokens) over a dense
 2048-token cache, then over the paged cache with prefix caching and
 512-token chunked prefill (half the prompts behind one shared 512-token
-preamble), all with seeded random weights, and checks what comes out of
-each.  Prints per-kernel times beside their bounds, the embedding
-throughput, the training step time, tokens/s, MFU and peak memory, the
-generation tokens/s, TTFT, decode-step time and idle share, a profile of
-each path, then one JSON line of kernel records and, last, ``{"ok": true,
-"device": {...}}``.  Exits non-zero, printing no result, when there is no
-CUDA device or a phase fails.  Imports nothing of JAX.
+preamble); and MoE generation through ``LLM.generate`` with
+Llama-4-Scout at full width, its depth cut to 8 of 48 layers, on the same
+load over the dense cache; all with seeded random weights, checking what
+comes out of each.  Prints per-kernel times beside their bounds, the
+embedding throughput, the training step time, tokens/s, MFU and peak
+memory, the generation tokens/s, TTFT, decode-step time and idle share, the
+router's drops, a profile of each path, then one JSON line of kernel
+records and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero,
+printing no result, when there is no CUDA device or a phase fails.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -134,7 +137,7 @@ def kernel_groups(prof, DeviceType):
     groups = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0, "cross_entropy": 0.0,
               "layernorm": 0.0, "rmsnorm": 0.0, "flash_decode": 0.0, "fused_sample": 0.0,
               "paged_decode": 0.0, "paged_prefill": 0.0, "paged_kv_write": 0.0,
-              "matmul": 0.0, "other": 0.0}
+              "gmm": 0.0, "matmul": 0.0, "other": 0.0}
     for name, t, _ in kern:
         low = name.lower()
         paged = [g for g in ("paged_decode", "paged_prefill", "paged_kv_write") if g in low]
@@ -152,6 +155,8 @@ def kernel_groups(prof, DeviceType):
             groups["rmsnorm"] += t
         elif "flash_decode" in low:
             groups["flash_decode"] += t
+        elif "gmm_kernel" in low:
+            groups["gmm"] += t
         elif "fused_sample" in low:
             groups["fused_sample"] += t
         elif any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
@@ -871,6 +876,100 @@ def check_paged_kv_write(torch, ref, paged_kv_write, randn, card):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
+def _router_sizes(np, rng, tokens, E, empty=(), cap=None):
+    """Group sizes from a seeded skewed router draw of ``tokens`` top-1
+    choices over E experts: the experts in ``empty`` never drawn, and each
+    count cut to ``cap`` (the capacity) when given."""
+    p = np.exp(1.5 * rng.standard_normal(E))
+    p[list(empty)] = 0.0
+    counts = np.bincount(rng.choice(E, size=tokens, p=p / p.sum()), minlength=E)
+    return np.minimum(counts, cap) if cap is not None else counts
+
+
+def check_gmm(torch, ref, gmm, card):
+    """Row 12 against ``grouped_matmul_ref`` at Llama-4-Scout's decode and
+    prefill shapes, the w_out shape, Maverick's 128 experts, all groups
+    empty, one group holding every row, and M = 50; rows past the sizes'
+    sum must be exactly 0.  Times the decode w_in shape (the record) and
+    prints the prefill and w_out times.  Returns its kernel record."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    tol = 2e-2      # of each row's max|ref|: fp32 sums of the same bf16 products in another order
+    d, f = 5120, 8192
+    scout_w = {"w_in": (torch.randn(16, d, f, device=dev) * d ** -0.5).to(torch.bfloat16)}
+    scout_w["w_out"] = (torch.randn(16, f, d, device=dev) * f ** -0.5).to(torch.bfloat16)
+    cases = [
+        ("scout decode, w_in", 32, "w_in", _router_sizes(np, rng, 32, 16, empty=(3,))),
+        ("scout prefill, w_in, capacity 80", 1024, "w_in", _router_sizes(np, rng, 1024, 16, cap=80)),
+        ("scout decode, w_out", 32, "w_out", _router_sizes(np, rng, 32, 16, empty=(0, 9))),
+        ("all groups empty", 32, "w_in", np.zeros(16, np.int64)),
+        ("one group holds every row", 32, "w_out", np.eye(16, dtype=np.int64)[7] * 32),
+        ("M = 50", 50, "w_in", _router_sizes(np, rng, 46, 16)),
+    ]
+    inputs = {}
+    for label, M, wname, sizes in cases:
+        w = scout_w[wname]
+        x = torch.randn(M, w.shape[1], device=dev).to(torch.bfloat16)
+        gs = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
+        out = gmm(x, w, gs)
+        torch.cuda.synchronize()
+        want = ref.grouped_matmul_ref(x, w, gs)
+        total = int(sizes.sum())
+        err = row_rel_err(out[:total], want[:total]) if total else 0.0
+        tail0 = bool((out[total:] == 0).all())
+        print(f"gmm {label} (M={M}, K={w.shape[1]}, N={w.shape[2]}, E=16, {int((sizes > 0).sum())} "
+              f"live groups, {total} rows in groups): rel err {err:.3g} (tol {tol} of each row's "
+              f"max|ref|), the {M - total} rows past the groups exactly 0: {tail0}")
+        check(err <= tol and tail0 and bool(out.isfinite().all()), f"gmm {label}")
+        inputs[label] = (x, w, gs, sizes, (out.float() - want.float()).abs().max().item())
+    # Maverick: 128 experts (10.7 GB of w_in), most of them empty at decode
+    w128 = (torch.randn(128, d, f, device=dev) * d ** -0.5).to(torch.bfloat16)
+    sizes = _router_sizes(np, rng, 32, 128)
+    x = torch.randn(32, d, device=dev).to(torch.bfloat16)
+    gs = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
+    out = gmm(x, w128, gs)
+    torch.cuda.synchronize()
+    err = row_rel_err(out, ref.grouped_matmul_ref(x, w128, gs))
+    print(f"gmm maverick decode, w_in (M=32, K={d}, N={f}, E=128, {int((sizes > 0).sum())} live "
+          f"groups): rel err {err:.3g} (tol {tol})")
+    check(err <= tol and bool(out.isfinite().all()), "gmm maverick decode")
+    del w128, out
+
+    def timed(label):
+        x, w, gs, sizes, _ = inputs[label]
+        M, (E, K, N) = x.shape[0], w.shape
+        live = int((sizes > 0).sum())
+        ms = time_ms(torch, lambda: gmm(x, w, gs), trials=10)
+        dev_ms = device_ms(torch, lambda: gmm(x, w, gs), "gmm_kernel", n=10)
+        plain_ms = time_ms(torch, lambda: ref.grouped_matmul_ref(x, w, gs), trials=3, per_trial=2,
+                           warmup=1)
+        if hasattr(torch, "_grouped_mm"):
+            ends = torch.cumsum(gs, 0, dtype=torch.int32)
+            lib, lib_name = (lambda: torch._grouped_mm(x, w, offs=ends)), "torch._grouped_mm"
+        else:   # the capacity-batched GEMM of the reference's XLA path, its scatter done ahead
+            xe = torch.zeros(E, int(sizes.max()), K, dtype=x.dtype, device=dev)
+            lib, lib_name = (lambda: torch.bmm(xe, w)), "torch.bmm over (E, max size, K)"
+        lib_ms = time_ms(torch, lib, trials=10)
+        # this run's data: each live group's weight once, x and y once
+        nbytes = live * K * N * 2 + M * K * 2 + M * N * 2 + E * 4
+        bound_ms, bound_by = bound(2 * int(sizes.sum()) * K * N, nbytes)
+        print(f"gmm {label} (M={M}, K={K}, N={N}, {live} of {E} groups live) bf16 on {card}: "
+              f"{ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (bound {bound_ms:.4f} ms by "
+              f"{bound_by}, {per_device_ms(nbytes, dev_ms, 'GB/s', 1e6)}), plain {plain_ms:.4f} ms, "
+              f"{lib_name} {lib_ms:.4f} ms")
+        return ms, dev_ms, plain_ms, bound_ms, bound_by, lib_ms
+
+    ms, dev_ms, plain_ms, bound_ms, bound_by, lib_ms = timed("scout decode, w_in")
+    timed("scout prefill, w_in, capacity 80")
+    timed("scout decode, w_out")
+    return {"name": "gmm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+            "replaces": "src/repro/kernels/grouped_matmul.py:198", "launches": 0,
+            "max_abs_err": inputs["scout decode, w_in"][4], "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
 def generate_phase(torch, counters, card):
     """Slice 4a: Qwen2-7B generation at full width and depth through
     ``LLM.generate`` over the dense KV cache.  Returns the launch counts of
@@ -1382,6 +1481,271 @@ def paged_phase(torch, counters, card, model, load):
     return launches
 
 
+class MoeLog:
+    """Records each MoE layer call's row count and its (dropped, total)
+    slots from the aux vector, by wrapping ``moe.moe_apply``; the records
+    stay on the device until read."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        apply, calls = self.moe.moe_apply, self.calls
+
+        def spy(cfg, params, x):
+            out, aux = apply(cfg, params, x)
+            calls.append((x.shape[0] * x.shape[1], aux[2:4]))
+            return out, aux
+
+        self._apply, self.moe.moe_apply = apply, spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self._apply
+
+
+class RouteLog:
+    """Wraps ``moe._route``.  Alone it records each call's router output
+    (probs, expert indices).  With ``replay``, the records of another run
+    of the same calls, it records this run's own output and returns the
+    other run's experts instead (gates renormalized from this run's
+    probabilities), so that both runs put every token on the same
+    experts."""
+
+    def __init__(self, moe, replay=None):
+        self.moe, self.replay, self.calls = moe, replay, []
+
+    def __enter__(self):
+        route, calls, replay = self.moe._route, self.calls, self.replay
+
+        def spy(cfg, params, x2d):
+            probs, gate, idx = route(cfg, params, x2d)
+            calls.append((probs, idx))
+            if replay is None:
+                return probs, gate, idx
+            idx = replay[len(calls) - 1][1]
+            gate = probs.gather(1, idx)
+            return probs, gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+        self._route, self.moe._route = route, spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self._route
+
+
+def moe_phase(torch, counters, card):
+    """Slice 5: Llama-4-Scout generation through ``LLM.generate`` over the
+    dense KV cache, at full width with 8 of its 48 layers (39.4 GB of bf16
+    weights), on the dense Qwen2 phase's load.  Returns the launch counts of
+    the first generate call (the main path's run)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, build_model
+    from repro_torch.serving.api import LLM
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.sampling import SamplingParams
+
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"), num_layers=8,
+                              param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_build = time.perf_counter() - t0
+    print(f"built {cfg.name} cut to {cfg.num_layers} of 48 layers (d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {cfg.num_experts} experts of d_ff {cfg.d_ff} "
+          f"top-{cfg.num_experts_per_tok} + {cfg.n_shared_experts} shared, window "
+          f"{cfg.sliding_window}, {cfg.param_count() / 1e9:.2f}B params, bf16) on cuda in "
+          f"{t_build:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    slots, max_len, n, max_new = 32, 2048, 64, 256
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(64, 1025, size=n)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(L)).tolist() for L in lengths]
+    params = [SamplingParams(max_new=max_new) if i % 2 == 0 else
+              SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=i, max_new=max_new,
+                             logprobs=True) for i in range(n)]
+    llm = LLM(model, slots=slots, max_len=max_len)
+    eng = llm.engine
+    L = cfg.num_layers
+    names = ("flash_attention_fwd", "rmsnorm", "flash_decode", "fused_sample", "gmm")
+
+    def zero():
+        for name in names:
+            counters[name].launches = 0
+
+    def read():
+        return {name: counters[name].launches for name in names}
+
+    # the main path: every count set to 0 just before, read just after; the
+    # router's drops recorded on the device meanwhile
+    torch.cuda.reset_peak_memory_stats()
+    log = MoeLog(moe)
+    zero()
+    dec0 = eng.decode_steps
+    t0 = time.perf_counter()
+    with log:
+        first = llm.generate(prompts, params)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = read()
+    n_dec = eng.decode_steps - dec0
+    want = {"flash_attention_fwd": L * n, "rmsnorm": (2 * L + 1) * (n + n_dec),
+            "flash_decode": L * n_dec, "fused_sample": n + n_dec, "gmm": 3 * L * (n + n_dec)}
+    print(f"main path: LLM.generate of {n} prompts ({int(lengths.sum())} prompt tokens, "
+          f"max_new {max_new}) on {slots} slots: {n} admissions, {n_dec} decode steps, "
+          f"{t_first:.2f} s (first call, set-up included); launches {launches} (want {want})")
+    expect(launches == want, "MoE generation launch counts")
+    expect(len(log.calls) == L * (n + n_dec), "MoE layer calls")
+    gen = [len(c.tokens) for c in first]
+    expect(all(c.finish_reason == "length" for c in first) and gen == [max_new] * n,
+           "finish reasons / lengths")
+    expect(all(np.isfinite(c.logprobs).all() for c in first if c.logprobs), "non-finite logprobs")
+    drops = {kind: torch.stack([a for rows, a in log.calls if (rows == slots) == dec]).sum(0).tolist()
+             for kind, dec in (("decode", True), ("prefill", False))}
+    print("router drops at capacity: " + ", ".join(
+        f"{kind} {d:.0f} of {t:.0f} slots ({d / max(t, 1):.4f})" for kind, (d, t) in drops.items()) +
+        f"; capacity {moe.capacity(cfg, slots)} per expert at decode ({slots} slots, idle ones "
+        f"included), {moe.capacity(cfg, 64)}-{moe.capacity(cfg, 1024)} at prefill (64-1024 tokens)")
+    del log
+
+    t0 = time.perf_counter()
+    second = llm.generate(prompts, params)
+    torch.cuda.synchronize()
+    t_steady = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    same = all(a.tokens == b.tokens and a.finish_reason == b.finish_reason
+               for a, b in zip(first, second))
+    print(f"second generate call: tokens and finish reasons identical: {same}")
+    expect(same, "a repeated generate differs")
+    ttft = sorted(c.ttft_s for c in second)
+    toks = sum(len(c.tokens) for c in second)
+    print(f"Llama-4-Scout (8 of 48 layers) LLM.generate on {card}: {toks / t_steady:.1f} generated "
+          f"tokens/s ({toks} tokens in {t_steady:.3f} s, steady call), TTFT p50 "
+          f"{1e3 * ttft[n // 2]:.1f} ms, p95 {1e3 * ttft[int(0.95 * (n - 1))]:.1f} ms, peak memory "
+          f"{peak_gb:.2f} GB; build {t_build:.1f} s, first call {t_first:.2f} s")
+
+    # the steady decode loop at full slots: per-step launches, no host sync
+    # but the one transfer, the step time, and a profile
+    for i in range(slots):
+        eng.submit(Request(uid=20_000 + i, prompt=np.asarray(prompts[i], np.int32),
+                           params=dataclasses.replace(params[i], max_new=64)))
+    eng.step()                       # admits every slot, then decodes
+    zero()
+    eng.step()
+    per_step = read()
+    step_want = {"flash_attention_fwd": 0, "rmsnorm": 2 * L + 1, "flash_decode": L,
+                 "fused_sample": 1, "gmm": 3 * L}
+    print(f"one steady decode step: launches {per_step} (want {step_want})")
+    expect(per_step == step_want, "launches per decode step")
+    for _ in range(8):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    print("8 steady decode steps under torch.cuda.set_sync_debug_mode('error'): no host sync "
+          "outside the one transfer")
+    t0 = time.perf_counter()
+    for _ in range(16):
+        eng.step()
+    step_ms = (time.perf_counter() - t0) / 16 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            eng.step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, groups, kern = kernel_groups(prof, DeviceType)
+    print(f"Scout decode step of {slots} slots on {card}: {step_ms:.2f} ms "
+          f"({slots / step_ms * 1e3:.0f} tokens/s at full slots)")
+    if busy_ms == 0:
+        print("profile: the profiler saw no device time")
+    else:
+        glue = groups["other"] + groups["rmsnorm"]
+        print(f"profile of 8 Scout decode steps on {card}: wall {wall_ms:.1f} ms (under the "
+              f"profiler), device busy {busy_ms:.1f} ms ({busy_ms / 8:.2f} ms a step), idle share "
+              f"{1 - busy_ms / wall_ms:.3f}")
+        print(f"profile by group, per step: gmm {groups['gmm'] / 8:.3f} ms, matmuls "
+              f"{groups['matmul'] / 8:.3f} ms, glue {glue / 8:.3f} ms (rmsnorm "
+              f"{groups['rmsnorm'] / 8:.3f}), flash_decode {groups['flash_decode'] / 8:.3f} ms, "
+              f"sampling {groups['fused_sample'] / 8:.3f} ms")
+        for name, t, cnt in sorted(kern, key=lambda r: -r[1])[:12]:
+            print(f"  {t:9.2f} ms {cnt:6d}x  {name[:110]}")
+        host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)[:10]
+        print("host time by op (self CPU ms, calls): " + ", ".join(
+            f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ({e.count})" for e in host))
+    eng.run()
+    del prof, llm, eng
+
+    # kernel route against plain route through the engine: 8 prompts, the
+    # first token's logits and 32 teacher-forced decode steps.  The plain
+    # route is put on the kernel route's experts (RouteLog replay): top-1
+    # routing of random weights flips at near-ties of the fp32 router over
+    # hidden states that the two routes round differently, and a flipped
+    # token moves the later ones through attention and capacity, so held
+    # free the two routes drift apart on the routing, not on the kernels'
+    # arithmetic.  The flips are counted from the plain route's own router,
+    # and each must be a near-tie.
+    picks = [int(i) for i in np.argsort(lengths)[:: n // 8]]
+    n_forced = 32
+    forced = torch.zeros((n_forced, slots), dtype=torch.int32, device=model.device)
+    for slot, i in enumerate(picks):
+        forced[:, slot] = torch.tensor(first[i].tokens[:n_forced], dtype=torch.int32)
+    plain = Model(dataclasses.replace(cfg, kernel_impl="torch"), model.params.tree())
+    route = dict(slots=slots, max_len=max_len)
+    route_prompts = [prompts[i] for i in picks]
+    with RouteLog(moe) as k_log:
+        k_lg, _ = engine_logits(torch, np, model, route, route_prompts, forced)
+    with RouteLog(moe, replay=k_log.calls) as p_log:
+        p_lg, _ = engine_logits(torch, np, plain, route, route_prompts, forced)
+    npk = len(route_prompts)
+    check(len(k_log.calls) == len(p_log.calls) == L * (npk + n_forced), "route log lengths")
+    # per layer call: the live rows (a whole prompt, or one row per live
+    # slot), whether the plain route's own router chose another expert,
+    # and the kernel route's log-probability margin of its choice over it
+    flipped, margins, own = [], [], []
+    for c, ((kp, ki), (_, pi)) in enumerate(zip(k_log.calls, p_log.calls)):
+        rows = slice(None) if c < L * npk else slice(0, npk)
+        kp, ki, pi = kp[rows], ki[rows], pi[rows]
+        f = (ki != pi).any(-1)
+        lp = kp.clamp_min(1e-30).log()
+        margins.append(torch.where(f, lp.gather(1, ki[:, :1])[:, 0] - lp.gather(1, pi[:, :1])[:, 0],
+                                   0.0).max())
+        flipped.append(f)
+        own.append(f[-1:] if c < L * npk else f)       # the compared token's row
+    decisions = sum(f.numel() for f in flipped)
+    n_flip = int(sum(f.sum() for f in flipped))
+    margin = torch.stack(margins).max().item()
+    pre = torch.stack(own[:L * npk]).reshape(npk, L).any(-1)
+    dec = torch.stack(own[L * npk:]).reshape(n_forced, L, npk).any(1)
+    slot_flips = torch.cat([pre[None], dec])                    # (1 + steps, npk)
+    print(f"plain route's own router against the kernel route's experts: {n_flip} of {decisions} "
+          f"router decisions (token x layer) differ ({n_flip / decisions:.4f}; limit 0.02), "
+          f"largest kernel-route margin of such a choice {margin:.4f} in log-probability (a "
+          f"near-tie: at most 0.1); {int(slot_flips.sum())} of {slot_flips.numel()} slot-steps "
+          f"({slot_flips.float().mean().item():.4f}) have one in some layer of the compared token")
+    expect(n_flip <= 0.02 * decisions, "the routes' routers disagree too often")
+    expect(margin <= 0.1, "a routing difference between the routes is not a near-tie")
+    compare_logits(torch, k_lg, p_lg,
+                   f"Scout kernel path vs plain path through the engine on the same experts (8 "
+                   f"slots of 32, prompts of {sorted(int(lengths[i]) for i in picks)} tokens, "
+                   f"exact-length prefill + {n_forced} teacher-forced decode steps)", expect)
+    del plain, model, k_lg, p_lg
+    check(not failed, "MoE generation phase: " + "; ".join(failed))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1398,6 +1762,7 @@ def main() -> int:
     from repro_torch.kernels.cross_entropy import cross_entropy_bwd, cross_entropy_fwd
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.grouped_matmul import gmm
     from repro_torch.kernels.paged_attention import paged_decode, paged_kv_write, paged_prefill
     from repro_torch.kernels.rmsnorm import layernorm, rmsnorm
     from repro_torch.kernels.sampling import fused_sample
@@ -1422,7 +1787,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.finish_builds(_build.start_builds(
         ["flash_attention_fwd", "flash_attention_bwd", "cross_entropy", "flash_decode", "sampling",
-         "paged_attention"]))
+         "paged_attention", "grouped_matmul"]))
     t_nvcc = time.perf_counter() - t0
     for name, log in logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill stores" in ln
@@ -1556,6 +1921,8 @@ def main() -> int:
     paged_recs = [check_paged_decode(torch, F, ref, paged_decode, randn, card),
                   check_paged_prefill(torch, F, ref, paged_prefill, randn, card),
                   check_paged_kv_write(torch, ref, paged_kv_write, randn, card)]
+    gmm_rec = check_gmm(torch, ref, gmm, card)
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ---- 4. slice 1: ESM-2 650M embedding serving through LLM.embed
@@ -1661,11 +2028,18 @@ def main() -> int:
                     paged_kv_write=paged_kv_write)
     paged_launches = paged_phase(torch, counters, card, model, load)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 9. slice 5: Llama-4-Scout (8 of 48 layers) MoE generation
+    counters.update(gmm=gmm)
+    moe_launches = moe_phase(torch, counters, card)
 
     # launches: each kernel's count in the run of its path — the training
     # run for rows 1-5 (the embed and generation runs' counts of the
     # attention forward were checked in phases 4 and 7), the dense
-    # generation run for rows 6-8, the paged one for rows 9-11
+    # generation run for rows 6-8, the paged one for rows 9-11, the MoE one
+    # for row 12
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -1688,7 +2062,8 @@ def main() -> int:
         rec["launches"] = gen_launches[rec["name"]]
     for rec in paged_recs:
         rec["launches"] = paged_launches[rec["name"]]
-    kernels += gen_recs + paged_recs
+    gmm_rec["launches"] = moe_launches["gmm"]
+    kernels += gen_recs + paged_recs + [gmm_rec]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

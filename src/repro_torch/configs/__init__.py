@@ -2,7 +2,9 @@
 
 Registered so far: the architectures the port's kernels and layers cover —
 the ESM-2 protein LMs (bidirectional dense stack, LayerNorm, GELU MLP) and
-Qwen2-7B (causal GQA stack, RMSNorm, SwiGLU MLP), all with RoPE.  ``get_config(name)`` returns the full config,
+Qwen2-7B (causal GQA stack, RMSNorm, SwiGLU MLP), and the Llama-4 MoE
+models Scout (an MoE FFN on every layer) and Maverick (dense and MoE
+layers alternating), all with RoPE.  ``get_config(name)`` returns the full config,
 ``get_smoke_config(name)`` the reduced same-family variant the CPU tests
 use.
 """
@@ -15,7 +17,8 @@ from repro_torch.core.config import ModelConfig, reduced
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
-_MODULES = ["esm2_650m", "esm2_3b", "qwen2_7b"]
+_MODULES = ["esm2_650m", "esm2_3b", "qwen2_7b", "llama4_scout_17b_a16e",
+            "llama4_maverick_400b_a17b"]
 
 
 def register(fn: Callable[[], ModelConfig]) -> Callable[[], ModelConfig]:

@@ -84,9 +84,10 @@ class ModelConfig:
     # --- numerics / kernels ---
     dtype: str = "bfloat16"            # activation/compute dtype
     param_dtype: str = "float32"       # stored parameter dtype
-    # hot-path ops (attention, norms): "auto" launches the hand-written
-    # kernel for a CUDA tensor and the plain PyTorch version for a CPU
-    # tensor; "torch" forces the plain version (tests and chip_smoke.py)
+    # hot-path ops (attention, norms, sampling, grouped matmul): "auto"
+    # launches the hand-written kernel for a CUDA tensor and the plain
+    # PyTorch version for a CPU tensor; "torch" forces the plain version
+    # (tests and chip_smoke.py)
     kernel_impl: str = "auto"
     citation: str = ""
 
@@ -99,21 +100,45 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return _round_up(self.vocab_size, VOCAB_DIVISOR)
 
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        if self.num_experts == 0:
+            return False
+        return (layer_idx % self.moe_layer_period) == (self.moe_layer_period - 1)
+
+    def is_attn_layer(self, layer_idx: int) -> bool:
+        """Hybrid (jamba) interleave: one attention layer per attn_layer_period."""
+        if self.family == "ssm":
+            return False
+        if self.family != "hybrid":
+            return True
+        p = self.attn_layer_period
+        return (layer_idx % p) == (p // 2)  # jamba places attn mid-group
+
+    def _mlp_params(self) -> int:
+        return (3 if self.act in ("swiglu", "geglu") else 2) * self.d_model * self.d_ff
+
     def param_count(self) -> int:
-        """Analytic parameter count of a dense attention stack (embedding
-        included once, twice when untied)."""
+        """Analytic parameter count of an attention stack, dense or MoE
+        (embedding included once, twice when untied; MoE counts every
+        expert, the shared ones and the router)."""
         d, hd = self.d_model, self.resolved_head_dim
         att = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
-        gated = self.act in ("swiglu", "geglu")
-        mlp = (3 if gated else 2) * d * self.d_ff
-        total = self.num_layers * (att + mlp + 2 * d)
+        total = 0
+        for i in range(self.num_layers):
+            total += att + 2 * d
+            if self.is_moe_layer(i):
+                total += (self.num_experts + self.n_shared_experts) * self._mlp_params()
+                total += d * self.num_experts
+            elif self.d_ff > 0:
+                total += self._mlp_params()
         total += self.padded_vocab * d * (1 if self.tie_embeddings else 2)
         return total
 
     def active_param_count(self) -> int:
-        """Params touched per token: all of them for the dense stack (the
-        MoE form comes with the MoE slice)."""
-        return self.param_count()
+        """Params touched per token (MoE: only the routed experts)."""
+        unused = sum(self.num_experts - self.num_experts_per_tok
+                     for i in range(self.num_layers) if self.is_moe_layer(i))
+        return self.param_count() - unused * self._mlp_params()
 
 
 @dataclass(frozen=True)

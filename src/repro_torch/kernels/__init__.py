@@ -19,4 +19,6 @@
   wrapped by ``paged_attention.py``; its decode, chunk-prefill and
   K/V-insert kernels replace ``paged_attention.py::paged_flash_decode``,
   ``paged_flash_prefill`` and ``paged_kv_write``.
+* ragged grouped matmul: ``csrc/grouped_matmul.cu`` (CUDA C++ for sm_90a),
+  wrapped by ``grouped_matmul.py``; replaces ``grouped_matmul.py::gmm``.
 """

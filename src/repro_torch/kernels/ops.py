@@ -10,9 +10,10 @@ implementations: attention and cross-entropy pair their forward and
 backward kernels (or plain versions) in a ``torch.autograd.Function``, as
 the reference's custom VJPs do; LayerNorm pairs its forward kernel with
 the reference's hand-written backward formulas.  The serving ops —
-RMSNorm, decode attention, the paged-KV ops and sampling — are
-forward-only: the RMSNorm kernel raises when asked for a gradient (its
-plain version stays differentiable).  The paged-KV writes update the pools
+RMSNorm, decode attention, the paged-KV ops, sampling and the MoE's
+ragged grouped matmul — are forward-only: the RMSNorm and grouped-matmul
+kernels raise when asked for a gradient (their plain versions stay
+differentiable).  The paged-KV writes update the pools
 in place (the reference donates them and returns new ones).
 """
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from repro_torch.kernels import cross_entropy as _ce
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import grouped_matmul as _gm
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _ln
@@ -201,3 +203,20 @@ def sample_tokens(
     distribution (greedy rows: under the full T=1 softmax)."""
     fn = _ref.sample_ref if _plain(impl) else _sp.fused_sample
     return fn(logits, temperature, top_k, top_p, seed, step)
+
+
+def grouped_matmul(
+    x: torch.Tensor,            # (M, K) rows sorted by group
+    w: torch.Tensor,            # (E, K, N) per-group (expert) weights
+    group_sizes: torch.Tensor,  # (E,) int32 contiguous row counts, on x's device
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Ragged grouped matmul ``y[i] = x[i] @ w[g(i)]`` -> (M, N) in x.dtype
+    with fp32 accumulation: the MoE expert FFN after sort-by-expert
+    dispatch.  Rows past ``sum(group_sizes)`` (capacity-dropped slots) come
+    back exactly 0 and empty groups cost no work.  The sizes stay on the
+    device on both implementations."""
+    if _plain(impl):
+        return _ref.grouped_matmul_ref(x, w, group_sizes)
+    return _gm.gmm(x, w, _i32(group_sizes))

@@ -411,3 +411,28 @@ def sample_ref(
     Zf = torch.where(keep, e, 0.0).sum(dim=-1, keepdim=True)
     logp = z_tok - m - torch.log(Zf.clamp_min(1e-30))
     return tok[:, 0].to(torch.int32), logp[:, 0]
+
+
+def grouped_matmul_ref(
+    x: torch.Tensor,            # (M, K) rows sorted by group
+    w: torch.Tensor,            # (E, K, N) per-group weights
+    group_sizes: torch.Tensor,  # (E,) int contiguous row counts
+) -> torch.Tensor:
+    """Ragged grouped matmul ``y[i] = x[i] @ w[g(i)]`` -> (M, N) in x.dtype,
+    fp32 products and sums; rows at or past ``sum(group_sizes)`` are
+    exactly 0.  A static loop over the E groups, each a full (M, K) @ (K, N)
+    product kept on its group's rows, which the prefix sum of the sizes
+    picks on the device: the sizes are never read on the host, and the
+    memory is O(M·N), where the reference's per-row weight gather is
+    O(M·K·N).  E times the products of the kernel: a definition, not a
+    yardstick of speed.  Differentiable."""
+    M, N = x.shape[0], w.shape[2]
+    ends = torch.cumsum(group_sizes.to(torch.int64), 0)
+    starts = ends - group_sizes.to(torch.int64)
+    rows = torch.arange(M, device=x.device)
+    xf = x.float()
+    y = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+    for e in range(w.shape[0]):
+        mine = ((rows >= starts[e]) & (rows < ends[e]))[:, None]
+        y = torch.where(mine, xf @ w[e].float(), y)
+    return y.to(x.dtype)

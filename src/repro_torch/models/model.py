@@ -58,9 +58,10 @@ class Model(nn.Module):
 
     def _backbone(self, params: Dict[str, Any], x: torch.Tensor, **kw):
         """The stack (train mode unless ``kw`` says otherwise), then the
-        final norm; returns (x, caches)."""
-        x, caches = T.decoder_stack(self.cfg, params["layers"], x, **kw)
-        return L.norm_apply(self.cfg, params["final_norm"], x), caches
+        final norm; returns (x, caches, aux_sum) — aux_sum the MoE layers'
+        router vectors summed (``moe.aux_shape``)."""
+        x, caches, aux = T.decoder_stack(self.cfg, params["layers"], x, **kw)
+        return L.norm_apply(self.cfg, params["final_norm"], x), caches, aux
 
     def head_weight(self, params: Dict[str, Any]) -> torch.Tensor:
         return L.lm_head_weight(self.cfg, params["head"], params["embed"])
@@ -88,9 +89,16 @@ class Model(nn.Module):
         token by the fused cross-entropy op (the (tokens × vocab) logits
         never materialize on the kernel path) and then weighted, as in the
         reference; ``metrics`` holds ``ce_loss``, ``aux_loss`` (0 for the
-        dense stack) and ``tokens`` (the mask's sum, at least 1)."""
+        dense stack) and ``tokens`` (the mask's sum, at least 1).  An MoE
+        config raises: its router loss terms and the grouped matmul's
+        backward come with the MoE training path."""
         cfg = self.cfg
-        x, _ = self._backbone(params, self._decoder_input(params, batch["tokens"]))
+        if cfg.num_experts:
+            raise NotImplementedError(
+                f"{cfg.name}: training an MoE model (router loss terms, the grouped-matmul "
+                "backward) is not ported yet (ROADMAP: MoE training path, beside the "
+                "multi-GPU slice)")
+        x, _, _ = self._backbone(params, self._decoder_input(params, batch["tokens"]))
         B, S, D = x.shape
         if cfg.objective == "mlm":
             hidden = x.reshape(B * S, D)
@@ -121,7 +129,7 @@ class Model(nn.Module):
         training — no key-padding mask — and only positions < lengths[b]
         enter the fp32 mean, as in the reference."""
         p = self.params.tree()
-        x, _ = self._backbone(p, self._decoder_input(p, tokens))
+        x, _, _ = self._backbone(p, self._decoder_input(p, tokens))
         mask = torch.arange(x.shape[1], device=x.device)[None, :] < lengths.to(x.device)[:, None]
         x = x.float() * mask[..., None]
         denom = mask.sum(dim=1).clamp_min(1).float()
@@ -143,7 +151,7 @@ class Model(nn.Module):
         window) buffers, "pos": int}``."""
         x = self._decoder_input(params, batch["tokens"])
         S = x.shape[1]
-        x, caches = self._backbone(params, x, mode="prefill")
+        x, caches, _ = self._backbone(params, x, mode="prefill")
         pos = S if length is None else int(length)
         lg = self.logits(params, x[:, pos - 1 : pos, :])
         return lg, {"layers": self._pad_caches(caches, S, max_len), "pos": pos}
@@ -170,9 +178,9 @@ class Model(nn.Module):
         C = tokens.shape[1]
         x = self._decoder_input(params, tokens)
         positions = start + torch.arange(C, device=x.device)
-        page = layers["sub0"]["attn"]["k_pool"].shape[2]
+        page = _page_size(layers)
         paged = A.paged_chunk_addressing(block_row, int(start), C, int(n_valid), page)
-        x, layers = self._backbone(params, x, mode="chunk", positions=positions, caches=layers,
+        x, layers, _ = self._backbone(params, x, mode="chunk", positions=positions, caches=layers,
                                    cache_pos=int(start), paged=paged)
         return self.logits(params, x[:, n_valid - 1 : n_valid, :]), layers
 
@@ -188,11 +196,11 @@ class Model(nn.Module):
         block_table = cache.get("block_table")
         paged = None
         if block_table is not None:     # the paging arithmetic, once for all layers
-            page = cache["layers"]["sub0"]["attn"]["k_pool"].shape[2]
+            page = _page_size(cache["layers"])
             paged = A.paged_decode_addressing(block_table, pos, page)
         x = self._decoder_input(params, tokens)
         rope_pos = None if torch.is_tensor(pos) else torch.full((1,), int(pos), device=x.device)
-        x, layers = self._backbone(params, x, mode="decode", positions=rope_pos,
+        x, layers, _ = self._backbone(params, x, mode="decode", positions=rope_pos,
                                    caches=cache["layers"], cache_pos=pos, paged=paged)
         new = {"layers": layers, "pos": pos + 1}
         if block_table is not None:
@@ -239,6 +247,11 @@ class Model(nn.Module):
             return leaf.index_select(2, S - W + (slots - S) % W)
 
         return tree_map(place, caches)
+
+
+def _page_size(layers: Dict[str, Any]) -> int:
+    """The page size of the paged pools (the same in every layer of the unit)."""
+    return next(iter(layers.values()))["attn"]["k_pool"].shape[2]
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:

@@ -1,12 +1,14 @@
-"""The dense pre-norm transformer stack.
+"""The pre-norm transformer stack, dense or MoE.
 
-Params keep the reference's tree: one ``sub0`` unit per layer, each leaf
-stacked over the layers (leading dim ``num_layers``).  The stack runs as a
-plain loop over the layers, each stacked leaf unbound into per-layer views
-once per call (no copy).
-The scan-unit machinery the reference needs for MoE periods and hybrid
-interleaves is not ported yet: those configs raise.  The same loop runs
-under autograd for training.
+Layers are grouped into *units*, as in the reference: the unit is
+``moe_layer_period`` layers for an MoE model (Llama-4 Maverick: a dense
+layer, then an MoE layer), one layer otherwise.  Params keep the
+reference's tree: ``{"sub0": …, "sub1": …}``, one entry per layer of the
+unit, each leaf stacked over the units (leading dim ``num_units``).  The
+stack runs as a plain loop over the units and, inside one, over its
+layers; each stacked leaf is unbound into per-unit views once per call (no
+copy).  The same loop runs under autograd for training.  SSM and hybrid
+interleaves, encoder-decoder stacks and parallel-residual blocks raise.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.module import stack_tree, tree_map
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.models.attention import (
     attention_apply,
     attention_defs,
@@ -28,7 +31,6 @@ from repro_torch.models.attention import (
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the architectures the port does not run yet."""
     unported = [
-        (cfg.num_experts > 0, "MoE layers (ROADMAP: MoE slice, grouped matmul)"),
         (cfg.family in ("ssm", "hybrid"), "SSM / hybrid stacks (ROADMAP: SSM slice, SSD scan)"),
         (cfg.is_encoder_decoder or bool(cfg.frontend),
          "encoder-decoder and frontend models (ROADMAP: enc-dec/frontend slice)"),
@@ -39,29 +41,65 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(f"{cfg.name}: {what} are not ported yet")
 
 
-def _layer_defs(cfg: ModelConfig) -> Dict[str, Any]:
+# --------------------------------------------------------------------- #
+# unit structure
+# --------------------------------------------------------------------- #
+def unit_size(cfg: ModelConfig) -> int:
+    if cfg.family == "hybrid":
+        return cfg.attn_layer_period
+    if cfg.num_experts and cfg.moe_layer_period > 1:
+        return cfg.moe_layer_period
+    return 1
+
+
+def num_units(cfg: ModelConfig) -> int:
+    u = unit_size(cfg)
+    if cfg.num_layers % u:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not a whole number of "
+                         f"units of {u}")
+    return cfg.num_layers // u
+
+
+def num_moe_layers(cfg: ModelConfig) -> int:
+    """Total MoE layers in the stack (normalizes summed aux statistics)."""
+    if not cfg.num_experts:
+        return 0
+    return sum(1 for i in range(unit_size(cfg)) if cfg.is_moe_layer(i)) * num_units(cfg)
+
+
+def _sublayer_defs(cfg: ModelConfig, li: int) -> Dict[str, Any]:
+    """Param defs of layer ``li`` of a unit."""
     d = cfg.d_model
     defs: Dict[str, Any] = {"norm1": L.norm_defs(cfg, d), "attn": attention_defs(cfg)}
     if cfg.d_ff > 0:
         defs["norm2"] = L.norm_defs(cfg, d)
-        defs["ffn"] = L.mlp_defs(cfg, d, cfg.d_ff)
+        defs["ffn"] = moe.moe_defs(cfg) if cfg.is_moe_layer(li) else L.mlp_defs(cfg, d, cfg.d_ff)
     return defs
 
 
 def stack_defs(cfg: ModelConfig) -> Dict[str, Any]:
     check_supported(cfg)
-    return stack_tree({"sub0": _layer_defs(cfg)}, cfg.num_layers)
+    return stack_tree({f"sub{i}": _sublayer_defs(cfg, i) for i in range(unit_size(cfg))},
+                      num_units(cfg))
 
 
-def _apply_layer(cfg, params, x, *, mode, positions, causal, cache, cache_pos, paged):
+def _apply_sublayer(cfg, li, params, x, *, mode, positions, causal, cache, cache_pos, paged):
+    """Returns (x, cache, aux): aux is the MoE layer's router vector
+    (``moe.aux_shape``), None for a dense layer."""
     h = L.norm_apply(cfg, params["norm1"], x)
     mix, cache = attention_apply(cfg, params["attn"], h, positions=positions, mode=mode,
                                  causal=causal, cache=cache, cache_pos=cache_pos,
                                  paged=paged)
     x = x + mix
+    aux = None
     if "ffn" in params:
-        x = x + L.mlp_apply(cfg, params["ffn"], L.norm_apply(cfg, params["norm2"], x))
-    return x, cache
+        h2 = L.norm_apply(cfg, params["norm2"], x)
+        if cfg.is_moe_layer(li):
+            ff, aux = moe.moe_apply(cfg, params["ffn"], h2)
+        else:
+            ff = L.mlp_apply(cfg, params["ffn"], h2)
+        x = x + ff
+    return x, cache, aux
 
 
 def decoder_stack(
@@ -75,47 +113,62 @@ def decoder_stack(
     cache_pos: Union[None, int, torch.Tensor] = None,
     causal: Optional[bool] = None,
     paged: Optional[Dict[str, torch.Tensor]] = None,
-) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Runs every layer.  Returns (x, caches), caches in the reference's
-    stacked tree ``{"sub0": {"attn": {...}}}``: in prefill mode this call's
-    K/V, leaves ``k``/``v`` (num_layers, B, T, Hkv, D); in decode and chunk
-    modes the ``caches`` passed in — dense ``k``/``v`` or paged
-    ``k_pool``/``v_pool`` (num_layers, P, page, Hkv, D) — updated in place
-    (each layer writes through its view of the stacked buffers); None in
-    train mode.  ``paged``, the paged layout's addresses of this step or
-    chunk (``attention.paged_*_addressing``), reaches every layer."""
+) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
+    """Runs every layer.  Returns (x, caches, aux_sum).  Caches are in the
+    reference's stacked tree ``{"sub<i>": {"attn": {...}}}``, one entry per
+    layer of the unit: in prefill mode this call's K/V, leaves ``k``/``v``
+    (num_units, B, T, Hkv, D); in decode and chunk modes the ``caches``
+    passed in — dense ``k``/``v`` or paged ``k_pool``/``v_pool``
+    (num_units, P, page, Hkv, D) — updated in place (each layer writes
+    through its view of the stacked buffers); None in train mode.
+    ``paged``, the paged layout's addresses of this step or chunk
+    (``attention.paged_*_addressing``), reaches every layer.  ``aux_sum``
+    is the MoE layers' router vectors summed (``moe.aux_shape``; a zero
+    scalar for a dense model)."""
     check_supported(cfg)
+    subs = [f"sub{i}" for i in range(unit_size(cfg))]
     # one unbind per stacked leaf: under autograd its backward stacks the
-    # per-layer grads once, where slicing p[j] per layer would write a
-    # zero-filled copy of the whole stacked leaf for each layer
-    per_layer = tree_map(lambda p: p.unbind(0), stacked_params["sub0"])
+    # per-unit grads once, where slicing p[j] per unit would write a
+    # zero-filled copy of the whole stacked leaf for each unit
+    per_unit = {s: tree_map(lambda p: p.unbind(0), stacked_params[s]) for s in subs}
     in_place = mode in ("decode", "chunk")
-    per_cache = tree_map(lambda c: c.unbind(0), caches["sub0"]) if in_place else None
-    new = []
-    for j in range(cfg.num_layers):
-        layer = tree_map(lambda ps: ps[j], per_layer)
-        cache = tree_map(lambda cs: cs[j], per_cache["attn"]) if per_cache else None
-        x, cache = _apply_layer(cfg, layer, x, mode=mode, positions=positions, causal=causal,
-                                cache=cache, cache_pos=cache_pos, paged=paged)
-        new.append(cache)
+    per_cache = ({s: tree_map(lambda c: c.unbind(0), caches[s]["attn"]) for s in subs}
+                 if in_place else None)
+    aux_sum = torch.zeros(moe.aux_shape(cfg), dtype=torch.float32, device=x.device)
+    new = {s: [] for s in subs}
+    for j in range(num_units(cfg)):
+        for i, s in enumerate(subs):
+            layer = tree_map(lambda ps: ps[j], per_unit[s])
+            cache = tree_map(lambda cs: cs[j], per_cache[s]) if per_cache else None
+            x, cache, aux = _apply_sublayer(cfg, i, layer, x, mode=mode, positions=positions,
+                                            causal=causal, cache=cache, cache_pos=cache_pos,
+                                            paged=paged)
+            if aux is not None:
+                aux_sum = aux_sum + aux
+            new[s].append(cache)
     if in_place:
-        return x, caches
+        return x, caches, aux_sum
     if mode == "prefill":
-        return x, {"sub0": {"attn": {n: torch.stack([c[n] for c in new]) for n in ("k", "v")}}}
-    return x, None
+        return x, {s: {"attn": {n: torch.stack([c[n] for c in new[s]]) for n in ("k", "v")}}
+                   for s in subs}, aux_sum
+    return x, None, aux_sum
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
                      device: torch.device, *, layout: str = "dense", page_size: int = 0,
                      num_pages: int = 0) -> Dict[str, Any]:
-    """The decode cache, stacked over the layers, zeroed (the reference
-    builds one layer's cache and broadcasts it).  Dense: leaves ``k``/``v``
-    (num_layers, batch, T, Hkv, D).  Paged: leaves ``k_pool``/``v_pool``
-    (num_layers, num_pages, page_size, Hkv, D), shared by every slot; each
-    layer works on a contiguous view."""
-    if layout == "paged":
-        return {"sub0": {"attn": init_paged_cache(cfg, num_pages, page_size, dtype, device,
-                                                  stack=(cfg.num_layers,))}}
-    shape = (cfg.num_layers, *cache_shape(cfg, batch, max_len))
-    return {"sub0": {"attn": {n: torch.zeros(shape, dtype=dtype, device=device)
-                              for n in ("k", "v")}}}
+    """The decode cache, one entry per layer of the unit, each stacked over
+    the units and zeroed (the reference builds one unit's cache and
+    broadcasts it).  Dense: leaves ``k``/``v`` (num_units, batch, T, Hkv,
+    D).  Paged: leaves ``k_pool``/``v_pool`` (num_units, num_pages,
+    page_size, Hkv, D), shared by every slot; each layer works on a
+    contiguous view."""
+    n = num_units(cfg)
+
+    def one():
+        if layout == "paged":
+            return init_paged_cache(cfg, num_pages, page_size, dtype, device, stack=(n,))
+        shape = (n, *cache_shape(cfg, batch, max_len))
+        return {name: torch.zeros(shape, dtype=dtype, device=device) for name in ("k", "v")}
+
+    return {f"sub{i}": {"attn": one()} for i in range(unit_size(cfg))}

@@ -496,11 +496,12 @@ class Engine:
         return max(n, min(b, max(self.max_len, 1)))
 
     def _write_slot(self, slot: int, one_cache: Dict[str, Any], pos: int) -> None:
-        """Copy a batch-1 prefilled cache into slot `slot` (dense)."""
-        dst = self.cache["layers"]["sub0"]["attn"]
-        src = one_cache["layers"]["sub0"]["attn"]
-        for name in ("k", "v"):
-            dst[name][:, slot].copy_(src[name][:, 0])
+        """Copy a batch-1 prefilled cache into slot `slot` (dense), in every
+        layer of the unit."""
+        for sub, dst in self.cache["layers"].items():
+            src = one_cache["layers"][sub]["attn"]
+            for name in ("k", "v"):
+                dst["attn"][name][:, slot].copy_(src[name][:, 0])
         self.cache["pos"][slot].fill_(pos)
 
     def _push_table(self) -> None:

@@ -420,8 +420,8 @@ class PageAllocator:
 # the port's stacked pools: prefill insertion and copy-on-write copies
 # --------------------------------------------------------------------- #
 def _pools(cache_layers: Dict) -> List[torch.Tensor]:
-    attn = cache_layers["sub0"]["attn"]
-    return [attn["k_pool"], attn["v_pool"]]
+    """The K and V pools of every layer of the unit."""
+    return [sub["attn"][n] for sub in cache_layers.values() for n in ("k_pool", "v_pool")]
 
 
 def pad_dim(x: torch.Tensor, axis: int, target: int) -> torch.Tensor:
@@ -437,17 +437,18 @@ def pad_dim(x: torch.Tensor, axis: int, target: int) -> torch.Tensor:
 def write_slot_paged(cache_layers: Dict, one_layers: Dict, page_ids: torch.Tensor) -> Dict:
     """Insert a batch-1 prefilled cache into the paged pools, in place.
 
-    The attention ``k``/``v`` leaves (``(layers, 1, W, Hkv, D)``) are cut
-    into page tiles and written to ``k_pool``/``v_pool`` (``(layers, P,
-    page, Hkv, D)``) at `page_ids`.  `page_ids` may be padded with the null
-    page — those tiles land on page 0 and are never read.  The port's
-    stacks are attention-only, so there are no other leaves to place (the
-    reference's also writes SSM state and cross-attention K/V into the
-    slot's batch row)."""
+    The attention ``k``/``v`` leaves of each layer of the unit (``(units, 1,
+    W, Hkv, D)``) are cut into page tiles and written to that layer's
+    ``k_pool``/``v_pool`` (``(units, P, page, Hkv, D)``) at `page_ids`.
+    `page_ids` may be padded with the null page — those tiles land on page
+    0 and are never read.  The port's stacks are attention-only, so there
+    are no other leaves to place (the reference's also writes SSM state and
+    cross-attention K/V into the slot's batch row)."""
     n_pages = page_ids.shape[0]
-    src = one_layers["sub0"]["attn"]
+    leaves = [sub["attn"][n] for sub in (one_layers[s] for s in cache_layers)
+              for n in ("k", "v")]
     ids = page_ids.long()
-    for pool, leaf in zip(_pools(cache_layers), (src["k"], src["v"])):
+    for pool, leaf in zip(_pools(cache_layers), leaves):
         u, _, W = leaf.shape[:3]
         page = pool.shape[2]
         rows = n_pages * page

@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``repro_torch`` nor ``chip_smoke.py``
 imports JAX or the reference package, the port calls no library attention,
-norm, cross-entropy or optimizer, the kernel wrappers have no fallback,
+norm, cross-entropy, optimizer or grouped GEMM, the kernel wrappers have no fallback,
 entry points refuse to run on the CPU unless asked, and CPU runs launch no
 kernel."""
 import ast
@@ -19,6 +19,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cross_entropy import cross_entropy_bwd, cross_entropy_fwd  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
+from repro_torch.kernels.grouped_matmul import gmm  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode,
     paged_kv_write,
@@ -31,7 +32,7 @@ from repro_torch.serving.api import LLM  # noqa: E402
 from repro_torch.training.loop import Trainer  # noqa: E402
 
 KERNELS = (flash_attention_fwd, flash_attention_bwd, cross_entropy_fwd, cross_entropy_bwd, layernorm,
-           rmsnorm, flash_decode, fused_sample, paged_decode, paged_prefill, paged_kv_write)
+           rmsnorm, flash_decode, fused_sample, paged_decode, paged_prefill, paged_kv_write, gmm)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -103,9 +104,28 @@ def test_the_ban_catches_library_calls_but_not_the_ports_op():
 
 def test_kernel_wrappers_have_no_fallback():
     for name in ("flash_attention.py", "cross_entropy.py", "rmsnorm.py", "flash_decode.py",
-                 "sampling.py", "paged_attention.py", "ops.py"):
+                 "sampling.py", "paged_attention.py", "grouped_matmul.py", "ops.py"):
         tree = ast.parse((PORT / "kernels" / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
+
+
+def test_grouped_matmul_kernel_route_calls_no_library_product():
+    """The wrapper hands the product to the hand-written kernel: no matmul
+    (``@``, ``matmul``, ``mm``, ``bmm``, ``einsum``) and no library grouped
+    GEMM in it, and ``torch._grouped_mm`` nowhere in the port; the plain
+    version, which it calls only for CPU tensors, lives in ``ref.py``."""
+    banned = {"_grouped_mm", "bmm", "baddbmm", "matmul", "mm", "einsum"}
+    tree = ast.parse((PORT / "kernels" / "grouped_matmul.py").read_text())
+    for node in ast.walk(tree):
+        assert not (isinstance(node, ast.BinOp) and isinstance(node.op, ast.MatMult))
+        assert not (isinstance(node, ast.Attribute) and node.attr in banned), node.attr
+    for path in PORT_FILES:
+        assert "_grouped_mm" not in path.read_text(), path
+    ops_tree = ast.parse((PORT / "kernels" / "ops.py").read_text())
+    fn = next(n for n in ops_tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "grouped_matmul")
+    assert {_dotted(n.func) for n in ast.walk(fn) if isinstance(n, ast.Call)} == \
+        {"_plain", "_ref.grouped_matmul_ref", "_gm.gmm", "_i32"}
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -150,6 +170,8 @@ def test_cpu_runs_launch_no_kernel():
     LLM(qwen, slots=2, max_len=48).generate([[1, 5, 6], [7, 8, 9, 10]])
     LLM(qwen, slots=2, max_len=48, cache_layout="paged", page_size=8, prefix_cache=True,
         prefill_chunk=4).generate([[1, 5, 6, 7, 8, 9, 10, 11, 12], [1, 5, 6, 7, 8, 9, 10, 11]])
+    scout = model_mod.build_model(get_smoke_config("llama4-scout-17b-a16e"), device="cpu")
+    LLM(scout, slots=2, max_len=48).generate([[1, 5, 6], [7, 8, 9, 10]])
     assert all(k.launches == 0 for k in KERNELS), [k.launches for k in KERNELS]
 
 

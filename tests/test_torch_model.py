@@ -162,9 +162,10 @@ def test_decoder_stack_matches_reference(dtype, impl_env):
     jcfg, cfg = _configs(dtype)
     tree = _params(jcfg)
     x, jx = _pair(np.random.default_rng(3).standard_normal((2, 40, cfg.d_model)).astype(np.float32), dtype)
-    got, _ = transformer.decoder_stack(cfg, from_jax_params(tree["layers"]), x)
-    want, _, _ = jax_transformer.decoder_stack(jcfg, null_ctx(), tree["layers"], jx, mode="train")
+    got, _, aux = transformer.decoder_stack(cfg, from_jax_params(tree["layers"]), x)
+    want, _, jaux = jax_transformer.decoder_stack(jcfg, null_ctx(), tree["layers"], jx, mode="train")
     _close(got, want, dtype)
+    assert aux.shape == jaux.shape == () and float(aux) == float(jaux) == 0.0   # dense: no router
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -186,7 +187,7 @@ def test_embed_pool_matches_reference(dtype, impl_env):
 
 def test_unported_architectures_raise():
     _, cfg = _configs("float32")
-    for over in (dict(num_experts=4), dict(family="ssm"), dict(parallel_residual=True),
+    for over in (dict(family="ssm"), dict(parallel_residual=True),
                  dict(is_encoder_decoder=True, encoder_layers=2)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_model(dataclasses.replace(cfg, **over), device="cpu")

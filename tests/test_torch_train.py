@@ -37,7 +37,7 @@ from repro_torch.data import dataset, pipeline, sampler  # noqa: E402
 from repro_torch.data.tokenizer import ProteinTokenizer  # noqa: E402
 from repro_torch.kernels import cross_entropy as ce  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.models.model import Model, build_model  # noqa: E402
 from repro_torch.obs.metrics import MetricsRegistry  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim.schedule import lr_at  # noqa: E402
@@ -133,9 +133,14 @@ def test_clm_loss_and_logits_match_reference():
 
 
 def test_moe_config_raises():
+    """An MoE model builds and serves, but its loss (router terms, the
+    grouped-matmul backward) waits for the MoE training path."""
     _, cfg = _configs()
+    model = build_model(dataclasses.replace(cfg, family="moe", num_experts=4), device="cpu")
+    toks = torch.ones((2, 8), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="MoE"):
-        Model(dataclasses.replace(cfg, num_experts=4), {})
+        model.loss_fn(model.params.tree(), {"tokens": toks, "targets": toks,
+                                            "loss_mask": torch.ones((2, 8))})
 
 
 # ------------------------------------------------------------ optimizer
