@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from the sources in this checkout and holds each
-of the twelve kernels against its plain PyTorch version on the card.  Then
-drives the five paths ported so far: embedding serving through
+of the thirteen kernels against its plain PyTorch version on the card.
+Then drives the six paths ported so far: embedding serving through
 ``LLM.embed`` and MLM pre-training through ``Trainer.run`` (about 10
 optimizer steps) at the full width and depth of ESM-2 650M; generation
 through ``LLM.generate`` at the full width and depth of Qwen2-7B (bf16
@@ -14,8 +14,10 @@ parameters, 32 slots, 64 prompts of 256 new tokens) over a dense
 512-token chunked prefill (half the prompts behind one shared 512-token
 preamble); and MoE generation through ``LLM.generate`` with
 Llama-4-Scout at full width, its depth cut to 8 of 48 layers, on the same
-load over the dense cache; all with seeded random weights, checking what
-comes out of each.  Prints per-kernel times beside their bounds, the
+load over the dense cache; and SSM generation through ``LLM.generate``
+at the full width and depth of Mamba2-2.7B on the same load (ids within
+its vocab), then the hybrid unit of Jamba-1.5-Large at ``reduced()`` size;
+all with seeded random weights, checking what comes out of each.  Prints per-kernel times beside their bounds, the
 embedding throughput, the training step time, tokens/s, MFU and peak
 memory, the generation tokens/s, TTFT, decode-step time and idle share, the
 router's drops, a profile of each path, then one JSON line of kernel
@@ -137,7 +139,7 @@ def kernel_groups(prof, DeviceType):
     groups = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0, "cross_entropy": 0.0,
               "layernorm": 0.0, "rmsnorm": 0.0, "flash_decode": 0.0, "fused_sample": 0.0,
               "paged_decode": 0.0, "paged_prefill": 0.0, "paged_kv_write": 0.0,
-              "gmm": 0.0, "matmul": 0.0, "other": 0.0}
+              "gmm": 0.0, "ssd_scan": 0.0, "matmul": 0.0, "other": 0.0}
     for name, t, _ in kern:
         low = name.lower()
         paged = [g for g in ("paged_decode", "paged_prefill", "paged_kv_write") if g in low]
@@ -157,6 +159,8 @@ def kernel_groups(prof, DeviceType):
             groups["flash_decode"] += t
         elif "gmm_kernel" in low:
             groups["gmm"] += t
+        elif "ssd_scan_kernel" in low:
+            groups["ssd_scan"] += t
         elif "fused_sample" in low:
             groups["fused_sample"] += t
         elif any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
@@ -970,6 +974,86 @@ def check_gmm(torch, ref, gmm, card):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
+def _ssd_case(torch, g, B, S, H, P, G, N, dt_shift):
+    """SSD scan inputs as an SSM layer makes them: x, B and C sliced out of
+    one bf16 activation (strided views), dt = softplus(raw + shift) in
+    fp32, A = -U[1, 16) (Mamba-2's init), D around 1."""
+    dev = torch.device("cuda")
+    conv = torch.randn(B, S, H * P + 2 * G * N, generator=g, device=dev).to(torch.bfloat16)
+    x = conv[..., :H * P].unflatten(-1, (H, P))
+    Bm = conv[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+    Cm = conv[..., H * P + G * N:].unflatten(-1, (G, N))
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g, device=dev) + dt_shift)
+    A = -(1 + 15 * torch.rand(H, generator=g, device=dev))
+    D = 1 + 0.1 * torch.randn(H, generator=g, device=dev)
+    return x, dt, A, Bm, Cm, D
+
+
+def ssd_flops(B, S, H, P, N):
+    """FLOPs of the cheapest exact form of the scan, the sequential
+    recurrence: per token and head the state's decay and update (3·P·N),
+    its read-out y = h·C (2·P·N), dt·x and D·x (3·P).  The chunked dual
+    form needs more at any chunk: at L = 64 with only the causal triangle
+    of C·Bᵀ and att·x, 2·(L(L+1)/2·(N + P) + 2·L·P·N) + P·N a chunk."""
+    return (5 * P * N + 3 * P) * B * S * H
+
+
+def check_ssd_scan(torch, ref, ssd_scan, card):
+    """Row 14 against ``ssd_scan_ref`` (the kernel's math in fp32, at the
+    configs' chunk of 128) at Mamba2-2.7B's prefill shape at S = 1024 and
+    at a tail length, batch 4, two groups, S shorter than a chunk, and
+    large steps (dt·|A| up to ~50 a row, so exp(cum_t − cum_s) overflows
+    above the diagonal and must be selected away).  y within 2 bf16 steps
+    of each row's max|plain|, the state within 1e-4 of each head's
+    max|plain|, no NaN.  Times the S = 1024 shape.  Returns its record."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    cases = [
+        ("mamba2-2.7b prefill S=1024", (1, 1024, 80, 64, 1, 128), -4.0),
+        ("mamba2-2.7b prefill, tail S=1000", (1, 1000, 80, 64, 1, 128), -4.0),
+        ("batch 4", (4, 300, 8, 64, 1, 128), -4.0),
+        ("G=2", (2, 200, 8, 64, 2, 128), -4.0),
+        ("S < chunk", (1, 37, 80, 64, 1, 128), -4.0),
+        ("jamba reduced shape", (1, 77, 16, 32, 1, 16), -4.0),
+        ("large steps", (1, 256, 8, 64, 1, 128), 1.5),
+    ]
+    inputs = {}
+    for label, (B, S, H, P, G, N), shift in cases:
+        args = _ssd_case(torch, g, B, S, H, P, G, N, shift)
+        y, state = ssd_scan(*args)
+        torch.cuda.synchronize()
+        want_y, want_state = ref.ssd_scan_ref(*args, chunk=128)
+        top = want_y.float().abs().amax(-1, keepdim=True)
+        step = torch.exp2(torch.floor(torch.log2(top.clamp_min(1e-30))) - 7)
+        y_steps = ((y.float() - want_y.float()).abs() / step).max().item()
+        s_err = row_rel_err(state, want_state, dims=2)
+        finite = bool(y.isfinite().all() and state.isfinite().all())
+        print(f"ssd_scan {label} (B={B}, S={S}, H={H}, P={P}, G={G}, N={N}): y within "
+              f"{y_steps:.3g} bf16 steps of each row's max|plain| (tol 2), state rel err "
+              f"{s_err:.3g} (tol 1e-4 of each head's max|plain|), finite {finite}")
+        check(y_steps <= 2 and s_err <= 1e-4 and finite, f"ssd_scan {label}")
+        inputs[label] = (args, (y.float() - want_y.float()).abs().max().item())
+    args, max_err = inputs["mamba2-2.7b prefill S=1024"]
+    x, dt, A, Bm, Cm, D = args
+    B, S, H, P = x.shape
+    N = Bm.shape[3]
+    ms = time_ms(torch, lambda: ssd_scan(*args), trials=10)
+    dev_ms = device_ms(torch, lambda: ssd_scan(*args), "ssd_scan_kernel", n=10)
+    plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(*args, chunk=128), trials=3, per_trial=2,
+                       warmup=1)
+    flops = ssd_flops(B, S, H, P, N)
+    nbytes = 2 * B * S * H * P * 2 + B * H * P * N * 4 + B * S * H * 4 + 2 * B * S * N * 2
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    print(f"ssd_scan mamba2-2.7b prefill (B={B}, S={S}, H={H}, P={P}, N={N}) bf16 on {card}: "
+          f"{ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (bound {bound_ms:.4f} ms by "
+          f"{bound_by}: {flops / 1e9:.2f} GFLOP of the recurrence at fp32 peak, "
+          f"{nbytes / 1e6:.1f} MB; {per_device_ms(flops, dev_ms, 'TFLOP/s', 1e9)}), plain "
+          f"{plain_ms:.4f} ms, library: none (no single PyTorch call computes the scan)")
+    return {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:136", "launches": 0, "max_abs_err": max_err,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def generate_phase(torch, counters, card):
     """Slice 4a: Qwen2-7B generation at full width and depth through
     ``LLM.generate`` over the dense KV cache.  Returns the launch counts of
@@ -1746,6 +1830,340 @@ def moe_phase(torch, counters, card):
     return launches
 
 
+def ssm_phase(torch, counters, card):
+    """Slice 6: Mamba2-2.7B generation at full width and depth through
+    ``LLM.generate`` over the dense cache (exact-length prefills, the SSD
+    state per slot), on the dense Qwen2 phase's load with ids within its
+    vocab.  Returns the launch counts of the first generate call (the main
+    path's run)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, build_model
+    from repro_torch.serving.api import LLM
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.sampling import SamplingParams
+
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"), param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    print(f"built {cfg.name} ({cfg.num_layers} SSD layers, d_model {cfg.d_model}, {cfg.ssm_nheads} "
+          f"heads of {cfg.ssm_headdim}, state {cfg.ssm_state}, {cfg.param_count() / 1e9:.2f}B "
+          f"params, bf16) on cuda in {t_build:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    slots, max_len, n, max_new = 32, 2048, 64, 256
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(64, 1025, size=n)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(L)).tolist() for L in lengths]
+    params = [SamplingParams(max_new=max_new) if i % 2 == 0 else
+              SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=i, max_new=max_new,
+                             logprobs=True) for i in range(n)]
+    llm = LLM(model, slots=slots, max_len=max_len)
+    eng = llm.engine
+    L = cfg.num_layers
+    names = ("ssd_scan", "rmsnorm", "fused_sample", "flash_attention_fwd", "flash_decode")
+
+    def zero():
+        for name in names:
+            counters[name].launches = 0
+
+    def read():
+        return {name: counters[name].launches for name in names}
+
+    # the main path: every count set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    dec0 = eng.decode_steps
+    t0 = time.perf_counter()
+    first = llm.generate(prompts, params)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = read()
+    n_dec = eng.decode_steps - dec0
+    want = {"ssd_scan": L * n, "rmsnorm": (L + 1) * (n + n_dec), "fused_sample": n + n_dec,
+            "flash_attention_fwd": 0, "flash_decode": 0}
+    state_gb = sum(c["ssm"]["state"].numel() * 4 for c in eng.cache["layers"].values()) / 1e9
+    print(f"main path: LLM.generate of {n} prompts ({int(lengths.sum())} prompt tokens at their "
+          f"exact lengths, max_new {max_new}) on {slots} slots ({state_gb:.2f} GB of fp32 SSD "
+          f"state): {n} admissions, {n_dec} decode steps, {t_first:.2f} s (first call, set-up "
+          f"included); launches {launches} (want {want})")
+    expect(launches == want, "Mamba2 generation launch counts")
+    gen = [len(c.tokens) for c in first]
+    expect(all(c.finish_reason == "length" for c in first) and gen == [max_new] * n,
+           "finish reasons / lengths")
+    expect(all(np.isfinite(c.logprobs).all() for c in first if c.logprobs), "non-finite logprobs")
+
+    t0 = time.perf_counter()
+    second = llm.generate(prompts, params)
+    torch.cuda.synchronize()
+    t_steady = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    same = all(a.tokens == b.tokens and a.finish_reason == b.finish_reason
+               for a, b in zip(first, second))
+    print(f"second generate call: tokens and finish reasons identical: {same}")
+    expect(same, "a repeated generate differs")
+    ttft = sorted(c.ttft_s for c in second)
+    toks = sum(len(c.tokens) for c in second)
+    print(f"Mamba2-2.7B LLM.generate on {card}: {toks / t_steady:.1f} generated tokens/s ({toks} "
+          f"tokens in {t_steady:.3f} s, steady call), TTFT p50 {1e3 * ttft[n // 2]:.1f} ms, p95 "
+          f"{1e3 * ttft[int(0.95 * (n - 1))]:.1f} ms, peak memory {peak_gb:.2f} GB; build "
+          f"{t_build:.1f} s, first call {t_first:.2f} s")
+
+    # the steady decode loop at full slots: per-step launches, no host sync
+    # but the one transfer, the step time, and a profile
+    for i in range(slots):
+        eng.submit(Request(uid=30_000 + i, prompt=np.asarray(prompts[i], np.int32),
+                           params=dataclasses.replace(params[i], max_new=64)))
+    eng.step()                       # admits every slot, then decodes
+    zero()
+    eng.step()
+    per_step = read()
+    step_want = {"ssd_scan": 0, "rmsnorm": L + 1, "fused_sample": 1, "flash_attention_fwd": 0,
+                 "flash_decode": 0}
+    print(f"one steady decode step: launches {per_step} (want {step_want})")
+    expect(per_step == step_want, "launches per decode step")
+    for _ in range(8):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    print("8 steady decode steps under torch.cuda.set_sync_debug_mode('error'): no host sync "
+          "outside the one transfer")
+    t0 = time.perf_counter()
+    for _ in range(16):
+        eng.step()
+    step_ms = (time.perf_counter() - t0) / 16 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            eng.step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, groups, kern = kernel_groups(prof, DeviceType)
+    print(f"Mamba2 decode step of {slots} slots on {card}: {step_ms:.2f} ms "
+          f"({slots / step_ms * 1e3:.0f} tokens/s at full slots)")
+    if busy_ms == 0:
+        print("profile: the profiler saw no device time")
+    else:
+        launches_per_step = sum(e.count for e in prof.key_averages()
+                                if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                             "cudaLaunchKernelExC", "cuLaunchKernelEx")) / 8
+        print(f"profile of 8 Mamba2 decode steps on {card}: wall {wall_ms:.1f} ms (under the "
+              f"profiler), device busy {busy_ms:.1f} ms ({busy_ms / 8:.2f} ms a step), idle share "
+              f"{1 - busy_ms / wall_ms:.3f}, {launches_per_step:.0f} kernel launches a step")
+        print("profile by group, per step: " + ", ".join(
+            f"{k} {v / 8:.3f} ms ({v / busy_ms:.1%})" for k, v in groups.items() if v))
+        for name, t, cnt in sorted(kern, key=lambda r: -r[1])[:12]:
+            print(f"  {t:9.2f} ms {cnt:6d}x  {name[:110]}")
+        host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)[:10]
+        print("host time by op (self CPU ms, calls): " + ", ".join(
+            f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ({e.count})" for e in host))
+    eng.run()
+    del prof, llm, eng
+
+    try:
+        LLM(model, slots=2, max_len=64, cache_layout="paged")
+        refused = False
+    except ValueError as err:
+        refused = True
+        print(f"the paged layout is refused for {cfg.name}: {err}")
+    expect(refused, "the engine took cache_layout='paged' for an SSM model")
+
+    # kernel route against plain route (kernel_impl="torch", the same
+    # weights) through the engine: exact-length prefills into 8 of 32
+    # slots, then lockstep decode steps, teacher-forced with the main run's
+    # tokens.  64 random-weight layers amplify bf16 rounding: two plain
+    # routes that differ only in the scan's fp32 summation order (chunks of
+    # 64 and 128) part to a cosine of ~0.9984 (ssd_route_faults.py), below
+    # the 0.999 that holds the shallower models, so the routes are held to
+    # an fp32-compute route (the same bf16 weights, fp32 activations) and
+    # the kernel route must come as close to it as the plain route does.
+    # That catches a gross fault (D·x dropped) but not one of a few bf16
+    # steps a layer (ssd_route_faults.py plants both): the gate for those
+    # is ssm_layer_check, which holds each SSD layer on its real input.
+    picks = [int(i) for i in np.argsort(lengths)[:: n // 8]]
+    n_forced = 32
+    forced = torch.zeros((n_forced, slots), dtype=torch.int32, device=model.device)
+    for slot, i in enumerate(picks):
+        forced[:, slot] = torch.tensor(first[i].tokens[:n_forced], dtype=torch.int32)
+    route = dict(slots=slots, max_len=max_len)
+    route_prompts = [prompts[i] for i in picks]
+    logits = {"kernel": engine_logits(torch, np, model, route, route_prompts, forced)[0]}
+    for name, over in (("plain", dict(kernel_impl="torch")),
+                       ("fp32", dict(kernel_impl="torch", dtype="float32"))):
+        other = Model(dataclasses.replace(cfg, **over), model.params.tree())
+        logits[name] = engine_logits(torch, np, other, route, route_prompts, forced)[0]
+        del other
+    anchored_compare(torch, logits, route_label(lengths, picks, n_forced), expect)
+    plain_cfg = dataclasses.replace(cfg, kernel_impl="torch")
+    ssm_layer_check(torch, model, plain_cfg, prompts[picks[-1]], expect)
+    del model, logits
+    check(not failed, "Mamba2 generation phase: " + "; ".join(failed))
+    return launches
+
+
+def route_label(lengths, picks, n_forced):
+    return (f"Mamba2 routes through the engine (8 slots of 32, prompts of "
+            f"{sorted(int(lengths[i]) for i in picks)} tokens, exact-length prefill + "
+            f"{n_forced} teacher-forced decode steps)")
+
+
+def anchored_compare(torch, logits, label, expect):
+    """Hold the kernel route to the plain route through an fp32-compute
+    route, for a model deep enough that bf16 rounding alone moves its
+    logits past the 0.999 cosine of ``compare_logits``: the kernel route
+    must be as close to the fp32 route as the plain route is (its mean
+    1 − cosine at most 1.25× the plain route's, its least cosine within
+    0.001 of the plain route's least), and agree with the fp32 route's
+    top-1 wherever that route's top-2 gap exceeds the slot-step's max
+    |Δlogit|.  Catches a gross fault of the kernel; one that moves a layer
+    by a few bf16 steps reads as the sound kernel does, and is left to
+    ``ssm_layer_check`` (``ssd_route_faults.py``).  Prints the
+    kernel-vs-plain cosine; returns the readings."""
+    def cos(a, b):
+        return torch.nn.functional.cosine_similarity(logits[a], logits[b], dim=-1)
+
+    kp = cos("kernel", "plain")
+    kf, pf = cos("kernel", "fp32"), cos("plain", "fp32")
+    f = logits["fp32"]
+    dmax = (logits["kernel"] - f).abs().amax(dim=-1)
+    top2 = f.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > dmax
+    agree = logits["kernel"].argmax(-1) == f.argmax(-1)
+    print(f"{label}: kernel vs plain cosine min {kp.min().item():.6f} (first tokens "
+          f"{kp[0].min().item():.6f}); against the fp32 route: "
+          f"kernel min {kf.min().item():.6f}, mean 1-cos {(1 - kf).mean().item():.3g}; plain min "
+          f"{pf.min().item():.6f}, mean 1-cos {(1 - pf).mean().item():.3g}; kernel top-1 = fp32 "
+          f"top-1 on {int((agree & decided).sum())} of {int(decided.sum())} decided slot-steps")
+    expect((1 - kf).mean().item() <= 1.25 * (1 - pf).mean().item(),
+           f"{label}: the kernel route is further from the fp32 route than the plain route")
+    expect(kf.min().item() >= pf.min().item() - 1e-3,
+           f"{label}: the kernel route's least cosine to the fp32 route is below the plain route's")
+    expect(bool(agree[decided].all()), f"{label}: top-1 differs from the fp32 route where decided")
+    return {"kernel_plain_min": kp.min().item(), "kernel_fp32_min": kf.min().item(),
+            "plain_fp32_min": pf.min().item(), "kernel_fp32_mean": (1 - kf).mean().item(),
+            "plain_fp32_mean": (1 - pf).mean().item(),
+            "top1": f"{int((agree & decided).sum())}/{int(decided.sum())}"}
+
+
+def ssm_layer_check(torch, model, plain_cfg, prompt, expect):
+    """Every SSD layer of the kernel route's prefill of ``prompt`` against
+    the plain route on the same input (the layer's real activations): the
+    output within 2 bf16 steps of each row's max|plain|, the final state
+    within 1e-4 of each head's max|plain|."""
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as T
+
+    seen, apply = [], T.ssm_apply
+
+    def spy(cfg, params, x, *, mode="train", cache=None):
+        out, c = apply(cfg, params, x, mode=mode, cache=cache)
+        seen.append((params, x, out, c))
+        return out, c
+
+    T.ssm_apply = spy
+    try:
+        model.prefill(model.params.tree(), {"tokens": torch.tensor([prompt], device=model.device)},
+                      len(prompt))
+    finally:
+        T.ssm_apply = apply
+    worst_steps, worst_state = 0.0, 0.0
+    for params, x, out, c in seen:
+        want, wc = ssm.ssm_apply(plain_cfg, params, x, mode="prefill")
+        top = want.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        worst_steps = max(worst_steps, ((out.float() - want.float()).abs() / step).max().item())
+        worst_state = max(worst_state, row_rel_err(c["state"], wc["state"], dims=2))
+    print(f"each of the {len(seen)} SSD layers on its real input ({len(prompt)} tokens): kernel "
+          f"route's output within {worst_steps:.3g} bf16 steps of each row's max|plain| (tol 2), "
+          f"final state within {worst_state:.3g} of each head's max|plain| (tol 1e-4)")
+    expect(worst_steps <= 2 and worst_state <= 1e-4, "an SSD layer differs from its plain route")
+    return worst_steps, worst_state
+
+
+def hybrid_phase(torch, counters, card):
+    """The hybrid unit on the card at reduced size: ``reduced()``
+    Jamba-1.5-Large in bf16 (one unit of 8 layers: 7 SSD layers and one
+    attention layer, MoE top-2 on every other layer) through one
+    ``LLM.generate`` of a few prompts, every sublayer kind's kernel
+    counted, a repeat's tokens, and the kernel route against the plain
+    route on the kernel route's experts.  The full model does not fit one
+    card (one unit is ~90 GB in bf16)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import reduced
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model, build_model
+    from repro_torch.serving.api import LLM
+    from repro_torch.serving.sampling import SamplingParams
+
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    cfg = reduced(get_config("jamba-1.5-large-398b"), dtype="bfloat16", param_dtype="bfloat16")
+    model = build_model(cfg, seed=0)
+    L = cfg.num_layers
+    n_ssm = sum(not cfg.is_attn_layer(i) for i in range(L))
+    n_moe = T.num_moe_layers(cfg)
+    rng = np.random.default_rng(1)
+    lengths = rng.integers(20, 200, size=6)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist() for n in lengths]
+    params = [SamplingParams(max_new=16) if i % 2 == 0 else
+              SamplingParams(temperature=0.8, top_k=20, seed=i, max_new=16) for i in range(6)]
+    llm = LLM(model, slots=4, max_len=256)
+    names = ("ssd_scan", "flash_attention_fwd", "flash_decode", "gmm", "rmsnorm", "fused_sample")
+    for name in names:
+        counters[name].launches = 0
+    dec0 = llm.engine.decode_steps
+    first = llm.generate(prompts, params)
+    torch.cuda.synchronize()
+    launches = {name: counters[name].launches for name in names}
+    n, n_dec = len(prompts), llm.engine.decode_steps - dec0
+    want = {"ssd_scan": n_ssm * n, "flash_attention_fwd": (L - n_ssm) * n,
+            "flash_decode": (L - n_ssm) * n_dec, "gmm": 3 * n_moe * (n + n_dec),
+            "rmsnorm": (2 * L + 1) * (n + n_dec), "fused_sample": n + n_dec}
+    print(f"reduced {cfg.name} (bf16, {L} layers: {n_ssm} SSD + {L - n_ssm} attention, {n_moe} MoE "
+          f"top-{cfg.num_experts_per_tok} of {cfg.num_experts}, d_model {cfg.d_model}) "
+          f"LLM.generate of {n} prompts ({sorted(int(x) for x in lengths)} tokens) on 4 slots: "
+          f"{n_dec} decode steps; launches {launches} (want {want})")
+    expect(launches == want, "hybrid launch counts")
+    expect([len(c.tokens) for c in first] == [16] * n, "hybrid lengths")
+    again = llm.generate(prompts, params)
+    same = all(a.tokens == b.tokens for a, b in zip(first, again))
+    print(f"a repeated call's tokens identical: {same}")
+    expect(same, "a repeated hybrid generate differs")
+    del llm
+
+    forced = torch.zeros((8, 4), dtype=torch.int32, device=model.device)
+    for slot in range(4):
+        forced[:, slot] = torch.tensor(first[slot].tokens[:8], dtype=torch.int32)
+    plain = Model(dataclasses.replace(cfg, kernel_impl="torch"), model.params.tree())
+    with RouteLog(moe) as k_log:
+        k_lg, _ = engine_logits(torch, np, model, dict(slots=4, max_len=256), prompts[:4], forced)
+    with RouteLog(moe, replay=k_log.calls):
+        p_lg, _ = engine_logits(torch, np, plain, dict(slots=4, max_len=256), prompts[:4], forced)
+    compare_logits(torch, k_lg, p_lg,
+                   "reduced Jamba kernel path vs plain path through the engine on the same experts "
+                   "(4 slots, exact-length prefill + 8 teacher-forced decode steps)", expect)
+    del plain, model
+    check(not failed, "hybrid phase: " + "; ".join(failed))
+
+
 def main() -> int:
     import torch
 
@@ -1766,6 +2184,7 @@ def main() -> int:
     from repro_torch.kernels.paged_attention import paged_decode, paged_kv_write, paged_prefill
     from repro_torch.kernels.rmsnorm import layernorm, rmsnorm
     from repro_torch.kernels.sampling import fused_sample
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models.model import Model, build_model
     from repro_torch.obs.trace import TraceRecorder
     from repro_torch.serving.api import LLM
@@ -1787,7 +2206,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.finish_builds(_build.start_builds(
         ["flash_attention_fwd", "flash_attention_bwd", "cross_entropy", "flash_decode", "sampling",
-         "paged_attention", "grouped_matmul"]))
+         "paged_attention", "grouped_matmul", "ssd_scan"]))
     t_nvcc = time.perf_counter() - t0
     for name, log in logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill stores" in ln
@@ -1922,6 +2341,7 @@ def main() -> int:
                   check_paged_prefill(torch, F, ref, paged_prefill, randn, card),
                   check_paged_kv_write(torch, ref, paged_kv_write, randn, card)]
     gmm_rec = check_gmm(torch, ref, gmm, card)
+    ssd_rec = check_ssd_scan(torch, ref, ssd_scan, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2034,12 +2454,21 @@ def main() -> int:
     # ---- 9. slice 5: Llama-4-Scout (8 of 48 layers) MoE generation
     counters.update(gmm=gmm)
     moe_launches = moe_phase(torch, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 10. slice 6: Mamba2-2.7B generation, then the hybrid unit (reduced Jamba)
+    counters.update(ssd_scan=ssd_scan)
+    ssm_launches = ssm_phase(torch, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_phase(torch, counters, card)
 
     # launches: each kernel's count in the run of its path — the training
     # run for rows 1-5 (the embed and generation runs' counts of the
     # attention forward were checked in phases 4 and 7), the dense
     # generation run for rows 6-8, the paged one for rows 9-11, the MoE one
-    # for row 12
+    # for row 12, the Mamba2 one for row 14
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -2063,7 +2492,8 @@ def main() -> int:
     for rec in paged_recs:
         rec["launches"] = paged_launches[rec["name"]]
     gmm_rec["launches"] = moe_launches["gmm"]
-    kernels += gen_recs + paged_recs + [gmm_rec]
+    ssd_rec["launches"] = ssm_launches["ssd_scan"]
+    kernels += gen_recs + paged_recs + [gmm_rec, ssd_rec]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

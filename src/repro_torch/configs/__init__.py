@@ -18,7 +18,7 @@ from repro_torch.core.config import ModelConfig, reduced
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
 _MODULES = ["esm2_650m", "esm2_3b", "qwen2_7b", "llama4_scout_17b_a16e",
-            "llama4_maverick_400b_a17b"]
+            "llama4_maverick_400b_a17b", "mamba2_2p7b", "jamba_1p5_large_398b"]
 
 
 def register(fn: Callable[[], ModelConfig]) -> Callable[[], ModelConfig]:

@@ -84,7 +84,7 @@ class ModelConfig:
     # --- numerics / kernels ---
     dtype: str = "bfloat16"            # activation/compute dtype
     param_dtype: str = "float32"       # stored parameter dtype
-    # hot-path ops (attention, norms, sampling, grouped matmul): "auto"
+    # hot-path ops (attention, norms, sampling, grouped matmul, SSD scan): "auto"
     # launches the hand-written kernel for a CUDA tensor and the plain
     # PyTorch version for a CPU tensor; "torch" forces the plain version
     # (tests and chip_smoke.py)
@@ -99,6 +99,14 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return _round_up(self.vocab_size, VOCAB_DIVISOR)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim
 
     def is_moe_layer(self, layer_idx: int) -> bool:
         if self.num_experts == 0:
@@ -118,14 +126,19 @@ class ModelConfig:
         return (3 if self.act in ("swiglu", "geglu") else 2) * self.d_model * self.d_ff
 
     def param_count(self) -> int:
-        """Analytic parameter count of an attention stack, dense or MoE
-        (embedding included once, twice when untied; MoE counts every
-        expert, the shared ones and the router)."""
+        """Analytic parameter count of a decoder stack — attention, SSM
+        (Mamba-2) or a hybrid of both, each with a dense or MoE FFN —
+        counted as the reference counts it: embedding included once, twice
+        when untied; MoE counts every expert, the shared ones and the
+        router; an SSM block its projections and A, D, dt_bias (not its
+        conv or its gated norm)."""
         d, hd = self.d_model, self.resolved_head_dim
         att = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
+        di, nh = self.d_inner, self.ssm_nheads
+        ssm = d * (2 * di + 2 * self.ssm_ngroups * self.ssm_state + nh) + di * d + 3 * nh
         total = 0
         for i in range(self.num_layers):
-            total += att + 2 * d
+            total += (att if self.is_attn_layer(i) else ssm) + 2 * d
             if self.is_moe_layer(i):
                 total += (self.num_experts + self.n_shared_experts) * self._mlp_params()
                 total += d * self.num_experts

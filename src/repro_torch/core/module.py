@@ -33,7 +33,7 @@ class P:
 
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "fan_in"   # fan_in | normal | zeros | ones
+    init: str = "fan_in"   # fan_in | normal | zeros | ones | ssm_a | ssm_dt_bias
     fan_in: int = 0        # for "fan_in" init; 0 -> infer from shape[-2] or shape[0]
     scale: float = 0.02    # for "normal" init
     dtype: Optional[str] = None
@@ -84,6 +84,24 @@ def _leaf_seed(seed: int, path: Tuple[str, ...]) -> int:
     return (seed * 1_000_003 + zlib.crc32("/".join(path).encode())) % (2**63)
 
 
+def _ssm_a(u: torch.Tensor) -> torch.Tensor:
+    """Mamba-2's A = -u, u uniform in [1, 16): every head decays (A < 0);
+    a fan-in normal draw would give some heads A > 0, whose state grows
+    as exp(dt·A·t) and overflows fp32 within a long prompt."""
+    return -(1.0 + 15.0 * u)
+
+
+def _ssm_dt_bias(u: torch.Tensor) -> torch.Tensor:
+    """softplus⁻¹(dt) for dt log-uniform in [1e-3, 1e-1]: the bias puts
+    each head's initial step size in that range."""
+    dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    return dt + torch.log(-torch.expm1(-dt))
+
+
+# the reference's ``ssm_defs`` init callables, as named draws from U[0, 1)
+_SSM_INITS = {"ssm_a": _ssm_a, "ssm_dt_bias": _ssm_dt_bias}
+
+
 def materialize(defs: Dict[str, Any], seed: int, param_dtype: torch.dtype,
                 device: torch.device) -> Dict[str, Any]:
     """Instantiate a P-tree into a nested dict of tensors on ``device``."""
@@ -97,6 +115,9 @@ def materialize(defs: Dict[str, Any], seed: int, param_dtype: torch.dtype,
         if tree.init == "ones":
             return torch.ones(tree.shape, dtype=dt, device=device)
         g = torch.Generator(device=device).manual_seed(_leaf_seed(seed, path))
+        if tree.init in _SSM_INITS:
+            u = torch.rand(tree.shape, generator=g, dtype=torch.float32, device=device)
+            return _SSM_INITS[tree.init](u).to(dt)
         x = torch.randn(tree.shape, generator=g, dtype=torch.float32, device=device)
         return (x * tree.std()).to(dt)
 

@@ -21,4 +21,6 @@
   ``paged_flash_prefill`` and ``paged_kv_write``.
 * ragged grouped matmul: ``csrc/grouped_matmul.cu`` (CUDA C++ for sm_90a),
   wrapped by ``grouped_matmul.py``; replaces ``grouped_matmul.py::gmm``.
+* Mamba-2 SSD chunked scan: ``csrc/ssd_scan.cu`` (CUDA C++ for sm_90a),
+  wrapped by ``ssd_scan.py``; replaces ``ssd_scan.py::ssd_scan``.
 """

@@ -10,11 +10,12 @@ implementations: attention and cross-entropy pair their forward and
 backward kernels (or plain versions) in a ``torch.autograd.Function``, as
 the reference's custom VJPs do; LayerNorm pairs its forward kernel with
 the reference's hand-written backward formulas.  The serving ops —
-RMSNorm, decode attention, the paged-KV ops, sampling and the MoE's
-ragged grouped matmul — are forward-only: the RMSNorm and grouped-matmul
-kernels raise when asked for a gradient (their plain versions stay
-differentiable).  The paged-KV writes update the pools
-in place (the reference donates them and returns new ones).
+RMSNorm, decode attention, the paged-KV ops, sampling, the MoE's ragged
+grouped matmul and the Mamba-2 SSD scan — are forward-only: the RMSNorm,
+grouped-matmul and SSD kernels raise when asked for a gradient (their
+plain versions stay differentiable).  The paged-KV writes and the SSD
+decode step update the cache in place (the reference donates its buffers
+and returns new ones).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _ln
 from repro_torch.kernels import sampling as _sp
+from repro_torch.kernels import ssd_scan as _ss
 
 IMPLS = ("auto", "torch")
 
@@ -220,3 +222,42 @@ def grouped_matmul(
     if _plain(impl):
         return _ref.grouped_matmul_ref(x, w, group_sizes)
     return _gm.gmm(x, w, _i32(group_sizes))
+
+
+def ssd(
+    x: torch.Tensor,            # (B, S, H, P)
+    dt: torch.Tensor,           # (B, S, H) fp32, positive
+    A: torch.Tensor,            # (H,) negative
+    Bm: torch.Tensor,           # (B, S, G, N)
+    Cm: torch.Tensor,           # (B, S, G, N)
+    D: torch.Tensor,            # (H,)
+    *,
+    chunk: int = 64,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-2 SSD scan over a whole sequence from a zero state ->
+    (y (B, S, H, P) in x.dtype, final state (B, H, P, N) fp32), in the
+    chunked dual form with fp32 products; any S.  ``chunk`` sets the plain
+    version's chunk only: the kernel ignores it and always chunks at 64
+    rows (the function does not depend on it beyond fp32 rounding)."""
+    if _plain(impl):
+        return _ref.ssd_scan_ref(x, dt, A, Bm, Cm, D, chunk)
+    return _ss.ssd_scan(x, dt, A, Bm, Cm, D, chunk)
+
+
+def ssd_decode_step(
+    x: torch.Tensor,            # (B, 1, H, P)
+    dt: torch.Tensor,           # (B, 1, H)
+    A: torch.Tensor,            # (H,)
+    Bm: torch.Tensor,           # (B, 1, G, N)
+    Cm: torch.Tensor,           # (B, 1, G, N)
+    D: torch.Tensor,            # (H,)
+    state: torch.Tensor,        # (B, H, P, N) fp32, advanced in place
+    *,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent SSD step (serving) -> (y (B, 1, H, P) in x.dtype,
+    state).  Plain PyTorch on every implementation and device: the
+    reference computes it outside any TPU kernel."""
+    _plain(impl)
+    return _ref.ssd_decode_step_ref(x, dt, A, Bm, Cm, D, state)

@@ -436,3 +436,108 @@ def grouped_matmul_ref(
         mine = ((rows >= starts[e]) & (rows < ends[e]))[:, None]
         y = torch.where(mine, xf @ w[e].float(), y)
     return y.to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# Mamba-2 SSD, per head h with state (P, N):
+#   h_t = exp(dt_t · A) h_{t-1} + dt_t · x_t B_tᵀ,   y_t = h_t C_t + D x_t
+# --------------------------------------------------------------------- #
+def _ssd_inputs(x, dt, A, Bm, Cm):
+    """fp32 copies with B and C repeated over the heads of each group (the
+    head axis is the second to last of x, B and C)."""
+    rep = x.shape[-2] // Bm.shape[-2]
+    return (x.float(), dt.float(), A.float(), Bm.float().repeat_interleave(rep, dim=-2),
+            Cm.float().repeat_interleave(rep, dim=-2))
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,      # (B, S, H, P)
+    dt: torch.Tensor,     # (B, S, H)  positive (softplus'd)
+    A: torch.Tensor,      # (H,)       negative
+    Bm: torch.Tensor,     # (B, S, G, N)
+    Cm: torch.Tensor,     # (B, S, G, N)
+    D: torch.Tensor,      # (H,)
+    chunk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD kernel's math: the chunked dual form in fp32 -> (y (B, S, H,
+    P) in x.dtype, final state (B, H, P, N) fp32).  Per chunk of L rows,
+    with ``cum`` the inclusive prefix sum of dt·A:
+
+        att   = (C Bᵀ) ∘ exp(cum_t − cum_s)[s ≤ t] ∘ dt_s
+        y     = att x + (C ∘ exp(cum)) h_inᵀ + D x
+        h_out = h_in exp(cum_L) + (x ∘ dt ∘ exp(cum_L − cum))ᵀ B
+
+    as the reference's ``_ssd_kernel`` computes it.  Any S: the last chunk
+    is padded with x = 0, dt = 0, rows that add nothing to the state and do
+    not decay it, so the final state is exact.  The causal decay is
+    selected before the exponent, never multiplied by a mask: cum_t − cum_s
+    for s > t is positive and may overflow, and inf · 0 is NaN (in the
+    gradient too).  Differentiable."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[3]
+    xf, dtf, Af, Bf, Cf = _ssd_inputs(x, dt, A, Bm, Cm)
+    L = min(chunk, S)
+    pad = -S % L
+
+    def padded(t):
+        return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+
+    xf, dtf, Bf, Cf = padded(xf), padded(dtf), padded(Bf), padded(Cf)
+    causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()[None, :, :, None]
+    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, S + pad, L):
+        xc, dtc, bc, cc = (t[:, c0:c0 + L] for t in (xf, dtf, Bf, Cf))
+        cum = torch.cumsum(dtc * Af, dim=1)                       # (B, L, H)
+        seg = cum[:, -1]                                           # (B, H)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]             # (B, L, L, H)
+        decay = torch.exp(diff.masked_fill(~causal, -math.inf))
+        att = torch.einsum("blhn,bshn->blsh", cc, bc) * decay * dtc[:, None]
+        y = torch.einsum("blsh,bshp->blhp", att, xc)
+        y = y + torch.einsum("blhn,bhpn->blhp", cc * torch.exp(cum)[..., None], h)
+        xw = xc * (dtc * torch.exp(seg[:, None] - cum))[..., None]
+        h = h * torch.exp(seg)[..., None, None] + torch.einsum("blhp,blhn->bhpn", xw, bc)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :S] + xf[:, :S] * D.float()[None, None, :, None]
+    return y.to(x.dtype), h
+
+
+def ssd_ref(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+    D: torch.Tensor, init_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential-scan oracle, one row at a time in fp32 -> (y (B, S,
+    H, P) in x.dtype, final state (B, H, P, N) fp32).  Shapes as
+    ``ssd_scan_ref``."""
+    Bsz, S, H, P = x.shape
+    xf, dtf, Af, Bf, Cf = _ssd_inputs(x, dt, A, Bm, Cm)
+    h = (torch.zeros((Bsz, H, P, Bm.shape[3]), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * Af)[..., None, None]                      # (B, H, 1, 1)
+        h = h * decay + (dtf[:, t, :, None] * xf[:, t])[..., None] * Bf[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + xf * D.float()[None, None, :, None]
+    return y.to(x.dtype), h
+
+
+def ssd_decode_step_ref(
+    x: torch.Tensor,       # (B, 1, H, P)
+    dt: torch.Tensor,      # (B, 1, H)
+    A: torch.Tensor,       # (H,)
+    Bm: torch.Tensor,      # (B, 1, G, N)
+    Cm: torch.Tensor,      # (B, 1, G, N)
+    D: torch.Tensor,       # (H,)
+    state: torch.Tensor,   # (B, H, P, N) fp32, updated in place
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent SSD step (serving) -> (y (B, 1, H, P) in x.dtype,
+    state).  The state is advanced in place — the engine's cache holds it —
+    where the reference returns a new array: a decay pass and an
+    outer-product pass, each reading and writing the state, then one read
+    for y."""
+    xf, dtf, Af, Bf, Cf = _ssd_inputs(x[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0])
+    state.mul_(torch.exp(dtf * Af)[..., None, None])
+    state.addcmul_((dtf[..., None] * xf)[..., :, None], Bf[..., None, :])
+    y = torch.einsum("bhpn,bhn->bhp", state, Cf) + xf * D.float()[None, :, None]
+    return y[:, None].to(x.dtype), state

@@ -1,7 +1,7 @@
 """Top-level model: the param tree as an ``nn.Module`` plus the entry points
 ported so far — embedding extraction, the training loss, and generation
 over a dense or a paged KV cache (``prefill``, ``prefill_chunk``,
-``decode_step``, ``init_cache``).
+``decode_step``, ``init_cache``), for attention, SSM and hybrid stacks.
 
 ``build_model(cfg)`` materializes seeded random weights on the GPU; pass
 ``device="cpu"`` to run on the CPU (the tests do).  Weights from the
@@ -91,13 +91,19 @@ class Model(nn.Module):
         reference; ``metrics`` holds ``ce_loss``, ``aux_loss`` (0 for the
         dense stack) and ``tokens`` (the mask's sum, at least 1).  An MoE
         config raises: its router loss terms and the grouped matmul's
-        backward come with the MoE training path."""
+        backward come with the MoE training path.  An SSM model trains on
+        the CPU through autograd of the plain SSD scan and raises on the
+        card, where the SSD kernel is forward-only."""
         cfg = self.cfg
         if cfg.num_experts:
             raise NotImplementedError(
                 f"{cfg.name}: training an MoE model (router loss terms, the grouped-matmul "
                 "backward) is not ported yet (ROADMAP: MoE training path, beside the "
                 "multi-GPU slice)")
+        if cfg.family in ("ssm", "hybrid") and batch["tokens"].is_cuda:
+            raise NotImplementedError(
+                f"{cfg.name}: training an SSM model on the card needs the SSD scan's backward, "
+                "not ported yet (ROADMAP: SSM training path)")
         x, _, _ = self._backbone(params, self._decoder_input(params, batch["tokens"]))
         B, S, D = x.shape
         if cfg.objective == "mlm":
@@ -234,7 +240,8 @@ class Model(nn.Module):
         """Place prefill K/V (S rows) into preallocated buffers of W = max_len
         rows (the window, if smaller): zero-padded when S <= W, else rolling
         — slot j holds token S - W + ((j - S) mod W), so the next write at
-        S mod W overwrites the oldest."""
+        S mod W overwrites the oldest.  An SSM layer's ``conv``/``state``
+        have no sequence dim and pass through as they are."""
         cfg = self.cfg
         W = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
 
@@ -246,7 +253,8 @@ class Model(nn.Module):
             slots = torch.arange(W, device=leaf.device)
             return leaf.index_select(2, S - W + (slots - S) % W)
 
-        return tree_map(place, caches)
+        return {s: {kind: tree_map(place, c) if kind == "attn" else c for kind, c in sub.items()}
+                for s, sub in caches.items()}
 
 
 def _page_size(layers: Dict[str, Any]) -> int:

@@ -1,14 +1,17 @@
-"""The pre-norm transformer stack, dense or MoE.
+"""The pre-norm decoder stack: attention or Mamba-2 (SSD) mixers, each with
+a dense or MoE FFN (or none).
 
 Layers are grouped into *units*, as in the reference: the unit is
-``moe_layer_period`` layers for an MoE model (Llama-4 Maverick: a dense
-layer, then an MoE layer), one layer otherwise.  Params keep the
-reference's tree: ``{"sub0": …, "sub1": …}``, one entry per layer of the
-unit, each leaf stacked over the units (leading dim ``num_units``).  The
-stack runs as a plain loop over the units and, inside one, over its
-layers; each stacked leaf is unbound into per-unit views once per call (no
-copy).  The same loop runs under autograd for training.  SSM and hybrid
-interleaves, encoder-decoder stacks and parallel-residual blocks raise.
+``attn_layer_period`` layers for a hybrid (Jamba: seven SSD layers and one
+attention layer, mid-unit), ``moe_layer_period`` layers for an MoE model
+(Llama-4 Maverick: a dense layer, then an MoE layer), one layer
+otherwise.  Params keep the reference's tree: ``{"sub0": …, "sub1": …}``,
+one entry per layer of the unit, each leaf stacked over the units
+(leading dim ``num_units``).  The stack runs as a plain loop over the
+units and, inside one, over its layers; each stacked leaf is unbound into
+per-unit views once per call (no copy).  The same loop runs under
+autograd for training.  Encoder-decoder stacks, frontends and
+parallel-residual blocks raise.
 """
 from __future__ import annotations
 
@@ -26,12 +29,12 @@ from repro_torch.models.attention import (
     cache_shape,
     init_paged_cache,
 )
+from repro_torch.models.ssm import init_ssm_cache, ssm_apply, ssm_defs
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the architectures the port does not run yet."""
     unported = [
-        (cfg.family in ("ssm", "hybrid"), "SSM / hybrid stacks (ROADMAP: SSM slice, SSD scan)"),
         (cfg.is_encoder_decoder or bool(cfg.frontend),
          "encoder-decoder and frontend models (ROADMAP: enc-dec/frontend slice)"),
         (cfg.parallel_residual, "parallel_residual blocks (ROADMAP: port queue, dense stack)"),
@@ -70,7 +73,11 @@ def num_moe_layers(cfg: ModelConfig) -> int:
 def _sublayer_defs(cfg: ModelConfig, li: int) -> Dict[str, Any]:
     """Param defs of layer ``li`` of a unit."""
     d = cfg.d_model
-    defs: Dict[str, Any] = {"norm1": L.norm_defs(cfg, d), "attn": attention_defs(cfg)}
+    defs: Dict[str, Any] = {"norm1": L.norm_defs(cfg, d)}
+    if cfg.is_attn_layer(li):
+        defs["attn"] = attention_defs(cfg)
+    else:
+        defs["ssm"] = ssm_defs(cfg)
     if cfg.d_ff > 0:
         defs["norm2"] = L.norm_defs(cfg, d)
         defs["ffn"] = moe.moe_defs(cfg) if cfg.is_moe_layer(li) else L.mlp_defs(cfg, d, cfg.d_ff)
@@ -84,12 +91,22 @@ def stack_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _apply_sublayer(cfg, li, params, x, *, mode, positions, causal, cache, cache_pos, paged):
-    """Returns (x, cache, aux): aux is the MoE layer's router vector
-    (``moe.aux_shape``), None for a dense layer."""
+    """Returns (x, cache, aux): cache is the layer's ``{"attn": …}`` or
+    ``{"ssm": …}`` (None in train mode); aux is the MoE layer's router
+    vector (``moe.aux_shape``), None for a dense layer."""
     h = L.norm_apply(cfg, params["norm1"], x)
-    mix, cache = attention_apply(cfg, params["attn"], h, positions=positions, mode=mode,
-                                 causal=causal, cache=cache, cache_pos=cache_pos,
-                                 paged=paged)
+    if "attn" in params:
+        mix, c = attention_apply(cfg, params["attn"], h, positions=positions, mode=mode,
+                                 causal=causal, cache=cache["attn"] if cache else None,
+                                 cache_pos=cache_pos, paged=paged)
+        kind = "attn"
+    else:
+        if mode == "chunk":
+            raise ValueError("chunked prefill needs an attention-only stack: an SSM layer's "
+                             "state cannot advance per chunk over bucket padding")
+        mix, c = ssm_apply(cfg, params["ssm"], h, mode=mode, cache=cache["ssm"] if cache else None)
+        kind = "ssm"
+    cache = {kind: c} if c is not None else None
     x = x + mix
     aux = None
     if "ffn" in params:
@@ -115,12 +132,15 @@ def decoder_stack(
     paged: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
     """Runs every layer.  Returns (x, caches, aux_sum).  Caches are in the
-    reference's stacked tree ``{"sub<i>": {"attn": {...}}}``, one entry per
-    layer of the unit: in prefill mode this call's K/V, leaves ``k``/``v``
-    (num_units, B, T, Hkv, D); in decode and chunk modes the ``caches``
-    passed in — dense ``k``/``v`` or paged ``k_pool``/``v_pool``
-    (num_units, P, page, Hkv, D) — updated in place (each layer writes
-    through its view of the stacked buffers); None in train mode.
+    reference's stacked tree ``{"sub<i>": {"attn": {...}}}`` or
+    ``{"sub<i>": {"ssm": {...}}}``, one entry per layer of the unit: in
+    prefill mode this call's K/V, leaves ``k``/``v`` (num_units, B, T, Hkv,
+    D), or SSM state, leaves ``conv`` (num_units, B, kw−1, conv_dim) and
+    ``state`` (num_units, B, H, P, N); in decode and chunk modes the
+    ``caches`` passed in — dense ``k``/``v`` or paged ``k_pool``/``v_pool``
+    (num_units, P, page, Hkv, D), and ``conv``/``state`` — updated in place
+    (each layer writes through its view of the stacked buffers); None in
+    train mode.
     ``paged``, the paged layout's addresses of this step or chunk
     (``attention.paged_*_addressing``), reaches every layer.  ``aux_sum``
     is the MoE layers' router vectors summed (``moe.aux_shape``; a zero
@@ -132,7 +152,7 @@ def decoder_stack(
     # zero-filled copy of the whole stacked leaf for each unit
     per_unit = {s: tree_map(lambda p: p.unbind(0), stacked_params[s]) for s in subs}
     in_place = mode in ("decode", "chunk")
-    per_cache = ({s: tree_map(lambda c: c.unbind(0), caches[s]["attn"]) for s in subs}
+    per_cache = ({s: tree_map(lambda c: c.unbind(0), caches[s]) for s in subs}
                  if in_place else None)
     aux_sum = torch.zeros(moe.aux_shape(cfg), dtype=torch.float32, device=x.device)
     new = {s: [] for s in subs}
@@ -149,7 +169,8 @@ def decoder_stack(
     if in_place:
         return x, caches, aux_sum
     if mode == "prefill":
-        return x, {s: {"attn": {n: torch.stack([c[n] for c in new[s]]) for n in ("k", "v")}}
+        return x, {s: {kind: {n: torch.stack([c[kind][n] for c in new[s]]) for n in leaves}
+                       for kind, leaves in new[s][0].items()}
                    for s in subs}, aux_sum
     return x, None, aux_sum
 
@@ -159,16 +180,20 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dt
                      num_pages: int = 0) -> Dict[str, Any]:
     """The decode cache, one entry per layer of the unit, each stacked over
     the units and zeroed (the reference builds one unit's cache and
-    broadcasts it).  Dense: leaves ``k``/``v`` (num_units, batch, T, Hkv,
-    D).  Paged: leaves ``k_pool``/``v_pool`` (num_units, num_pages,
-    page_size, Hkv, D), shared by every slot; each layer works on a
-    contiguous view."""
+    broadcasts it).  An attention layer's, dense: leaves ``k``/``v``
+    (num_units, batch, T, Hkv, D); paged: leaves ``k_pool``/``v_pool``
+    (num_units, num_pages, page_size, Hkv, D), shared by every slot.  An
+    SSM layer's: ``conv`` and ``state`` per slot (``ssm.init_ssm_cache``);
+    the engine refuses the paged layout for a stack that has one.  Each
+    layer works on a contiguous view."""
     n = num_units(cfg)
 
-    def one():
+    def attn():
         if layout == "paged":
             return init_paged_cache(cfg, num_pages, page_size, dtype, device, stack=(n,))
         shape = (n, *cache_shape(cfg, batch, max_len))
         return {name: torch.zeros(shape, dtype=dtype, device=device) for name in ("k", "v")}
 
-    return {f"sub{i}": {"attn": one()} for i in range(unit_size(cfg))}
+    return {f"sub{i}": ({"attn": attn()} if cfg.is_attn_layer(i) else
+                        {"ssm": init_ssm_cache(cfg, batch, dtype, device, stack=(n,))})
+            for i in range(unit_size(cfg))}

@@ -7,8 +7,10 @@ The port's copy of the reference's ``repro.serving.engine``:
     (``Model.init_cache`` with a (B,) position vector), allocated at the
     first ``submit`` — an embed-only engine pays nothing for it;
   * an admitted request is prefilled alone (batch 1, right-padded to a
-    power-of-2 bucket when the model is causal) and its cache is copied
-    into its slot; its first token is sampled on the device;
+    power-of-2 bucket when the model is causal and has no SSM layer; an
+    SSM or hybrid model prefills at the prompt's exact length) and its
+    cache — K/V, or an SSM layer's conv buffer and state — is copied into
+    its slot; its first token is sampled on the device;
   * every ``step`` decodes ALL slots in lockstep with per-slot positions;
     finished slots (stop / length) are released and refilled from the
     queue at the next step.
@@ -46,7 +48,8 @@ Two cache layouts:
       for token.
 
     Prefix caching and chunked prefill need a causal attention-only stack
-    (the condition of prompt bucketing); they are rejected otherwise.
+    (the condition of prompt bucketing); they are rejected otherwise.  A
+    model with SSM layers serves over the dense layout only.
 
 Token-in/token-out: selection runs on the device (``ops.sample_tokens``:
 the fused per-slot sampler, greedy rows degrade to argmax), the sampled
@@ -231,8 +234,14 @@ class Engine:
         cfg = model.cfg
         # right-padding (prompt buckets, chunk buckets, prefix skips) is sound
         # only when pad rows stay in every real row's future: causal
-        # attention, no rolling cache
-        paddable = cfg.causal and not cfg.sliding_window
+        # attention, no SSM state carry, no rolling cache
+        has_ssm = any(not cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+        paddable = cfg.causal and not has_ssm and not cfg.sliding_window
+        if has_ssm and (cache_layout == "paged" or prefix_cache or prefill_chunk > 0):
+            raise ValueError(
+                f"{cfg.name} has SSM layers: it serves over the dense layout with exact-length "
+                "prefills — no cache_layout='paged', prefix_cache or prefill_chunk (an SSM "
+                "layer's state is per slot and cannot skip or pad prompt rows)")
         self.bucket_prompts = paddable
         self.prefix_cache = prefix_cache
         self.prefill_chunk = prefill_chunk
@@ -497,11 +506,13 @@ class Engine:
 
     def _write_slot(self, slot: int, one_cache: Dict[str, Any], pos: int) -> None:
         """Copy a batch-1 prefilled cache into slot `slot` (dense), in every
-        layer of the unit."""
+        layer of the unit: an attention layer's K/V, an SSM layer's conv
+        buffer and state."""
         for sub, dst in self.cache["layers"].items():
-            src = one_cache["layers"][sub]["attn"]
-            for name in ("k", "v"):
-                dst["attn"][name][:, slot].copy_(src[name][:, 0])
+            for kind, leaves in dst.items():
+                src = one_cache["layers"][sub][kind]
+                for name, buf in leaves.items():
+                    buf[:, slot].copy_(src[name][:, 0])
         self.cache["pos"][slot].fill_(pos)
 
     def _push_table(self) -> None:

@@ -1,8 +1,8 @@
-"""The port stands alone: no file of ``repro_torch`` nor ``chip_smoke.py``
-imports JAX or the reference package, the port calls no library attention,
-norm, cross-entropy, optimizer or grouped GEMM, the kernel wrappers have no fallback,
-entry points refuse to run on the CPU unless asked, and CPU runs launch no
-kernel."""
+"""The port stands alone: no file of ``repro_torch``, ``chip_smoke.py`` nor
+``ssd_route_faults.py`` imports JAX or the reference package, the port
+calls no library attention, norm, cross-entropy, optimizer or grouped GEMM,
+the kernel wrappers have no fallback, entry points refuse to run on the CPU
+unless asked, and CPU runs launch no kernel."""
 import ast
 import os
 import subprocess
@@ -27,12 +27,14 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 )
 from repro_torch.kernels.rmsnorm import layernorm, rmsnorm  # noqa: E402
 from repro_torch.kernels.sampling import fused_sample  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.serving.api import LLM  # noqa: E402
 from repro_torch.training.loop import Trainer  # noqa: E402
 
 KERNELS = (flash_attention_fwd, flash_attention_bwd, cross_entropy_fwd, cross_entropy_bwd, layernorm,
-           rmsnorm, flash_decode, fused_sample, paged_decode, paged_prefill, paged_kv_write, gmm)
+           rmsnorm, flash_decode, fused_sample, paged_decode, paged_prefill, paged_kv_write, gmm,
+           ssd_scan)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -49,7 +51,8 @@ def _imported_modules(path):
     return mods
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path",
+                         PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "ssd_route_faults.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):
@@ -104,7 +107,7 @@ def test_the_ban_catches_library_calls_but_not_the_ports_op():
 
 def test_kernel_wrappers_have_no_fallback():
     for name in ("flash_attention.py", "cross_entropy.py", "rmsnorm.py", "flash_decode.py",
-                 "sampling.py", "paged_attention.py", "grouped_matmul.py", "ops.py"):
+                 "sampling.py", "paged_attention.py", "grouped_matmul.py", "ssd_scan.py", "ops.py"):
         tree = ast.parse((PORT / "kernels" / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
 
@@ -172,6 +175,8 @@ def test_cpu_runs_launch_no_kernel():
         prefill_chunk=4).generate([[1, 5, 6, 7, 8, 9, 10, 11, 12], [1, 5, 6, 7, 8, 9, 10, 11]])
     scout = model_mod.build_model(get_smoke_config("llama4-scout-17b-a16e"), device="cpu")
     LLM(scout, slots=2, max_len=48).generate([[1, 5, 6], [7, 8, 9, 10]])
+    jamba = model_mod.build_model(get_smoke_config("jamba-1.5-large-398b"), device="cpu")
+    LLM(jamba, slots=2, max_len=48).generate([[1, 5, 6], [7, 8, 9, 10]])
     assert all(k.launches == 0 for k in KERNELS), [k.launches for k in KERNELS]
 
 
