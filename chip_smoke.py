@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from the sources in this checkout and holds each
-of the thirteen kernels against its plain PyTorch version on the card.
-Then drives the six paths ported so far: embedding serving through
+of the fourteen kernels against its plain PyTorch version on the card.
+Then drives the seven paths ported so far: embedding serving through
 ``LLM.embed`` and MLM pre-training through ``Trainer.run`` (about 10
 optimizer steps) at the full width and depth of ESM-2 650M; generation
 through ``LLM.generate`` at the full width and depth of Qwen2-7B (bf16
@@ -17,7 +17,10 @@ Llama-4-Scout at full width, its depth cut to 8 of 48 layers, on the same
 load over the dense cache; and SSM generation through ``LLM.generate``
 at the full width and depth of Mamba2-2.7B on the same load (ids within
 its vocab), then the hybrid unit of Jamba-1.5-Large at ``reduced()`` size;
-all with seeded random weights, checking what comes out of each.  Prints per-kernel times beside their bounds, the
+and MoE training through ``Trainer.run`` with Llama-4-Scout at full width,
+1 of 48 layers (fp32 master weights, bf16 AdamW moments, 6 steps of 2 x
+1024 packed protein tokens); all with seeded random weights, checking what
+comes out of each.  Prints per-kernel times beside their bounds, the
 embedding throughput, the training step time, tokens/s, MFU and peak
 memory, the generation tokens/s, TTFT, decode-step time and idle share, the
 router's drops, a profile of each path, then one JSON line of kernel
@@ -136,10 +139,11 @@ def kernel_groups(prof, DeviceType):
     kern = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
             and "Command Buffer Full" not in e.key and not e.key.startswith("engine/")]
-    groups = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0, "cross_entropy": 0.0,
-              "layernorm": 0.0, "rmsnorm": 0.0, "flash_decode": 0.0, "fused_sample": 0.0,
-              "paged_decode": 0.0, "paged_prefill": 0.0, "paged_kv_write": 0.0,
-              "gmm": 0.0, "ssd_scan": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0, "cross_entropy_fwd": 0.0,
+              "cross_entropy_bwd": 0.0, "layernorm": 0.0, "rmsnorm": 0.0, "flash_decode": 0.0,
+              "fused_sample": 0.0, "paged_decode": 0.0, "paged_prefill": 0.0,
+              "paged_kv_write": 0.0, "gmm": 0.0, "gmm_dw": 0.0, "ssd_scan": 0.0, "matmul": 0.0,
+              "other": 0.0}
     for name, t, _ in kern:
         low = name.lower()
         paged = [g for g in ("paged_decode", "paged_prefill", "paged_kv_write") if g in low]
@@ -149,14 +153,18 @@ def kernel_groups(prof, DeviceType):
             groups["flash_attention_fwd"] += t
         elif any(w in low for w in ("dq_kernel", "dkv_kernel", "delta_kernel")):
             groups["flash_attention_bwd"] += t
-        elif any(w in low for w in ("ce_fwd_kernel", "ce_dh_kernel", "ce_dw_kernel", "ce_dw_sum_kernel")):
-            groups["cross_entropy"] += t
+        elif "ce_fwd_kernel" in low:
+            groups["cross_entropy_fwd"] += t
+        elif any(w in low for w in ("ce_dh_kernel", "ce_dw_kernel", "ce_dw_sum_kernel")):
+            groups["cross_entropy_bwd"] += t
         elif "layernorm" in low:
             groups["layernorm"] += t
         elif "rmsnorm" in low:
             groups["rmsnorm"] += t
         elif "flash_decode" in low:
             groups["flash_decode"] += t
+        elif "gmm_dw_kernel" in low:
+            groups["gmm_dw"] += t
         elif "gmm_kernel" in low:
             groups["gmm"] += t
         elif "ssd_scan_kernel" in low:
@@ -168,6 +176,17 @@ def kernel_groups(prof, DeviceType):
         else:
             groups["other"] += t
     return sum(t for _, t, _ in kern), groups, kern
+
+
+def cosine(torch, a, b, chunk: int = 1 << 24) -> float:
+    """Cosine of two tensors' flattened values, summed in fp64 a chunk at a
+    time (a whole fp64 copy of a 1 G-element leaf would take 8 GB)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    ab = aa = bb = torch.zeros((), dtype=torch.float64, device=a.device)
+    for i in range(0, a.numel(), chunk):
+        x, y = a[i:i + chunk].double(), b[i:i + chunk].double()
+        ab, aa, bb = ab + (x * y).sum(), aa + (x * x).sum(), bb + (y * y).sum()
+    return (ab / (aa.sqrt() * bb.sqrt()).clamp_min(1e-300)).item()
 
 
 def leaf_paths(tree, prefix=""):
@@ -470,8 +489,7 @@ def train_phase(torch, model, counters, card):
 
     k_loss, k_grads = loss_grads(model)
     p_loss, p_grads = loss_grads(plain_model)
-    cos = [torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
-           for a, b in zip(k_grads, p_grads)]
+    cos = [cosine(torch, a, b) for a, b in zip(k_grads, p_grads)]
     names = leaf_paths(params)
     worst = min(range(len(cos)), key=lambda i: cos[i])
     print(f"kernel path vs plain path (loss_fn + backward, 2x512): loss {k_loss:.6f} vs "
@@ -972,6 +990,128 @@ def check_gmm(torch, ref, gmm, card):
             "replaces": "src/repro/kernels/grouped_matmul.py:198", "launches": 0,
             "max_abs_err": inputs["scout decode, w_in"][4], "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def _grouped_mm_lib(torch, fn):
+    """``torch._grouped_mm`` timed as a yardstick, or (None, why not)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "none: this PyTorch has no torch._grouped_mm"
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as e:
+        return None, f"none: torch._grouped_mm refused this form ({str(e).splitlines()[0][:90]})"
+    return time_ms(torch, fn, trials=10), "torch._grouped_mm"
+
+
+def check_gmm_dw(torch, ref, gmm, gmm_dw, card):
+    """Row 13 (``gmm_dw``) against ``grouped_matmul_dw_ref`` and row 12's
+    transposed mode (the backward's dx) against ``grouped_matmul_ref`` on
+    the transposed weights, in the ragged cases of the reference's MoE tests
+    (even, Dirichlet-uneven, all empty, one group takes all, a dropped tail
+    with large finite values in its rows of x and dy, interior empty
+    groups), M = 77 (no multiple of a tile), Maverick's 128 experts at a
+    small K and N, and Scout's w_in and w_out at M = 2048 (a 2 x 1024
+    micro-batch, capacity 160).  dW: fp32 within 1e-3 of each group's
+    max|ref| (bf16 products are exact in fp32; only the order of the sums
+    differs), empty groups exactly 0, a repeat bit-identical; dx: 2e-2 of
+    each row's max|ref|, rows past the groups exactly 0.  Times both at
+    Scout's w_in training shape.  Returns the gmm_dw record."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    dw_tol, dx_tol = 1e-3, 2e-2
+
+    def bf16(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev) * scale).to(torch.bfloat16)
+
+    cases = [
+        ("even", 512, 256, 384, [64] * 8),
+        ("Dirichlet-uneven", 512, 256, 384, rng.multinomial(512, rng.dirichlet(np.ones(8)))),
+        ("all groups empty", 512, 256, 384, [0] * 8),
+        ("one group takes all", 512, 256, 384, [0, 0, 0, 512, 0, 0, 0, 0]),
+        ("dropped tail, large tail rows", 512, 256, 384, [40, 0, 77, 13, 0, 90, 30, 50]),
+        ("interior empty groups", 512, 256, 384, [0, 128, 0, 0, 100, 0, 200, 84]),
+        ("M = 77", 77, 256, 384, [9, 0, 31, 0, 5, 20, 12, 0]),
+        ("maverick, 128 experts", 1024, 128, 256, _router_sizes(np, rng, 1024, 128, cap=16)),
+        ("scout w_in, capacity 160", 2048, 5120, 8192, _router_sizes(np, rng, 2048, 16, cap=160)),
+        ("scout w_out, capacity 160", 2048, 8192, 5120, _router_sizes(np, rng, 2048, 16, cap=160)),
+    ]
+    dw_err0, timing = 0.0, None
+    for label, M, K, N, sizes in cases:
+        sizes = np.asarray(sizes, np.int64)
+        E, total = len(sizes), int(sizes.sum())
+        x = bf16(M, K)
+        dy = bf16(M, N)
+        x[total:], dy[total:] = 1e30, -1e30          # rows past the groups: never summed
+        w = bf16(E, K, N, scale=K ** -0.5)
+        gs = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
+        dw = gmm_dw(x, dy, gs)
+        again = gmm_dw(x, dy, gs)
+        dw16 = gmm_dw(x, dy, gs, out_dtype=torch.bfloat16)
+        dx = gmm(dy, w, gs, transpose_w=True)
+        torch.cuda.synchronize()
+        want = ref.grouped_matmul_dw_ref(x, dy, gs)
+        live = [g for g in range(E) if sizes[g] > 0]
+        err = row_rel_err(dw[live], want[live]) if live else 0.0
+        err16 = row_rel_err(dw16[live].float(), want[live]) if live else 0.0
+        empty0 = all(bool((dw[g] == 0).all()) and bool((dw16[g] == 0).all())
+                     for g in range(E) if sizes[g] == 0)
+        same = torch.equal(dw, again)
+        want_dx = ref.grouped_matmul_ref(dy, w.transpose(1, 2), gs)
+        err_dx = row_rel_err(dx[:total], want_dx[:total]) if total else 0.0
+        tail0 = bool((dx[total:] == 0).all())
+        print(f"gmm_dw {label} (M={M}, K={K}, N={N}, E={E}, {len(live)} live groups, {total} rows "
+              f"in groups): rel err {err:.3g} (tol {dw_tol} of each group's max|ref|), bf16 output "
+              f"{err16:.3g} (tol {dw_tol} + 2^-8), empty groups exactly 0: {empty0}, a repeat "
+              f"bit-identical: {same}; dx (gmm, transposed w) rel err {err_dx:.3g} (tol {dx_tol} "
+              f"of each row's max|ref|), the {M - total} rows past the groups exactly 0: {tail0}")
+        check(err <= dw_tol and err16 <= dw_tol + 2 ** -8 and empty0 and same
+              and bool(dw.isfinite().all()), f"gmm_dw {label}")
+        check(err_dx <= dx_tol and tail0 and bool(dx.isfinite().all()), f"gmm transposed {label}")
+        if label.startswith("scout w_in"):
+            dw_err0 = (dw16.float() - want).abs().max().item()
+            timing = (x, dy, w, gs, sizes)
+        del x, dy, w, dw, again, dw16, dx, want, want_dx
+
+    x, dy, w, gs, sizes = timing
+    M, K, N, E = x.shape[0], x.shape[1], dy.shape[1], len(sizes)
+    total, live = int(sizes.sum()), int((sizes > 0).sum())
+    ends = torch.cumsum(gs, 0, dtype=torch.int32)
+    # the main path writes dW in the weights' dtype, bf16
+    ms = time_ms(torch, lambda: gmm_dw(x, dy, gs, out_dtype=torch.bfloat16), trials=10)
+    dev_ms = device_ms(torch, lambda: gmm_dw(x, dy, gs, out_dtype=torch.bfloat16), "gmm_dw_kernel",
+                       n=10)
+    ms32 = time_ms(torch, lambda: gmm_dw(x, dy, gs), trials=10)
+    plain_ms = time_ms(torch, lambda: ref.grouped_matmul_dw_ref(x, dy, gs), trials=3, per_trial=1,
+                       warmup=1)
+    lib_ms, lib_name = _grouped_mm_lib(torch, lambda: torch._grouped_mm(x.t(), dy, offs=ends))
+    flops = 2 * total * K * N
+    nbytes = total * (K + N) * 2 + E * K * N * 2 + E * 4
+    bound_ms, bound_by = bound(flops, nbytes)
+    bound32, by32 = bound(flops, nbytes + E * K * N * 2)
+    print(f"gmm_dw scout w_in training shape (M={M}, K={K}, N={N}, {live} of {E} groups live, "
+          f"{total} rows) on {card}: bf16 dW {ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms "
+          f"(bound {bound_ms:.4f} ms by {bound_by}, {per_device_ms(flops, dev_ms, 'TFLOP/s', 1e9)}); "
+          f"fp32 dW {ms32:.4f} ms (bound {bound32:.4f} ms by {by32}); plain {plain_ms:.4f} ms; "
+          f"{lib_name}" + (f" {lib_ms:.4f} ms" if lib_ms is not None else ""))
+    dx_ms = time_ms(torch, lambda: gmm(dy, w, gs, transpose_w=True), trials=10)
+    dx_dev = device_ms(torch, lambda: gmm(dy, w, gs, transpose_w=True), "gmm_kernel", n=10)
+    dx_plain = time_ms(torch, lambda: ref.grouped_matmul_ref(dy, w.transpose(1, 2), gs), trials=3,
+                       per_trial=1, warmup=1)
+    wt = w.transpose(1, 2)
+    dx_lib, dx_lib_name = _grouped_mm_lib(torch, lambda: torch._grouped_mm(dy, wt, offs=ends))
+    dx_bytes = live * K * N * 2 + M * N * 2 + M * K * 2 + E * 4
+    dx_bound, dx_by = bound(2 * total * K * N, dx_bytes)
+    print(f"gmm transposed (dx = dy @ w[g]^T) scout w_in training shape (M={M}, depth {N}, out "
+          f"{K}) on {card}: {dx_ms:.4f} ms back to back, device {fmt_ms(dx_dev)} ms (bound "
+          f"{dx_bound:.4f} ms by {dx_by}, {per_device_ms(2 * total * K * N, dx_dev, 'TFLOP/s', 1e9)}), "
+          f"plain {dx_plain:.4f} ms, {dx_lib_name}" + (f" {dx_lib:.4f} ms" if dx_lib is not None else ""))
+    return {"name": "gmm_dw", "route": "cuda", "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+            "replaces": "src/repro/kernels/grouped_matmul.py:280", "launches": 0,
+            "max_abs_err": dw_err0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
 def _ssd_case(torch, g, B, S, H, P, G, N, dt_shift):
@@ -2164,6 +2304,158 @@ def hybrid_phase(torch, counters, card):
     check(not failed, "hybrid phase: " + "; ".join(failed))
 
 
+def moe_train_phase(torch, counters, card):
+    """Slice 5b: Llama-4-Scout MoE training through ``Trainer.run`` at full
+    width with 1 of its 48 layers (4.27 B parameters: fp32 master weights,
+    bf16 AdamW moments), on packed synthetic protein batches of 2 x 1024
+    tokens.  Before the trainer builds its optimizer state, one
+    micro-batch's loss and gradients are computed twice on the kernel
+    route (bit-identical) and once on the plain route put on the kernel
+    route's experts (loss within 2e-2, every leaf's cosine >= 0.999).
+    Returns the launch counts of the trainer's run (the main path's)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import ParallelConfig, TrainConfig
+    from repro_torch.core.module import tree_leaves
+    from repro_torch.core.precision import compute_view
+    from repro_torch.data.dataset import build_synthetic_protein_memmap
+    from repro_torch.data.pipeline import CLMBatches
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model, build_model
+    from repro_torch.training.loop import Trainer
+    from repro_torch.training.train_step import make_train_step
+
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    free, total_mem = torch.cuda.mem_get_info()
+    print(f"MoE training phase: {free / 1e9:.2f} GB free of {total_mem / 1e9:.2f} GB at its start")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"), num_layers=1)
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"built {cfg.name} cut to {cfg.num_layers} of 48 layers at full width (d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, {cfg.num_experts} experts of "
+          f"d_ff {cfg.d_ff} top-{cfg.num_experts_per_tok} + {cfg.n_shared_experts} shared, vocab "
+          f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.3f}B params, fp32 master weights) in "
+          f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    B, seq, steps = 2, 1024, 6
+    tc = TrainConfig(global_batch=B, seq_len=seq, accum_steps=1, learning_rate=3e-4, min_lr=3e-5,
+                     warmup_steps=2, decay_steps=2, total_steps=steps, schedule="wsd",
+                     weight_decay=0.01, grad_clip=1.0, log_every=steps)
+    tmp = tempfile.TemporaryDirectory()
+    ds, tok = build_synthetic_protein_memmap(f"{tmp.name}/prot", n=1024, seed=0)
+    print(f"training data: {len(ds)} synthetic sequences of 40-199 residues, packed with <eos> "
+          f"into {B} x {seq} tokens a step (capacity {moe.capacity(cfg, B * seq)} an expert), "
+          f"AdamW with bf16 moments + WSD, peak lr {tc.learning_rate}, {steps} steps")
+
+    # ---- repeat and routes on one micro-batch, before any optimizer state
+    batch = {k: torch.from_numpy(v).to(model.device)
+             for k, v in next(iter(CLMBatches(ds, B, seq, seed=1, eos_id=tok.eos_id))).items()}
+    plain = Model(dataclasses.replace(cfg, kernel_impl="torch"), model.params.tree())
+    names = leaf_paths(model.params.tree())
+
+    def loss_grads(m):
+        p = m.params.tree()
+        loss, _ = m.loss_fn(compute_view(m.policy, p), batch)
+        return loss.item(), torch.autograd.grad(loss, tree_leaves(p))
+
+    with RouteLog(moe) as k_log:
+        k_loss, k_grads = loss_grads(model)
+    again_loss, again = loss_grads(model)
+    differ = [names[i] for i, (a, b) in enumerate(zip(k_grads, again)) if not torch.equal(a, b)]
+    print(f"kernel route twice on one micro-batch: loss {k_loss!r} vs {again_loss!r}; "
+          f"{len(differ)} of {len(names)} grad leaves differ {differ[:6]}")
+    expect(k_loss == again_loss and not differ, "a repeated loss and backward is not bit-identical")
+    del again
+    with RouteLog(moe, replay=k_log.calls) as p_log:
+        p_loss, p_grads = loss_grads(plain)
+    cos = [cosine(torch, a, b) for a, b in zip(k_grads, p_grads)]
+    own = p_log.calls[0][1][:, 0]            # the plain router's own choice
+    flips = int((own != k_log.calls[0][1][:, 0]).sum())
+    worst = min(range(len(cos)), key=lambda i: cos[i])
+    print(f"kernel route vs plain route on the kernel route's experts (loss_fn + backward, "
+          f"{B}x{seq}): loss {k_loss:.6f} vs {p_loss:.6f} (|diff| {abs(k_loss - p_loss):.3g}, tol "
+          f"2e-2); grad cosine min {cos[worst]:.6f} ({names[worst]}, of {len(cos)} leaves; floor "
+          f"0.999), mean {statistics.mean(cos):.6f}; the plain router alone would move {flips} of "
+          f"{own.numel()} tokens")
+    print("lowest grad cosines: " + ", ".join(
+        f"{names[i]} {cos[i]:.6f}" for i in sorted(range(len(cos)), key=lambda i: cos[i])[:5]))
+    expect(abs(k_loss - p_loss) <= 2e-2, "kernel route loss disagrees with the plain route")
+    expect(min(cos) >= 0.999, "kernel route gradients disagree with the plain route")
+    del k_grads, p_grads, plain, k_log, p_log
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the main path: Trainer.run
+    pipe = CLMBatches(ds, B, seq, seed=0, eos_id=tok.eos_id)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    trainer = Trainer(model, tc, pc=ParallelConfig(optimizer_state_dtype="bfloat16"),
+                      peak_flops=PEAK_BF16_FLOPS)
+    state, hist = trainer.run(pipe)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_moe = T.num_moe_layers(cfg)
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_attention_fwd=steps, flash_attention_bwd=steps,
+                rmsnorm=(2 * cfg.num_layers + 1) * steps, cross_entropy_fwd=steps,
+                cross_entropy_bwd=steps, gmm=6 * n_moe * steps, gmm_dw=3 * n_moe * steps)
+    print(f"main path: Trainer.run of {steps} steps: launches {launches} (want {want})")
+    losses = [h["loss"] for h in hist]
+    print(f"losses: step 0 {losses[0]:.4f} (ce {hist[0]['ce_loss']:.4f}), step {steps - 1} "
+          f"{losses[-1]:.4f} (ce {hist[-1]['ce_loss']:.4f}); router at step {steps - 1}: lb "
+          f"{hist[-1]['aux_loss']:.4f}, entropy {hist[-1]['router_entropy']:.4f}, drop fraction "
+          f"{hist[-1]['router_drop_frac']:.4f}")
+    expect(len(hist) == 2 and all(x == x and abs(x) < 1e30 for x in losses), "non-finite loss")
+    expect(trainer.skipped_total == 0, f"{trainer.skipped_total} skipped steps")
+    expect(losses[-1] < losses[0], "the loss did not fall")
+    expect(launches == want, "MoE training launch counts")
+    step_s = hist[-1]["step_time"]
+    tokens = B * seq
+    mfu = 6 * cfg.active_param_count() * tokens / step_s / PEAK_BF16_FLOPS
+    print(f"Llama-4-Scout (1 of 48 layers) MoE training on {card}: step {step_s * 1e3:.1f} ms "
+          f"(wall of steps 1-{steps - 1} over {steps - 1}, one host transfer; step 0 with its "
+          f"transfer {hist[0]['step_time'] * 1e3:.1f} ms), {tokens / step_s:.0f} tokens/s, MFU "
+          f"{mfu:.4f} (6 x {cfg.active_param_count() / 1e9:.3f}B active params x tokens / 989 "
+          f"TFLOP/s), peak memory {peak_gb:.2f} GB of {total_mem / 1e9:.2f} GB")
+
+    # where the time goes: one more optimizer step under the profiler
+    batch = {k: torch.from_numpy(v).to(model.device) for k, v in next(iter(pipe)).items()}
+    step_fn = make_train_step(model, tc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, groups, kern = kernel_groups(prof, DeviceType)
+    if busy_ms == 0:
+        print("profile: the profiler saw no device time")
+    else:
+        print(f"profile of one MoE train step on {card}: wall {wall_ms:.1f} ms (under the "
+              f"profiler), device busy {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+        print("profile by group (other = glue with clip and AdamW): " + ", ".join(
+            f"{k} {v:.1f} ms ({v / busy_ms:.1%})" for k, v in groups.items() if v))
+        for name, t, cnt in sorted(kern, key=lambda r: -r[1])[:14]:
+            print(f"  {t:9.2f} ms {cnt:6d}x  {name[:110]}")
+    del trainer, state, model, step_fn, prof, batch
+    tmp.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not failed, "MoE training phase: " + "; ".join(failed))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2180,7 +2472,7 @@ def main() -> int:
     from repro_torch.kernels.cross_entropy import cross_entropy_bwd, cross_entropy_fwd
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
     from repro_torch.kernels.flash_decode import flash_decode
-    from repro_torch.kernels.grouped_matmul import gmm
+    from repro_torch.kernels.grouped_matmul import gmm, gmm_dw
     from repro_torch.kernels.paged_attention import paged_decode, paged_kv_write, paged_prefill
     from repro_torch.kernels.rmsnorm import layernorm, rmsnorm
     from repro_torch.kernels.sampling import fused_sample
@@ -2341,6 +2633,7 @@ def main() -> int:
                   check_paged_prefill(torch, F, ref, paged_prefill, randn, card),
                   check_paged_kv_write(torch, ref, paged_kv_write, randn, card)]
     gmm_rec = check_gmm(torch, ref, gmm, card)
+    gmm_dw_rec = check_gmm_dw(torch, ref, gmm, gmm_dw, card)
     ssd_rec = check_ssd_scan(torch, ref, ssd_scan, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2463,12 +2756,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     hybrid_phase(torch, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 11. slice 5b: Llama-4-Scout (1 of 48 layers) MoE training
+    counters.update(gmm_dw=gmm_dw)
+    moe_train_launches = moe_train_phase(torch, counters, card)
 
     # launches: each kernel's count in the run of its path — the training
     # run for rows 1-5 (the embed and generation runs' counts of the
     # attention forward were checked in phases 4 and 7), the dense
     # generation run for rows 6-8, the paged one for rows 9-11, the MoE one
-    # for row 12, the Mamba2 one for row 14
+    # for row 12, the MoE training one for row 13, the Mamba2 one for row 14
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -2492,8 +2791,9 @@ def main() -> int:
     for rec in paged_recs:
         rec["launches"] = paged_launches[rec["name"]]
     gmm_rec["launches"] = moe_launches["gmm"]
+    gmm_dw_rec["launches"] = moe_train_launches["gmm_dw"]
     ssd_rec["launches"] = ssm_launches["ssd_scan"]
-    kernels += gen_recs + paged_recs + [gmm_rec, ssd_rec]
+    kernels += gen_recs + paged_recs + [gmm_rec, gmm_dw_rec, ssd_rec]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
-"""The MLM batch pipeline of the ESM-2 recipe (the port's copy of the
-reference's ``data/pipeline.py``; same draws for a seed).
+"""The batch pipelines (the port's copy of the reference's
+``data/pipeline.py``; same draws for a seed): the MLM stream of the ESM-2
+recipe and the packed causal-LM stream of a causal model.
 
 Pure numpy on the host; each batch is a dict of int32 / float32 arrays
 matching ``Model.loss_fn``'s contract, which the trainer copies to the
-device.  The reference's bucketed path (a sampler with ``sample_batch``)
-and CLM packing are not ported: the port has no such sampler yet.
+device.  ``CLMBatches``' bucketed mode is duck-typed on a sampler with
+``sample_batch``, as in the reference; the port has no such sampler yet.
 """
 from __future__ import annotations
 
@@ -92,3 +93,68 @@ class MLMBatches:
             else:
                 idx = self.rng.integers(0, len(self.ds), size=self.batch)
             yield mlm_corrupt(self._pad(idx, self.seq_len), self.tok, self.rng, self.mask_prob)
+
+
+class CLMBatches:
+    """Packed causal-LM stream: documents drawn uniformly, concatenated and
+    cut into ``batch`` windows of ``seq_len``.
+
+    ``eos_id`` (when set) goes between packed documents, so that the causal
+    model sees each document boundary.  ``sampler`` (duck-typed on
+    ``sample_batch() -> (indices, length)``) switches to a bucketed
+    per-document mode: batches of the sampler's rows padded to its length
+    (at most ``seq_len``), with a ``loss_mask`` zeroing the padding."""
+
+    def __init__(self, ds: MemmapTokenDataset, batch: int, seq_len: int, seed: int = 0,
+                 eos_id: Optional[int] = None, sampler=None):
+        self.ds, self.batch, self.seq_len = ds, batch, seq_len
+        self.eos_id = eos_id
+        self.sampler = sampler
+        self.rng = np.random.default_rng(seed)
+        self._buf = np.empty((0,), np.int32)
+
+    def state_dict(self) -> Dict:
+        """Resumable cursor (JSON-serializable): the Generator state and the
+        packing carry, the tokens drawn but not yet emitted."""
+        st: Dict = {"rng": self.rng.bit_generator.state,
+                    "buf": np.asarray(self._buf, np.int32).tolist()}
+        if self.sampler is not None:
+            st["sampler"] = self.sampler.state_dict()
+        return st
+
+    def load_state_dict(self, st: Dict) -> None:
+        self.rng.bit_generator.state = st["rng"]
+        self._buf = np.asarray(st["buf"], np.int32)
+        if self.sampler is not None and "sampler" in st:
+            self.sampler.load_state_dict(st["sampler"])
+
+    def _fill(self, need: int) -> None:
+        # the separator draws nothing from the RNG, so cursors taken with and
+        # without eos_id replay the same documents in the same order
+        chunks, have = [self._buf], len(self._buf)
+        sep = None if self.eos_id is None else np.asarray([self.eos_id], np.int32)
+        while have < need:
+            s = self.ds[int(self.rng.integers(len(self.ds)))]
+            chunks.append(s)
+            have += len(s)
+            if sep is not None:
+                chunks.append(sep)
+                have += 1
+        self._buf = np.concatenate(chunks)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        if self.sampler is not None and hasattr(self.sampler, "sample_batch"):
+            while True:   # bucketed per-document mode: no packing
+                idx, L = self.sampler.sample_batch()
+                L = min(int(L), self.seq_len)
+                seqs = [self.ds[int(i)][:L] for i in idx]
+                lens = np.fromiter((len(s) for s in seqs), np.int64, count=len(seqs))
+                real = np.arange(L)[None, :] < lens[:, None]
+                toks = np.zeros((len(seqs), L), np.int32)
+                toks[real] = np.concatenate(seqs)
+                yield {"tokens": toks, "loss_mask": real.astype(np.float32)}
+        need = self.batch * self.seq_len
+        while True:
+            self._fill(need)
+            flat, self._buf = self._buf[:need], self._buf[need:]
+            yield {"tokens": flat.reshape(self.batch, self.seq_len).astype(np.int32)}

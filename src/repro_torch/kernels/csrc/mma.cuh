@@ -89,4 +89,15 @@ __device__ __forceinline__ void b_frag_cols(uint32_t& b0, uint32_t& b1, const ui
   b1 = uint32_t(p[8 * (COLS + kPad)]) | (uint32_t(p[9 * (COLS + kPad)]) << 16);
 }
 
+// four 8 x 8 tiles of 16-bit values, transposed on the load (ldmatrix
+// .trans): lane l gives the shared address of row l % 8 of tile l / 8 (16
+// contiguous bytes, 16-byte aligned), and r[i] receives tile i's elements
+// (2t, g) and (2t + 1, g), the first in the low half
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const uint16_t* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
 }  // namespace

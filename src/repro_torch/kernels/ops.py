@@ -8,14 +8,15 @@ on any device; only the tests and ``chip_smoke.py`` use it, to hold the
 kernels against it.  Every op here is differentiable on both
 implementations: attention and cross-entropy pair their forward and
 backward kernels (or plain versions) in a ``torch.autograd.Function``, as
-the reference's custom VJPs do; LayerNorm pairs its forward kernel with
-the reference's hand-written backward formulas.  The serving ops —
-RMSNorm, decode attention, the paged-KV ops, sampling, the MoE's ragged
-grouped matmul and the Mamba-2 SSD scan — are forward-only: the RMSNorm,
-grouped-matmul and SSD kernels raise when asked for a gradient (their
-plain versions stay differentiable).  The paged-KV writes and the SSD
-decode step update the cache in place (the reference donates its buffers
-and returns new ones).
+the reference's custom VJPs do, and so does the MoE's ragged grouped
+matmul (its forward kernel, the same kernel on the transposed weights for
+dx, and the weight-gradient kernel); LayerNorm and RMSNorm pair their
+forward kernels with the reference's hand-written backward formulas.  The
+serving-only ops — decode attention, the paged-KV ops, sampling and the
+Mamba-2 SSD scan — are forward-only: the SSD kernel raises when asked for
+a gradient (its plain version stays differentiable).  The paged-KV writes
+and the SSD decode step update the cache in place (the reference donates
+its buffers and returns new ones).
 """
 from __future__ import annotations
 
@@ -89,8 +90,9 @@ def cross_entropy(
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5, *,
             impl: str = "auto") -> torch.Tensor:
-    """RMSNorm over the last dim, fp32 math, output in x.dtype."""
-    return _ref.rmsnorm_ref(x, w, eps) if _plain(impl) else _ln.rmsnorm(x, w, eps)
+    """RMSNorm over the last dim, fp32 math, output in x.dtype;
+    differentiable."""
+    return _ln.rmsnorm_ad(x, w, eps, plain=_plain(impl))
 
 
 def decode_attention(
@@ -218,10 +220,13 @@ def grouped_matmul(
     with fp32 accumulation: the MoE expert FFN after sort-by-expert
     dispatch.  Rows past ``sum(group_sizes)`` (capacity-dropped slots) come
     back exactly 0 and empty groups cost no work.  The sizes stay on the
-    device on both implementations."""
-    if _plain(impl):
+    device on both implementations.  Differentiable: on a CUDA tensor
+    ``auto`` pairs the kernels (``gmm``, ``gmm`` on the transposed weights
+    for dx, ``gmm_dw`` for dW); ``torch`` and the CPU run the plain
+    version under autograd."""
+    if _plain(impl) or x.device.type == "cpu":
         return _ref.grouped_matmul_ref(x, w, group_sizes)
-    return _gm.gmm(x, w, _i32(group_sizes))
+    return _gm.grouped_matmul(x, w, _i32(group_sizes))
 
 
 def ssd(

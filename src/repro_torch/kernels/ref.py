@@ -210,6 +210,21 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Te
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
+def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, eps: float = 1e-5
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RMSNorm backward: (dx in x.dtype, dw in w's dtype), the reference's
+    ``_rms_bwd`` with rstd recomputed from x.  As there, ``dy * w`` is
+    formed in the inputs' dtype (bf16 under the compute view) before the
+    fp32 cast."""
+    xf = x.float()
+    rstd = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    dyw = (dy * w).float()
+    c = (dyw * xf).sum(dim=-1, keepdim=True) * (rstd * rstd) / x.shape[-1]
+    dx = ((dyw - xf * c) * rstd).to(x.dtype)
+    dw = (dy.float() * xf * rstd).sum(dim=tuple(range(x.dim() - 1)))
+    return dx, dw.to(w.dtype)
+
+
 def decode_attention_ref(
     q: torch.Tensor,          # (B, 1, H, D)
     k: torch.Tensor,          # (B, T, Hkv, D)
@@ -436,6 +451,32 @@ def grouped_matmul_ref(
         mine = ((rows >= starts[e]) & (rows < ends[e]))[:, None]
         y = torch.where(mine, xf @ w[e].float(), y)
     return y.to(x.dtype)
+
+
+def grouped_matmul_dw_ref(
+    x: torch.Tensor,            # (M, K) rows sorted by group
+    dy: torch.Tensor,           # (M, N) output cotangent, same row order
+    group_sizes: torch.Tensor,  # (E,) int contiguous row counts
+) -> torch.Tensor:
+    """Ragged weight gradient: ``dw[g] = x_gᵀ · dy_g`` over group g's
+    contiguous rows -> (E, K, N) fp32, fp32 products and sums.  An empty
+    group's slice is exactly 0 and rows at or past ``sum(group_sizes)``
+    contribute nothing.  As ``grouped_matmul_ref``: a static loop over the
+    groups, each a full (K, M) @ (M, N) product of x with its rows outside
+    the group zeroed (in both operands) by a mask the prefix sum of the
+    sizes picks on the device, so memory stays O(M·(K+N)) and the sizes are never read on the
+    host."""
+    M, K, N = x.shape[0], x.shape[1], dy.shape[1]
+    E = group_sizes.shape[0]
+    ends = torch.cumsum(group_sizes.to(torch.int64), 0)
+    starts = ends - group_sizes.to(torch.int64)
+    rows = torch.arange(M, device=x.device)
+    xf, dyf = x.float(), dy.float()
+    dw = torch.empty((E, K, N), dtype=torch.float32, device=x.device)
+    for e in range(E):
+        mine = ((rows >= starts[e]) & (rows < ends[e]))[:, None]
+        dw[e] = torch.where(mine, xf, 0.0).T @ torch.where(mine, dyf, 0.0)
+    return dw
 
 
 # --------------------------------------------------------------------- #

@@ -28,11 +28,9 @@ far below a launch.
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises.  ``layernorm.launches`` and ``rmsnorm.launches`` count kernel
 launches.  ``triton`` is imported inside the launching function, so this
-module imports on a machine without it.  ``layernorm_ad`` is the
-differentiable LayerNorm: the kernel forward and a plain PyTorch backward
-(see ``_LayerNorm``).  RMSNorm is forward-only: its backward comes with the
-first training path of an RMSNorm model (ROADMAP), and until then the
-kernel raises when asked for a gradient.
+module imports on a machine without it.  ``layernorm_ad`` and
+``rmsnorm_ad`` are the differentiable norms: the kernel forward and a
+plain PyTorch backward (see ``_LayerNorm``, ``_RMSNorm``).
 """
 from __future__ import annotations
 
@@ -41,7 +39,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.ref import layernorm_bwd_ref, layernorm_ref, rmsnorm_ref
+from repro_torch.kernels.ref import (layernorm_bwd_ref, layernorm_ref, rmsnorm_bwd_ref,
+                                     rmsnorm_ref)
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -128,13 +127,10 @@ layernorm.launches = 0
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm over the last dim of x (any leading shape), forward only."""
+    """RMSNorm over the last dim of x (any leading shape); ``rmsnorm_ad``
+    is its differentiable form."""
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "rmsnorm: the kernel is forward-only; its backward comes with the first "
-            "RMSNorm training path (ROADMAP: port queue)")
     d = x.shape[-1]
     _check_norm_args("rmsnorm", x, (w,))
     x2 = x.reshape(-1, d)
@@ -177,3 +173,29 @@ def layernorm_ad(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = N
     """Differentiable LayerNorm: the kernel, or with ``plain`` the plain
     version on any device."""
     return _LayerNorm.apply(x, w, b, eps, plain)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """Forward: the kernel (or the plain version); backward: the
+    reference's ``_rms_bwd`` formulas (``ref.rmsnorm_bwd_ref``) with rstd
+    recomputed from x, as the reference's ``_rms_pallas_bwd`` pairs its
+    Pallas norm with that XLA backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, plain):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return (rmsnorm_ref if plain else rmsnorm)(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd_ref(x, w, dy, ctx.eps)
+        return dx, dw, None, None
+
+
+def rmsnorm_ad(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5, *,
+               plain: bool = False) -> torch.Tensor:
+    """Differentiable RMSNorm: the kernel, or with ``plain`` the plain
+    version on any device."""
+    return _RMSNorm.apply(x, w, eps, plain)

@@ -16,6 +16,7 @@ the fp32 master copy in every decode step.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -90,21 +91,20 @@ class Model(nn.Module):
         never materialize on the kernel path) and then weighted, as in the
         reference; ``metrics`` holds ``ce_loss``, ``aux_loss`` (0 for the
         dense stack) and ``tokens`` (the mask's sum, at least 1).  An MoE
-        config raises: its router loss terms and the grouped matmul's
-        backward come with the MoE training path.  An SSM model trains on
-        the CPU through autograd of the plain SSD scan and raises on the
-        card, where the SSD kernel is forward-only."""
+        model adds the router terms ``router_aux_coef · lb +
+        router_entropy_coef · entropy deficit`` (both summed over its MoE
+        layers) to the loss, and reports ``aux_loss`` (lb),
+        ``router_entropy`` (the mean over layers), ``router_drop_frac`` and
+        ``router_load`` (the per-expert kept-load fractions, (E,)), as the
+        reference does.  An SSM model trains on the CPU through autograd of
+        the plain SSD scan and raises on the card, where the SSD kernel is
+        forward-only."""
         cfg = self.cfg
-        if cfg.num_experts:
-            raise NotImplementedError(
-                f"{cfg.name}: training an MoE model (router loss terms, the grouped-matmul "
-                "backward) is not ported yet (ROADMAP: MoE training path, beside the "
-                "multi-GPU slice)")
         if cfg.family in ("ssm", "hybrid") and batch["tokens"].is_cuda:
             raise NotImplementedError(
                 f"{cfg.name}: training an SSM model on the card needs the SSD scan's backward, "
                 "not ported yet (ROADMAP: SSM training path)")
-        x, _, _ = self._backbone(params, self._decoder_input(params, batch["tokens"]))
+        x, _, aux = self._backbone(params, self._decoder_input(params, batch["tokens"]))
         B, S, D = x.shape
         if cfg.objective == "mlm":
             hidden = x.reshape(B * S, D)
@@ -121,8 +121,19 @@ class Model(nn.Module):
                                       impl=cfg.kernel_impl)
         denom = mask.sum().clamp_min(1.0)
         loss = (losses * mask).sum() / denom
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return loss, {"ce_loss": loss, "aux_loss": aux, "tokens": denom}
+        metrics = {"ce_loss": loss, "aux_loss": aux, "tokens": denom}
+        if cfg.num_experts:
+            # aux: the layer-summed router vector (moe.aux_shape) —
+            # [lb, entropy deficit, dropped, slots, per-expert load…]
+            lb, ent_def = aux[0], aux[1]
+            loss = loss + cfg.router_aux_coef * lb + cfg.router_entropy_coef * ent_def
+            n_moe = max(T.num_moe_layers(cfg), 1)
+            load = aux[4:]
+            metrics.update(aux_loss=lb,
+                           router_entropy=math.log(float(cfg.num_experts)) - ent_def / n_moe,
+                           router_drop_frac=aux[2] / aux[3].clamp_min(1.0),
+                           router_load=load / load.sum().clamp_min(1e-9))
+        return loss, metrics
 
     # ------------------------------------------------------------ serving
     @torch.inference_mode()

@@ -21,13 +21,21 @@ Everything stays on the device: the sizes come from a scatter-add, not
 host sync here.  The combine gathers each token's K rows through the
 inverse permutation and sums them in a fixed order, where the reference's
 scatter-add would be float atomics on the card: a step repeats bit for bit.
+In the backward the only scatters are the two ``index_select``s' (index
+adds); the combine's indices are a permutation, and with top-1 routing
+(Scout, Maverick) so are the dispatch's.  Top-k > 1 repeats each token's
+index K times in the dispatch, so its backward adds with atomics in an
+order that changes from run to run, and a repeated step may then differ in
+its last bits.
 
 Aux channel: ``moe_apply`` returns a fixed-shape fp32 vector
 (``aux_shape(cfg)``), summed over layers by the stack: ``[load-balance
 loss, entropy deficit, dropped slots, total slots, per-expert kept-load
-fractions…]``.  The router loss terms of training come with the MoE
-training path; serving drops the vector.  The reference's expert-parallel
-path (``_moe_expert_parallel``) comes with the multi-GPU slice.
+fractions…]``.  The first two carry the router's gradient, as in the
+reference; the statistics after them are detached.  ``Model.loss_fn`` adds
+the two router loss terms and reads the statistics into its metrics;
+serving drops the vector.  The reference's expert-parallel path
+(``_moe_expert_parallel``) comes with the multi-GPU slice.
 """
 from __future__ import annotations
 

@@ -160,8 +160,14 @@ class Trainer:
                     ("tokens_per_sec", "interval throughput"),
                     ("lr", "current learning rate"),
                     ("mfu", "model FLOPs utilization of the interval"),
+                    ("aux_loss", "router load-balance loss (MoE)"),
+                    ("router_entropy", "mean router entropy (MoE)"),
+                    ("router_drop_frac", "capacity-dropped slot fraction"),
                 )
             }
+            self._g_load = metrics.gauge("train_router_load",
+                                         "per-expert fraction of kept routed slots",
+                                         labels=("expert",))
 
     # ------------------------------------------------------------ lifecycle
     def prepare(self, batches, *, state: Optional[TrainState] = None,
@@ -193,12 +199,22 @@ class Trainer:
             self.save(os.path.join(self.tc.ckpt_dir, f"step_{self.step_idx}"))
         return self.step_idx
 
-    def _fetch(self) -> List[Dict[str, float]]:
-        """The pending device metrics as host floats: ONE device-to-host
-        copy."""
-        keys = list(self._pending[0])
-        vals = torch.stack([torch.stack([m[k].float() for k in keys]) for m in self._pending])
-        return [dict(zip(keys, row)) for row in vals.cpu().tolist()]
+    def _fetch(self) -> List[Dict[str, object]]:
+        """The pending device metrics on the host — scalars as floats, the
+        per-expert router load as a list — in ONE device-to-host copy."""
+        first = self._pending[0]
+        keys = list(first)
+        flat = torch.stack([torch.cat([m[k].float().reshape(-1) for k in keys])
+                            for m in self._pending]).cpu().tolist()
+        out = []
+        for row in flat:
+            vals, i = {}, 0
+            for k in keys:
+                n = first[k].numel()
+                vals[k] = row[i] if first[k].dim() == 0 else row[i:i + n]
+                i += n
+            out.append(vals)
+        return out
 
     def _flush_log(self, s: int) -> None:
         fetched = self._fetch()
@@ -219,7 +235,10 @@ class Trainer:
                     raise NonFiniteLossError(s - n + 1 + i, self._skip_streak)
             else:
                 self._skip_streak = 0
-        m = dict(fetched[-1])
+        # vector-valued metrics (the per-expert router load) stay out of the
+        # scalar history and feed the labeled gauge instead
+        last = fetched[-1]
+        m = {k: v for k, v in last.items() if not isinstance(v, list)}
         step_time = dt / max(n, 1)
         m.update(step=s, wall=now - self._t0, step_time=step_time,
                  tokens_per_sec=tokens / dt if dt > 0 else 0.0,
@@ -235,6 +254,8 @@ class Trainer:
             for name, gauge in self._tg.items():
                 if name in m:
                     gauge.set(m[name])
+            for e, frac in enumerate(last.get("router_load", [])):
+                self._g_load.labels(str(e)).set(frac)
         self.history.append(m)
         if self.verbose:
             skips = f"  SKIPPED {self.skipped_total}" if self.skipped_total else ""
@@ -287,8 +308,9 @@ class Trainer:
 
 
 def run_training(model: Model, tc: TrainConfig, batches: Iterator[Dict[str, np.ndarray]], *,
-                 state: Optional[TrainState] = None,
+                 state: Optional[TrainState] = None, pc: Optional[ParallelConfig] = None,
                  hooks: Optional[List[Callable[[int, Dict[str, float]], None]]] = None,
                  verbose: bool = True):
-    """Functional wrapper over :class:`Trainer`; returns ``(state, history)``."""
-    return Trainer(model, tc, hooks=hooks, verbose=verbose).run(batches, state=state)
+    """Functional wrapper over :class:`Trainer`; returns ``(state, history)``.
+    ``pc`` sets the optimizer state's dtype (``optimizer_state_dtype``)."""
+    return Trainer(model, tc, pc=pc, hooks=hooks, verbose=verbose).run(batches, state=state)

@@ -11,7 +11,8 @@ metrics)``:
 * gradient accumulation — ``tc.accum_steps > 1`` runs the microbatches one
   after another with fp32 grad accumulators, each weighted by its token
   count, so ``accum=N`` matches one N×-larger batch for the masked-mean
-  loss;
+  loss; the aux loss and an MoE model's router metrics are averaged over
+  the microbatches;
 * the first update uses step 1 of the lr schedule;
 * non-finite guard — a step whose loss or grad norm is not finite applies
   no update: params and moments keep their old values through
@@ -72,6 +73,10 @@ def make_train_step(model: Model, tc: TrainConfig):
     docstring."""
     accum = max(int(tc.accum_steps), 1)
     policy = model.policy
+    # averaged over the microbatches: aux (0 for the dense stack) and an MoE
+    # model's router metrics
+    means = ("aux_loss",) + (("router_entropy", "router_drop_frac", "router_load")
+                             if model.cfg.num_experts else ())
 
     def loss_and_grads(params, mb) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], List]:
         leaves = tree_leaves(params)
@@ -89,8 +94,8 @@ def make_train_step(model: Model, tc: TrainConfig):
             loss, metrics, grads = loss_and_grads(params, batch)
             metrics["loss"] = loss
         else:
-            # token-weighted: loss/ce average over tokens; aux (0 for the
-            # dense stack) averages over the microbatches
+            # token-weighted: loss/ce average over tokens, `means` over the
+            # microbatches
             g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                      for p in tree_leaves(params)]
             acc = None
@@ -100,11 +105,11 @@ def make_train_step(model: Model, tc: TrainConfig):
                 for a, g in zip(g_acc, grads):
                     a.add_(d * g.float())
                 upd = {"loss": d * loss, "ce_loss": d * m["ce_loss"], "tokens": d,
-                       "aux_loss": m["aux_loss"] / accum}
+                       **{k: m[k] / accum for k in means}}
                 acc = upd if acc is None else {k: acc[k] + v for k, v in upd.items()}
                 del grads
             d_acc = acc["tokens"]
-            grads = [(a / d_acc).to(p.dtype) for a, p in zip(g_acc, tree_leaves(params))]
+            grads = [a.div_(d_acc).to(p.dtype) for a, p in zip(g_acc, tree_leaves(params))]
             del g_acc
             metrics = dict(acc, loss=acc["loss"] / d_acc, ce_loss=acc["ce_loss"] / d_acc)
         grads, gnorm = adamw.clip_by_global_norm(grads, tc.grad_clip)

@@ -6,6 +6,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -49,11 +50,35 @@ def test_rmsnorm_matches_pallas_rmsnorm(shape, dtype):
             np.testing.assert_allclose(got.float().numpy(), want, atol=1e-6, rtol=2**-7)
 
 
-def test_rmsnorm_plain_version_is_differentiable_and_the_kernel_is_not_asked():
-    x = torch.randn(4, 64, requires_grad=True)
-    w = torch.ones(64, requires_grad=True)
-    ops.rmsnorm(x, w).sum().backward()     # CPU tensors: the plain version
-    assert x.grad is not None and w.grad is not None
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_version_is_differentiable_and_the_kernel_is_not_asked(dtype):
+    """Both implementations pair the forward with the reference's
+    ``_rms_bwd`` formulas: the x and w gradients against ``jax.vjp`` of the
+    reference's Pallas norm (its custom VJP, interpret mode), with dy·w
+    formed in the input dtype as there; CPU tensors launch nothing."""
+    rng = np.random.default_rng(5)
+    xn = (2 * rng.standard_normal((3, 7, 96)) + 0.5).astype(np.float32)
+    wn = (1 + 0.3 * rng.standard_normal(96)).astype(np.float32)
+    dyn = rng.standard_normal((3, 7, 96)).astype(np.float32)
+    tdt, jdt = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    _, pull = jax.vjp(lambda a, b: jax_ops.rmsnorm(a, b, impl="pallas", interpret=True),
+                      jnp.asarray(xn, jdt), jnp.asarray(wn, jdt))
+    want = [np.asarray(jnp.asarray(g, jnp.float32)) for g in pull(jnp.asarray(dyn, jdt))]
+    for impl in ("auto", "torch"):
+        x = torch.from_numpy(xn).to(tdt).requires_grad_(True)
+        w = torch.from_numpy(wn).to(tdt).requires_grad_(True)
+        got = torch.autograd.grad(ops.rmsnorm(x, w, impl=impl), (x, w),
+                                  torch.from_numpy(dyn).to(tdt))
+        for g, wv in zip(got, want):
+            assert g.dtype == tdt
+            if dtype == "float32":
+                # the same fp32 formulas summed in another order
+                np.testing.assert_allclose(g.numpy(), wv, atol=1e-5 * np.abs(wv).max(), rtol=0)
+            else:
+                # one rounding to bf16 of fp32 sums taken in another order:
+                # within one bf16 step of each element's magnitude
+                np.testing.assert_allclose(g.float().numpy(), wv, rtol=2 ** -7,
+                                           atol=2 ** -8 * np.abs(wv).max())
     assert rmsnorm.launches == 0
 
 

@@ -19,7 +19,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cross_entropy import cross_entropy_bwd, cross_entropy_fwd  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
-from repro_torch.kernels.grouped_matmul import gmm  # noqa: E402
+from repro_torch.kernels.grouped_matmul import gmm, gmm_dw  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode,
     paged_kv_write,
@@ -34,7 +34,7 @@ from repro_torch.training.loop import Trainer  # noqa: E402
 
 KERNELS = (flash_attention_fwd, flash_attention_bwd, cross_entropy_fwd, cross_entropy_bwd, layernorm,
            rmsnorm, flash_decode, fused_sample, paged_decode, paged_prefill, paged_kv_write, gmm,
-           ssd_scan)
+           gmm_dw, ssd_scan)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -128,7 +128,7 @@ def test_grouped_matmul_kernel_route_calls_no_library_product():
     fn = next(n for n in ops_tree.body if isinstance(n, ast.FunctionDef)
               and n.name == "grouped_matmul")
     assert {_dotted(n.func) for n in ast.walk(fn) if isinstance(n, ast.Call)} == \
-        {"_plain", "_ref.grouped_matmul_ref", "_gm.gmm", "_i32"}
+        {"_plain", "_ref.grouped_matmul_ref", "_gm.grouped_matmul", "_i32"}
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -175,6 +175,8 @@ def test_cpu_runs_launch_no_kernel():
         prefill_chunk=4).generate([[1, 5, 6, 7, 8, 9, 10, 11, 12], [1, 5, 6, 7, 8, 9, 10, 11]])
     scout = model_mod.build_model(get_smoke_config("llama4-scout-17b-a16e"), device="cpu")
     LLM(scout, slots=2, max_len=48).generate([[1, 5, 6], [7, 8, 9, 10]])
+    loss, _ = scout.loss_fn(scout.params.tree(), {"tokens": toks})
+    loss.backward()
     jamba = model_mod.build_model(get_smoke_config("jamba-1.5-large-398b"), device="cpu")
     LLM(jamba, slots=2, max_len=48).generate([[1, 5, 6], [7, 8, 9, 10]])
     assert all(k.launches == 0 for k in KERNELS), [k.launches for k in KERNELS]

@@ -251,8 +251,17 @@ def test_stack_sums_the_aux_vectors_and_the_loss_waits_for_moe_training():
                                    jnp.asarray(x.detach().numpy()))
     np.testing.assert_allclose(aux.numpy(), np.asarray(jaux), atol=1e-5, rtol=0)
     assert aux.shape == (moe.AUX_BASE + 4,) and float(aux[3]) == 24.0    # one MoE layer, 24 slots
-    with pytest.raises(NotImplementedError, match="MoE model"):
-        model.loss_fn(params, {"tokens": torch.from_numpy(toks)})
+    # the loss now carries the router terms and metrics, as the reference's
+    jm, _, _ = _pair(MAVERICK)
+    loss, m = model.loss_fn(params, {"tokens": torch.from_numpy(toks)})
+    jloss, jmet = jm.loss_fn(tree, {"tokens": jnp.asarray(toks)})
+    assert abs(loss.item() - float(jloss)) <= 1e-5
+    for k in ("ce_loss", "aux_loss", "router_entropy", "router_drop_frac", "router_load"):
+        np.testing.assert_allclose(m[k].detach().numpy(), np.asarray(jmet[k]), atol=1e-5, rtol=0,
+                                   err_msg=k)
+    assert loss.item() == pytest.approx(
+        m["ce_loss"].item() + model.cfg.router_aux_coef * float(aux[0])
+        + model.cfg.router_entropy_coef * float(aux[1]), abs=1e-6)
 
 
 # ------------------------------------------------------------------ LLM.generate

@@ -1,14 +1,17 @@
 """The MoE's ragged grouped matmul on the CPU: the plain PyTorch version
 against the reference's TPU kernel run in Pallas interpret mode and against
 its gather oracle, on the same seeded numpy inputs, across group counts and
-ragged edge cases; the op's dispatch; and the kernel wrapper's refusals."""
+ragged edge cases; its gradients against ``jax.vjp`` of the reference's
+custom VJP; the op's dispatch; and the kernel wrappers' refusals."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.grouped_matmul import gmm as jax_gmm  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
@@ -88,18 +91,69 @@ def test_ops_grouped_matmul_dispatch_on_the_cpu():
 
 
 def test_kernel_wrapper_refuses_a_gradient_and_foreign_devices():
-    """Off the CPU the wrapper launches the kernel or raises: a tensor that
-    needs a gradient is refused before anything else (the kernel is
-    forward-only), and a non-CUDA device after that."""
+    """Off the CPU the wrappers launch the kernel or raise: a tensor that
+    needs a gradient is no longer refused (the backward is ``gmm_dw`` and
+    the transposed ``gmm``), and a non-CUDA device is, in every entry —
+    the forward, the transposed mode, the weight gradient and the
+    differentiable op."""
     x = torch.empty(4, 16, dtype=torch.bfloat16, device="meta", requires_grad=True)
-    w = torch.empty(2, 16, 8, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(2, 16, 8, dtype=torch.bfloat16, device="meta", requires_grad=True)
+    dy = torch.empty(4, 8, dtype=torch.bfloat16, device="meta")
     gs = torch.empty(2, dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        gm.gmm(x, w, gs)
-    with torch.no_grad():
+    for call in (lambda: gm.gmm(x, w, gs), lambda: gm.gmm(dy, w, gs, transpose_w=True),
+                 lambda: gm.gmm_dw(x, dy, gs), lambda: gm.grouped_matmul(x, w, gs),
+                 lambda: ops.grouped_matmul(x, w, gs)):
         with pytest.raises(ValueError, match="CUDA device"):
-            gm.gmm(x, w, gs)
-    assert gm.gmm.launches == 0
+            call()
+    assert gm.gmm.launches == gm.gmm_dw.launches == 0
+
+
+@pytest.mark.parametrize("route", ["ops", "function"])
+def test_grouped_matmul_vjp_matches_reference(route):
+    """x and w gradients of the port's grouped matmul against ``jax.vjp`` of
+    the reference's Pallas op (its custom VJP: ``gmm`` on the swapped
+    weights and ``gmm_dw``, interpret mode), in fp32 on the CPU: ``ops``
+    is the plain version under autograd (the CPU route), ``function`` the
+    autograd Function that pairs the kernels, here on their plain
+    versions."""
+    fn = ops.grouped_matmul if route == "ops" else gm.grouped_matmul
+
+    @jax.jit
+    def jvjp(x, w, gs, cot):
+        y, pull = jax.vjp(lambda a, b: jax_ops.grouped_matmul(
+            a, b, gs, impl="pallas", interpret=True), x, w)
+        return (y, *pull(cot))
+
+    for E, M, sizes in CASES:      # three shapes: one compile of the reference's VJP each
+        (x, w, gs), (jx, jw, jgs) = _inputs(E, M, sizes, "float32")
+        cot = np.random.default_rng(M).standard_normal((M, w.shape[2])).astype(np.float32)
+        jy, jdx, jdw = jvjp(jx, jw, jgs, jnp.asarray(cot))
+        x.requires_grad_(True)
+        w.requires_grad_(True)
+        y = fn(x, w, gs)
+        dx, dw = torch.autograd.grad(y, (x, w), torch.from_numpy(cot))
+        # the same fp32 products summed in another order
+        for got, want in ((y, jy), (dx, jdx), (dw, jdw)):
+            np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-4, rtol=0,
+                                       err_msg=str(sizes))
+        total = sum(sizes)
+        assert (dx[total:] == 0).all()                # the dropped tail gets no gradient
+        for g in np.flatnonzero(np.asarray(sizes) == 0):
+            assert (dw[g] == 0).all()
+
+
+def test_wrappers_plain_versions_on_the_cpu():
+    """On CPU tensors the transposed mode is the product with each
+    weight's transpose and ``gmm_dw`` the plain weight gradient rounded to
+    its output dtype; neither launches."""
+    (x, w, gs), _ = _inputs(8, 64, CASES[2][2], "bfloat16")
+    dy = torch.randn(64, w.shape[2], generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    assert torch.equal(gm.gmm(dy, w, gs, transpose_w=True),
+                       ref.grouped_matmul_ref(dy, w.transpose(1, 2), gs))
+    want = ref.grouped_matmul_dw_ref(x, dy, gs)
+    assert torch.equal(gm.gmm_dw(x, dy, gs), want)
+    assert torch.equal(gm.gmm_dw(x, dy, gs, out_dtype=torch.bfloat16), want.to(torch.bfloat16))
+    assert gm.gmm.launches == gm.gmm_dw.launches == 0
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -116,6 +170,41 @@ def test_kernel_argument_checks(bad, match):
     gs = torch.zeros(ws[0], dtype=bad.get("gs_dtype", torch.int32))
     with pytest.raises((ValueError, TypeError), match=match):
         gm.check_args(x, w, gs)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(x=(4, 16), w=(2, 16, 8)), "expected x"),
+    (dict(x=(4, 16), w=(2, 8, 24)), "expected x"),
+    (dict(w=(2, 8, 16), gs_dtype=torch.int64), "int32"),
+    (dict(w=(129, 8, 16)), "1 to 128 groups"),
+    (dict(w=(2, 8, 16), dtype=torch.float32), "bfloat16"),
+    (dict(x=(4, 12), w=(2, 8, 12)), "multiples of 8"),
+])
+def test_transposed_kernel_argument_checks(bad, match):
+    """The transposed mode reads w as (E, N, K): x's width must be w's
+    last dim."""
+    xs, ws = bad.get("x", (4, 16)), bad["w"]
+    dt = bad.get("dtype", torch.bfloat16)
+    x, w = torch.zeros(xs, dtype=dt), torch.zeros(ws, dtype=dt)
+    gs = torch.zeros(ws[0], dtype=bad.get("gs_dtype", torch.int32))
+    with pytest.raises((ValueError, TypeError), match=match):
+        gm.check_args(x, w, gs, transpose_w=True)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(dy=(5, 8)), "expected x"),
+    (dict(gs=(2, 1)), "int32"),
+    (dict(gs_dtype=torch.int64), "int32"),
+    (dict(gs=(129,)), "1 to 128 groups"),
+    (dict(dtype=torch.float32), "bfloat16"),
+    (dict(x=(4, 12)), "multiples of 8"),
+])
+def test_dw_kernel_argument_checks(bad, match):
+    dt = bad.get("dtype", torch.bfloat16)
+    x, dy = torch.zeros(bad.get("x", (4, 16)), dtype=dt), torch.zeros(bad.get("dy", (4, 8)), dtype=dt)
+    gs = torch.zeros(bad.get("gs", (2,)), dtype=bad.get("gs_dtype", torch.int32))
+    with pytest.raises((ValueError, TypeError), match=match):
+        gm.check_dw_args(x, dy, gs)
 
 
 def test_block_m_follows_the_row_count():

@@ -133,14 +133,26 @@ def test_clm_loss_and_logits_match_reference():
 
 
 def test_moe_config_raises():
-    """An MoE model builds and serves, but its loss (router terms, the
-    grouped-matmul backward) waits for the MoE training path."""
+    """An MoE model no longer raises: its loss adds the router terms
+    (``router_aux_coef · lb + router_entropy_coef · entropy deficit``) to
+    the masked cross-entropy, reports the router metrics, and every leaf
+    gets a gradient, the experts' through the grouped matmul's backward."""
     _, cfg = _configs()
-    model = build_model(dataclasses.replace(cfg, family="moe", num_experts=4), device="cpu")
+    cfg = dataclasses.replace(cfg, family="moe", num_experts=4, router_entropy_coef=0.1)
+    model = build_model(cfg, device="cpu")
     toks = torch.ones((2, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        model.loss_fn(model.params.tree(), {"tokens": toks, "targets": toks,
-                                            "loss_mask": torch.ones((2, 8))})
+    params = model.params.tree()
+    loss, m = model.loss_fn(params, {"tokens": toks, "targets": toks,
+                                     "loss_mask": torch.ones((2, 8))})
+    ent_def = (np.log(4) - m["router_entropy"].item()) * cfg.num_layers
+    assert loss.item() == pytest.approx(
+        m["ce_loss"].item() + cfg.router_aux_coef * m["aux_loss"].item() + 0.1 * ent_def, abs=1e-5)
+    assert m["router_load"].shape == (4,) and 0.0 <= m["router_drop_frac"].item() < 1.0
+    leaves = tree_leaves(params)
+    grads = torch.autograd.grad(loss, leaves)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    w_in = params["layers"]["sub0"]["ffn"]["w_in"]
+    assert grads[next(i for i, p in enumerate(leaves) if p is w_in)].abs().sum() > 0
 
 
 # ------------------------------------------------------------ optimizer
