@@ -69,14 +69,14 @@ def time_ms(torch, fn, trials: int = 20, per_trial: int = 10, warmup: int = 3) -
     return statistics.median(times)
 
 
-def device_ms(torch, fn, *names: str, n: int = 20):
-    """Device time of one call of ``fn``: the summed time of the kernels
-    whose name holds one of ``names`` in a torch.profiler window of ``n``
-    back-to-back calls, over ``n``.  Unlike ``time_ms`` it leaves out the
-    host's launch path, which a small kernel can take longer than to run.
-    A window that records none of the kernels (the profiler has dropped a
-    window's device records) is taken again, up to three times; then the
-    time is None: not measured."""
+def device_ms_by_kernel(torch, fn, names, n: int = 20):
+    """Device time of one call of ``fn`` for each of ``names``: the summed
+    time of the kernels whose name holds it in a torch.profiler window of
+    ``n`` back-to-back calls, over ``n``.  Unlike ``time_ms`` it leaves out
+    the host's launch path, which a small kernel can take longer than to
+    run.  A window that records none of the kernels (the profiler has
+    dropped a window's device records) is taken again, up to three times;
+    then the dict is empty: not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -87,11 +87,20 @@ def device_ms(torch, fn, *names: str, n: int = 20):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and any(m in e.key.lower() for m in names))
-        if us > 0:
-            return us / 1e3 / n
-    return None
+        out = {}
+        for e in prof.key_averages():
+            hit = [m for m in names if m in e.key.lower()]
+            if e.device_type == DeviceType.CUDA and hit and e.self_device_time_total > 0:
+                out[hit[0]] = out.get(hit[0], 0.0) + e.self_device_time_total / 1e3 / n
+        if out:
+            return out
+    return {}
+
+
+def device_ms(torch, fn, *names: str, n: int = 20):
+    """The summed device time of one call of ``fn`` over the kernels named
+    (``device_ms_by_kernel``), or None: not measured."""
+    return sum(device_ms_by_kernel(torch, fn, names, n).values()) or None
 
 
 def fmt_ms(ms) -> str:
@@ -153,9 +162,9 @@ def kernel_groups(prof, DeviceType):
             groups["flash_attention_fwd"] += t
         elif any(w in low for w in ("dq_kernel", "dkv_kernel", "delta_kernel")):
             groups["flash_attention_bwd"] += t
-        elif "ce_fwd_kernel" in low:
+        elif any(w in low for w in CE_FWD_KERNELS):
             groups["cross_entropy_fwd"] += t
-        elif any(w in low for w in ("ce_dh_kernel", "ce_dw_kernel", "ce_dw_sum_kernel")):
+        elif any(w in low for w in CE_BWD_KERNELS):
             groups["cross_entropy_bwd"] += t
         elif "layernorm" in low:
             groups["layernorm"] += t
@@ -261,9 +270,16 @@ def check_attention_bwd(torch, F, ref, flash_attention_fwd, flash_attention_bwd,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
+CE_FWD_KERNELS = ("ce_fwd_kernel", "ce_fwd_merge_kernel")
+CE_BWD_KERNELS = ("ce_bwd_dlogits_kernel", "ce_bwd_dh_kernel", "ce_bwd_dw_kernel",
+                  "ce_bwd_dw_sum_kernel", "ce_bwd_zero_kernel")
+
+
 def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, randn, g, card):
-    """Rows 3 and 4 against their plain versions; times them at the ESM-2
-    training shape.  Returns their kernel records."""
+    """Rows 3 and 4 against their plain versions, at ESM-2's and
+    Llama-4-Scout's training shapes and at the edges of the kernels'
+    schedule, with a bit-identical repeat; times both training shapes.
+    Returns their kernel records: ESM-2's numbers, Scout's under "scout"."""
     dev = torch.device("cuda")
     # loss/lse: fp32 logits of the same products summed in another order;
     # dh/dw: the kernel rounds dlogits to bf16 before the two products
@@ -271,8 +287,14 @@ def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, ran
     loss_tol, grad_tol = 2e-4, 2e-2
     cases = [
         ("esm2-650m tied head", dict(T=8192, D=1280, Vp=256, vocab=33, tied=True)),
-        ("ragged T, untied head", dict(T=1000, D=1280, Vp=256, vocab=33, tied=False)),
-        ("Vpad 32768, 512 vocab tiles", dict(T=2048, D=1280, Vp=32768, vocab=32000, tied=True)),
+        ("llama4-scout untied head", dict(T=2048, D=5120, Vp=202240, vocab=202048, tied=False)),
+        ("T not a multiple of the 128-token tile, untied head",
+         dict(T=1000, D=1280, Vp=256, vocab=33, tied=False)),
+        ("Vpad 32768, 250 live tiles, tied head", dict(T=2048, D=1280, Vp=32768, vocab=32000, tied=True)),
+        ("vocab ending mid-tile, targets in the last live tile",
+         dict(T=300, D=256, Vp=1024, vocab=705, tied=False, last_tile=True)),
+        ("vocab ending mid-tile, tied head", dict(T=300, D=256, Vp=1024, vocab=705, tied=True, last_tile=True)),
+        ("out-of-range targets", dict(T=260, D=512, Vp=512, vocab=300, tied=False, out_of_range=True)),
     ]
     errs0 = {}
     for label, c in cases:
@@ -280,6 +302,14 @@ def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, ran
         h = randn(T, D)
         w = randn(Vp, D, scale=0.05).T if c["tied"] else randn(D, Vp, scale=0.05)
         tgt = torch.randint(0, vocab, (T,), device=dev, generator=g, dtype=torch.int32)
+        if c.get("last_tile"):
+            tgt[::3] = torch.randint(vocab // 128 * 128, vocab, (len(tgt[::3]),), device=dev,
+                                     generator=g, dtype=torch.int32)
+        bad = torch.zeros(T, dtype=torch.bool, device=dev)
+        if c.get("out_of_range"):
+            for i, t in enumerate((-1, vocab, vocab + 1, Vp - 1, Vp, Vp + 7, 1 << 30, -(1 << 30))):
+                tgt[5 * i] = t
+                bad[5 * i] = True
         gl = torch.rand(T, device=dev, generator=g) / T
         gs = torch.rand(T, device=dev, generator=g) * (0.1 / T)     # a nonzero lse cotangent
         loss, lse = cross_entropy_fwd(h, w, tgt, vocab=vocab)
@@ -290,59 +320,97 @@ def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, ran
         e_loss = max((loss - r_loss).abs().max().item(), (lse - r_lse).abs().max().item())
         e_dh, e_dw = rel_err(dh, r_dh), rel_err(dw, r_dw)
         pad_zero = bool((dw[:, vocab:] == 0).all())
+        layout = dw.shape == w.shape and dw.stride() == w.stride()
+        sentinel = bool((loss[bad] > 1e29).all() and (loss[~bad] < 1e29).all())
         print(f"cross_entropy {label} (T={T}, D={D}, Vpad={Vp}, vocab={vocab}): loss/lse err "
               f"{e_loss:.3g} (tol {loss_tol}), dh {e_dh:.3g}, dw {e_dw:.3g} (tol {grad_tol} of "
-              f"max|ref|), padded dw columns exactly 0: {pad_zero}")
-        check(e_loss <= loss_tol and bool(loss.isfinite().all()), f"cross_entropy_fwd {label}")
-        check(e_dh <= grad_tol and e_dw <= grad_tol and pad_zero, f"cross_entropy_bwd {label}")
+              f"max|ref|), padded dw columns exactly 0: {pad_zero}, dw in w's layout: {layout}, "
+              f"out-of-range targets give lse + 1e30: {sentinel} ({int(bad.sum())} of them)")
+        check(e_loss <= loss_tol and bool(lse.isfinite().all()) and sentinel,
+              f"cross_entropy_fwd {label}")
+        check(e_dh <= grad_tol and e_dw <= grad_tol and pad_zero and layout,
+              f"cross_entropy_bwd {label}")
         if not errs0:
             errs0 = {"fwd": e_loss, "bwd": max((dh.float() - r_dh.float()).abs().max().item(),
                                                (dw.float() - r_dw.float()).abs().max().item())}
+        del r_dh, r_dw, r_loss, r_lse
+        if c["T"] in (8192, 2048) and c["Vp"] in (256, 202240):   # the two training shapes
+            loss2, lse2 = cross_entropy_fwd(h, w, tgt, vocab=vocab)
+            dh2, dw2 = cross_entropy_bwd(h, w, tgt, lse2, gl, gs, vocab=vocab)
+            same = all(torch.equal(a, b) for a, b in ((loss, loss2), (lse, lse2), (dh, dh2), (dw, dw2)))
+            print(f"cross_entropy {label}: a repeated forward and backward give the same bits: {same}")
+            check(same, f"cross_entropy {label}: a repeat differs")
+            del loss2, lse2, dh2, dw2
+        del h, w, dh, dw
+        torch.cuda.empty_cache()
 
-    T, D, Vp, vocab = 8192, 1280, 256, 33
-    h = randn(T, D)
-    w = randn(Vp, D, scale=0.05).T
-    tgt = torch.randint(0, vocab, (T,), device=dev, generator=g, dtype=torch.int32)
-    gl = torch.full((T,), 1.0 / T, device=dev)
-    gs = torch.zeros(T, device=dev)
-    loss, lse = cross_entropy_fwd(h, w, tgt, vocab=vocab)
-    fwd_ms = time_ms(torch, lambda: cross_entropy_fwd(h, w, tgt, vocab=vocab))
-    bwd_ms = time_ms(torch, lambda: cross_entropy_bwd(h, w, tgt, lse, gl, gs, vocab=vocab))
-    fwd_dev = device_ms(torch, lambda: cross_entropy_fwd(h, w, tgt, vocab=vocab), "ce_fwd_kernel")
-    bwd_dev = device_ms(torch, lambda: cross_entropy_bwd(h, w, tgt, lse, gl, gs, vocab=vocab),
-                        "ce_dh_kernel", "ce_dw_kernel", "ce_dw_sum_kernel")
-    fwd_plain = time_ms(torch, lambda: ref.cross_entropy_ref(h, w, tgt, vocab), trials=5, per_trial=5)
-    bwd_plain = time_ms(torch, lambda: ref.cross_entropy_bwd_ref(h, w, tgt, lse, gl, gs, vocab),
-                        trials=5, per_trial=5)
-    hl = h.clone().requires_grad_(True)
-    wl = w[:, :vocab].clone().requires_grad_(True)
-    tl = tgt.long()
-    fwd_lib = time_ms(torch, lambda: F.cross_entropy((hl @ wl).float(), tl, reduction="none"))
-    lib_loss = F.cross_entropy((hl @ wl).float(), tl, reduction="none")
-    bwd_lib = time_ms(torch, lambda: torch.autograd.grad(lib_loss, (hl, wl), gl, retain_graph=True))
-    # only the work the function needs: the `vocab` live columns of W (the
-    # padded ones give no output but dW's zeros).  Forward: h and W's live
-    # columns read, targets read, loss and lse written.  Backward: the same
-    # reads plus lse and the two cotangents, dh written and dW written whole
-    reads = T * D * 2 + D * vocab * 2 + T * 4
-    fwd_bound, fwd_by = bound(2 * T * D * vocab, reads + 2 * T * 4)
-    bwd_bound, bwd_by = bound(6 * T * D * vocab, reads + 3 * T * 4 + T * D * 2 + D * Vp * 2)
-    print(f"cross_entropy_fwd T={T} D={D} Vpad={Vp} bf16 on {card}: {fwd_ms:.4f} ms (device "
-          f"{fmt_ms(fwd_dev)} ms; bound "
-          f"{fwd_bound:.4f} ms by {fwd_by}), plain {fwd_plain:.4f} ms, F.cross_entropy(h @ W) "
-          f"{fwd_lib:.4f} ms")
-    print(f"cross_entropy_bwd T={T} D={D} Vpad={Vp} bf16 on {card}: {bwd_ms:.4f} ms (device "
-          f"{fmt_ms(bwd_dev)} ms; bound "
-          f"{bwd_bound:.4f} ms by {bwd_by}), plain {bwd_plain:.4f} ms, F.cross_entropy(h @ W) "
-          f"backward {bwd_lib:.4f} ms")
+    def timed(T, D, Vp, vocab, tied, reps):
+        """Times at one shape: back to back, on the device, the plain
+        version's and ``F.cross_entropy(h @ W)``'s forward and backward."""
+        h = randn(T, D)
+        w = randn(Vp, D, scale=0.05).T if tied else randn(D, Vp, scale=0.05)
+        tgt = torch.randint(0, vocab, (T,), device=dev, generator=g, dtype=torch.int32)
+        gl = torch.full((T,), 1.0 / T, device=dev)
+        gs = torch.zeros(T, device=dev)
+        loss, lse = cross_entropy_fwd(h, w, tgt, vocab=vocab)
+        fwd = lambda: cross_entropy_fwd(h, w, tgt, vocab=vocab)            # noqa: E731
+        bwd = lambda: cross_entropy_bwd(h, w, tgt, lse, gl, gs, vocab=vocab)  # noqa: E731
+        trials, per, warm = reps
+        out = {"fwd_ms": time_ms(torch, fwd, trials, per, warm),
+               "bwd_ms": time_ms(torch, bwd, trials, per, warm)}
+        n = max(3, per)
+        out["fwd_by"] = device_ms_by_kernel(torch, fwd, CE_FWD_KERNELS, n)
+        out["bwd_by"] = device_ms_by_kernel(torch, bwd, CE_BWD_KERNELS, n)
+        out["fwd_dev"] = sum(out["fwd_by"].values()) or None
+        out["bwd_dev"] = sum(out["bwd_by"].values()) or None
+        out["fwd_plain"] = time_ms(torch, lambda: ref.cross_entropy_ref(h, w, tgt, vocab),
+                                   trials=min(trials, 5), per_trial=min(per, 5), warmup=1)
+        out["bwd_plain"] = time_ms(torch, lambda: ref.cross_entropy_bwd_ref(h, w, tgt, lse, gl, gs, vocab),
+                                   trials=min(trials, 5), per_trial=min(per, 5), warmup=1)
+        hl = h.clone().requires_grad_(True)
+        wl = w[:, :vocab].clone().requires_grad_(True)
+        tl = tgt.long()
+        out["fwd_lib"] = time_ms(torch, lambda: F.cross_entropy((hl @ wl).float(), tl, reduction="none"),
+                                 trials, per, warm)
+        lib_loss = F.cross_entropy((hl @ wl).float(), tl, reduction="none")
+        out["bwd_lib"] = time_ms(torch, lambda: torch.autograd.grad(lib_loss, (hl, wl), gl, retain_graph=True),
+                                 trials, per, warm)
+        # only the work the function needs: the `vocab` live columns of W
+        # (the padded ones give no output but dW's zeros).  Forward: h and
+        # W's live columns read, targets read, loss and lse written.
+        # Backward: the same reads plus lse and the two cotangents, dh
+        # written and dW written whole
+        reads = T * D * 2 + D * vocab * 2 + T * 4
+        out["fwd_bound"], out["fwd_bound_by"] = bound(2 * T * D * vocab, reads + 2 * T * 4)
+        out["bwd_bound"], out["bwd_bound_by"] = bound(6 * T * D * vocab,
+                                                      reads + 3 * T * 4 + T * D * 2 + D * Vp * 2)
+        for d in ("fwd", "bwd"):
+            flops = (2 if d == "fwd" else 6) * T * D * vocab
+            by = ", ".join(f"{k} {v:.4f}" for k, v in out[f"{d}_by"].items())
+            print(f"cross_entropy_{d} T={T} D={D} Vpad={Vp} vocab={vocab} bf16 on {card}: "
+                  f"{out[f'{d}_ms']:.4f} ms (device {fmt_ms(out[f'{d}_dev'])} ms: {by}; bound "
+                  f"{out[f'{d}_bound']:.4f} ms by {out[f'{d}_bound_by']}, "
+                  f"{per_device_ms(flops, out[f'{d}_dev'], 'TFLOP/s', 1e9)}), plain "
+                  f"{out[f'{d}_plain']:.4f} ms, F.cross_entropy(h @ W){' backward' if d == 'bwd' else ''} "
+                  f"{out[f'{d}_lib']:.4f} ms")
+        del h, w, hl, wl, lib_loss
+        torch.cuda.empty_cache()
+        return out
+
+    esm = timed(8192, 1280, 256, 33, True, (20, 10, 3))
+    scout = timed(2048, 5120, 202240, 202048, False, (3, 2, 1))
     rec = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/cross_entropy.cu", "launches": 0}
+
+    def fields(t, d):
+        return dict(ms=t[f"{d}_ms"], device_ms=t[f"{d}_dev"], plain_ms=t[f"{d}_plain"],
+                    bound_ms=t[f"{d}_bound"], bound_by=t[f"{d}_bound_by"], library_ms=t[f"{d}_lib"],
+                    device_ms_by_kernel=t[f"{d}_by"])
+
     return [
         dict(rec, name="cross_entropy_fwd", replaces="src/repro/kernels/cross_entropy.py:120",
-             max_abs_err=errs0["fwd"], ms=fwd_ms, device_ms=fwd_dev, plain_ms=fwd_plain, bound_ms=fwd_bound,
-             bound_by=fwd_by, library_ms=fwd_lib),
+             max_abs_err=errs0["fwd"], **fields(esm, "fwd"), scout=fields(scout, "fwd")),
         dict(rec, name="cross_entropy_bwd", replaces="src/repro/kernels/cross_entropy.py:266",
-             max_abs_err=errs0["bwd"], ms=bwd_ms, device_ms=bwd_dev, plain_ms=bwd_plain, bound_ms=bwd_bound,
-             bound_by=bwd_by, library_ms=bwd_lib),
+             max_abs_err=errs0["bwd"], **fields(esm, "bwd"), scout=fields(scout, "bwd")),
     ]
 
 
@@ -2792,6 +2860,8 @@ def main() -> int:
         rec["launches"] = paged_launches[rec["name"]]
     gmm_rec["launches"] = moe_launches["gmm"]
     gmm_dw_rec["launches"] = moe_train_launches["gmm_dw"]
+    for rec in ce_recs:       # Scout's numbers with the Scout training run's count
+        rec["scout"]["launches"] = moe_train_launches[rec["name"]]
     ssd_rec["launches"] = ssm_launches["ssd_scan"]
     kernels += gen_recs + paged_recs + [gmm_rec, gmm_dw_rec, ssd_rec]
     print(json.dumps({"kernels": kernels}))

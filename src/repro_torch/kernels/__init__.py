@@ -6,7 +6,8 @@
   ``flash_attention.py``; replace the reference's TPU kernels
   ``flash_attention.py::flash_attention_fwd`` / ``flash_attention_bwd``.
 * fused cross-entropy forward and backward: ``csrc/cross_entropy.cu``
-  (CUDA C++ for sm_90a), wrapped by ``cross_entropy.py``; replace the
+  (CUDA C++ for sm_90a on the wgmma + TMA GEMM mainloop of
+  ``csrc/ce_gemm.cuh``), wrapped by ``cross_entropy.py``; replace the
   reference's ``cross_entropy.py::fused_cross_entropy`` /
   ``fused_cross_entropy_bwd``.
 * LayerNorm and RMSNorm: Triton, in ``rmsnorm.py``; replace the

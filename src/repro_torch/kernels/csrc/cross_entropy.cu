@@ -1,48 +1,63 @@
 // Fused vocab-softmax cross-entropy for Hopper (sm_90a): forward, dH, dW.
 //
 // Replaces the TPU kernels in src/repro/kernels/cross_entropy.py:
-// `_ce_kernel` behind `fused_cross_entropy` (forward) and `_ce_dh_kernel` /
-// `_ce_dw_kernel` behind `fused_cross_entropy_bwd`. Same contract: hidden h
-// (T, D) and the output weight W (D, Vpad) in bf16, int32 targets (T,) and
-// the true vocab (columns >= vocab are masked):
+// `_ce_kernel` behind `fused_cross_entropy` (its pallas_call at :120) and
+// `_ce_dh_kernel` / `_ce_dw_kernel` behind `fused_cross_entropy_bwd` (:266,
+// :287). Same contract: hidden h (T, D) and the output weight W (D, Vpad)
+// in bf16, int32 targets (T,) and the true vocab (columns >= vocab are
+// masked):
 //   forward   logits = h W (fp32), lse = logsumexp over the vocab,
 //             loss = lse - logit[target]           -> loss, lse (T,) fp32
 //   backward  dlogits = (g_loss + g_lse) p - g_loss onehot(target),
 //             p = exp(min(logit - lse, 0)) on valid columns, 0 on padding
 //             dH = dlogits W^T (T, D), dW = h^T dlogits (D, Vpad)
-// The (T, Vpad) logits never reach device memory in either direction.
+// A target outside [0, vocab) has no logit: its loss is lse + 1e30, as the
+// reference's. dW's padded columns are exactly 0. No atomics: a repeated
+// call gives the same bits.
 //
-// Layout. The kernels take W^T, a row-major (Vpad, D) matrix, so that a
-// vocab row's D values are contiguous and every operand tile is read with
-// 16-byte loads. For the tied head W = embed.T, W^T is the embedding table
-// itself and the wrapper passes it without a copy. dW is written as dW^T
-// (Vpad, D).
+// Layouts. W is read where the model holds it: the untied head as a
+// row-major (D, Vpad) matrix, the tied head (W = embed^T) as the row-major
+// (Vpad, D) embedding table behind that view; dW is written in the same
+// layout (for the tied head as dW^T, the table's gradient). Every product
+// goes through the GEMM mainloop of ce_gemm.cuh (TMA into a 5-stage ring,
+// wgmma m64n128k16 with fp32 accumulation, a producer warpgroup and two
+// consumers), which takes each operand K-major or MN-major, so nothing is
+// transposed or copied.
 //
 // Design. The TPU kernels carry the online LSE (forward) and the dH / dW
-// accumulators across a sequential grid axis in VMEM; Hopper blocks run in
-// no order, so each block loops over the tiles itself:
-//   forward  a block of 4 warps owns 64 token rows and loops over 64-column
-//            vocab tiles, the contraction over D in 64-wide chunks staged
-//            through shared memory; running max, sum and target logit stay
-//            in registers (the online LSE of the TPU kernel).
-//   dH       a block owns (64 tokens, 128 columns of D) and loops over vocab
-//            tiles: it recomputes the tile's logits over all of D, forms
-//            dlogits in registers and multiplies them into its dH columns.
-//   dW       a block owns (64 vocab rows, 128 columns of D, one share of the
-//            token tiles): per token tile it recomputes logits^T, forms
-//            dlogits^T and adds h^T dlogits into its dW^T tile, an fp32
-//            partial sum per share; a last pass adds the shares in a fixed
-//            order. No atomics: every run gives the same bits.
-// Products are mma.sync m16n8k16 with fp32 accumulation; bf16 x bf16
-// products are exact in fp32, so logits match the TPU kernel's fp32 dot of
-// upcast values up to summation order. dlogits is rounded to bf16 before
-// the dH and dW products (the TPU kernel keeps it fp32): at most 2^-9
-// relative per element, which is the stated tolerance. Padded vocab
-// columns give dlogits of exactly 0, so their dW
-// columns are exactly 0. Each backward block recomputes the logits of its
-// tiles: D / 128 times over for dH and dW each (10 times at D = 1280), the
-// price of keeping dlogits out of device memory without a cross-block sum.
-// The loops also run over the padded vocab tiles, which only add zeros.
+// sums across a sequential grid axis in VMEM, and keep the dlogits block of
+// a grid step in VMEM for both products. Hopper blocks run in no order and
+// a block's shared memory holds a few 128 x 128 tiles, so:
+//   forward   the grid is (token tiles) x (vocab splits): a block walks its
+//             split's run of 128 x 128 logits tiles through one ring,
+//             keeping each row's running (max, sum, target logit) in
+//             registers, and writes one fp32 (m, l, tl) a row; a second
+//             kernel merges each row's splits in split order into lse and
+//             loss. The splits end at the last live vocab tile,
+//             ceil(vocab / 128), not at Vpad, and there are enough of them
+//             for about 16 waves of one block an SM.
+//   backward  the vocabulary in chunks of whole tiles, the (T, chunk) bf16
+//             dlogits within a 256 MB scratch buffer (4 chunks of 50 560
+//             columns at T 2 048; one at ESM-2's 33 live columns). For each
+//             chunk, in stream order, each a persistent grid of one block
+//             an SM: (i) logits = h W[:, chunk] with the dlogits epilogue,
+//             rounded to bf16 into the buffer, each tile computed once;
+//             (ii) dH += dlogits W[:, chunk]^T into an fp32 (T, D) sum,
+//             chunk after chunk (bf16 dH written by the last); (iii)
+//             dW[:, chunk] = h^T dlogits, written once; when a chunk makes
+//             too few output tiles to fill the card (ESM-2: 10), the token
+//             contraction splits into shares whose fp32 sums are added in
+//             share order over the live columns only. The padded columns
+//             [vocab, Vpad) of dW are zero-filled, no product. Where the
+//             TPU kernel keeps a dlogits block in VMEM, here the logits
+//             would be recomputed once per output tile of dH and dW (D /
+//             128 = 40 times at D 5 120) unless stored: a bounded chunk
+//             stores them once and reads them twice, 3 x 207 MB at Scout's
+//             shape, and the work is the 6 T D vocab FLOP of the bound.
+// bf16 x bf16 products are exact in fp32, so logits match the TPU kernel's
+// fp32 dot of upcast values up to summation order. dlogits is rounded to
+// bf16 before the dH and dW products (the TPU kernel keeps it fp32): at
+// most 2^-9 relative per element, which is the stated tolerance.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), counting only
 // the work the function needs, on the `vocab` live columns of W: the
@@ -50,354 +65,480 @@
 // targets read and loss and lse written; the backward 6*T*D*vocab FLOP
 // against the same reads plus lse and the two cotangents, dh written and
 // dW written whole (D, Vpad). At the ESM-2 training shape T = 8192,
-// D = 1280, Vpad = 256, vocab = 33 that is 0.69 GFLOP (0.7 us) against
-// 21.2 MB (6.3 us) forward, and 2.1 GFLOP (2.1 us) against 42.8 MB
-// (12.8 us) backward: bytes bound both.
+// D = 1280, Vpad = 256, vocab = 33: 0.69 GFLOP (0.7 us) against 21.2 MB
+// (6.3 us) forward, 2.1 GFLOP (2.1 us) against 42.8 MB (12.8 us) backward,
+// bytes bound both. At Llama-4-Scout's training shape T = 2048, D = 5120,
+// Vpad = 202 240, vocab = 202 048: 4.24 TFLOP (4.28 ms) against 2.09 GB
+// (0.62 ms) forward, 12.7 TFLOP (12.85 ms) against 4.18 GB (1.25 ms)
+// backward, operations bound both.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "ce_gemm.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;    // rows a block owns: 4 warps x 16
-constexpr int kBlockN = 64;    // vocab columns (forward, dH) or tokens (dW) per tile
-constexpr int kChunk = 64;     // D per contraction chunk
-constexpr int kOut = 128;      // D columns of the dH / dW output a block owns
-constexpr int kThreads = 128;
+using ce::kAcc;
+using ce::kBM;
+using ce::Operand;
+using M = Mma<__nv_bfloat16>;
 constexpr float kNegInf = -1e30f;
+// the forward's logits are summed 8 slices (512 of D) at a time on the
+// tensor cores (ce_gemm.cuh): at Scout's shape that takes its lse from
+// ~1e-4 to ~1e-5 of an fp64 one (cuBLAS's fp32 product: ~1.6e-5) for ~3%
+// of its time
+constexpr int kFwdFlush = 8;
 
-struct Params {
-  const uint16_t* h;     // (T, D), row stride h_st
-  const uint16_t* wt;    // (Vp, D), row stride w_st
-  const int* tgt;        // (T,)
-  const float* lse;      // (T,), backward
-  const float* gl;       // (T,), backward
-  const float* gs;       // (T,), backward: the lse cotangent
-  float* loss;           // (T,), forward
-  float* lse_out;        // (T,), forward
-  uint16_t* dh;          // (T, D) contiguous
-  float* partial;        // (splits, Vp, D) fp32, dW
-  int T, D, Vp, vocab;
-  long long h_st, w_st;
-  int tiles_per_split;   // dW: token tiles per share
+__host__ __device__ __forceinline__ unsigned cdiv(long long a, long long b) {
+  return unsigned((a + b - 1) / b);
+}
+
+// ---- forward
+struct FwdParams {
+  const int* tgt;
+  float* part;      // (3, splits, T): each split's m, l, tl of every row
+  int T, D, vocab, n_live, tiles_per_split, splits;
 };
 
-using M = Mma<__nv_bfloat16>;
+// the block's run of vocab tiles for its token tile, each over all of D
+struct RunSeq {
+  int n, m0, v_lo, D;
+  __device__ __forceinline__ int4 at(int j) const { return make_int4(m0, (v_lo + j) * kBM, 0, D); }
+};
 
-// rows [row0, row0 + 64), columns [col0, col0 + COLS) of a row-major matrix
-// into shared memory (row length COLS + kPad); rows >= nrows and columns
-// >= ncols are zero-filled (ncols is a multiple of 8)
-template <int COLS>
-__device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* base, long long row_stride,
-                                          int row0, int nrows, int col0, int ncols) {
-  constexpr int kVec = 8;  // 8 x 16 bit = one 16-byte load
-  constexpr int kPerRow = COLS / kVec;
-  for (int c = threadIdx.x; c < 64 * kPerRow; c += kThreads) {
-    const int r = c / kPerRow, col = (c % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows && col0 + col < ncols)
-      val = *reinterpret_cast<const uint4*>(base + (long long)(row0 + r) * row_stride + col0 + col);
-    *reinterpret_cast<uint4*>(dst + r * (COLS + kPad) + col) = val;
-  }
-}
-
-// acc[n] (warp rows x 64 columns) += rows [arow0 + wrow, +16) of A . rows
-// [brow0, +64) of B^T, both row-major with D along the row: the contraction
-// over all of D in kChunk-wide steps through sA / sB
-__device__ __forceinline__ void dot_tiles(float (&acc)[kBlockN / 8][4], uint16_t* sA,
-                                          const uint16_t* a, long long a_st, int arow0, int anrows,
-                                          uint16_t* sB, const uint16_t* b, long long b_st,
-                                          int brow0, int bnrows, int D, int wrow, int g, int t) {
-#pragma unroll
-  for (int n = 0; n < kBlockN / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int d0 = 0; d0 < D; d0 += kChunk) {
-    __syncthreads();  // every warp is done with the previous chunk
-    load_tile<kChunk>(sA, a, a_st, arow0, anrows, d0, D);
-    load_tile<kChunk>(sB, b, b_st, brow0, bnrows, d0, D);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      uint32_t fa[4];
-      a_frag<kChunk>(fa, sA, wrow, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < kBlockN / 8; ++n) {
-        uint32_t b0, b1;
-        b_frag_rows<kChunk>(b0, b1, sB, n * 8, kk * 16, g, t);
-        M::run(acc[n], fa, b0, b1);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float dlogit(float logit, bool valid, bool hit, float lse, float gl,
-                                        float gs) {
-  const float pr = valid ? expf(fminf(logit - lse, 0.f)) : 0.f;
-  return (gl + gs) * pr - (valid && hit ? gl : 0.f);
-}
-
-// ---- forward: a block owns 64 token rows, online LSE over vocab tiles
-__global__ void __launch_bounds__(kThreads) ce_fwd_kernel(const Params p) {
-  __shared__ __align__(16) uint16_t sH[kBlockM * (kChunk + kPad)];
-  __shared__ __align__(16) uint16_t sW[kBlockN * (kChunk + kPad)];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * kBlockM, wrow = warp * 16;
-
+// the running (max, sum of exp, target logit) of a thread's 2 rows over
+// its 32 columns of each tile
+struct OnlineLse {
+  float m[2], l[2], tl[2];
   int tgt[2];
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, tl[2] = {kNegInf, kNegInf};
+  int vocab;
+  ce::Frag f;
+
+  __device__ __forceinline__ OnlineLse(const FwdParams& p, int m0) : vocab(p.vocab) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + wrow + g + 8 * r;
-    tgt[r] = row < p.T ? p.tgt[row] : -1;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = m0 + f.row0 + 8 * hh;
+      tgt[hh] = row < p.T ? p.tgt[row] : -1;
+      m[hh] = kNegInf;
+      l[hh] = 0.f;
+      tl[hh] = kNegInf;
+    }
   }
 
-  for (int v0 = 0; v0 < p.Vp; v0 += kBlockN) {
-    float acc[kBlockN / 8][4];
-    dot_tiles(acc, sH, p.h, p.h_st, row0, p.T, sW, p.wt, p.w_st, v0, p.Vp, p.D, wrow, g, t);
-    float mx[2] = {m[0], m[1]};
+  __device__ __forceinline__ void operator()(const int4& t, float (&acc)[kAcc]) {
+    const int c0 = t.y + f.col0;  // the column of acc[0]
+    const int lim = vocab - c0;   // column 8 i + e is live when below lim
 #pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n)
+    for (int hh = 0; hh < 2; ++hh) {
+      const int tc = tgt[hh] - c0;
+      float mx = m[hh];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1, col = v0 + n * 8 + 2 * t + (i & 1);
-        const float x = col < p.vocab ? acc[n][i] : kNegInf;
-        acc[n][i] = x;
-        mx[r] = fmaxf(mx[r], x);
-        if (col == tgt[r]) tl[r] = fmaxf(tl[r], x);
+      for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * i + e;
+          const float x = acc[4 * i + 2 * hh + e];
+          if (c < lim) {
+            mx = fmaxf(mx, x);
+            if (c == tc) tl[hh] = x;
+          }
+        }
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * i + e < lim) s += expf(acc[4 * i + 2 * hh + e] - mx);
+      l[hh] = l[hh] * expf(m[hh] - mx) + s;
+      m[hh] = mx;
+    }
+  }
+
+  // merge the 4 lanes of a row and write the block's (m, l, tl) for its split
+  __device__ __forceinline__ void finish(const FwdParams& p, int m0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[hh], off);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[hh], off);
+        const float to = __shfl_xor_sync(0xffffffffu, tl[hh], off);
+        const float mn = fmaxf(m[hh], mo);
+        l[hh] = l[hh] * expf(m[hh] - mn) + lo * expf(mo - mn);
+        m[hh] = mn;
+        tl[hh] = fmaxf(tl[hh], to);
       }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      l[r] *= expf(m[r] - mx[r]);
-      m[r] = mx[r];
+      const int row = m0 + f.row0 + 8 * hh;
+      if ((threadIdx.x & 3) == 0 && row < p.T) {
+        const long long T = p.T, s = blockIdx.y, S = p.splits;
+        p.part[(0 * S + s) * T + row] = m[hh];
+        p.part[(1 * S + s) * T + row] = l[hh];
+        p.part[(2 * S + s) * T + row] = tl[hh];
+      }
     }
-#pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) l[i >> 1] += expf(acc[n][i] - m[i >> 1]);
   }
+};
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    tl[r] = fmaxf(tl[r], __shfl_xor_sync(0xffffffffu, tl[r], 1));
-    tl[r] = fmaxf(tl[r], __shfl_xor_sync(0xffffffffu, tl[r], 2));
-    const int row = row0 + wrow + g + 8 * r;
-    if (t == 0 && row < p.T) {
-      const float lse = m[r] + logf(fmaxf(l[r], 1e-30f));
-      p.lse_out[row] = lse;
-      p.loss[row] = lse - tl[r];
-    }
-  }
+// h through mh (K-major), W through mw: MN-major untied, K-major tied
+template <bool kTied>
+__global__ void __launch_bounds__(ce::kThreads, 1)
+    ce_fwd_kernel(const __grid_constant__ CUtensorMap mh, const __grid_constant__ CUtensorMap mw,
+                  const FwdParams p) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const int m0 = blockIdx.x * kBM, v_lo = blockIdx.y * p.tiles_per_split;
+  const RunSeq seq{max(0, min(p.n_live, v_lo + p.tiles_per_split) - v_lo), m0, v_lo, p.D};
+  OnlineLse epi(p, m0);
+  ce::gemm_tiles<true, kTied, kFwdFlush>(smem, &mh, &mw, seq, epi);
+  if (threadIdx.x < ce::kConsumers * 128) epi.finish(p, m0);
 }
 
-// ---- dH: a block owns (64 tokens, kOut columns of D), loops over vocab tiles
-__global__ void __launch_bounds__(kThreads) ce_dh_kernel(const Params p) {
-  __shared__ __align__(16) uint16_t sH[kBlockM * (kChunk + kPad)];
-  __shared__ __align__(16) uint16_t sW[kBlockN * (kChunk + kPad)];
-  __shared__ __align__(16) uint16_t sWd[kBlockN * (kOut + kPad)];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * kBlockM, wrow = warp * 16;
-  const int c0 = blockIdx.y * kOut;
-
-  int tgt[2];
-  float lse[2], gl[2], gs[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + wrow + g + 8 * r;
-    const bool in = row < p.T;
-    tgt[r] = in ? p.tgt[row] : -1;
-    lse[r] = in ? p.lse[row] : 0.f;
-    gl[r] = in ? p.gl[row] : 0.f;
-    gs[r] = in ? p.gs[row] : 0.f;
+// each row's splits merged in split order
+__global__ void __launch_bounds__(256) ce_fwd_merge_kernel(const float* part, int splits, int T,
+                                                           float* loss, float* lse) {
+  const int row = blockIdx.x * 256 + threadIdx.x;
+  if (row >= T) return;
+  const float* pm = part;
+  const float* pl = part + (long long)splits * T;
+  const float* pt = part + 2LL * splits * T;
+  float mx = kNegInf, tl = kNegInf;
+  for (int s = 0; s < splits; ++s) {
+    mx = fmaxf(mx, pm[(long long)s * T + row]);
+    tl = fmaxf(tl, pt[(long long)s * T + row]);
   }
-  float out[kOut / 8][4];
-#pragma unroll
-  for (int j = 0; j < kOut / 8; ++j) out[j][0] = out[j][1] = out[j][2] = out[j][3] = 0.f;
-
-  for (int v0 = 0; v0 < p.Vp; v0 += kBlockN) {
-    __syncthreads();  // every warp is done with the previous W^T tile
-    load_tile<kOut>(sWd, p.wt, p.w_st, v0, p.Vp, c0, p.D);
-    float acc[kBlockN / 8][4];
-    dot_tiles(acc, sH, p.h, p.h_st, row0, p.T, sW, p.wt, p.w_st, v0, p.Vp, p.D, wrow, g, t);
-#pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1, col = v0 + n * 8 + 2 * t + (i & 1);
-        acc[n][i] = dlogit(acc[n][i], col < p.vocab, col == tgt[r], lse[r], gl[r], gs[r]);
-      }
-    // dH += dlogits W^T-tile: two adjacent 8-column accumulators make the A
-    // fragment of one 16-deep step over the vocab
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = M::pack(acc[2 * kk][0], acc[2 * kk][1]);
-      a[1] = M::pack(acc[2 * kk][2], acc[2 * kk][3]);
-      a[2] = M::pack(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-      a[3] = M::pack(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < kOut / 8; ++j) {
-        uint32_t b0, b1;
-        b_frag_cols<kOut>(b0, b1, sWd, kk * 16, j * 8, g, t);
-        M::run(out[j], a, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + wrow + g + 8 * r;
-    if (row >= p.T) continue;
-#pragma unroll
-    for (int j = 0; j < kOut / 8; ++j) {
-      const int col = c0 + j * 8 + 2 * t;
-      if (col < p.D)
-        *reinterpret_cast<uint32_t*>(p.dh + (long long)row * p.D + col) =
-            M::pack(out[j][2 * r], out[j][2 * r + 1]);
-    }
-  }
+  float l = 0.f;
+  for (int s = 0; s < splits; ++s) l += pl[(long long)s * T + row] * expf(pm[(long long)s * T + row] - mx);
+  const float v = mx + logf(fmaxf(l, 1e-30f));
+  lse[row] = v;
+  loss[row] = v - tl;
 }
 
-// ---- dW^T: a block owns (64 vocab rows, kOut columns of D, one share of
-// the token tiles) and writes its fp32 partial sum
-__global__ void __launch_bounds__(kThreads) ce_dw_kernel(const Params p) {
-  __shared__ __align__(16) uint16_t sW[kBlockM * (kChunk + kPad)];
-  __shared__ __align__(16) uint16_t sH[kBlockN * (kChunk + kPad)];
-  __shared__ __align__(16) uint16_t sHd[kBlockN * (kOut + kPad)];
-  __shared__ float sLse[kBlockN], sGl[kBlockN], sGs[kBlockN];
-  __shared__ int sTgt[kBlockN];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int v0 = blockIdx.x * kBlockM, wrow = warp * 16;
-  const int c0 = blockIdx.y * kOut;
-  const int vrow[2] = {v0 + wrow + g, v0 + wrow + g + 8};
+// ---- backward
+struct BwdParams {
+  const int* tgt;
+  const float* lse;
+  const float* gl;  // the loss cotangent
+  const float* gs;  // the lse cotangent
+  int T, D, vocab;
+};
 
-  float out[kOut / 8][4];
-#pragma unroll
-  for (int j = 0; j < kOut / 8; ++j) out[j][0] = out[j][1] = out[j][2] = out[j][3] = 0.f;
+// (i) the chunk's dlogits, bf16, into dl (T, ldl) at column n0 - c0
+struct Dlogits {
+  BwdParams p;
+  uint16_t* dl;
+  int ldl, c0;
+  ce::Frag f;
 
-  const int tile0 = blockIdx.z * p.tiles_per_split;
-  const int t_end = min(p.T, (tile0 + p.tiles_per_split) * kBlockN);
-  for (int t0 = tile0 * kBlockN; t0 < t_end; t0 += kBlockN) {
-    __syncthreads();  // every warp is done with the previous token tile
-    load_tile<kOut>(sHd, p.h, p.h_st, t0, p.T, c0, p.D);
-    for (int i = threadIdx.x; i < kBlockN; i += kThreads) {
-      const bool in = t0 + i < p.T;
-      sLse[i] = in ? p.lse[t0 + i] : 0.f;
-      sGl[i] = in ? p.gl[t0 + i] : 0.f;
-      sGs[i] = in ? p.gs[t0 + i] : 0.f;
-      sTgt[i] = in ? p.tgt[t0 + i] : -1;
-    }
-    // logits^T (warp's 16 vocab rows x 64 tokens)
-    float acc[kBlockN / 8][4];
-    dot_tiles(acc, sW, p.wt, p.w_st, v0, p.Vp, sH, p.h, p.h_st, t0, p.T, p.D, wrow, g, t);
+  __device__ __forceinline__ void operator()(const int4& t, float (&acc)[kAcc]) {
+    const int cc = t.y + f.col0, lim = p.vocab - cc;
 #pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n)
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = t.x + f.row0 + 8 * hh;
+      if (row >= p.T) continue;
+      const float lse = p.lse[row], gl = p.gl[row], g = p.gl[row] + p.gs[row];
+      const int tc = p.tgt[row] - cc;
+      uint16_t* out = dl + (long long)row * ldl + (cc - c0);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = n * 8 + 2 * t + (i & 1);  // token within the tile
-        const int v = vrow[i >> 1];
-        acc[n][i] = dlogit(acc[n][i], v < p.vocab, v == sTgt[c], sLse[c], sGl[c], sGs[c]);
-      }
-    // dW^T += dlogits^T h-tile over the tile's tokens
+      for (int i = 0; i < 16; ++i) {
+        float v[2];
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = M::pack(acc[2 * kk][0], acc[2 * kk][1]);
-      a[1] = M::pack(acc[2 * kk][2], acc[2 * kk][3]);
-      a[2] = M::pack(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-      a[3] = M::pack(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < kOut / 8; ++j) {
-        uint32_t b0, b1;
-        b_frag_cols<kOut>(b0, b1, sHd, kk * 16, j * 8, g, t);
-        M::run(out[j], a, b0, b1);
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * i + e;
+          const float pr = expf(fminf(acc[4 * i + 2 * hh + e] - lse, 0.f));
+          v[e] = c < lim ? g * pr - (c == tc ? gl : 0.f) : 0.f;
+        }
+        *reinterpret_cast<uint32_t*>(out + 8 * i) = M::pack(v[0], v[1]);
       }
     }
   }
+};
 
-  float* part = p.partial + (long long)blockIdx.z * p.Vp * p.D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (vrow[r] >= p.Vp) continue;
-#pragma unroll
-    for (int j = 0; j < kOut / 8; ++j) {
-      const int col = c0 + j * 8 + 2 * t;
-      if (col < p.D)
-        *reinterpret_cast<float2*>(part + (long long)vrow[r] * p.D + col) =
-            make_float2(out[j][2 * r], out[j][2 * r + 1]);
-    }
-  }
+template <bool kTied>
+__global__ void __launch_bounds__(ce::kThreads, 1)
+    ce_bwd_dlogits_kernel(const __grid_constant__ CUtensorMap mh, const __grid_constant__ CUtensorMap mw,
+                          const BwdParams p, uint16_t* dl, int ldl, int c0, int tiles_n) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const ce::GridSeq seq(int(cdiv(p.T, kBM)), tiles_n, 1, p.D, p.D, c0);
+  Dlogits epi{p, dl, ldl, c0};
+  ce::gemm_tiles<true, kTied, 0>(smem, &mh, &mw, seq, epi);
 }
 
-// ---- the shares of dW^T added in a fixed order, rounded to bf16
-__global__ void __launch_bounds__(256) ce_dw_sum_kernel(const float* partial, uint16_t* dwt,
-                                                        long long n, int splits) {
+// (ii) dH (+)= dlogits W[:, chunk]^T
+struct DhParams {
+  float* sum;       // (T, D) fp32: the earlier chunks' sum
+  uint16_t* dh;     // (T, D)
+  int T, D, ncols, first, last;
+};
+
+struct DhOut {
+  DhParams q;
+  ce::Frag f;
+
+  __device__ __forceinline__ void operator()(const int4& t, float (&acc)[kAcc]) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = t.x + f.row0 + 8 * hh;
+      if (row >= q.T) continue;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int col = t.y + f.col0 + 8 * i;
+        if (col >= q.D) continue;
+        const long long o = (long long)row * q.D + col;
+        float x0 = acc[4 * i + 2 * hh], x1 = acc[4 * i + 2 * hh + 1];
+        if (!q.first) {
+          const float2 pv = *reinterpret_cast<const float2*>(q.sum + o);
+          x0 = pv.x + x0;
+          x1 = pv.y + x1;
+        }
+        if (q.last)
+          *reinterpret_cast<uint32_t*>(q.dh + o) = M::pack(x0, x1);
+        else
+          *reinterpret_cast<float2*>(q.sum + o) = make_float2(x0, x1);
+      }
+    }
+  }
+};
+
+// dlogits through mdl (K-major); W[:, chunk]^T through mwt: K-major
+// untied, MN-major tied
+template <bool kTied>
+__global__ void __launch_bounds__(ce::kThreads, 1)
+    ce_bwd_dh_kernel(const __grid_constant__ CUtensorMap mdl, const __grid_constant__ CUtensorMap mwt,
+                     const DhParams q) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const ce::GridSeq seq(int(cdiv(q.T, kBM)), int(cdiv(q.D, kBM)), 1, q.ncols, q.ncols, 0);
+  DhOut epi{q};
+  ce::gemm_tiles<true, !kTied, 0>(smem, &mdl, &mwt, seq, epi);
+}
+
+// (iii) a chunk of dW (untied: h^T dlogits) or dW^T (tied: dlogits^T h);
+// with shares > 1, each share of the tokens into its fp32 partial sum
+struct DwParams {
+  uint16_t* out;      // the chunk's corner of dW (or dW^T), row stride ldo
+  long long ldo;
+  float* partial;     // (shares, m_lim, n_lim) fp32 when shares > 1
+  int m_lim, n_lim;   // the live extent (n_lim even)
+  int tiles_m, tiles_n, k_total, k_per_share, shares;
+};
+
+struct DwOut {
+  DwParams q;
+  ce::Frag f;
+
+  __device__ __forceinline__ void operator()(const int4& t, float (&acc)[kAcc]) {
+    const long long z = t.z / q.k_per_share;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = t.x + f.row0 + 8 * hh;
+      if (row >= q.m_lim) continue;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int col = t.y + f.col0 + 8 * i;
+        if (col >= q.n_lim) continue;
+        const float x0 = acc[4 * i + 2 * hh], x1 = acc[4 * i + 2 * hh + 1];
+        if (q.shares == 1)
+          *reinterpret_cast<uint32_t*>(q.out + row * q.ldo + col) = M::pack(x0, x1);
+        else
+          *reinterpret_cast<float2*>(q.partial + (z * q.m_lim + row) * q.n_lim + col) =
+              make_float2(x0, x1);
+      }
+    }
+  }
+};
+
+// both operands MN-major, the contraction over the tokens
+__global__ void __launch_bounds__(ce::kThreads, 1)
+    ce_bwd_dw_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
+                     const DwParams q) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const ce::GridSeq seq(q.tiles_m, q.tiles_n, q.shares, q.k_per_share, q.k_total, 0);
+  DwOut epi{q};
+  ce::gemm_tiles<false, false, 0>(smem, &ma, &mb, seq, epi);
+}
+
+// the shares of a dW chunk added in share order, rounded to bf16
+__global__ void __launch_bounds__(256) ce_bwd_dw_sum_kernel(const float* partial, int shares,
+                                                            int m_lim, int n_lim, uint16_t* out,
+                                                            long long ldo) {
+  const long long n = (long long)m_lim * n_lim;
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += partial[(long long)z * n + i];
-  dwt[i] = __bfloat16_as_ushort(__float2bfloat16_rn(s));
+  for (int z = 0; z < shares; ++z) s += partial[z * n + i];
+  out[(i / n_lim) * ldo + i % n_lim] = __bfloat16_as_ushort(__float2bfloat16_rn(s));
 }
 
-Params make_params(const void* h, const void* wt, const int* tgt, int T, int D, int Vp, int vocab,
-                   long long h_st, long long w_st) {
-  Params p = {};
-  p.h = static_cast<const uint16_t*>(h);
-  p.wt = static_cast<const uint16_t*>(wt);
-  p.tgt = tgt;
-  p.T = T;
-  p.D = D;
-  p.Vp = Vp;
-  p.vocab = vocab;
-  p.h_st = h_st;
-  p.w_st = w_st;
-  return p;
+// dW's padded columns (dW^T's padded rows): rows x cols zeros at out
+__global__ void __launch_bounds__(256) ce_bwd_zero_kernel(uint16_t* out, long long ldo, int rows,
+                                                          int cols) {
+  const long long n = (long long)rows * cols;
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < n; i += (long long)gridDim.x * 256)
+    out[(i / cols) * ldo + i % cols] = 0;
+}
+
+Operand op(const void* p, long long ld, int mn, int k_ext) {
+  return Operand{static_cast<const uint16_t*>(p), ld, mn, k_ext};
+}
+
+// the persistent grid of a GridSeq: at most one block an SM
+unsigned persistent(long long tiles) {
+  return unsigned(tiles < ce::num_sms() ? tiles : ce::num_sms());
+}
+
+template <bool kTied>
+int launch_fwd(const Operand& h, const Operand& w, const FwdParams& p, float* loss, float* lse,
+               cudaStream_t st) {
+  CUtensorMap mh, mw;
+  if (!ce::make_map(&mh, h, true) || !ce::make_map(&mw, w, kTied)) return cudaErrorInvalidValue;
+  cudaError_t e = ce::allow_smem(ce_fwd_kernel<kTied>);
+  if (e != cudaSuccess) return e;
+  ce_fwd_kernel<kTied><<<dim3(cdiv(p.T, kBM), p.splits), ce::kThreads, ce::kSmemBytes, st>>>(mh, mw, p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  ce_fwd_merge_kernel<<<cdiv(p.T, 256), 256, 0, st>>>(p.part, p.splits, p.T, loss, lse);
+  return cudaGetLastError();
+}
+
+template <bool kTied>
+int launch_bwd(const Operand& h, const Operand& w, const BwdParams& p, int Vp, void* dh, void* dw,
+               uint16_t* dl, float* dh_sum, float* partial, int chunk_tiles, int k_per_share,
+               cudaStream_t st) {
+  cudaError_t e;
+  if ((e = ce::allow_smem(ce_bwd_dlogits_kernel<kTied>)) != cudaSuccess) return e;
+  if ((e = ce::allow_smem(ce_bwd_dh_kernel<kTied>)) != cudaSuccess) return e;
+  if ((e = ce::allow_smem(ce_bwd_dw_kernel)) != cudaSuccess) return e;
+  CUtensorMap mh, mw;
+  if (!ce::make_map(&mh, h, true) || !ce::make_map(&mw, w, kTied)) return cudaErrorInvalidValue;
+  const int T = p.T, D = p.D, vocab = p.vocab, ldl = chunk_tiles * kBM;
+  const int n_live = (vocab + kBM - 1) / kBM;
+  const int shares = (T + k_per_share - 1) / k_per_share;
+  const uint16_t* w16 = w.p;
+  uint16_t* dw16 = static_cast<uint16_t*>(dw);
+  for (int t0 = 0; t0 < n_live; t0 += chunk_tiles) {
+    const int nt = min(chunk_tiles, n_live - t0), c0 = t0 * kBM, ncols = nt * kBM;
+    // (i)
+    ce_bwd_dlogits_kernel<kTied><<<persistent((long long)cdiv(T, kBM) * nt), ce::kThreads,
+                                   ce::kSmemBytes, st>>>(mh, mw, p, dl, ldl, c0, nt);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    // (ii) W[:, chunk]^T: (d, v) is W[d, c0 + v] (untied) or E[c0 + v, d] (tied)
+    CUtensorMap mdl, mwt;
+    const Operand wt = kTied ? op(w16 + (long long)c0 * w.ld, w.ld, D, Vp - c0)
+                             : op(w16 + c0, w.ld, D, Vp - c0);
+    if (!ce::make_map(&mdl, op(dl, ldl, T, ncols), true) || !ce::make_map(&mwt, wt, !kTied))
+      return cudaErrorInvalidValue;
+    DhParams q;
+    q.sum = dh_sum;
+    q.dh = static_cast<uint16_t*>(dh);
+    q.T = T;
+    q.D = D;
+    q.ncols = ncols;
+    q.first = t0 == 0;
+    q.last = t0 + nt >= n_live;
+    ce_bwd_dh_kernel<kTied><<<persistent((long long)cdiv(T, kBM) * cdiv(D, kBM)), ce::kThreads,
+                              ce::kSmemBytes, st>>>(mdl, mwt, q);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    // (iii) both operands MN-major: h^T is (d, t), dlogits^T (v, t)
+    const Operand hT = op(h.p, h.ld, D, T), dlT = op(dl, ldl, ncols, T);
+    CUtensorMap ma, mb;
+    if (!ce::make_map(&ma, kTied ? dlT : hT, false) || !ce::make_map(&mb, kTied ? hT : dlT, false))
+      return cudaErrorInvalidValue;
+    DwParams r;
+    const int live = min(ncols, vocab - c0);
+    if (kTied) {  // dW^T[chunk] = dlogits^T h
+      r.out = dw16 + (long long)c0 * D;
+      r.ldo = D;
+      r.m_lim = live;
+      r.n_lim = D;
+      r.tiles_m = nt;
+      r.tiles_n = int(cdiv(D, kBM));
+    } else {      // dW[:, chunk] = h^T dlogits; n_lim even, within Vpad
+      r.out = dw16 + c0;
+      r.ldo = Vp;
+      r.m_lim = D;
+      r.n_lim = min(ncols, (live + 1) & ~1);
+      r.tiles_m = int(cdiv(D, kBM));
+      r.tiles_n = nt;
+    }
+    r.partial = partial;
+    r.k_total = T;
+    r.k_per_share = k_per_share;
+    r.shares = shares;
+    ce_bwd_dw_kernel<<<persistent((long long)r.tiles_m * r.tiles_n * shares), ce::kThreads,
+                       ce::kSmemBytes, st>>>(ma, mb, r);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    if (shares > 1) {
+      ce_bwd_dw_sum_kernel<<<cdiv((long long)r.m_lim * r.n_lim, 256), 256, 0, st>>>(
+          partial, shares, r.m_lim, r.n_lim, r.out, r.ldo);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+  }
+  if (vocab < Vp) {  // the padded columns, after every chunk's writes
+    const int pad = Vp - vocab;
+    const long long n = (long long)pad * D;
+    const unsigned blocks = n < 4096LL * 256 ? cdiv(n, 256) : 4096u;
+    if (kTied)
+      ce_bwd_zero_kernel<<<blocks, 256, 0, st>>>(dw16 + (long long)vocab * D, D, pad, D);
+    else
+      ce_bwd_zero_kernel<<<blocks, 256, 0, st>>>(dw16 + vocab, Vp, D, pad);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// h (T, D) and W^T (Vp, D) are bf16 with contiguous rows of the given
-// strides (elements); D is a multiple of 8. Each returns the cudaError_t of
-// its launches (0 = launched).
-extern "C" int cross_entropy_fwd(const void* h, const void* wt, const int* tgt, float* loss,
-                                 float* lse, int T, int D, int Vp, int vocab,
-                                 long long h_st, long long w_st, void* stream) {
-  Params p = make_params(h, wt, tgt, T, D, Vp, vocab, h_st, w_st);
-  p.loss = loss;
-  p.lse_out = lse;
+// h (T, D) bf16 with contiguous rows of stride h_st; w bf16: the untied
+// (D, Vp) layout, w[d * w_ld + v], or (tied) the (Vp, D) table behind the
+// view, w[v * w_ld + d]. Strides are multiples of 8 elements and pointers
+// 16-byte aligned; D and (untied) Vp are multiples of 8. part is fp32
+// scratch of 3 * splits * T, the splits tiles_per_split live vocab tiles
+// each. Returns the cudaError_t of the launches (0 = launched; a tensor map
+// the driver refuses gives cudaErrorInvalidValue).
+extern "C" int cross_entropy_fwd(const void* h, const void* w, const int* tgt, float* loss,
+                                 float* lse, float* part, int T, int D, int Vp, int vocab,
+                                 long long h_st, long long w_ld, int tied, int tiles_per_split,
+                                 int splits, void* stream) {
+  if (T <= 0 || D <= 0 || vocab <= 0 || vocab > Vp || tiles_per_split <= 0 || splits <= 0)
+    return cudaErrorInvalidValue;
+  const Operand oh = op(h, h_st, T, D), ow = op(w, w_ld, Vp, D);  // (v, d)
+  FwdParams p;
+  p.tgt = tgt;
+  p.part = part;
+  p.T = T;
+  p.D = D;
+  p.vocab = vocab;
+  p.n_live = (vocab + kBM - 1) / kBM;
+  p.tiles_per_split = tiles_per_split;
+  p.splits = splits;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((T + kBlockM - 1) / kBlockM);
-  ce_fwd_kernel<<<grid, kThreads, 0, st>>>(p);
-  return cudaGetLastError();
+  return tied ? launch_fwd<true>(oh, ow, p, loss, lse, st) : launch_fwd<false>(oh, ow, p, loss, lse, st);
 }
 
-// dh (T, D) and dwt (Vp, D) are contiguous bf16; partial is fp32 scratch
-// of splits * Vp * D elements.
-extern "C" int cross_entropy_bwd(const void* h, const void* wt, const int* tgt, const float* lse,
-                                 const float* g_loss, const float* g_lse, void* dh, void* dwt,
-                                 float* partial, int splits, int T, int D, int Vp,
-                                 int vocab, long long h_st, long long w_st, void* stream) {
-  Params p = make_params(h, wt, tgt, T, D, Vp, vocab, h_st, w_st);
+// dh (T, D) contiguous bf16; dw the gradient in w's layout, contiguous:
+// (D, Vp) untied, (Vp, D) tied. Scratch: dl bf16 (T, chunk_tiles * 128);
+// dh_sum fp32 (T, D) when the live vocab takes more than one chunk;
+// partial fp32 of shares * chunk_tiles * 128 * D elements when the token
+// shares of k_per_share tokens (a multiple of 64) are more than one.
+extern "C" int cross_entropy_bwd(const void* h, const void* w, const int* tgt, const float* lse,
+                                 const float* g_loss, const float* g_lse, void* dh, void* dw,
+                                 void* dl, float* dh_sum, float* partial, int T, int D, int Vp,
+                                 int vocab, long long h_st, long long w_ld, int tied,
+                                 int chunk_tiles, int k_per_share, void* stream) {
+  if (T <= 0 || D <= 0 || vocab <= 0 || vocab > Vp || chunk_tiles <= 0 || k_per_share <= 0)
+    return cudaErrorInvalidValue;
+  const Operand oh = op(h, h_st, T, D), ow = op(w, w_ld, Vp, D);
+  BwdParams p;
+  p.tgt = tgt;
   p.lse = lse;
   p.gl = g_loss;
   p.gs = g_lse;
-  p.dh = static_cast<uint16_t*>(dh);
-  p.partial = partial;
-  const int t_tiles = (T + kBlockN - 1) / kBlockN;
-  p.tiles_per_split = (t_tiles + splits - 1) / splits;
+  p.T = T;
+  p.D = D;
+  p.vocab = vocab;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 dh_grid((T + kBlockM - 1) / kBlockM, (D + kOut - 1) / kOut);
-  const dim3 dw_grid((Vp + kBlockM - 1) / kBlockM, (D + kOut - 1) / kOut, splits);
-  const long long n = (long long)Vp * D;
-  const unsigned sum_blocks = unsigned((n + 255) / 256);
-  ce_dh_kernel<<<dh_grid, kThreads, 0, st>>>(p);
-  ce_dw_kernel<<<dw_grid, kThreads, 0, st>>>(p);
-  ce_dw_sum_kernel<<<sum_blocks, 256, 0, st>>>(partial, static_cast<uint16_t*>(dwt), n, splits);
-  return cudaGetLastError();
+  uint16_t* dl16 = static_cast<uint16_t*>(dl);
+  return tied ? launch_bwd<true>(oh, ow, p, Vp, dh, dw, dl16, dh_sum, partial, chunk_tiles,
+                                 k_per_share, st)
+              : launch_bwd<false>(oh, ow, p, Vp, dh, dw, dl16, dh_sum, partial, chunk_tiles,
+                                  k_per_share, st);
 }

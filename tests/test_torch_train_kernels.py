@@ -2,7 +2,12 @@
 the reference's TPU kernels in Pallas interpret mode, on the same seeded
 numpy inputs: the flash-attention backward, the fused cross-entropy forward
 and backward, and the LayerNorm backward; plus the differentiable ops'
-autograd wiring, the new wrappers' argument checks and the CPU dispatch."""
+autograd wiring, the wrappers' argument checks, the cross-entropy kernels'
+schedule (vocab splits, chunks, token shares) and the CPU dispatch."""
+import ast
+import inspect
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -80,22 +85,30 @@ def test_attention_autograd_runs_the_plain_backward():
 
 # ------------------------------------------------------------ cross-entropy
 CE_CASES = {
-    # (T, D, Vpad, vocab, block_v): vocab < Vpad, a ragged token tail, and
-    # several vocab blocks with one fully padded
-    "padded_vocab": (100, 64, 256, 33, 128),
-    "multi_block": (70, 32, 384, 300, 128),
+    # (T, D, Vpad, vocab, block_v, tied): vocab < Vpad, a ragged token tail,
+    # several vocab blocks with one fully padded, a vocab that ends inside
+    # the kernels' 128-column tile with targets in that last live tile, and
+    # the tied head's layout (w the transposed view of a (Vpad, D) table)
+    "padded_vocab": (100, 64, 256, 33, 128, False),
+    "multi_block": (70, 32, 384, 300, 128, False),
+    "vocab_mid_tile": (90, 48, 384, 200, 128, False),
+    "tied": (100, 64, 256, 33, 128, True),
 }
 
 
 def _ce_inputs(case, dtype, seed):
-    T, D, Vp, vocab, bv = CE_CASES[case]
+    T, D, Vp, vocab, bv, tied = CE_CASES[case]
     h, w, gl, gs = _arrays([(T, D), (D, Vp), (T,), (T,)], seed)
     w *= 0.3
     rng = np.random.default_rng(seed + 1)
     tgt = rng.integers(0, vocab, size=T).astype(np.int32)
+    if case == "vocab_mid_tile":                     # a third of them in the last live tile
+        tgt[::3] = rng.integers(vocab // 128 * 128, vocab, size=len(tgt[::3]))
     gl, gs = np.abs(gl) / T, 0.1 * gs / T            # nonzero g_lse
     th, jh = _pair(h, dtype)
     tw, jw = _pair(w, dtype)
+    if tied:
+        tw = tw.T.contiguous().T
     return (th, tw, torch.from_numpy(tgt), torch.from_numpy(gl), torch.from_numpy(gs)), \
         (jh, jw, jnp.asarray(tgt), jnp.asarray(gl), jnp.asarray(gs)), vocab, bv
 
@@ -148,10 +161,64 @@ def test_out_of_range_target_gives_the_kernels_sentinel():
     assert torch.isfinite(loss[0]) and (loss[1:] > 1e29).all()   # lse - (-1e30)
 
 
-def test_dw_splits_fill_the_card_and_stay_within_the_token_tiles():
-    assert ce.dw_splits(8192, 1280, 256) == 7        # 40 blocks per share -> 280
-    assert ce.dw_splits(64, 1280, 256) == 1          # one token tile
-    assert ce.dw_splits(8192, 1280, 32768) == 1      # 5120 blocks already
+# (T, D, vocab) the kernels' schedule is set for: ESM-2 and Llama-4-Scout
+# training, a ragged T, Qwen2's vocabulary, one token, a long batch
+SCHEDULE_SHAPES = {"esm2": (8192, 1280, 33), "scout": (2048, 5120, 202048),
+                   "ragged": (1000, 1280, 33), "qwen2": (4096, 3584, 152064),
+                   "one_token": (1, 5120, 202048), "long": (100000, 1280, 50280)}
+
+
+@pytest.mark.parametrize("shape", list(SCHEDULE_SHAPES))
+def test_vocab_splits_give_two_waves_and_stop_at_the_last_live_tile(shape):
+    T, _, vocab = SCHEDULE_SHAPES[shape]
+    n_live = ce.live_tiles(vocab)
+    assert (n_live - 1) * 128 < vocab <= n_live * 128
+    splits, per = ce.vocab_splits(T, vocab)
+    # the kernel's split s walks tiles [s per, min(n_live, (s + 1) per)):
+    # every split has a live tile and the last one ends at the last live tile
+    assert (splits - 1) * per < n_live <= splits * per
+    blocks = -(-T // 128) * splits
+    assert blocks >= 2 * ce._SMS or splits == n_live        # two waves, or a split a tile
+    if shape == "scout":
+        assert (splits, per) == (132, 12) and blocks == 16 * ce._SMS
+    if shape == "esm2":
+        assert (splits, per) == (1, 1)                       # 33 live columns: one tile of 2
+
+
+@pytest.mark.parametrize("shape", list(SCHEDULE_SHAPES))
+def test_chunk_width_bounds_the_dlogits_and_covers_each_live_column_once(shape):
+    T, _, vocab = SCHEDULE_SHAPES[shape]
+    per = ce.chunk_tiles(T, vocab)
+    assert T * per * 128 * 2 <= ce._DLOGITS_BYTES or per == 1
+    n_live = ce.live_tiles(vocab)
+    covered = []
+    for t0 in range(0, n_live, per):                          # the kernel's chunk loop
+        covered += range(t0 * 128, (t0 + min(per, n_live - t0)) * 128)
+    assert covered == list(range(n_live * 128))               # each live column once, in order
+    if shape == "scout":
+        assert per == 395 and -(-n_live // per) == 4          # 4 chunks of 207 MB
+    if shape == "esm2":
+        assert per == 1
+
+
+@pytest.mark.parametrize("shape", list(SCHEDULE_SHAPES))
+def test_dw_token_shares_cover_every_token_tile_once(shape):
+    T, D, vocab = SCHEDULE_SHAPES[shape]
+    out_tiles = ce.chunk_tiles(T, vocab) * -(-D // 128)
+    shares, per = ce.dw_token_shares(out_tiles, T)
+    assert per % 64 == 0                                       # whole k-slices
+    covered = [t for z in range(shares) for t in range(z * per, min(T, (z + 1) * per))]
+    assert covered == list(range(T))                           # every token once, in share order
+    steps = -(-T // 64)
+    if out_tiles >= ce._SMS:
+        assert shares == 1
+    else:                                      # within one wave, and more than half of one
+        assert out_tiles * shares <= ce._SMS
+        assert 2 * out_tiles * shares > ce._SMS or shares == steps
+    if shape == "esm2":
+        assert (shares, per) == (13, 640)                      # 10 tiles -> 130 blocks
+    if shape == "scout":
+        assert shares == 1                                     # 15 800 tiles fill the card
 
 
 def test_cross_entropy_kernel_argument_checks():
@@ -172,6 +239,34 @@ def test_cross_entropy_kernel_argument_checks():
         ce.check_args(t(64, 8).T, t(64, 256), tgt)
     with pytest.raises(TypeError, match="integer"):
         ce.check_args(t(8, 64), t(64, 256), tgt.float())
+    # w is read where it lies: neither layout contiguous, a stride or a
+    # start that 16-byte copies cannot take, an untied Vpad not a multiple of 8
+    with pytest.raises(ValueError, match="must be contiguous"):
+        ce.check_args(t(8, 64), t(64, 512)[:, ::2], tgt)
+    with pytest.raises(ValueError, match="16-byte copies"):
+        ce.check_args(t(8, 64), t(64, 260)[:, :256], tgt)
+    with pytest.raises(ValueError, match="16-byte copies"):
+        ce.check_args(t(8, 64), t(64, 257)[:, 1:], tgt)
+    with pytest.raises(ValueError, match="16-byte copies"):
+        ce.check_args(t(8, 64), t(64, 252), tgt)
+    with pytest.raises(ValueError, match="16-byte copies"):
+        ce.check_args(t(8, 64), t(256, 68)[:, :64].T, tgt)
+
+
+def test_cross_entropy_kernel_route_calls_no_library_product():
+    """The wrappers hand every product to the hand-written kernels: no
+    matmul, no library loss and no copy of w in the module; the plain
+    versions, which they call only for CPU tensors, live in ``ref.py``."""
+    banned = {"matmul", "mm", "bmm", "einsum", "cross_entropy", "log_softmax", "logsumexp"}
+    tree = ast.parse(inspect.getsource(ce))
+    wrappers = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+                and n.name in ("cross_entropy_fwd", "cross_entropy_bwd")]
+    assert len(wrappers) == 2
+    for fn in wrappers:
+        for node in ast.walk(fn):
+            assert not (isinstance(node, ast.BinOp) and isinstance(node.op, ast.MatMult))
+            assert not (isinstance(node, ast.Attribute) and node.attr in banned), node.attr
+        assert not re.search(r"\bw\.(t\(|T\b|contiguous|transpose)", ast.unparse(fn)), fn.name
 
 
 def test_flash_attention_bwd_argument_checks():
