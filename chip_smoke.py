@@ -160,7 +160,7 @@ def kernel_groups(prof, DeviceType):
             groups[paged[0]] += t
         elif "flash_attention_fwd" in low:
             groups["flash_attention_fwd"] += t
-        elif any(w in low for w in ("dq_kernel", "dkv_kernel", "delta_kernel")):
+        elif "flash_attention_bwd" in low:
             groups["flash_attention_bwd"] += t
         elif any(w in low for w in CE_FWD_KERNELS):
             groups["cross_entropy_fwd"] += t
@@ -204,25 +204,171 @@ def leaf_paths(tree, prefix=""):
         leaf_paths(tree[k], f"{prefix}{k}/") if isinstance(tree[k], dict) else [prefix + k])]
 
 
-def check_attention_bwd(torch, F, ref, flash_attention_fwd, flash_attention_bwd, randn, card):
-    """Row 2 against ``attention_bwd_ref``; times it at the ESM-2 training
-    shape.  Returns its kernel record (launches filled in later)."""
-    # tolerance relative to max|ref| per gradient: the kernel rounds P and
-    # dS to the input dtype before the three products that take them (at
-    # most 2^-9 relative per element in bf16, 2^-12 in fp16) where the
-    # plain version keeps fp32; the gradients are rounded once in both
-    tol = {torch.bfloat16: 2e-2, torch.float16: 4e-3}
-    cases = [
-        ("esm2-650m training shape", dict(B=8, S=1024, T=1024, H=20, Hkv=20, D=64), dict(causal=False)),
+def visible_pairs(S, T, causal=False, window=0, q_offset=0) -> int:
+    """(query, key) pairs of one head that the mask lets through: the work
+    of QK^T and PV counted as the run's data needs it."""
+    n = 0
+    for i in range(S):
+        qpos = i + q_offset
+        hi = min(T - 1, qpos) if causal else T - 1
+        lo = max(0, qpos - window + 1) if window > 0 else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def attention_work(B, S, T, H, Hkv, D, kw, products):
+    """(FLOP, bytes) of an attention call: ``products`` matrix products of 2
+    FLOP a visible (query, key, d) triple (2 forward, 5 backward); bytes:
+    the (B, S, H, D) and (B, T, Hkv, D) operands (q and out, or q, out, dO
+    and dq; k and v, or k, v, dk, dv) read or written once, plus lse."""
+    pairs = visible_pairs(S, T, kw.get("causal", False), kw.get("window", 0), kw.get("q_offset", 0))
+    per_side = 2 if products == 2 else 4
+    nbytes = per_side * (B * S * H * D + B * T * Hkv * D) * 2 + B * H * S * 4
+    return 2 * products * B * H * D * pairs, nbytes
+
+
+def sdpa_args(q, k, v, kw):
+    """SDPA's (B, heads, L, D) operands and flags for the same attention: a
+    causal window at least T long is plain causal masking."""
+    assert kw.get("window", 0) == 0 or kw["window"] >= k.shape[1], "no SDPA mask for this window"
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return qt, kt, vt, dict(is_causal=kw.get("causal", False), enable_gqa=k.shape[2] != q.shape[2])
+
+
+# the shapes the paths launch the attention kernels at, timed in
+# check_attention_fwd (all) and check_attention_bwd (the training ones)
+ATTN_SHAPES = {
+    "esm2-650m serving": (dict(B=32, S=1024, T=1024, H=20, Hkv=20, D=64), dict(causal=False)),
+    "esm2-650m training": (dict(B=8, S=1024, T=1024, H=20, Hkv=20, D=64), dict(causal=False)),
+    "qwen2-7b prefill, largest bucket": (dict(B=1, S=1024, T=1024, H=28, Hkv=4, D=128),
+                                         dict(causal=True)),
+    "llama4-scout training": (dict(B=2, S=1024, T=1024, H=40, Hkv=8, D=128),
+                              dict(causal=True, window=8192)),
+}
+
+
+# the CUDA kernels that one call of each attention wrapper runs
+ATTN_KERNELS = {"flash_attention_fwd": ("flash_attention_fwd_kernel",),
+                "flash_attention_bwd": ("flash_attention_bwd_delta_kernel",
+                                        "flash_attention_bwd_dq_kernel",
+                                        "flash_attention_bwd_dkv_kernel")}
+
+
+def time_attention(torch, name, fn, plain, lib, flops, nbytes, card, label):
+    """One timed shape of an attention kernel: its record's numbers."""
+    ms = time_ms(torch, fn)
+    parts = device_ms_by_kernel(torch, fn, ATTN_KERNELS[name])
+    dev_ms = sum(parts.values()) or None
+    if len(ATTN_KERNELS[name]) > 1:
+        print(f"{name} {label}: device ms by kernel " + ", ".join(
+            f"{k} {fmt_ms(parts.get(k))}" for k in ATTN_KERNELS[name]))
+    plain_ms = time_ms(torch, plain, trials=5, per_trial=2)
+    lib_ms = time_ms(torch, lib)
+    bound_ms, bound_by = bound(flops, nbytes)
+    vs_lib = f"{dev_ms / lib_ms:.2f}" if dev_ms else "not measured"
+    print(f"{name} {label} bf16 on {card}: {ms:.4f} ms (device {fmt_ms(dev_ms)} ms, "
+          f"{per_device_ms(flops, dev_ms, 'TFLOP/s', 1e9)}; bound {bound_ms:.4f} ms by {bound_by}), "
+          f"plain {plain_ms:.4f} ms, scaled_dot_product_attention"
+          f"{' backward' if 'bwd' in name else ''} {lib_ms:.4f} ms (device / library {vs_lib})")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def check_attention_fwd(torch, F, ref, flash_attention_fwd, randn, card):
+    """Row 1 against ``attention_ref`` in bf16 and fp16, then timed at every
+    shape a path launches it at.  Returns its kernel record: the serving
+    shape's numbers, each shape's under "shapes" (launches filled in
+    later)."""
+    # tolerances, for unit-normal inputs: the kernel rounds P to the input
+    # dtype before PV (<= 2^-9 relative per probability in bf16) and both
+    # round the output once; lse is fp32 from the same fp32 scores
+    fa_tol = {torch.bfloat16: 3e-2, torch.float16: 4e-3}
+    lse_tol = 1e-4
+    cases = [(name, *ATTN_SHAPES[name]) for name in ATTN_SHAPES] + [
+        ("qwen2-7b prefill, smallest bucket", dict(B=1, S=64, T=64, H=28, Hkv=4, D=128),
+         dict(causal=True)),
         ("causal", dict(B=2, S=128, T=128, H=4, Hkv=4, D=64), dict(causal=True)),
         ("causal window", dict(B=2, S=200, T=200, H=4, Hkv=4, D=64), dict(causal=True, window=48)),
         ("softcap", dict(B=2, S=96, T=96, H=4, Hkv=4, D=64), dict(causal=False, softcap=20.0)),
         ("gqa H=8 Hkv=2", dict(B=2, S=128, T=128, H=8, Hkv=2, D=64), dict(causal=True)),
         ("D=128", dict(B=2, S=128, T=128, H=4, Hkv=4, D=128), dict(causal=False)),
         ("non-multiple S/T", dict(B=3, S=77, T=131, H=4, Hkv=4, D=64), dict(causal=False)),
-        ("q_offset", dict(B=2, S=40, T=104, H=4, Hkv=2, D=128), dict(causal=True, q_offset=64)),
-        ("fully-masked rows", dict(B=1, S=24, T=24, H=2, Hkv=2, D=64), dict(causal=True, q_offset=-8)),
-    ]
+    ] + ATTN_EDGE_CASES
+    serving_err = 0.0
+    for label, s, kw in cases:
+        for dt in (torch.bfloat16, torch.float16):
+            q = randn(s["B"], s["S"], s["H"], s["D"], dtype=dt)
+            k = randn(s["B"], s["T"], s["Hkv"], s["D"], dtype=dt)
+            v = randn(s["B"], s["T"], s["Hkv"], s["D"], dtype=dt)
+            out, lse = flash_attention_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            r_out, r_lse = ref.attention_ref(q, k, v, **kw)
+            e_out = (out.float() - r_out.float()).abs().max().item()
+            e_lse = (lse - r_lse).abs().max().item()
+            print(f"flash_attention_fwd {label} {str(dt)[6:]}: out err {e_out:.3g} "
+                  f"(tol {fa_tol[dt]}), lse err {e_lse:.3g} (tol {lse_tol})")
+            check(e_out <= fa_tol[dt] and e_lse <= lse_tol, f"flash_attention_fwd {label} {dt}")
+            dead = r_lse <= -1e29            # rows with no visible key: out 0, lse -1e30
+            if bool(dead.any()):
+                rows = out.transpose(1, 2).reshape(-1, s["S"], s["D"])[dead]
+                check(bool((lse[dead] == -1e30).all()) and bool((rows == 0).all()),
+                      f"flash_attention_fwd {label} {dt}: a row with no key is not 0, -1e30")
+            if label == "esm2-650m serving" and dt == torch.bfloat16:
+                serving_err = e_out
+            del q, k, v, out, lse, r_out, r_lse
+
+    shapes = {}
+    for label, (s, kw) in ATTN_SHAPES.items():
+        q = randn(s["B"], s["S"], s["H"], s["D"])
+        k, v = randn(s["B"], s["T"], s["Hkv"], s["D"]), randn(s["B"], s["T"], s["Hkv"], s["D"])
+        qt, kt, vt, flags = sdpa_args(q, k, v, kw)
+        shapes[label] = time_attention(
+            torch, "flash_attention_fwd", lambda: flash_attention_fwd(q, k, v, **kw),
+            lambda: ref.attention_ref(q, k, v, **kw),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, **flags),
+            *attention_work(**s, kw=kw, products=2), card, f"{label} {s} {kw}")
+        del q, k, v, qt, kt, vt
+    return {"name": "flash_attention_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:211",
+            "launches": 0, "max_abs_err": serving_err, **shapes["esm2-650m serving"],
+            "shapes": shapes}
+
+
+# cases both attention checks hold the kernels to: S and T not multiples
+# of the 128-row tiles at D = 128, a causal window crossing tiles, a query
+# offset, rows with no visible key, and a block with no key tile at all
+ATTN_EDGE_CASES = [
+    ("non-multiple S/T, D=128, gqa", dict(B=2, S=200, T=333, H=4, Hkv=2, D=128), dict(causal=False)),
+    ("non-multiple S/T, D=128, causal window", dict(B=2, S=300, T=300, H=4, Hkv=2, D=128),
+     dict(causal=True, window=100)),
+    ("q_offset", dict(B=2, S=40, T=104, H=4, Hkv=2, D=128), dict(causal=True, q_offset=64)),
+    ("fully-masked rows", dict(B=1, S=24, T=24, H=2, Hkv=2, D=64), dict(causal=True, q_offset=-8)),
+    ("no visible key at all", dict(B=1, S=16, T=130, H=2, Hkv=1, D=128),
+     dict(causal=True, q_offset=-200)),
+]
+
+
+def check_attention_bwd(torch, F, ref, flash_attention_fwd, flash_attention_bwd, randn, card):
+    """Row 2 against ``attention_bwd_ref`` in bf16 and fp16, with
+    bit-identical repeats, then timed at every shape a path launches it at.
+    Returns its kernel record: the ESM-2 training shape's numbers, each
+    shape's under "shapes" (launches filled in later)."""
+    # tolerance relative to max|ref| per gradient: the kernel rounds P and
+    # dS to the input dtype before the three products that take them (at
+    # most 2^-9 relative per element in bf16, 2^-12 in fp16) where the
+    # plain version keeps fp32; the gradients are rounded once in both
+    tol = {torch.bfloat16: 2e-2, torch.float16: 4e-3}
+    train = ("esm2-650m training", "llama4-scout training")
+    repeat = train + ("non-multiple S/T, D=128, gqa",)
+    cases = [(name, *ATTN_SHAPES[name]) for name in train] + [
+        ("causal", dict(B=2, S=128, T=128, H=4, Hkv=4, D=64), dict(causal=True)),
+        ("causal window", dict(B=2, S=200, T=200, H=4, Hkv=4, D=64), dict(causal=True, window=48)),
+        ("softcap", dict(B=2, S=96, T=96, H=4, Hkv=4, D=64), dict(causal=False, softcap=20.0)),
+        ("gqa H=8 Hkv=2", dict(B=2, S=128, T=128, H=8, Hkv=2, D=64), dict(causal=True)),
+        ("D=128", dict(B=2, S=128, T=128, H=4, Hkv=4, D=128), dict(causal=False)),
+        ("non-multiple S/T", dict(B=3, S=77, T=131, H=4, Hkv=4, D=64), dict(causal=False)),
+    ] + ATTN_EDGE_CASES
     first_err = 0.0
     for label, s, kw in cases:
         for dt in (torch.bfloat16, torch.float16):
@@ -241,33 +387,39 @@ def check_attention_bwd(torch, F, ref, flash_attention_fwd, flash_attention_bwd,
             check(finite and max(errs) <= tol[dt], f"flash_attention_bwd {label} {dt}")
             if label.startswith("fully-masked"):
                 check(bool((got[0][:, :8] == 0).all()), "fully-masked rows: dq is not zero")
-            if label.startswith("esm2") and dt == torch.bfloat16:
+            if label.startswith("no visible"):
+                check(all(bool((x == 0).all()) for x in got), "no visible key: a gradient is not 0")
+            if label in repeat:
+                again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                print(f"flash_attention_bwd {label} {str(dt)[6:]}: a repeat is bit-identical: {same}")
+                check(same, f"flash_attention_bwd {label} {dt}: a repeat differs")
+            if label == "esm2-650m training" and dt == torch.bfloat16:
                 first_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            del q, k, v, do, out, lse, got, want
 
-    B, S, H, D = 8, 1024, 20, 64
-    q, k, v, do = (randn(B, S, H, D) for _ in range(4))
-    out, lse = flash_attention_fwd(q, k, v, causal=False)
-    ms = time_ms(torch, lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=False))
-    dev_ms = device_ms(torch, lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=False),
-                       "dq_kernel", "dkv_kernel", "delta_kernel")
-    plain_ms = time_ms(torch, lambda: ref.attention_bwd_ref(q, k, v, out, lse, do, causal=False),
-                       trials=5, per_trial=2)
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt)
-    dot = do.transpose(1, 2).contiguous()
-    lib_ms = time_ms(torch, lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
-    # 5 products of 2*B*H*S*T*D each (QK^T and dO V^T in both passes, dQ,
-    # dK, dV); bytes: q, k, v, out, dO, lse read, dq, dk, dv written
-    bound_ms, bound_by = bound(10 * B * H * S * S * D, 8 * B * S * H * D * 2 + B * H * S * 4)
-    print(f"flash_attention_bwd B={B} S=T={S} H={H} D={D} bf16 on {card}: {ms:.4f} ms "
-          f"(device {fmt_ms(dev_ms)} ms) "
-          f"(bound {bound_ms:.4f} ms by {bound_by}, {10 * B * H * S * S * D / ms / 1e9:.1f} TFLOP/s), "
-          f"plain {plain_ms:.4f} ms, scaled_dot_product_attention backward {lib_ms:.4f} ms")
+    shapes = {}
+    for label in train:
+        s, kw = ATTN_SHAPES[label]
+        q, do = randn(s["B"], s["S"], s["H"], s["D"]), randn(s["B"], s["S"], s["H"], s["D"])
+        k, v = randn(s["B"], s["T"], s["Hkv"], s["D"]), randn(s["B"], s["T"], s["Hkv"], s["D"])
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+        qt, kt, vt, flags = sdpa_args(q, k, v, kw)
+        qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, **flags)
+        dot = do.transpose(1, 2).contiguous()
+        shapes[label] = time_attention(
+            torch, "flash_attention_bwd",
+            lambda: flash_attention_bwd(q, k, v, out, lse, do, **kw),
+            lambda: ref.attention_bwd_ref(q, k, v, out, lse, do, **kw),
+            lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+            *attention_work(**s, kw=kw, products=5), card, f"{label} {s} {kw}")
+        del q, k, v, do, out, lse, qt, kt, vt, ot, dot
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:451",
-            "launches": 0, "max_abs_err": first_err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "launches": 0, "max_abs_err": first_err, **shapes["esm2-650m training"],
+            "shapes": shapes}
 
 
 CE_FWD_KERNELS = ("ce_fwd_kernel", "ce_fwd_merge_kernel")
@@ -2585,74 +2737,9 @@ def main() -> int:
     def randn(*shape, dtype=torch.bfloat16, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=g, device=dev) * scale + shift).to(dtype)
 
-    # tolerances, for unit-normal inputs: the kernel rounds P to the input
-    # dtype before PV (<= 2^-9 relative per probability in bf16) and both
-    # round the output once; lse is fp32 from the same fp32 scores
-    fa_tol = {torch.bfloat16: 3e-2, torch.float16: 4e-3}
-    lse_tol = 1e-4
-    fa_cases = [
-        ("esm2-650m serving shape", dict(B=32, S=1024, T=1024, H=20, Hkv=20, D=64), dict(causal=False)),
-        # the generation prefill: batch 1, a power-of-2 bucket, GQA group 7
-        ("qwen2-7b prefill, largest bucket", dict(B=1, S=1024, T=1024, H=28, Hkv=4, D=128),
-         dict(causal=True)),
-        ("qwen2-7b prefill, smallest bucket", dict(B=1, S=64, T=64, H=28, Hkv=4, D=128),
-         dict(causal=True)),
-        ("causal", dict(B=2, S=128, T=128, H=4, Hkv=4, D=64), dict(causal=True)),
-        ("causal window", dict(B=2, S=200, T=200, H=4, Hkv=4, D=64), dict(causal=True, window=48)),
-        ("softcap", dict(B=2, S=96, T=96, H=4, Hkv=4, D=64), dict(causal=False, softcap=20.0)),
-        ("gqa H=8 Hkv=2", dict(B=2, S=128, T=128, H=8, Hkv=2, D=64), dict(causal=True)),
-        ("D=128", dict(B=2, S=128, T=128, H=4, Hkv=4, D=128), dict(causal=False)),
-        ("non-multiple S/T", dict(B=3, S=77, T=131, H=4, Hkv=4, D=64), dict(causal=False)),
-        ("q_offset", dict(B=2, S=40, T=104, H=4, Hkv=2, D=128), dict(causal=True, q_offset=64)),
-        ("fully-masked rows", dict(B=1, S=24, T=24, H=2, Hkv=2, D=64), dict(causal=True, q_offset=-8)),
-    ]
-    fa_serving_err = 0.0
-    for label, s, kw in fa_cases:
-        for dt in (torch.bfloat16, torch.float16):
-            q = randn(s["B"], s["S"], s["H"], s["D"], dtype=dt)
-            k = randn(s["B"], s["T"], s["Hkv"], s["D"], dtype=dt)
-            v = randn(s["B"], s["T"], s["Hkv"], s["D"], dtype=dt)
-            out, lse = flash_attention_fwd(q, k, v, **kw)
-            torch.cuda.synchronize()
-            r_out, r_lse = ref.attention_ref(q, k, v, **kw)
-            e_out = (out.float() - r_out.float()).abs().max().item()
-            e_lse = (lse - r_lse).abs().max().item()
-            print(f"flash_attention_fwd {label} {str(dt)[6:]}: out err {e_out:.3g} "
-                  f"(tol {fa_tol[dt]}), lse err {e_lse:.3g} (tol {lse_tol})")
-            check(e_out <= fa_tol[dt] and e_lse <= lse_tol, f"flash_attention_fwd {label} {dt}")
-            if label.startswith("esm2") and dt == torch.bfloat16:
-                fa_serving_err = e_out
-
-    B, S, H, D = 32, 1024, 20, 64
-    q, k, v = (randn(B, S, H, D) for _ in range(3))
-    fa_ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=False))
-    fa_dev_ms = device_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=False), "flash_attention_fwd")
-    fa_plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=False))
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    fa_lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    fa_flops = 4 * B * H * S * S * D
-    fa_bound_ms, fa_bound_by = bound(fa_flops, 4 * B * S * H * D * 2 + B * H * S * 4)
-    print(f"flash_attention_fwd B={B} S=T={S} H={H} D={D} bf16 on {card}: {fa_ms:.4f} ms "
-          f"(device {fmt_ms(fa_dev_ms)} ms; bound {fa_bound_ms:.4f} ms by {fa_bound_by}, "
-          f"{fa_flops / fa_ms / 1e9:.1f} TFLOP/s), plain {fa_plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {fa_lib_ms:.4f} ms")
-    # the same kernel at the generation prefill's largest bucket
-    S, H, Hkv, D = 1024, 28, 4, 128
-    q = randn(1, S, H, D)
-    k, v = randn(1, S, Hkv, D), randn(1, S, Hkv, D)
-    pf_ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True))
-    pf_dev_ms = device_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True), "flash_attention_fwd")
-    pf_plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True))
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    pf_lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                                      enable_gqa=True))
-    pf_flops = 4 * H * D * S * (S + 1) // 2          # the causal half of QK^T and PV
-    pf_bound_ms, pf_bound_by = bound(pf_flops, (2 * S * H * D + 2 * S * Hkv * D) * 2 + S * H * 4)
-    print(f"flash_attention_fwd qwen2-7b prefill B=1 S=T={S} H={H} Hkv={Hkv} D={D} causal bf16 on "
-          f"{card}: {pf_ms:.4f} ms (device {fmt_ms(pf_dev_ms)} ms; bound {pf_bound_ms:.4f} ms by "
-          f"{pf_bound_by}), plain {pf_plain_ms:.4f} ms, scaled_dot_product_attention (causal, "
-          f"GQA) {pf_lib_ms:.4f} ms")
-    del q, k, v, qt, kt, vt
+    fa_rec = check_attention_fwd(torch, F, ref, flash_attention_fwd, randn, card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     rows, d = 32 * 1024, 1280
     ln_serving_err = 0.0
@@ -2837,12 +2924,7 @@ def main() -> int:
     # generation run for rows 6-8, the paged one for rows 9-11, the MoE one
     # for row 12, the MoE training one for row 13, the Mamba2 one for row 14
     kernels = [
-        {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:211",
-         "launches": 0, "max_abs_err": fa_serving_err,
-         "ms": fa_ms, "device_ms": fa_dev_ms, "plain_ms": fa_plain_ms, "bound_ms": fa_bound_ms,
-         "bound_by": fa_bound_by, "library_ms": fa_lib_ms},
+        fa_rec,
         fa_bwd_rec,
         *ce_recs,
         {"name": "layernorm", "route": "triton",

@@ -39,10 +39,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
 namespace ce {
+
+// the mbarriers, TMA loads, descriptors, wgmma wrappers, tensor-map encoder
+// and SM count of hopper.cuh
+using namespace hopper;
 
 constexpr int kBM = 128;                       // tile rows (M) and columns (N)
 constexpr int kBK = 64;                        // depth of one slice: 128 bytes of bf16
@@ -75,61 +80,6 @@ struct Frag {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// until the phase of parity `parity` has completed. A wait of more than
-// 2^33 cycles (seconds) is a fault of the schedule: trap rather than hang.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  long long t0 = 0;
-  for (int n = 1;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((n & 1023) == 0) {
-      if (!t0)
-        t0 = clock64();
-      else if (clock64() - t0 > (1LL << 33))
-        __trap();
-    }
-  }
-}
-
-// a 2-D box of the tensor map at (c0 innermost, c1) into shared memory,
-// completing on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // rows [i0, i0 + 128) x [k0, k0 + 64) of an operand: one box of 128 rows
 // of 64 k (K-major), or two boxes of 64 k-rows of 64 (MN-major)
 template <bool kKMajor>
@@ -143,63 +93,17 @@ __device__ __forceinline__ void load_slice(const CUtensorMap* map, uint32_t dst,
   }
 }
 
-// the wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
-// address, leading and stride byte offsets (16-byte units), layout 1
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
-         (uint64_t(sbo >> 4) << 32) | (1ull << 62);
-}
-
 // the 16-deep step kk of a slice. K-major: 8-row swizzle atoms 1024 bytes
 // apart, a step 32 bytes along the row. MN-major: 8 k-rows of 128 bytes an
 // atom, a step 16 rows (2048 bytes), the 64-wide halves kHalfBytes apart.
 template <bool kKMajor>
 __device__ __forceinline__ uint64_t slice_desc(uint32_t base, int kk) {
-  return kKMajor ? desc(base + kk * 32, 0, 1024) : desc(base + kk * 2048, kHalfBytes, 1024);
+  return kKMajor ? kmajor_desc(base, kk) : mnmajor_desc(base, kk, kHalfBytes);
 }
 
 template <bool kTA, bool kTB>
 __device__ __forceinline__ void wgmma(float (&d)[kAcc], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(int(kTA)), "n"(int(kTB)));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+  Wgmma<__nv_bfloat16>::ss<int(kTA), int(kTB)>(d, da, db, accumulate);
 }
 
 // The products of a block's tiles: seq.n tiles, tile j at seq.at(j) =
@@ -221,7 +125,7 @@ __device__ __forceinline__ void gemm_tiles(uint8_t* smem, const CUtensorMap* ma,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumers * 4);  // one arrival a consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -313,56 +217,20 @@ struct GridSeq {
 };
 
 // ---- host: tensor maps
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#endif
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // the tensor map of an operand read K-major (box: 64 k x 128 rows) or
 // MN-major (box: 64 of M or N x 64 k-rows); false if the driver refuses it
 inline bool make_map(CUtensorMap* map, const Operand& o, bool k_major) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
   const cuuint64_t dims[2] = {cuuint64_t(k_major ? o.k_ext : o.mn),
                               cuuint64_t(k_major ? o.mn : o.k_ext)};
   const cuuint64_t strides[1] = {cuuint64_t(o.ld) * 2};
   const cuuint32_t box[2] = {64, cuuint32_t(k_major ? kBM : kBK)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<uint16_t*>(o.p), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, o.p, dims, strides, box);
 }
 
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-}
-
-inline int num_sms() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
-    return 132;
-  return n;
 }
 
 }  // namespace ce

@@ -1,253 +1,389 @@
 // Flash-attention forward for Hopper (sm_90a): bf16/fp16 in, fp32 softmax.
 //
 // Replaces the TPU kernel `_fa_kernel` behind `flash_attention_fwd` in
-// src/repro/kernels/flash_attention.py (its pallas_call). Same contract:
-// q (B,S,H,D), k/v (B,T,Hkv,D) -> out (B,S,H,D) in q's dtype and the per-row
-// log-sum-exp lse (B*H, S) fp32; scale 1/sqrt(D); mask k_pos < T plus
-// causal / sliding window / q_offset; optional logit softcap; GQA as head
-// h reading kv head h / group. A row that sees no key gives output 0 and
-// lse = -1e30.
+// src/repro/kernels/flash_attention.py (its pallas_call at :211). Same
+// contract: q (B,S,H,D), k/v (B,T,Hkv,D) -> out (B,S,H,D) in q's dtype and
+// the per-row log-sum-exp lse (B*H, S) fp32; scale 1/sqrt(D); mask k_pos <
+// T plus causal / sliding window / q_offset; optional logit softcap; GQA as
+// head h reading kv head h / group. A row that sees no key gives output 0
+// and lse = -1e30.
 //
-// Design. The TPU kernel walks a sequential kv grid axis and carries
-// (m, l, acc) in VMEM scratch between grid steps; Hopper blocks run in no
-// order, so one thread block owns one (b*h, 64-query tile) and loops over
-// 64-key tiles itself, carrying m/l/acc in registers (FlashAttention-2
-// register layout). Four warps each own 16 query rows. QK^T and PV run on
-// the tensor cores with mma.sync m16n8k16 and fp32 accumulation: bf16 x bf16
-// products are exact in fp32, so S matches an fp32 QK^T up to summation
-// order. P is rounded to the input dtype once, before the PV product (the
-// TPU kernel keeps P in fp32): a relative error of at most 2^-9 (bf16) per
-// probability, which the row normaliser l (summed from the unrounded fp32
-// P) does not see. Tiles are read through the caller's strides: no
-// head-major transpose copy and no padding; the ragged tail is zero-filled
-// in shared memory and masked. Key tiles that no row of the block can see
-// (causal / window) are skipped. Loads are plain 16-byte vector loads,
-// synchronous, single-buffered: TMA, cp.async pipelining and wgmma are left
-// for a later version.
+// Design. The TPU kernel walks a sequential kv grid axis and carries (m, l,
+// acc) in VMEM scratch between grid steps; Hopper blocks run in no order,
+// so a block owns whole 128-row query tiles of one (b, h) and loops over
+// the key tiles itself (128 keys at D = 64, 64 at D = 128), carrying m, l
+// and the output in registers. No
+// sum crosses blocks. The grid is persistent (one block an SM, each taking
+// work items blockIdx.x, + gridDim.x, ...); under causal masking the items
+// run heaviest query tile first, so the last wave is not a long tail.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at the ESM-2
-// serving shape B=32, S=T=1024, H=20, D=64 the work is 4*B*H*S*T*D =
-// 1.7e11 FLOP (0.17 ms) against q, k, v read once and out written once,
-// 4*B*S*H*D*2 B + lse = 0.34 GB (0.10 ms): operations bound it.
+// A block is two consumer warpgroups of 64 query rows each and one
+// producer warp (of a warpgroup that gives up its registers; the other
+// three warps exit at once). Its lane 0 has the Tensor Memory Accelerator
+// copy the Q tile once per item and the K and V tiles into a ring of
+// stages (`full` / `empty` mbarriers), straight from the caller's strided
+// (B, L, heads, D) layout: one 4-D tensor map per operand over (D, L,
+// heads, B), boxes of 64 x 64 with the 128-byte swizzle, so rows past S or
+// T land as zeros and never come from the next head. Per key tile a
+// consumer warpgroup runs
+//   S = Q K^T    wgmma m64n{keys}k16, both operands K-major in shared
+//                memory;
+//   the online softmax in fp32 registers on wgmma's accumulator layout, in
+//                base-2 units, masking only on a tile that crosses T, the
+//                causal diagonal or the window;
+//   O += P V     wgmma m64n{D}k16 with A = P from registers (P rounded to
+//                the input dtype once, packed straight from S's
+//                accumulators) and V read MN-major through the transpose
+//                flag, so no V^T copy is made.
+// bf16 x bf16 products are exact in fp32, so S matches an fp32 Q K^T up to
+// summation order; P's rounding (at most 2^-9 relative per probability in
+// bf16) is not seen by the row normaliser l, summed from the fp32 P.
+// setmaxnreg moves registers from the producer warp to the consumers. Each
+// warpgroup runs S, softmax and P V in turn, and the other warpgroup's
+// products fill the tensor cores meanwhile: issuing the next tile's S
+// before this tile's P V (FlashAttention-3's intra-warpgroup overlap), with
+// or without ping-pong barriers between the warpgroups, measured slower on
+// an H100 at every shape chip_smoke.py times.
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), counted as
+// chip_smoke.py counts it: the ESM-2 serving shape B=32, S=T=1024, H=20,
+// D=64 is 4*B*H*S*T*D = 1.7e11 FLOP (0.174 ms) against q, k, v read and
+// out written once plus lse, 0.34 GB (0.10 ms): operations bound it. The
+// ESM-2 training shape (B=8) is a quarter of that (0.043 ms); under causal
+// masking only the visible half counts: Qwen2-7B's prefill (B=1, S=T=1024,
+// 28 q / 4 kv heads, D=128) 7.5e9 FLOP (0.0076 ms), Llama-4-Scout's
+// training forward (B=2, S=T=1024, 40 q / 8 kv heads, D=128, window 8192)
+// 2.1e10 FLOP (0.0217 ms), all bound by operations.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;    // query rows per block: 4 warps x 16 rows
-constexpr int kBlockK = 64;    // keys per tile
-constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;
+using namespace hopper;
+
+constexpr int kBM = 128;  // query rows of a work item: two warpgroups of 64
+constexpr int kBox = 64;  // rows and 16-bit columns of one TMA box (128 bytes a row)
+constexpr int kConsumers = 2;
+// and a producer warpgroup, of which one warp works: setmaxnreg trades
+// registers within the block's pool, and ptxas gives these kernels 168 a
+// thread, so 384 x 168 = 128 x 24 (producer) + 256 x 240 (consumers)
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr float kNegInf = -1e30f;  // a masked score, and the lse of a row with no key
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// keys per tile: 128 at D = 64; at D = 128, 64 as in the mma.sync kernel
+// this one replaced, whose results it then reproduces bit for bit (the
+// tensor cores sum a wgmma k-step as they sum an mma.sync one). A 128-key
+// tile there gives more RMS error against an fp64 reference (fewer rows
+// see their running max's P exactly 1), and its ulp-level differences move
+// the Llama-4-Scout route check's router flips past their bound
+// (attention_variants.py measures both).
+template <int D>
+constexpr int keys_per_tile() {
+  return D == 64 ? 128 : 64;
+}
+
+// shared memory: the Q tile, then the ring of (K tile, V tile) stages. A
+// tile of R rows x D is D / 64 column halves of R rows x 128 bytes.
+template <int D>
+struct Layout {
+  static constexpr int kBN = keys_per_tile<D>();
+  static constexpr int kQBytes = kBM * D * 2;
+  static constexpr int kTileBytes = kBN * D * 2;
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  // up to 4 stages within 200 KB of shared memory (4 at both head dims)
+  static constexpr int kStages = (200 * 1024 - kQBytes) / kStageBytes < 4
+                                     ? (200 * 1024 - kQBytes) / kStageBytes : 4;
+  static constexpr int kSmem = kQBytes + kStages * kStageBytes + 1024;  // + swizzle alignment
+};
+
 struct Params {
-  const uint16_t* q;
-  const uint16_t* k;
-  const uint16_t* v;
   uint16_t* o;
   float* lse;
-  int S, T, H, group;
-  long long q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh;
+  int S, T, H, group, n_q_tiles, n_items;
+  long long o_sb, o_ss, o_sh;
   int causal, window, q_offset;
   float scale;    // 1/sqrt(D)
   float softcap;  // 0 = off
 };
 
-// rows [row0, row0+64) of a (rows, D) matrix with the given row stride into
-// shared memory; rows >= nrows are zero-filled
-template <int D>
-__device__ __forceinline__ void load_tile(uint16_t (*dst)[D + kPad], const uint16_t* base,
-                                          long long row_stride, int row0, int nrows) {
-  constexpr int kVec = 8;  // 8 x 16 bit = one 16-byte load
-  constexpr int kPerRow = D / kVec;
-  for (int c = threadIdx.x; c < kBlockK * kPerRow; c += kThreads) {
-    const int r = c / kPerRow, col = (c % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows)
-      val = *reinterpret_cast<const uint4*>(base + (long long)(row0 + r) * row_stride + col);
-    *reinterpret_cast<uint4*>(&dst[r][col]) = val;
+// work item i -> (query tile, b*h): under causal masking tile-major with the
+// heaviest (last) tile first, else head-major (neighbours share K and V)
+__device__ __forceinline__ int2 item_at(const Params& p, int i, int BH) {
+  if (p.causal) return make_int2(p.n_q_tiles - 1 - i / BH, i % BH);
+  return make_int2(i % p.n_q_tiles, i / p.n_q_tiles);
+}
+
+// the key tiles a query tile at q0 can see: [*k_begin, + n * kBN)
+template <int kBN>
+__device__ __forceinline__ int key_tiles(const Params& p, int q0, int* k_begin) {
+  const int q_last = min(q0 + kBM, p.S) - 1 + p.q_offset;
+  int end = p.T, begin = 0;
+  if (p.causal) end = min(end, q_last + 1);
+  if (p.window > 0) begin = max(0, q0 + p.q_offset - p.window + 1);
+  begin = (begin / kBN) * kBN;
+  *k_begin = begin;
+  return end > begin ? (end - begin + kBN - 1) / kBN : 0;
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz): the same bits as
+// exp2f here, whose denormal handling around it makes the forward ~1.5x
+// slower at D = 64 (attention_variants.py)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one key tile at k0 for this thread's two rows: S's
+// raw scores in, P (fp32, unnormalised, base 2) out in place; m is the
+// running row max in base-2 units, l this thread's part of the row sum
+// (its 2 of every 8 columns, added in key order), alpha what the output so
+// far is to be scaled by. The arithmetic is the replaced mma.sync
+// kernel's, step for step (at D = 128 the same bits); the mask runs
+// only on a tile that crosses T, the causal diagonal or the window edge.
+template <int kBN>
+__device__ __forceinline__ void online_softmax(const Params& p, float (&s)[kBN / 2], float (&m)[2],
+                                               float (&l)[2], float (&alpha)[2], int q0, int k0,
+                                               const int (&qpos)[2], int t) {
+  if (p.softcap > 0.f) {
+#pragma unroll
+    for (int x = 0; x < kBN / 2; ++x) s[x] = p.softcap * tanhf(s[x] * p.scale / p.softcap) * kLog2e;
+  } else {
+    const float scale_log2 = p.scale * kLog2e;
+#pragma unroll
+    for (int x = 0; x < kBN / 2; ++x) s[x] *= scale_log2;
+  }
+  const bool edge = k0 + kBN > p.T || (p.causal && k0 + kBN - 1 > q0 + p.q_offset) ||
+                    (p.window > 0 && k0 <= q0 + kBM - 1 + p.q_offset - p.window);
+  if (edge) {
+#pragma unroll
+    for (int x = 0; x < kBN / 2; ++x) {
+      const int key = k0 + 8 * (x >> 2) + 2 * t + (x & 1), qp = qpos[(x >> 1) & 1];
+      bool ok = key < p.T;
+      if (p.causal) ok = ok && key <= qp;
+      if (p.window > 0) ok = ok && key > qp - p.window;
+      if (!ok) s[x] = kNegInf;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int x = 0; x < kBN / 2; ++x) mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[x]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = ex2(m[r] - mx[r]);
+    l[r] *= alpha[r];
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int x = 0; x < kBN / 2; ++x) {
+    const int r = (x >> 1) & 1;
+    // a row with no visible key so far stays inert
+    s[x] = mx[r] <= kNegInf / 2 ? 0.f : ex2(s[x] - mx[r]);
+    l[r] += s[x];
   }
 }
 
+// rows [r0, r0 + R) x all D of the (D, L, heads, B) map into a tile at dst
+template <int D, int R>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, int r0, int head,
+                                          int b, uint64_t* bar) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+    for (int r = 0; r < R / kBox; ++r)
+      tma_load(dst + c * R * 128 + r * kBox * 128, map, 64 * c, r0 + r * kBox, head, b, bar);
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(const Params p) {
-  __shared__ __align__(16) uint16_t sK[kBlockK][D + kPad];
-  __shared__ __align__(16) uint16_t sV[kBlockK][D + kPad];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column pair
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H, hk = h / p.group;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int wrow = warp * 16;
-
-  // the Q tile, staged through sK, stays in registers as mma A fragments
-  load_tile<D>(sK, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.S);
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_fwd_kernel(const __grid_constant__ CUtensorMap mq,
+                               const __grid_constant__ CUtensorMap mk,
+                               const __grid_constant__ CUtensorMap mv, const Params p) {
+  using L = Layout<D>;
+  constexpr int kBN = L::kBN;
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t full[L::kStages], empty[L::kStages], q_full, q_empty;
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t sq = base, ring = base + L::kQBytes;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int BH = p.n_items / p.n_q_tiles;
+  if (tid == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);  // one arrival a consumer warp
+    }
+    mbar_init(&q_full, 1);
+    mbar_init(&q_empty, kConsumers * 4);
+    mbar_init_fence();
+  }
   __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) a_frag<D>(qa[kk], &sK[0][0], wrow, kk * 16, g, t);
 
-  // this thread's rows are g and g + 8 of the warp's 16. m is the running
-  // max in log2 units; l is this thread's partial row sum (its 2 of every
-  // 8 columns), reduced across the 4 threads of the row at the end
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const int qpos[2] = {q0 + wrow + g + p.q_offset, q0 + wrow + g + 8 + p.q_offset};
-
-  // the keys any row of this block can see
-  const int q_last = min(q0 + kBlockQ, p.S) - 1 + p.q_offset;
-  int kv_end = p.T;
-  if (p.causal) kv_end = min(kv_end, q_last + 1);
-  int kv_begin = 0;
-  if (p.window > 0) kv_begin = max(0, q0 + p.q_offset - p.window + 1);
-  kv_begin = (kv_begin / kBlockK) * kBlockK;
-
-  const uint16_t* kbase = p.k + b * p.k_sb + hk * p.k_sh;
-  const uint16_t* vbase = p.v + b * p.v_sb + hk * p.v_sh;
-  const float scale_log2 = p.scale * kLog2e;
-
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kBlockK) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<D>(sK, kbase, p.k_st, k0, p.T);
-    load_tile<D>(sV, vbase, p.v_st, k0, p.T);
-    __syncthreads();
-
-    // S = Q K^T for the warp's 16 rows x 64 keys
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kBlockK / 8; ++n) {
-        uint32_t b0, b1;
-        b_frag_rows<D>(b0, b1, &sK[0][0], n * 8, kk * 16, g, t);
-        Mma<T>::run(s[n], qa[kk], b0, b1);
+  if (wg == kConsumers) {  // the producer warpgroup: one thread copies
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == kConsumers * 128) {
+      int stage = 0;
+      uint32_t phase = 0, q_phase = 0;
+      for (int i = blockIdx.x; i < p.n_items; i += gridDim.x) {
+        const int2 it = item_at(p, i, BH);
+        const int q0 = it.x * kBM, b = it.y / p.H, h = it.y % p.H, hk = h / p.group;
+        int k_begin;
+        const int n = key_tiles<kBN>(p, q0, &k_begin);
+        if (n == 0) continue;  // the consumers write the empty rows alone
+        mbar_wait(&q_empty, q_phase ^ 1);
+        q_phase ^= 1;
+        mbar_expect_tx(&q_full, L::kQBytes);
+        load_tile<D, kBM>(sq, &mq, q0, h, b, &q_full);
+        for (int j = 0; j < n; ++j) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], L::kStageBytes);
+          const uint32_t sk = ring + stage * L::kStageBytes;
+          load_tile<D, kBN>(sk, &mk, k_begin + j * kBN, hk, b, &full[stage]);
+          load_tile<D, kBN>(sk + L::kTileBytes, &mv, k_begin + j * kBN, hk, b, &full[stage]);
+          if (++stage == L::kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
     }
-
-    // scale, softcap, mask; row max over the tile
-    float mx[2] = {m[0], m[1]};
+  } else {  // two consumer warpgroups, 64 query rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int row_in_tile = 64 * wg + 16 * ((tid >> 5) & 3) + g;  // and + 8
+    int stage = 0;
+    uint32_t phase = 0, q_phase = 0;
+    for (int i = blockIdx.x; i < p.n_items; i += gridDim.x) {
+      const int2 it = item_at(p, i, BH);
+      const int q0 = it.x * kBM, bh = it.y, b = bh / p.H, h = bh % p.H;
+      int k_begin;
+      const int n = key_tiles<kBN>(p, q0, &k_begin);
+      const int qpos[2] = {q0 + row_in_tile + p.q_offset, q0 + row_in_tile + 8 + p.q_offset};
+      // m, l: see online_softmax; l is summed over the row's 4 threads at
+      // the end
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+      float o[D / 2];
 #pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        const int key = k0 + n * 8 + 2 * t + (i & 1);
-        float x = p.softcap > 0.f ? p.softcap * tanhf(s[n][i] * p.scale / p.softcap) * kLog2e
-                                  : s[n][i] * scale_log2;
-        bool ok = key < p.T;
-        if (p.causal) ok = ok && key <= qpos[r];
-        if (p.window > 0) ok = ok && key > qpos[r] - p.window;
-        x = ok ? x : kNegInf;
-        s[n][i] = x;
-        mx[r] = fmaxf(mx[r], x);
+      for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
+      if (n > 0) {
+        mbar_wait(&q_full, q_phase);
+        q_phase ^= 1;
       }
-    }
-    float alpha[2];
+      const uint32_t sq_wg = sq + wg * 64 * 128;
+      for (int j = 0; j < n; ++j) {
+        const int k0 = k_begin + j * kBN;
+        mbar_wait(&full[stage], phase);
+        const uint32_t sk = ring + stage * L::kStageBytes, sv = sk + L::kTileBytes;
+        float s[kBN / 2], alpha[2];
+        wgmma_fence();
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f(m[r] - mx[r]);
-      l[r] *= alpha[r];
-      m[r] = mx[r];
-    }
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<T>::template ss<0, 0>(s, kmajor_desc(sq_wg + (kk / 4) * kBM * 128, kk % 4),
+                                      kmajor_desc(sk + (kk / 4) * kBN * 128, kk % 4), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(s);
+        online_softmax<kBN>(p, s, m, l, alpha, q0, k0, qpos, t);
 #pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
+        for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+        uint32_t pa[kBN / 16][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        // a row with no visible key so far stays inert
-        const float pr = mx[r] <= kNegInf / 2 ? 0.f : exp2f(s[n][i] - mx[r]);
-        s[n][i] = pr;
-        l[r] += pr;
+        for (int kk = 0; kk < kBN / 16; ++kk) pack_a<T>(pa[kk], s, kk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk)
+          Wgmma<T>::template rs<1>(o, pa[kk], mnmajor_desc(sv, kk, kBN * 128), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(o);
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk) reg_fence(pa[kk]);
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == L::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // O += P V: the S accumulators of two adjacent 8-key tiles are the A
-    // fragment of one 16-key step
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        uint32_t b0, b1;
-        b_frag_cols<D>(b0, b1, &sV[0][0], kk * 16, j * 8, g, t);
-        Mma<T>::run(acc[j], pa, b0, b1);
-      }
-    }
-  }
+      if (n > 0 && lane == 0) mbar_arrive(&q_empty);  // this warp is done with Q
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wrow + g + 8 * r;
-    if (row >= p.S) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    uint16_t* orow = p.o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_ss;
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + row_in_tile + 8 * r;
+        if (row >= p.S) continue;
+        const float denom = fmaxf(l[r], 1e-30f);
+        uint16_t* orow = p.o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_ss;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
-          Mma<T>::pack(acc[j][2 * r] / denom, acc[j][2 * r + 1] / denom);
-    if (t == 0)
-      p.lse[(long long)bh * p.S + row] = m[r] <= kNegInf / 2 ? kNegInf : m[r] * kLn2 + logf(denom);
+        for (int c = 0; c < D / 8; ++c)
+          *reinterpret_cast<uint32_t*>(orow + c * 8 + 2 * t) =
+              Mma<T>::pack(o[4 * c + 2 * r] / denom, o[4 * c + 2 * r + 1] / denom);
+        if (t == 0)
+          p.lse[(long long)bh * p.S + row] =
+              m[r] <= kNegInf / 2 ? kNegInf : m[r] * kLn2 + logf(denom);
+      }
+    }
   }
 }
 
+// the 4-D map of a (B, L, heads, D) operand from geo = {D, L, heads, B,
+// byte strides of L, heads, B}: boxes of 64 columns x 64 rows
+bool make_operand_map(CUtensorMap* map, int dtype, const void* p, const long long* geo) {
+  const cuuint64_t dims[4] = {cuuint64_t(geo[0]), cuuint64_t(geo[1]), cuuint64_t(geo[2]),
+                              cuuint64_t(geo[3])};
+  const cuuint64_t strides[3] = {cuuint64_t(geo[4]), cuuint64_t(geo[5]), cuuint64_t(geo[6])};
+  const cuuint32_t box[4] = {64, kBox, 1, 1};
+  return make_map(map, dtype ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  4, p, dims, strides, box);
+}
+
 template <typename T, int D>
-cudaError_t launch(const Params& p, int BH, cudaStream_t stream) {
-  const dim3 grid((p.S + kBlockQ - 1) / kBlockQ, BH);
-  flash_attention_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
+int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, const Params& p,
+           cudaStream_t stream) {
+  auto kernel = flash_attention_fwd_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Layout<D>::kSmem);
+  if (err != cudaSuccess) return err;
+  const int grid = p.n_items < num_sms() ? p.n_items : num_sms();
+  kernel<<<grid, kThreads, Layout<D>::kSmem, stream>>>(mq, mk, mv, p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float16. Strides are in elements; the head dim is
-// contiguous. Returns the cudaError_t of the launch (0 = launched).
+// dtype: 0 = bfloat16, 1 = float16. geo: for q, k, v in turn, the tensor
+// map's {D, L, heads, B} and the byte strides of L, heads, B (7 values
+// each). out's strides are in elements; its head dim is contiguous.
+// Returns the cudaError_t of the launch (0 = launched), or -1 if the driver
+// refused a tensor map.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, float* lse, int dtype,
-    int B, int S, int T, int H, int Hkv, int D,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_st, long long k_sh,
-    long long v_sb, long long v_st, long long v_sh,
+    int B, int S, int T, int H, int Hkv, int D, const long long* geo,
     long long o_sb, long long o_ss, long long o_sh,
     int causal, int window, float softcap, int q_offset, void* stream) {
+  CUtensorMap mq, mk, mv;
+  if (!make_operand_map(&mq, dtype, q, geo) || !make_operand_map(&mk, dtype, k, geo + 7) ||
+      !make_operand_map(&mv, dtype, v, geo + 14))
+    return -1;
   Params p;
-  p.q = static_cast<const uint16_t*>(q);
-  p.k = static_cast<const uint16_t*>(k);
-  p.v = static_cast<const uint16_t*>(v);
   p.o = static_cast<uint16_t*>(out);
   p.lse = lse;
   p.S = S;
   p.T = T;
   p.H = H;
   p.group = H / Hkv;
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_st = k_st; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;
+  p.n_q_tiles = (S + kBM - 1) / kBM;
+  p.n_items = p.n_q_tiles * B * H;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.causal = causal;
   p.window = window;
@@ -255,10 +391,10 @@ extern "C" int flash_attention_fwd(
   p.scale = 1.0f / sqrtf(float(D));
   p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int BH = B * H;
-  if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64>(p, BH, s);
-  if (dtype == 0 && D == 128) return launch<__nv_bfloat16, 128>(p, BH, s);
-  if (dtype == 1 && D == 64) return launch<__half, 64>(p, BH, s);
-  if (dtype == 1 && D == 128) return launch<__half, 128>(p, BH, s);
+  if (p.n_items == 0) return cudaSuccess;
+  if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64>(mq, mk, mv, p, s);
+  if (dtype == 0 && D == 128) return launch<__nv_bfloat16, 128>(mq, mk, mv, p, s);
+  if (dtype == 1 && D == 64) return launch<__half, 64>(mq, mk, mv, p, s);
+  if (dtype == 1 && D == 128) return launch<__half, 128>(mq, mk, mv, p, s);
   return cudaErrorInvalidValue;
 }

@@ -281,6 +281,52 @@ def test_flash_attention_bwd_argument_checks():
         fa.check_args(q, k, k, q, t(2, 8, 4, 64, dtype=torch.float16))
     with pytest.raises(ValueError, match="dO: head dim must be contiguous"):
         fa.check_args(q, k, k, q, t(2, 8, 4, 128)[..., ::2])
+    # dO and out go through the same TMA and 16-byte-copy rules as q, k, v
+    with pytest.raises(ValueError, match="dO: .*positive multiple"):
+        fa.check_args(q, k, k, q, t(1, 8, 4, 64).expand(2, 8, 4, 64))
+    with pytest.raises(ValueError, match="out: .*16-byte aligned"):
+        fa.check_args(q, k, k, t(2 * 8 * 4 * 64 + 8)[4:-4].view(2, 8, 4, 64), q)
+    fa.check_args(q, k, k, t(2, 4, 8, 64).transpose(1, 2), t(2, 4, 8, 64).transpose(1, 2))
+
+
+# (S, T, causal, window, q_offset) of the dK/dV pass's schedule: a square
+# causal training step, a window across tiles, a ragged GQA shape, an
+# offset query block, rows with no key, none visible at all
+DKV_MASKS = [(256, 256, True, 0, 0), (300, 300, True, 100, 0), (200, 333, False, 0, 0),
+             (40, 104, True, 0, 64), (24, 24, True, 0, -8), (16, 130, True, 0, -200)]
+
+
+@pytest.mark.parametrize("mask", DKV_MASKS)
+def test_query_tiles_hold_every_query_that_sees_the_key_tile(mask):
+    S, T, causal, window, q_offset = mask
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+
+    def visible(i, j):
+        qpos = i + q_offset
+        return (i < S and j < T and (not causal or j <= qpos)
+                and (window <= 0 or j > qpos - window))
+
+    for k0 in range(0, T, fa.TILE):
+        tiles = fa.query_tiles(k0, S, **kw)
+        streamed = {i for q0 in tiles for i in range(q0, q0 + fa.BWD_ROWS)}
+        keys = range(k0, min(k0 + fa.TILE, T))
+        assert {i for i in range(S) for j in keys if visible(i, j)} <= streamed
+        for q0 in tiles:
+            if not fa.needs_mask(q0, fa.BWD_ROWS, k0, fa.TILE, S, T, **kw):
+                assert all(visible(i, j) for i in range(q0, q0 + fa.BWD_ROWS)
+                           for j in range(k0, k0 + fa.TILE))
+
+
+@pytest.mark.parametrize("shape", [(8, 160), (8, 16), (3, 4)])
+def test_dkv_work_items_take_the_heaviest_key_tile_first(shape):
+    """The dK/dV pass's items: every (key tile, b*hkv) once; under causal
+    masking the first key tiles, which most query tiles see, come first."""
+    n_tiles, heads = shape
+    items = fa.work_items(n_tiles, heads, True, heavy_last=False)
+    assert sorted(items) == sorted((t, h) for t in range(n_tiles) for h in range(heads))
+    work = [len(fa.query_tiles(t * fa.TILE, n_tiles * fa.TILE, causal=True, window=0, q_offset=0))
+            for t, _ in items]
+    assert work == sorted(work, reverse=True)
 
 
 # ------------------------------------------------------------ layernorm
