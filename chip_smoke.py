@@ -174,7 +174,7 @@ def kernel_groups(prof, DeviceType):
             groups["flash_decode"] += t
         elif "gmm_dw_kernel" in low:
             groups["gmm_dw"] += t
-        elif "gmm_kernel" in low:
+        elif "gmm_kernel" in low or "gmm_dx_kernel" in low:   # the forward and its dx
             groups["gmm"] += t
         elif "ssd_scan_kernel" in low:
             groups["ssd_scan"] += t
@@ -1224,53 +1224,81 @@ def _grouped_mm_lib(torch, fn):
     return time_ms(torch, fn, trials=10), "torch._grouped_mm"
 
 
+def gmm_train_sizes(np):
+    """The seeded group sizes of ``check_gmm_dw``'s random cases, in the order
+    it draws them: a Dirichlet-uneven split of 512 rows over 8 groups,
+    Maverick's 128 experts at capacity 16 (1 024 tokens), and Scout's w_in
+    and w_out micro-batches of 2 048 tokens over 16 experts at capacity
+    160.  ``gmm_variants.py`` times the same Scout sizes."""
+    rng = np.random.default_rng(3)
+    return {"dirichlet": rng.multinomial(512, rng.dirichlet(np.ones(8))),
+            "maverick": _router_sizes(np, rng, 1024, 128, cap=16),
+            "w_in": _router_sizes(np, rng, 2048, 16, cap=160),
+            "w_out": _router_sizes(np, rng, 2048, 16, cap=160)}
+
+
 def check_gmm_dw(torch, ref, gmm, gmm_dw, card):
     """Row 13 (``gmm_dw``) against ``grouped_matmul_dw_ref`` and row 12's
     transposed mode (the backward's dx) against ``grouped_matmul_ref`` on
     the transposed weights, in the ragged cases of the reference's MoE tests
     (even, Dirichlet-uneven, all empty, one group takes all, a dropped tail
     with large finite values in its rows of x and dy, interior empty
-    groups), M = 77 (no multiple of a tile), Maverick's 128 experts at a
-    small K and N, and Scout's w_in and w_out at M = 2048 (a 2 x 1024
-    micro-batch, capacity 160).  dW: fp32 within 1e-3 of each group's
-    max|ref| (bf16 products are exact in fp32; only the order of the sums
-    differs), empty groups exactly 0, a repeat bit-identical; dx: 2e-2 of
-    each row's max|ref|, rows past the groups exactly 0.  Times both at
-    Scout's w_in training shape.  Returns the gmm_dw record."""
+    groups), M = 77 (no multiple of a tile), the schedules' edges (groups
+    ending inside a 64-row slice with the next groups' rows of x at 1e30,
+    groups of one row, a group of 600 rows, K 200 and N 136 for the tensor
+    maps' zero fill), Maverick's 128 experts at a small K and N, and
+    Scout's w_in and w_out at M = 2048 (a 2 x 1024 micro-batch, capacity
+    160).  dW: fp32 within 1e-3 of each group's max|ref| (bf16 products are
+    exact in fp32; only the order of the sums differs), bf16 within 1e-3 +
+    2^-8, empty groups exactly 0, a repeat bit-identical; dx: 2e-2 of each
+    row's max|ref|, rows past the groups exactly 0, a repeat bit-identical.
+    Times both modes at both Scout shapes.  Returns the gmm_dw record and
+    the record of gmm's transposed mode (w_in's numbers, w_out's under
+    "w_out")."""
     import numpy as np
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(3)
     dw_tol, dx_tol = 1e-3, 2e-2
+    drawn = gmm_train_sizes(np)
 
     def bf16(*shape, scale=1.0):
         return (torch.randn(*shape, device=dev) * scale).to(torch.bfloat16)
 
+    # (label, M, K, N, sizes, groups whose rows of x are scaled by 1e30)
     cases = [
-        ("even", 512, 256, 384, [64] * 8),
-        ("Dirichlet-uneven", 512, 256, 384, rng.multinomial(512, rng.dirichlet(np.ones(8)))),
-        ("all groups empty", 512, 256, 384, [0] * 8),
-        ("one group takes all", 512, 256, 384, [0, 0, 0, 512, 0, 0, 0, 0]),
-        ("dropped tail, large tail rows", 512, 256, 384, [40, 0, 77, 13, 0, 90, 30, 50]),
-        ("interior empty groups", 512, 256, 384, [0, 128, 0, 0, 100, 0, 200, 84]),
-        ("M = 77", 77, 256, 384, [9, 0, 31, 0, 5, 20, 12, 0]),
-        ("maverick, 128 experts", 1024, 128, 256, _router_sizes(np, rng, 1024, 128, cap=16)),
-        ("scout w_in, capacity 160", 2048, 5120, 8192, _router_sizes(np, rng, 2048, 16, cap=160)),
-        ("scout w_out, capacity 160", 2048, 8192, 5120, _router_sizes(np, rng, 2048, 16, cap=160)),
+        ("even", 512, 256, 384, [64] * 8, ()),
+        ("Dirichlet-uneven", 512, 256, 384, drawn["dirichlet"], ()),
+        ("all groups empty", 512, 256, 384, [0] * 8, ()),
+        ("one group takes all", 512, 256, 384, [0, 0, 0, 512, 0, 0, 0, 0], ()),
+        ("dropped tail, large tail rows", 512, 256, 384, [40, 0, 77, 13, 0, 90, 30, 50], ()),
+        ("interior empty groups", 512, 256, 384, [0, 128, 0, 0, 100, 0, 200, 84], ()),
+        ("M = 77", 77, 256, 384, [9, 0, 31, 0, 5, 20, 12, 0], ()),
+        ("group ends inside a slice, the next group's x at 1e30", 512, 256, 384,
+         [37, 90, 1, 100, 0, 85, 70, 50], (1, 3, 6)),
+        ("groups of one row", 128, 256, 384, [1, 0, 126, 1], ()),
+        ("a group of 600 rows", 1024, 256, 384, [100, 600, 0, 200, 60], ()),
+        ("K 200, N 136", 333, 200, 136, [33, 0, 120, 1, 150], ()),
+        ("maverick, 128 experts", 1024, 128, 256, drawn["maverick"], ()),
+        ("scout w_in, capacity 160", 2048, 5120, 8192, drawn["w_in"], ()),
+        ("scout w_out, capacity 160", 2048, 8192, 5120, drawn["w_out"], ()),
     ]
-    dw_err0, timing = 0.0, None
-    for label, M, K, N, sizes in cases:
+    dw_err0, dx_err0, timing = 0.0, 0.0, {}
+    for label, M, K, N, sizes, large in cases:
         sizes = np.asarray(sizes, np.int64)
         E, total = len(sizes), int(sizes.sum())
         x = bf16(M, K)
         dy = bf16(M, N)
         x[total:], dy[total:] = 1e30, -1e30          # rows past the groups: never summed
+        ends = np.cumsum(sizes)
+        for g in large:                              # finite, and summed only into their own dW
+            x[ends[g] - sizes[g]:ends[g]] *= 1e30
         w = bf16(E, K, N, scale=K ** -0.5)
         gs = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
         dw = gmm_dw(x, dy, gs)
         again = gmm_dw(x, dy, gs)
         dw16 = gmm_dw(x, dy, gs, out_dtype=torch.bfloat16)
         dx = gmm(dy, w, gs, transpose_w=True)
+        dx_again = gmm(dy, w, gs, transpose_w=True)
         torch.cuda.synchronize()
         want = ref.grouped_matmul_dw_ref(x, dy, gs)
         live = [g for g in range(E) if sizes[g] > 0]
@@ -1282,56 +1310,81 @@ def check_gmm_dw(torch, ref, gmm, gmm_dw, card):
         want_dx = ref.grouped_matmul_ref(dy, w.transpose(1, 2), gs)
         err_dx = row_rel_err(dx[:total], want_dx[:total]) if total else 0.0
         tail0 = bool((dx[total:] == 0).all())
+        same_dx = torch.equal(dx, dx_again)
         print(f"gmm_dw {label} (M={M}, K={K}, N={N}, E={E}, {len(live)} live groups, {total} rows "
               f"in groups): rel err {err:.3g} (tol {dw_tol} of each group's max|ref|), bf16 output "
               f"{err16:.3g} (tol {dw_tol} + 2^-8), empty groups exactly 0: {empty0}, a repeat "
               f"bit-identical: {same}; dx (gmm, transposed w) rel err {err_dx:.3g} (tol {dx_tol} "
-              f"of each row's max|ref|), the {M - total} rows past the groups exactly 0: {tail0}")
+              f"of each row's max|ref|), the {M - total} rows past the groups exactly 0: {tail0}, "
+              f"a repeat bit-identical: {same_dx}")
         check(err <= dw_tol and err16 <= dw_tol + 2 ** -8 and empty0 and same
               and bool(dw.isfinite().all()), f"gmm_dw {label}")
-        check(err_dx <= dx_tol and tail0 and bool(dx.isfinite().all()), f"gmm transposed {label}")
-        if label.startswith("scout w_in"):
-            dw_err0 = (dw16.float() - want).abs().max().item()
-            timing = (x, dy, w, gs, sizes)
-        del x, dy, w, dw, again, dw16, dx, want, want_dx
+        check(err_dx <= dx_tol and tail0 and same_dx and bool(dx.isfinite().all()),
+              f"gmm transposed {label}")
+        if label.startswith("scout"):
+            shape = label.split()[1].rstrip(",")
+            if shape == "w_in":
+                dw_err0 = (dw16.float() - want).abs().max().item()
+                dx_err0 = (dx.float() - want_dx.float()).abs().max().item()
+            timing[shape] = (x, dy, w, gs, sizes)
+        del x, dy, w, dw, again, dw16, dx, dx_again, want, want_dx
 
-    x, dy, w, gs, sizes = timing
-    M, K, N, E = x.shape[0], x.shape[1], dy.shape[1], len(sizes)
-    total, live = int(sizes.sum()), int((sizes > 0).sum())
-    ends = torch.cumsum(gs, 0, dtype=torch.int32)
-    # the main path writes dW in the weights' dtype, bf16
-    ms = time_ms(torch, lambda: gmm_dw(x, dy, gs, out_dtype=torch.bfloat16), trials=10)
-    dev_ms = device_ms(torch, lambda: gmm_dw(x, dy, gs, out_dtype=torch.bfloat16), "gmm_dw_kernel",
-                       n=10)
-    ms32 = time_ms(torch, lambda: gmm_dw(x, dy, gs), trials=10)
-    plain_ms = time_ms(torch, lambda: ref.grouped_matmul_dw_ref(x, dy, gs), trials=3, per_trial=1,
-                       warmup=1)
-    lib_ms, lib_name = _grouped_mm_lib(torch, lambda: torch._grouped_mm(x.t(), dy, offs=ends))
-    flops = 2 * total * K * N
-    nbytes = total * (K + N) * 2 + E * K * N * 2 + E * 4
-    bound_ms, bound_by = bound(flops, nbytes)
-    bound32, by32 = bound(flops, nbytes + E * K * N * 2)
-    print(f"gmm_dw scout w_in training shape (M={M}, K={K}, N={N}, {live} of {E} groups live, "
-          f"{total} rows) on {card}: bf16 dW {ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms "
-          f"(bound {bound_ms:.4f} ms by {bound_by}, {per_device_ms(flops, dev_ms, 'TFLOP/s', 1e9)}); "
-          f"fp32 dW {ms32:.4f} ms (bound {bound32:.4f} ms by {by32}); plain {plain_ms:.4f} ms; "
-          f"{lib_name}" + (f" {lib_ms:.4f} ms" if lib_ms is not None else ""))
-    dx_ms = time_ms(torch, lambda: gmm(dy, w, gs, transpose_w=True), trials=10)
-    dx_dev = device_ms(torch, lambda: gmm(dy, w, gs, transpose_w=True), "gmm_kernel", n=10)
-    dx_plain = time_ms(torch, lambda: ref.grouped_matmul_ref(dy, w.transpose(1, 2), gs), trials=3,
-                       per_trial=1, warmup=1)
-    wt = w.transpose(1, 2)
-    dx_lib, dx_lib_name = _grouped_mm_lib(torch, lambda: torch._grouped_mm(dy, wt, offs=ends))
-    dx_bytes = live * K * N * 2 + M * N * 2 + M * K * 2 + E * 4
-    dx_bound, dx_by = bound(2 * total * K * N, dx_bytes)
-    print(f"gmm transposed (dx = dy @ w[g]^T) scout w_in training shape (M={M}, depth {N}, out "
-          f"{K}) on {card}: {dx_ms:.4f} ms back to back, device {fmt_ms(dx_dev)} ms (bound "
-          f"{dx_bound:.4f} ms by {dx_by}, {per_device_ms(2 * total * K * N, dx_dev, 'TFLOP/s', 1e9)}), "
-          f"plain {dx_plain:.4f} ms, {dx_lib_name}" + (f" {dx_lib:.4f} ms" if dx_lib is not None else ""))
-    return {"name": "gmm_dw", "route": "cuda", "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
-            "replaces": "src/repro/kernels/grouped_matmul.py:280", "launches": 0,
-            "max_abs_err": dw_err0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    recs = {}
+    for shape, (x, dy, w, gs, sizes) in timing.items():
+        M, K, N, E = x.shape[0], x.shape[1], dy.shape[1], len(sizes)
+        total, live = int(sizes.sum()), int((sizes > 0).sum())
+        ends = torch.cumsum(gs, 0, dtype=torch.int32)
+        flops = 2 * total * K * N
+        # the main path writes dW in the weights' dtype, bf16
+        ms = time_ms(torch, lambda: gmm_dw(x, dy, gs, out_dtype=torch.bfloat16), trials=10)
+        dev_ms = device_ms(torch, lambda: gmm_dw(x, dy, gs, out_dtype=torch.bfloat16),
+                           "gmm_dw_kernel", n=10)
+        ms32 = time_ms(torch, lambda: gmm_dw(x, dy, gs), trials=10)
+        dev32 = device_ms(torch, lambda: gmm_dw(x, dy, gs), "gmm_dw_kernel", n=10)
+        plain_ms = time_ms(torch, lambda: ref.grouped_matmul_dw_ref(x, dy, gs), trials=3,
+                           per_trial=1, warmup=1)
+        lib_ms, lib_name = _grouped_mm_lib(torch, lambda: torch._grouped_mm(x.t(), dy, offs=ends))
+        nbytes = total * (K + N) * 2 + E * K * N * 2 + E * 4
+        bound_ms, bound_by = bound(flops, nbytes)
+        bound32, by32 = bound(flops, nbytes + E * K * N * 2)
+        print(f"gmm_dw scout {shape} training shape (M={M}, K={K}, N={N}, {live} of {E} groups "
+              f"live, {total} rows) on {card}: bf16 dW {ms:.4f} ms back to back, device "
+              f"{fmt_ms(dev_ms)} ms (bound {bound_ms:.4f} ms by {bound_by}, "
+              f"{per_device_ms(flops, dev_ms, 'TFLOP/s', 1e9)}, "
+              f"{per_device_ms(nbytes, dev_ms, 'GB/s', 1e6)}); fp32 dW {ms32:.4f} ms, device "
+              f"{fmt_ms(dev32)} ms (bound {bound32:.4f} ms by {by32}, "
+              f"{per_device_ms(nbytes + E * K * N * 2, dev32, 'GB/s', 1e6)}); plain "
+              f"{plain_ms:.4f} ms; {lib_name}" + (f" {lib_ms:.4f} ms" if lib_ms is not None else ""))
+        recs[("gmm_dw", shape)] = {
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms, "fp32_ms": ms32, "fp32_device_ms": dev32,
+            "fp32_bound_ms": bound32}
+        dx_ms = time_ms(torch, lambda: gmm(dy, w, gs, transpose_w=True), trials=10)
+        dx_dev = device_ms(torch, lambda: gmm(dy, w, gs, transpose_w=True), "gmm_dx_kernel", n=10)
+        dx_plain = time_ms(torch, lambda: ref.grouped_matmul_ref(dy, w.transpose(1, 2), gs),
+                           trials=3, per_trial=1, warmup=1)
+        wt = w.transpose(1, 2)
+        dx_lib, dx_lib_name = _grouped_mm_lib(torch, lambda: torch._grouped_mm(dy, wt, offs=ends))
+        dx_bytes = live * K * N * 2 + M * N * 2 + M * K * 2 + E * 4
+        dx_bound, dx_by = bound(flops, dx_bytes)
+        print(f"gmm transposed (dx = dy @ w[g]^T) scout {shape} training shape (M={M}, depth {N}, "
+              f"out {K}) on {card}: {dx_ms:.4f} ms back to back, device {fmt_ms(dx_dev)} ms "
+              f"(bound {dx_bound:.4f} ms by {dx_by}, {per_device_ms(flops, dx_dev, 'TFLOP/s', 1e9)}, "
+              f"{per_device_ms(dx_bytes, dx_dev, 'GB/s', 1e6)}), plain {dx_plain:.4f} ms, "
+              f"{dx_lib_name}" + (f" {dx_lib:.4f} ms" if dx_lib is not None else ""))
+        recs[("dx", shape)] = {"ms": dx_ms, "device_ms": dx_dev, "plain_ms": dx_plain,
+                               "bound_ms": dx_bound, "bound_by": dx_by, "library_ms": dx_lib}
+        del x, dy, w, wt
+    timing.clear()
+    src = "src/repro_torch/kernels/csrc/grouped_matmul.cu"
+    dw_rec = {"name": "gmm_dw", "route": "cuda", "source": src,
+              "replaces": "src/repro/kernels/grouped_matmul.py:280", "launches": 0,
+              "max_abs_err": dw_err0, **recs[("gmm_dw", "w_in")],
+              "w_out": recs[("gmm_dw", "w_out")]}
+    dx_rec = {"name": "gmm (transposed, dx)", "route": "cuda", "source": src,
+              "replaces": "src/repro/kernels/grouped_matmul.py:198", "launches": 0,
+              "max_abs_err": dx_err0, **recs[("dx", "w_in")], "w_out": recs[("dx", "w_out")]}
+    return dw_rec, dx_rec
 
 
 def _ssd_case(torch, g, B, S, H, P, G, N, dt_shift):
@@ -2618,18 +2671,21 @@ def moe_train_phase(torch, counters, card):
     pipe = CLMBatches(ds, B, seq, seed=0, eos_id=tok.eos_id)
     for fn in counters.values():
         fn.launches = 0
+    counters["gmm"].dx_launches = 0
     torch.cuda.synchronize()
     trainer = Trainer(model, tc, pc=ParallelConfig(optimizer_state_dtype="bfloat16"),
                       peak_flops=PEAK_BF16_FLOPS)
     state, hist = trainer.run(pipe)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
+    launches["gmm dx"] = counters["gmm"].dx_launches      # gmm's transposed mode, of its count
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_moe = T.num_moe_layers(cfg)
     want = dict.fromkeys(counters, 0)
     want.update(flash_attention_fwd=steps, flash_attention_bwd=steps,
                 rmsnorm=(2 * cfg.num_layers + 1) * steps, cross_entropy_fwd=steps,
                 cross_entropy_bwd=steps, gmm=6 * n_moe * steps, gmm_dw=3 * n_moe * steps)
+    want["gmm dx"] = 3 * n_moe * steps
     print(f"main path: Trainer.run of {steps} steps: launches {launches} (want {want})")
     losses = [h["loss"] for h in hist]
     print(f"losses: step 0 {losses[0]:.4f} (ce {hist[0]['ce_loss']:.4f}), step {steps - 1} "
@@ -2666,6 +2722,10 @@ def moe_train_phase(torch, counters, card):
               f"profiler), device busy {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
         print("profile by group (other = glue with clip and AdamW): " + ", ".join(
             f"{k} {v:.1f} ms ({v / busy_ms:.1%})" for k, v in groups.items() if v))
+        print("the grouped matmul's kernels in the step: " + ", ".join(
+            f"{name[name.lower().index('gmm'):].split('(')[0]} {t:.3f} ms in {cnt}"
+            for name, t, cnt in kern
+            if "gmm" in name.lower()))
         for name, t, cnt in sorted(kern, key=lambda r: -r[1])[:14]:
             print(f"  {t:9.2f} ms {cnt:6d}x  {name[:110]}")
     del trainer, state, model, step_fn, prof, batch
@@ -2788,7 +2848,7 @@ def main() -> int:
                   check_paged_prefill(torch, F, ref, paged_prefill, randn, card),
                   check_paged_kv_write(torch, ref, paged_kv_write, randn, card)]
     gmm_rec = check_gmm(torch, ref, gmm, card)
-    gmm_dw_rec = check_gmm_dw(torch, ref, gmm, gmm_dw, card)
+    gmm_dw_rec, gmm_dx_rec = check_gmm_dw(torch, ref, gmm, gmm_dw, card)
     ssd_rec = check_ssd_scan(torch, ref, ssd_scan, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2942,6 +3002,8 @@ def main() -> int:
         rec["launches"] = paged_launches[rec["name"]]
     gmm_rec["launches"] = moe_launches["gmm"]
     gmm_dw_rec["launches"] = moe_train_launches["gmm_dw"]
+    gmm_dx_rec["launches"] = moe_train_launches["gmm dx"]
+    gmm_rec["dx"] = gmm_dx_rec          # row 12's transposed mode, from the training run
     for rec in ce_recs:       # Scout's numbers with the Scout training run's count
         rec["scout"]["launches"] = moe_train_launches[rec["name"]]
     ssd_rec["launches"] = ssm_launches["ssd_scan"]

@@ -1,11 +1,15 @@
 // Hopper (sm_90a) primitives shared by the port's wgmma + TMA kernels: the
-// cross-entropy GEMM mainloop (ce_gemm.cuh) and the flash-attention forward
-// and backward (flash_attention_fwd.cu, flash_attention_bwd.cu).
+// cross-entropy GEMM mainloop (ce_gemm.cuh), the flash-attention forward
+// and backward (flash_attention_fwd.cu, flash_attention_bwd.cu) and the
+// grouped matmul's backward (grouped_matmul.cu).
 //
 // - mbarriers (init, arrive, arrive with an expected transaction count, and
 //   a parity wait that traps after ~2^33 cycles instead of hanging the card);
-// - Tensor Memory Accelerator loads of a 2-D or 4-D box into shared memory,
-//   completing on an mbarrier;
+// - Tensor Memory Accelerator loads of a 2-D, 3-D or 4-D box into shared
+//   memory, completing on an mbarrier, and stores of a 3-D box from shared
+//   memory with an L2 cache policy, completing in bulk groups;
+// - the proxy fence and named barriers around shared memory that threads
+//   write and the async proxy (wgmma, TMA) then reads;
 // - wgmma shared-memory descriptors of 128-byte-swizzled tiles, K-major and
 //   MN-major;
 // - wgmma.mma_async m64n64k16 and m64n128k16 with fp32 accumulators, bf16
@@ -88,6 +92,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
 }
 
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
                                          int c2, int c3, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
@@ -95,6 +108,56 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// ---- TMA stores: the box at src in shared memory to the tensor map's box
+// at the given coordinates (innermost first), with an L2 cache policy;
+// elements outside the tensor's extents are not written. A thread's stores
+// complete in the bulk groups it commits: bulk_wait_read<N> returns when
+// all but its N newest groups have read their shared memory (which may then
+// be written again), bulk_wait<N> when they have also written device
+// memory.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint "
+      "[%0, {%2, %3, %4}], [%1], %5;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
+      : "memory");
+}
+
+// an L2 policy for data written once and not read back soon: its lines go
+// first, so a stream of them does not evict what the kernel reads again
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// this thread's writes to shared memory, before the async proxy (wgmma, a
+// TMA store) reads them; a barrier among the writers then follows
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier of `count` threads (whole warps) on named barrier `id` (1-15;
+// 0 is __syncthreads)
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- wgmma descriptors of 128-byte-swizzled tiles (rows of 128 bytes,
@@ -265,10 +328,11 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the rank-N tensor map of a 16-bit tensor at p with extents dims
-// (innermost first), byte strides of dims 1 .. N-1 and the box, with the
-// 128-byte swizzle (the box's inner extent is 64 elements); reads outside
-// the extents land as zeros. false if the driver refuses it.
+// the rank-N tensor map of a tensor at p with extents dims (innermost
+// first), byte strides of dims 1 .. N-1 and the box, with the 128-byte
+// swizzle (the box's inner extent is 128 bytes: 64 16-bit elements, 32
+// fp32); reads outside the extents land as zeros. false if the driver
+// refuses it.
 inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* p,
                      const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled fn = encode_tiled();

@@ -1,5 +1,6 @@
 """Ragged grouped matmul and its backward: the CUDA kernels' wrappers, their
-plain versions, and the differentiable op that pairs them.
+plain versions, the host side of the backward kernels' schedules, and the
+differentiable op that pairs them.
 
 ``gmm`` replaces the TPU kernel ``gmm`` (``_gmm_kernel``) of the reference
 package: ``y[i] = x[i] @ w[g(i)]`` for rows sorted by group, with the
@@ -10,11 +11,21 @@ expert GEMMs of the MoE layer after sort-by-expert dispatch.  With
 weights, the backward's dx, with no transposed copy.  ``gmm_dw`` replaces
 ``gmm_dw`` (``_tgmm_kernel``): ``dw[g] = x_gᵀ · dy_g`` -> (E, K, N), fp32
 sums, an empty group's slice exactly 0.  The kernels are in
-``csrc/grouped_matmul.cu`` (CUDA C++ for sm_90a: every block derives its
-group's rows from the sizes on the device, the grids are fixed by static
-bounds, and no two blocks write one element; its source note gives the
-designs and the bounds).  The plain versions are ``ref.grouped_matmul_ref``
+``csrc/grouped_matmul.cu``, CUDA C++ for sm_90a: the forward an mma.sync
+kernel; the transposed mode and ``gmm_dw`` persistent wgmma + TMA kernels on
+``csrc/hopper.cuh`` (a producer warpgroup, two consumer warpgroups), dW
+written through TMA stores.  Every block derives its work from the sizes on
+the device, the grids are fixed by static bounds, and no two blocks write
+one element, so a call repeats bit for bit; the source note gives the
+designs and the bounds.  The plain versions are ``ref.grouped_matmul_ref``
 and ``ref.grouped_matmul_dw_ref``.
+
+The backward kernels' schedules are mirrored here so that the CPU tests
+reach them: ``group_starts`` (each group's first row), ``dw_tiles`` (the
+gmm_dw tiles: group, 128 rows of K, 256 columns of N), ``dw_slices`` (a
+group's 64-row slices) and ``dx_items`` (the transposed mode's row tiles of
+256 from each group's start, then the zero tail); the kernels compute the
+same on the device.
 
 ``grouped_matmul`` is the ``torch.autograd.Function`` that pairs them as
 the reference's ``_gmm_pallas_fwd/_bwd`` do: dx by ``gmm`` on the
@@ -24,19 +35,85 @@ the sizes get no cotangent.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises.  Nothing reads ``group_sizes`` on the host, so a call makes no
-host sync.  ``gmm.launches`` (the forward and the transposed mode) and
-``gmm_dw.launches`` count kernel launches.
+host sync.  ``gmm.launches`` (the forward and the transposed mode),
+``gmm.dx_launches`` (the transposed mode alone) and ``gmm_dw.launches``
+count kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import List, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import grouped_matmul_dw_ref, grouped_matmul_ref
 
-_MAX_GROUPS = 128   # the kernels' schedule scans one group per thread of a block
+_MAX_GROUPS = 128   # the forward's schedule scans one group per thread of a block
+
+# the backward kernels' tiles (csrc/grouped_matmul.cu, namespaces bwd::dw and bwd::dx)
+SLICE = 64             # rows of x and dy a gmm_dw slice; depth of a dx slice
+DW_TILE_K = 128        # rows of dW (K) a tile
+DW_TILE_N = 256        # columns of dW (N) a tile
+DX_TILE_M = 256        # rows a transposed-mode tile: four m64 blocks from the group's start
+DX_TILE_N = 128        # output columns a transposed-mode tile
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def group_starts(sizes: Sequence[int], M: int) -> List[int]:
+    """The first row of each group and, last, ``min(sum(sizes), M)``: the
+    exclusive prefix sums of the sizes (negative ones as 0), each capped at
+    M, as the kernels' schedules compute them."""
+    out, run = [], 0
+    for s in sizes:
+        out.append(min(run, M))
+        run += max(int(s), 0)
+    return out + [min(run, M)]
+
+
+def dw_tiles(E: int, K: int, N: int) -> List[Tuple[int, int, int]]:
+    """The gmm_dw kernel's tiles in order (block b takes tiles b, b + grid,
+    ...): (group, first row of K, first column of N); group-major, then N
+    tile, then K tile.  Every group's tiles are there, an empty group's
+    too: the kernel stores its zeros."""
+    return [(g, tk * DW_TILE_K, tn * DW_TILE_N) for g in range(E)
+            for tn in range(_cdiv(N, DW_TILE_N)) for tk in range(_cdiv(K, DW_TILE_K))]
+
+
+def dw_slices(starts: Sequence[int], g: int) -> List[Tuple[int, int]]:
+    """Group g's 64-row slices, each tile of the group sums over, as (first
+    row, rows of the group in it), from the group's first row; the kernel
+    zeroes a slice's rows past the group."""
+    start, end = starts[g], starts[g + 1]
+    return [(m0, min(SLICE, end - m0)) for m0 in range(start, end, SLICE)]
+
+
+def dx_items(sizes: Sequence[int], M: int, N: int) -> List[Tuple[int, int, int, int]]:
+    """The transposed mode's work items in order: (group, first row, end
+    row, first output column).  Each group's rows split into tiles of
+    ``DX_TILE_M`` from the group's start, so no tile spans two groups, and
+    a group's row tiles of one column tile run side by side (column tile
+    major); then rows ``[sum(sizes), M)`` as a last pseudo-group E,
+    written as zeros."""
+    starts = group_starts(sizes, M)
+    E = len(sizes)
+    items = []
+    for q in range(E + 1):
+        lo, end = starts[q], starts[q + 1] if q < E else M
+        rows = list(range(lo, end, DX_TILE_M))
+        items += [(q, m0, min(end, m0 + DX_TILE_M), tn * DX_TILE_N)
+                  for tn in range(_cdiv(N, DX_TILE_N)) for m0 in rows]
+    return items
+
+
+def dx_grid_bound(M: int, E: int, N: int) -> int:
+    """The transposed mode's static bound on its items (its grid is the
+    smaller of this and the SM count): every group adds at most one partial
+    row tile, the tail one more."""
+    return (_cdiv(M, DX_TILE_M) + E + 1) * _cdiv(N, DX_TILE_N)
 
 
 def block_m(M: int) -> int:
@@ -119,10 +196,12 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
     if err:
         raise RuntimeError(f"gmm kernel launch failed: cudaError {err}")
     gmm.launches += 1
+    gmm.dx_launches += int(transpose_w)
     return y
 
 
 gmm.launches = 0
+gmm.dx_launches = 0   # of gmm.launches, those of the transposed mode (gmm_dx_kernel)
 
 
 def gmm_dw(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor, *,

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of ``repro_torch``, ``chip_smoke.py`` nor
-``ssd_route_faults.py`` imports JAX or the reference package, the port
+"""The port stands alone: no file of ``repro_torch``, nor ``chip_smoke.py``
+and the chip scripts beside it, imports JAX or the reference package, the port
 calls no library attention, norm, cross-entropy, optimizer or grouped GEMM,
 the kernel wrappers have no fallback, entry points refuse to run on the CPU
 unless asked, and CPU runs launch no kernel."""
@@ -52,7 +52,9 @@ def _imported_modules(path):
 
 
 @pytest.mark.parametrize("path",
-                         PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "ssd_route_faults.py"],
+                         PORT_FILES + [ROOT / name for name in (
+                             "chip_smoke.py", "ssd_route_faults.py", "attention_variants.py",
+                             "gmm_variants.py")],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):

@@ -2,7 +2,8 @@
 against the reference's TPU kernel run in Pallas interpret mode and against
 its gather oracle, on the same seeded numpy inputs, across group counts and
 ragged edge cases; its gradients against ``jax.vjp`` of the reference's
-custom VJP; the op's dispatch; and the kernel wrappers' refusals."""
+custom VJP; the op's dispatch; the kernel wrappers' refusals; and the host
+mirror of the backward kernels' schedules against the reference's."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -14,6 +15,7 @@ import numpy as np  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.grouped_matmul import gmm as jax_gmm  # noqa: E402
+from repro.kernels.grouped_matmul import tgmm_metadata as jax_tgmm_metadata  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -209,3 +211,150 @@ def test_dw_kernel_argument_checks(bad, match):
 
 def test_block_m_follows_the_row_count():
     assert [gm.block_m(m) for m in (1, 32, 128, 129, 1024)] == [16, 16, 16, 64, 64]
+
+
+# ---- the backward kernels' schedules (their host mirror in grouped_matmul.py)
+
+def _router_draw(tokens, E, cap, seed):
+    """Group sizes of a seeded skewed top-1 router draw, each cut to the
+    capacity (as chip_smoke.py draws Scout's and Maverick's)."""
+    rng = np.random.default_rng(seed)
+    p = np.exp(1.5 * rng.standard_normal(E))
+    return np.minimum(np.bincount(rng.choice(E, size=tokens, p=p / p.sum()), minlength=E),
+                      cap).tolist()
+
+
+# CASES, a Scout capacity-160 draw of a 2 x 1024 micro-batch over 16 experts
+# (M 2048), and Maverick's 128 experts at capacity 16
+SCHEDULE_CASES = CASES + [(16, 2048, _router_draw(2048, 16, 160, 3)),
+                          (128, 1024, _router_draw(1024, 128, 16, 4))]
+
+
+def _reference_rows(sizes, M):
+    """Each group's rows as the reference's dW schedule masks them
+    (``tgmm_metadata``: an entry's m-tile rows within [lo, hi))."""
+    bm = 16
+    gid, mid, lo, hi, _ = (np.asarray(a) for a in jax_tgmm_metadata(
+        jnp.asarray(sizes, jnp.int32), -(-M // bm), bm))
+    rows = {g: set() for g in range(len(sizes))}
+    for g, m, a, b in zip(gid, mid, lo, hi):
+        rows[int(g)].update(range(max(int(a), int(m) * bm), min(int(b), int(m) * bm + bm, M)))
+    return rows
+
+
+@pytest.mark.parametrize("K,N", [(96, 80), (200, 136), (5120, 8192)])
+@pytest.mark.parametrize("E,M,sizes", SCHEDULE_CASES, ids=lambda c: str(c)[:40])
+def test_dw_schedule_owns_every_tile_once_and_sums_each_groups_rows(E, M, sizes, K, N):
+    """Every (group, K tile, N tile) of dW is one of the kernel's tiles,
+    once, an empty group's too (the kernel stores its zeros), group by
+    group; a group's slices start at its first row and cover its rows
+    exactly once, the rows the reference's dW schedule sums."""
+    tiles = gm.dw_tiles(E, K, N)
+    assert [g for g, *_ in tiles] == sorted(g for g, *_ in tiles)      # group-major
+    tiles_k, tiles_n = -(-K // gm.DW_TILE_K), -(-N // gm.DW_TILE_N)
+    assert len(tiles) == len(set(tiles)) == E * tiles_k * tiles_n
+    assert set(tiles) == {(g, tk * gm.DW_TILE_K, tn * gm.DW_TILE_N) for g in range(E)
+                          for tk in range(tiles_k) for tn in range(tiles_n)}
+    starts = gm.group_starts(sizes, M)
+    want = _reference_rows(sizes, M)
+    for g in range(E):
+        slices = gm.dw_slices(starts, g)
+        rows = [m0 + r for m0, n in slices for r in range(n)]
+        assert len(rows) == len(set(rows)) and set(rows) == want[g], g
+        assert all(0 < n <= gm.SLICE for _, n in slices)
+        assert all(n == gm.SLICE for _, n in slices[:-1])            # only the last is cut
+
+
+@pytest.mark.parametrize("N", [136, 5120])
+@pytest.mark.parametrize("E,M,sizes", SCHEDULE_CASES, ids=lambda c: str(c)[:40])
+def test_dx_row_tiles_start_at_group_starts_and_partition_the_rows(E, M, sizes, N):
+    """The transposed mode's tiles partition each group's rows (the
+    reference's) from its start, none spanning two groups, for every column
+    tile; rows [sum(sizes), M) are covered exactly once as the zero tail;
+    the items fit the grid's static bound."""
+    items = gm.dx_items(sizes, M, N)
+    assert len(items) <= gm.dx_grid_bound(M, E, N)
+    starts = gm.group_starts(sizes, M)
+    want = _reference_rows(sizes, M)
+    total = starts[E]
+    for n0 in range(0, N, gm.DX_TILE_N):
+        tiles = [(q, m0, hi) for q, m0, hi, c in items if c == n0]
+        covered = [r for _, m0, hi in tiles for r in range(m0, hi)]
+        assert sorted(covered) == list(range(M))                         # each row once
+        for q, m0, hi in tiles:
+            assert 0 < hi - m0 <= gm.DX_TILE_M
+            if q < E:
+                assert starts[q] <= m0 and hi <= starts[q + 1]           # within one group
+                assert (m0 - starts[q]) % gm.DX_TILE_M == 0              # aligned to its start
+            else:
+                assert total <= m0 and hi <= M                           # the zero tail
+        for g in range(E):
+            assert {r for q, m0, hi in tiles if q == g for r in range(m0, hi)} == want[g]
+    # a group's row tiles of one column tile run side by side
+    for q in range(E):
+        cols = [c for g, _, _, c in items if g == q]
+        assert cols == sorted(cols)
+
+
+def _misaligned(*shape):
+    """A contiguous bf16 tensor whose base lies 2 bytes past a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    t = torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(*shape)
+    assert t.data_ptr() % 16 == 2
+    return t
+
+
+@pytest.mark.parametrize("entry", ["gmm", "gmm transposed", "gmm_dw"])
+@pytest.mark.parametrize("what", ["base", "row stride"])
+def test_kernel_argument_checks_for_tma(entry, what):
+    """What the tensor maps demand of every operand: a 16-byte aligned base
+    and rows whose byte stride is a multiple of 16 (K and N multiples of 8
+    in bf16)."""
+    z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)  # noqa: E731
+    gs = torch.zeros(2, dtype=torch.int32)
+    if what == "base":
+        match = "16-byte aligned"
+        args = {"gmm": (_misaligned(4, 16), z(2, 16, 8)),
+                "gmm transposed": (z(4, 16), _misaligned(2, 8, 16)),
+                "gmm_dw": (z(4, 16), _misaligned(4, 8))}[entry]
+    else:
+        match = "multiples of 8"
+        args = {"gmm": (z(4, 12), z(2, 12, 8)),
+                "gmm transposed": (z(4, 20), z(2, 8, 20)),
+                "gmm_dw": (z(4, 16), z(4, 12))}[entry]
+    with pytest.raises(ValueError, match=match):
+        if entry == "gmm_dw":
+            gm.check_dw_args(*args, gs)
+        else:
+            gm.check_args(*args, gs, transpose_w=entry == "gmm transposed")
+
+
+def test_backward_kernel_route_calls_no_library_product():
+    """The wrappers and the backward hand every product to the kernels: no
+    matmul (``@``, ``matmul``, ``mm``, ``bmm``, ``einsum``, ``_grouped_mm``)
+    in the module, each wrapper calls its plain version once, behind the CPU
+    test, then the kernel or a raise; the autograd backward calls only the
+    two wrappers; and the CUDA source includes no library header."""
+    import ast
+    import inspect
+
+    banned = {"_grouped_mm", "matmul", "mm", "bmm", "baddbmm", "einsum"}
+    tree = ast.parse(inspect.getsource(gm))
+    for node in ast.walk(tree):
+        assert not (isinstance(node, ast.BinOp) and isinstance(node.op, ast.MatMult))
+        assert not (isinstance(node, ast.Attribute) and node.attr in banned), node.attr
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    for name, plain, lib in (("gmm", "grouped_matmul_ref(", "_lib().grouped_matmul("),
+                             ("gmm_dw", "grouped_matmul_dw_ref(", "_lib().grouped_matmul_dw(")):
+        src = ast.unparse(fns[name])
+        assert src.count(plain) == 1 and "if x.device.type == 'cpu':" in src, name
+        assert src.index(plain) < src.index(lib) and "try:" not in src, name
+    cls = next(n for n in tree.body if isinstance(n, ast.ClassDef) and n.name == "_GroupedMatmul")
+    bwd = next(n for n in cls.body if isinstance(n, ast.FunctionDef) and n.name == "backward")
+    called = {n.func.id for n in ast.walk(bwd) if isinstance(n, ast.Call)
+              and isinstance(n.func, ast.Name)}
+    assert called == {"gmm", "gmm_dw"}
+    cu = (gm._build.CSRC / "grouped_matmul.cu").read_text()
+    includes = {ln.split()[1] for ln in cu.splitlines() if ln.startswith("#include")}
+    assert includes == {"<cuda.h>", "<cuda_runtime.h>", "<stdint.h>", '"hopper.cuh"', '"mma.cuh"'}
