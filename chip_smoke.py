@@ -69,14 +69,19 @@ def time_ms(torch, fn, trials: int = 20, per_trial: int = 10, warmup: int = 3) -
     return statistics.median(times)
 
 
-def device_ms_by_kernel(torch, fn, names, n: int = 20):
-    """Device time of one call of ``fn`` for each of ``names``: the summed
-    time of the kernels whose name holds it in a torch.profiler window of
-    ``n`` back-to-back calls, over ``n``.  Unlike ``time_ms`` it leaves out
-    the host's launch path, which a small kernel can take longer than to
-    run.  A window that records none of the kernels (the profiler has
-    dropped a window's device records) is taken again, up to three times;
-    then the dict is empty: not measured."""
+def device_ms_by_kernel(torch, fn, names, n: int = 20, floor: float = 0.0):
+    """Device time of one call of ``fn`` for each of ``names``, from a
+    torch.profiler window of ``n`` back-to-back calls.  Each kernel whose
+    name holds one of ``names`` counts by its recorded instances: its
+    summed time over its instance count (``e.count``), times the instances
+    a call launches.  Every call launches each kernel the same number of
+    times, so an instance count that is not a positive multiple of ``n``
+    means the profiler dropped records in that window: it is taken again,
+    up to three times.  Unlike ``time_ms`` it leaves out the host's launch
+    path, which a small kernel can take longer than to run.  The dict is
+    empty (not measured) when no window recorded every launch, or when the
+    sum falls below ``floor`` (the work's bound: a reading the card cannot
+    reach)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -87,20 +92,23 @@ def device_ms_by_kernel(torch, fn, names, n: int = 20):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        out = {}
+        out, whole = {}, True
         for e in prof.key_averages():
             hit = [m for m in names if m in e.key.lower()]
-            if e.device_type == DeviceType.CUDA and hit and e.self_device_time_total > 0:
-                out[hit[0]] = out.get(hit[0], 0.0) + e.self_device_time_total / 1e3 / n
-        if out:
-            return out
+            if e.device_type != DeviceType.CUDA or not hit or e.self_device_time_total <= 0:
+                continue
+            per_call = e.count // n
+            whole &= per_call > 0 and e.count == per_call * n
+            out[hit[0]] = out.get(hit[0], 0.0) + e.self_device_time_total / 1e3 / e.count * per_call
+        if out and whole:
+            return out if sum(out.values()) >= floor else {}
     return {}
 
 
-def device_ms(torch, fn, *names: str, n: int = 20):
+def device_ms(torch, fn, *names: str, n: int = 20, floor: float = 0.0):
     """The summed device time of one call of ``fn`` over the kernels named
     (``device_ms_by_kernel``), or None: not measured."""
-    return sum(device_ms_by_kernel(torch, fn, names, n).values()) or None
+    return sum(device_ms_by_kernel(torch, fn, names, n, floor).values()) or None
 
 
 def fmt_ms(ms) -> str:
@@ -174,7 +182,7 @@ def kernel_groups(prof, DeviceType):
             groups["flash_decode"] += t
         elif "gmm_dw_kernel" in low:
             groups["gmm_dw"] += t
-        elif "gmm_kernel" in low or "gmm_dx_kernel" in low:   # the forward and its dx
+        elif "gmm_fwd" in low or "gmm_dx_kernel" in low:   # the forward and its dx
             groups["gmm"] += t
         elif "ssd_scan_kernel" in low:
             groups["ssd_scan"] += t
@@ -257,14 +265,14 @@ ATTN_KERNELS = {"flash_attention_fwd": ("flash_attention_fwd_kernel",),
 def time_attention(torch, name, fn, plain, lib, flops, nbytes, card, label):
     """One timed shape of an attention kernel: its record's numbers."""
     ms = time_ms(torch, fn)
-    parts = device_ms_by_kernel(torch, fn, ATTN_KERNELS[name])
+    bound_ms, bound_by = bound(flops, nbytes)
+    parts = device_ms_by_kernel(torch, fn, ATTN_KERNELS[name], floor=bound_ms)
     dev_ms = sum(parts.values()) or None
     if len(ATTN_KERNELS[name]) > 1:
         print(f"{name} {label}: device ms by kernel " + ", ".join(
             f"{k} {fmt_ms(parts.get(k))}" for k in ATTN_KERNELS[name]))
     plain_ms = time_ms(torch, plain, trials=5, per_trial=2)
     lib_ms = time_ms(torch, lib)
-    bound_ms, bound_by = bound(flops, nbytes)
     vs_lib = f"{dev_ms / lib_ms:.2f}" if dev_ms else "not measured"
     print(f"{name} {label} bf16 on {card}: {ms:.4f} ms (device {fmt_ms(dev_ms)} ms, "
           f"{per_device_ms(flops, dev_ms, 'TFLOP/s', 1e9)}; bound {bound_ms:.4f} ms by {bound_by}), "
@@ -510,11 +518,6 @@ def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, ran
         trials, per, warm = reps
         out = {"fwd_ms": time_ms(torch, fwd, trials, per, warm),
                "bwd_ms": time_ms(torch, bwd, trials, per, warm)}
-        n = max(3, per)
-        out["fwd_by"] = device_ms_by_kernel(torch, fwd, CE_FWD_KERNELS, n)
-        out["bwd_by"] = device_ms_by_kernel(torch, bwd, CE_BWD_KERNELS, n)
-        out["fwd_dev"] = sum(out["fwd_by"].values()) or None
-        out["bwd_dev"] = sum(out["bwd_by"].values()) or None
         out["fwd_plain"] = time_ms(torch, lambda: ref.cross_entropy_ref(h, w, tgt, vocab),
                                    trials=min(trials, 5), per_trial=min(per, 5), warmup=1)
         out["bwd_plain"] = time_ms(torch, lambda: ref.cross_entropy_bwd_ref(h, w, tgt, lse, gl, gs, vocab),
@@ -536,6 +539,11 @@ def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, ran
         out["fwd_bound"], out["fwd_bound_by"] = bound(2 * T * D * vocab, reads + 2 * T * 4)
         out["bwd_bound"], out["bwd_bound_by"] = bound(6 * T * D * vocab,
                                                       reads + 3 * T * 4 + T * D * 2 + D * Vp * 2)
+        n = max(3, per)
+        out["fwd_by"] = device_ms_by_kernel(torch, fwd, CE_FWD_KERNELS, n, out["fwd_bound"])
+        out["bwd_by"] = device_ms_by_kernel(torch, bwd, CE_BWD_KERNELS, n, out["bwd_bound"])
+        out["fwd_dev"] = sum(out["fwd_by"].values()) or None
+        out["bwd_dev"] = sum(out["bwd_by"].values()) or None
         for d in ("fwd", "bwd"):
             flops = (2 if d == "fwd" else 6) * T * D * vocab
             by = ", ".join(f"{k} {v:.4f}" for k, v in out[f"{d}_by"].items())
@@ -749,11 +757,11 @@ def check_rmsnorm(torch, F, ref, rmsnorm, randn, card):
         x = randn(rows, d, scale=3.0, shift=0.5)
         w = randn(d)
         ms = time_ms(torch, lambda: rmsnorm(x, w))
-        dev_ms = device_ms(torch, lambda: rmsnorm(x, w), "rmsnorm")
         plain_ms = time_ms(torch, lambda: ref.rmsnorm_ref(x, w))
         lib_ms = time_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-5))
         nbytes = 2 * rows * d * 2 + d * 2
         bound_ms, bound_by = bound(4 * rows * d, nbytes, PEAK_FP32_FLOPS)
+        dev_ms = device_ms(torch, lambda: rmsnorm(x, w), "rmsnorm", floor=bound_ms)
         print(f"rmsnorm ({rows}, {d}) bf16 on {card}: {ms:.4f} ms back to back, device {fmt_ms(dev_ms)} "
               f"ms (bound {bound_ms:.5f} ms by {bound_by}, "
               f"{per_device_ms(nbytes, dev_ms, 'GB/s', 1e6)}), plain {plain_ms:.4f} ms, "
@@ -808,7 +816,6 @@ def check_flash_decode(torch, F, ref, flash_decode, randn, card):
     B, T, Hkv, D = k.shape
     H = q.shape[2]
     ms = time_ms(torch, lambda: flash_decode(q, k, v, lengths))
-    dev_ms = device_ms(torch, lambda: flash_decode(q, k, v, lengths), "flash_decode")
     plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, lengths), trials=5, per_trial=5)
     qt = q.transpose(1, 2)                                   # (B, H, 1, D)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)            # (B, Hkv, T, D)
@@ -820,6 +827,7 @@ def check_flash_decode(torch, F, ref, flash_decode, randn, card):
     # the lengths; QK and PV of every query head over its live rows
     nbytes = 2 * B * H * D * 2 + 2 * live * Hkv * D * 2 + B * 4
     bound_ms, bound_by = bound(4 * H * D * live, nbytes)
+    dev_ms = device_ms(torch, lambda: flash_decode(q, k, v, lengths), "flash_decode", floor=bound_ms)
     print(f"flash_decode B={B} T={T} H={H} Hkv={Hkv} D={D} bf16, {live} live rows of {B * T}, on "
           f"{card}: {ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (bound {bound_ms:.4f} ms by "
           f"{bound_by}, {per_device_ms(nbytes, dev_ms, 'GB/s', 1e6)}), "
@@ -862,7 +870,6 @@ def check_sampling(torch, ref, fused_sample, randn, card):
           f"first-index argmax: {argmax_ok}")
     check(same == B and err <= 1e-4 and masked and argmax_ok, "fused_sample")
     ms = time_ms(torch, lambda: fused_sample(x, temp, top_k, top_p, seed, step))
-    dev_ms = device_ms(torch, lambda: fused_sample(x, temp, top_k, top_p, seed, step), "fused_sample")
     plain_ms = time_ms(torch, lambda: ref.sample_ref(x, temp, top_k, top_p, seed, step),
                        trials=5, per_trial=2)
     zeros = torch.zeros_like(temp)
@@ -871,6 +878,8 @@ def check_sampling(torch, ref, fused_sample, randn, card):
     sampled_ms = time_ms(torch, lambda: fused_sample(x, hot, top_k, top_p, seed, step), trials=5)
     # the function reads the logits once and writes two scalars a row
     bound_ms, bound_by = bound(0, B * V * 2 + B * 20 + B * 8)
+    dev_ms = device_ms(torch, lambda: fused_sample(x, temp, top_k, top_p, seed, step), "fused_sample",
+                       floor=bound_ms)
     print(f"fused_sample ({B}, {V}) bf16 on {card}: mix {ms:.4f} ms (device {fmt_ms(dev_ms)} ms; bound "
           f"{bound_ms:.5f} ms by "
           f"{bound_by}), all greedy {greedy_ms:.4f} ms, all sampled {sampled_ms:.4f} ms; plain "
@@ -940,7 +949,6 @@ def check_paged_decode(torch, F, ref, paged_decode, randn, card):
     page, Hkv = k_pool.shape[1], k_pool.shape[2]
     T = bt.shape[1] * page
     ms = time_ms(torch, lambda: paged_decode(q, k_pool, v_pool, bt, lengths))
-    dev_ms = device_ms(torch, lambda: paged_decode(q, k_pool, v_pool, bt, lengths), "paged_decode")
     plain_ms = time_ms(torch, lambda: ref.paged_decode_attention_ref(q, k_pool, v_pool, bt, lengths),
                        trials=5, per_trial=5)
     # the yardstick: no single PyTorch call reads through a block table, so
@@ -957,6 +965,8 @@ def check_paged_decode(torch, F, ref, paged_decode, randn, card):
     # live rows
     nbytes = 2 * B * H * D * 2 + 2 * live * Hkv * D * 2 + B * 4 + bt.numel() * 4
     bound_ms, bound_by = bound(4 * H * D * live, nbytes)
+    dev_ms = device_ms(torch, lambda: paged_decode(q, k_pool, v_pool, bt, lengths), "paged_decode",
+                       floor=bound_ms)
     print(f"paged_decode B={B} capacity {T} H={H} Hkv={Hkv} D={D} page {page} bf16, {live} live rows "
           f"of {B * T}, on {card}: {ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (bound "
           f"{bound_ms:.4f} ms by {bound_by}, {per_device_ms(nbytes, dev_ms, 'GB/s', 1e6)}), "
@@ -1025,7 +1035,6 @@ def check_paged_prefill(torch, F, ref, paged_prefill, randn, card):
     start, L = int(st[0]), int(ln[0])
     fn = lambda: paged_prefill(q, *pools, bt, st, ln)     # noqa: E731
     ms = time_ms(torch, fn)
-    dev_ms = device_ms(torch, fn, "paged_prefill")
     plain_ms = time_ms(torch, lambda: ref.paged_prefill_attention_ref(q, *pools, bt, st, ln),
                        trials=5, per_trial=2)
     T = bt.shape[1] * page
@@ -1042,6 +1051,7 @@ def check_paged_prefill(torch, F, ref, paged_prefill, randn, card):
     visible = sum(min(start + i + 1, L) for i in range(S))
     nbytes = 2 * S * H * D * 2 + 2 * L * Hkv * D * 2 + bt.numel() * 4 + 8
     bound_ms, bound_by = bound(4 * H * D * visible, nbytes)
+    dev_ms = device_ms(torch, fn, "paged_prefill", floor=bound_ms)
     print(f"paged_prefill S={S} at start {start} (context {L}) H={H} Hkv={Hkv} D={D} page {page} "
           f"bf16 on {card}: {ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (bound {bound_ms:.4f} "
           f"ms by {bound_by}, {per_device_ms(4 * H * D * visible, dev_ms, 'TFLOP/s', 1e9)}), "
@@ -1096,7 +1106,6 @@ def check_paged_kv_write(torch, ref, paged_kv_write, randn, card):
     check(same and null_ok, "paged_kv_write")
     fn = lambda: paged_kv_write(gk, gv, k_new, v_new, pi, ri)     # noqa: E731
     ms = time_ms(torch, fn)
-    dev_ms = device_ms(torch, fn, "paged_kv_write")
     plain_ms = time_ms(torch, lambda: ref.paged_kv_write_ref(wk, wv, k_new, v_new, pi, ri))
     idx = (pi.long(), ri.long())
     kn, vn = k_new[:, 0], v_new[:, 0]
@@ -1108,6 +1117,7 @@ def check_paged_kv_write(torch, ref, paged_kv_write, randn, card):
     lib_ms = time_ms(torch, index_put_pair)
     nbytes = 2 * (2 * B * Hkv * D * 2) + 2 * B * 4       # new rows read, pool rows written
     bound_ms, bound_by = bound(0, nbytes)
+    dev_ms = device_ms(torch, fn, "paged_kv_write", floor=bound_ms)
     print(f"paged_kv_write B={B} Hkv={Hkv} D={D} bf16 on {card}: {ms:.4f} ms back to back, device "
           f"{fmt_ms(dev_ms)} ms (bound {bound_ms:.6f} ms by {bound_by}), plain {plain_ms:.4f} ms, "
           f"index_put_ pair {lib_ms:.4f} ms")
@@ -1129,45 +1139,76 @@ def _router_sizes(np, rng, tokens, E, empty=(), cap=None):
 
 
 def check_gmm(torch, ref, gmm, card):
-    """Row 12 against ``grouped_matmul_ref`` at Llama-4-Scout's decode and
-    prefill shapes, the w_out shape, Maverick's 128 experts, all groups
-    empty, one group holding every row, and M = 50; rows past the sizes'
-    sum must be exactly 0.  Times the decode w_in shape (the record) and
-    prints the prefill and w_out times.  Returns its kernel record."""
+    """Row 12 against ``grouped_matmul_ref`` in both of the forward's modes
+    (decode at 128 rows or fewer, row tiles above): Llama-4-Scout's decode
+    and prefill shapes, the w_out shape, Maverick's 128 experts, all groups
+    empty, one group holding every row, M = 50, Scout's training forward
+    (M 2048, capacity 160), groups that begin and end inside a 256-row tile
+    or a 32-row chunk with the next group's rows of x at 1e30, groups of one
+    row, and K 200 / N 136 for the tensor maps' zero fill; rows past the
+    sizes' sum must be exactly 0, and a repeat at decode and at prefill
+    bit-identical.  Times the four Scout shapes, decode w_in's the record's.
+    Returns its kernel record."""
     import numpy as np
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2)
     tol = 2e-2      # of each row's max|ref|: fp32 sums of the same bf16 products in another order
     d, f = 5120, 8192
-    scout_w = {"w_in": (torch.randn(16, d, f, device=dev) * d ** -0.5).to(torch.bfloat16)}
-    scout_w["w_out"] = (torch.randn(16, f, d, device=dev) * f ** -0.5).to(torch.bfloat16)
+
+    def bf16(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev) * scale).to(torch.bfloat16)
+
+    scout_w = {"w_in": bf16(16, d, f, scale=d ** -0.5), "w_out": bf16(16, f, d, scale=f ** -0.5)}
+    # (label, M, weights or (E, K, N), sizes, groups whose following rows of x are at 1e30)
     cases = [
-        ("scout decode, w_in", 32, "w_in", _router_sizes(np, rng, 32, 16, empty=(3,))),
-        ("scout prefill, w_in, capacity 80", 1024, "w_in", _router_sizes(np, rng, 1024, 16, cap=80)),
-        ("scout decode, w_out", 32, "w_out", _router_sizes(np, rng, 32, 16, empty=(0, 9))),
-        ("all groups empty", 32, "w_in", np.zeros(16, np.int64)),
-        ("one group holds every row", 32, "w_out", np.eye(16, dtype=np.int64)[7] * 32),
-        ("M = 50", 50, "w_in", _router_sizes(np, rng, 46, 16)),
+        ("scout decode, w_in", 32, "w_in", _router_sizes(np, rng, 32, 16, empty=(3,)), ()),
+        ("scout prefill, w_in, capacity 80", 1024, "w_in", _router_sizes(np, rng, 1024, 16, cap=80),
+         ()),
+        ("scout decode, w_out", 32, "w_out", _router_sizes(np, rng, 32, 16, empty=(0, 9)), ()),
+        ("all groups empty", 32, "w_in", np.zeros(16, np.int64), ()),
+        ("one group holds every row", 32, "w_out", np.eye(16, dtype=np.int64)[7] * 32, ()),
+        ("M = 50", 50, "w_in", _router_sizes(np, rng, 46, 16), ()),
+        ("scout training, w_in, capacity 160", 2048, "w_in", gmm_train_sizes(np)["w_in"], ()),
+        ("groups end inside a 256-row tile, the next rows of x at 1e30", 512, (8, 256, 384),
+         [37, 90, 1, 100, 0, 85, 70, 50], (0, 1, 3, 6)),
+        ("groups end inside a 32-row chunk, the next rows of x at 1e30", 120, (8, 256, 384),
+         [5, 40, 1, 0, 33, 20, 7, 9], (0, 1, 4, 5)),
+        ("groups of one row, decode mode", 128, (4, 256, 384), [1, 0, 126, 1], ()),
+        ("groups of one row, row tiles", 300, (5, 256, 384), [1, 0, 1, 297, 1], ()),
+        ("K 200, N 136, decode mode", 77, (5, 200, 136), [9, 0, 31, 1, 30], ()),
+        ("K 200, N 136, row tiles", 333, (5, 200, 136), [33, 0, 120, 1, 150], ()),
     ]
     inputs = {}
-    for label, M, wname, sizes in cases:
-        w = scout_w[wname]
+    for label, M, wname, sizes, large in cases:
+        sizes = np.asarray(sizes, np.int64)
+        w = scout_w[wname] if isinstance(wname, str) else bf16(*wname, scale=wname[1] ** -0.5)
+        E = w.shape[0]
         x = torch.randn(M, w.shape[1], device=dev).to(torch.bfloat16)
+        ends, total = np.cumsum(sizes), int(sizes.sum())
+        for g in large:      # the rows after group g's (the next group's, or the tail) at 1e30
+            x[ends[g]:ends[g + 1] if g + 1 < E else M] = 1e30
+        if large:
+            x[total:] = 1e30
         gs = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
         out = gmm(x, w, gs)
+        again = gmm(x, w, gs)
         torch.cuda.synchronize()
         want = ref.grouped_matmul_ref(x, w, gs)
-        total = int(sizes.sum())
         err = row_rel_err(out[:total], want[:total]) if total else 0.0
         tail0 = bool((out[total:] == 0).all())
-        print(f"gmm {label} (M={M}, K={w.shape[1]}, N={w.shape[2]}, E=16, {int((sizes > 0).sum())} "
-              f"live groups, {total} rows in groups): rel err {err:.3g} (tol {tol} of each row's "
-              f"max|ref|), the {M - total} rows past the groups exactly 0: {tail0}")
-        check(err <= tol and tail0 and bool(out.isfinite().all()), f"gmm {label}")
-        inputs[label] = (x, w, gs, sizes, (out.float() - want.float()).abs().max().item())
+        same = torch.equal(out, again)
+        mode = "decode mode" if M <= 128 else "row tiles"
+        print(f"gmm {label} (M={M}, {mode}, K={w.shape[1]}, N={w.shape[2]}, E={E}, "
+              f"{int((sizes > 0).sum())} live groups, {total} rows in groups): rel err {err:.3g} "
+              f"(tol {tol} of each row's max|ref|), the {M - total} rows past the groups exactly 0: "
+              f"{tail0}, a repeat bit-identical: {same}")
+        check(err <= tol and tail0 and same and bool(out.isfinite().all()), f"gmm {label}")
+        if label.startswith("scout"):
+            inputs[label] = (x, w, gs, sizes, (out.float() - want.float()).abs().max().item())
+        del out, again, want
     # Maverick: 128 experts (10.7 GB of w_in), most of them empty at decode
-    w128 = (torch.randn(128, d, f, device=dev) * d ** -0.5).to(torch.bfloat16)
+    w128 = bf16(128, d, f, scale=d ** -0.5)
     sizes = _router_sizes(np, rng, 32, 128)
     x = torch.randn(32, d, device=dev).to(torch.bfloat16)
     gs = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
@@ -1183,33 +1224,27 @@ def check_gmm(torch, ref, gmm, card):
         x, w, gs, sizes, _ = inputs[label]
         M, (E, K, N) = x.shape[0], w.shape
         live = int((sizes > 0).sum())
-        ms = time_ms(torch, lambda: gmm(x, w, gs), trials=10)
-        dev_ms = device_ms(torch, lambda: gmm(x, w, gs), "gmm_kernel", n=10)
-        plain_ms = time_ms(torch, lambda: ref.grouped_matmul_ref(x, w, gs), trials=3, per_trial=2,
-                           warmup=1)
-        if hasattr(torch, "_grouped_mm"):
-            ends = torch.cumsum(gs, 0, dtype=torch.int32)
-            lib, lib_name = (lambda: torch._grouped_mm(x, w, offs=ends)), "torch._grouped_mm"
-        else:   # the capacity-batched GEMM of the reference's XLA path, its scatter done ahead
-            xe = torch.zeros(E, int(sizes.max()), K, dtype=x.dtype, device=dev)
-            lib, lib_name = (lambda: torch.bmm(xe, w)), "torch.bmm over (E, max size, K)"
-        lib_ms = time_ms(torch, lib, trials=10)
         # this run's data: each live group's weight once, x and y once
         nbytes = live * K * N * 2 + M * K * 2 + M * N * 2 + E * 4
         bound_ms, bound_by = bound(2 * int(sizes.sum()) * K * N, nbytes)
+        ms = time_ms(torch, lambda: gmm(x, w, gs), trials=10)
+        dev_ms = device_ms(torch, lambda: gmm(x, w, gs), "gmm_fwd", n=10, floor=bound_ms)
+        plain_ms = time_ms(torch, lambda: ref.grouped_matmul_ref(x, w, gs), trials=3, per_trial=2,
+                           warmup=1)
+        ends = torch.cumsum(gs, 0, dtype=torch.int32)
+        lib_ms, lib_name = _grouped_mm_lib(torch, lambda: torch._grouped_mm(x, w, offs=ends))
         print(f"gmm {label} (M={M}, K={K}, N={N}, {live} of {E} groups live) bf16 on {card}: "
               f"{ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (bound {bound_ms:.4f} ms by "
               f"{bound_by}, {per_device_ms(nbytes, dev_ms, 'GB/s', 1e6)}), plain {plain_ms:.4f} ms, "
-              f"{lib_name} {lib_ms:.4f} ms")
-        return ms, dev_ms, plain_ms, bound_ms, bound_by, lib_ms
+              f"{lib_name}" + (f" {lib_ms:.4f} ms" if lib_ms is not None else ""))
+        return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms}
 
-    ms, dev_ms, plain_ms, bound_ms, bound_by, lib_ms = timed("scout decode, w_in")
-    timed("scout prefill, w_in, capacity 80")
-    timed("scout decode, w_out")
+    shapes = {label: timed(label) for label in inputs}
+    main = shapes.pop("scout decode, w_in")
     return {"name": "gmm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
             "replaces": "src/repro/kernels/grouped_matmul.py:198", "launches": 0,
-            "max_abs_err": inputs["scout decode, w_in"][4], "ms": ms, "device_ms": dev_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "max_abs_err": inputs["scout decode, w_in"][4], **main, "shapes": shapes}
 
 
 def _grouped_mm_lib(torch, fn):
@@ -1337,16 +1372,16 @@ def check_gmm_dw(torch, ref, gmm, gmm_dw, card):
         flops = 2 * total * K * N
         # the main path writes dW in the weights' dtype, bf16
         ms = time_ms(torch, lambda: gmm_dw(x, dy, gs, out_dtype=torch.bfloat16), trials=10)
-        dev_ms = device_ms(torch, lambda: gmm_dw(x, dy, gs, out_dtype=torch.bfloat16),
-                           "gmm_dw_kernel", n=10)
         ms32 = time_ms(torch, lambda: gmm_dw(x, dy, gs), trials=10)
-        dev32 = device_ms(torch, lambda: gmm_dw(x, dy, gs), "gmm_dw_kernel", n=10)
         plain_ms = time_ms(torch, lambda: ref.grouped_matmul_dw_ref(x, dy, gs), trials=3,
                            per_trial=1, warmup=1)
         lib_ms, lib_name = _grouped_mm_lib(torch, lambda: torch._grouped_mm(x.t(), dy, offs=ends))
         nbytes = total * (K + N) * 2 + E * K * N * 2 + E * 4
         bound_ms, bound_by = bound(flops, nbytes)
         bound32, by32 = bound(flops, nbytes + E * K * N * 2)
+        dev_ms = device_ms(torch, lambda: gmm_dw(x, dy, gs, out_dtype=torch.bfloat16),
+                           "gmm_dw_kernel", n=10, floor=bound_ms)
+        dev32 = device_ms(torch, lambda: gmm_dw(x, dy, gs), "gmm_dw_kernel", n=10, floor=bound32)
         print(f"gmm_dw scout {shape} training shape (M={M}, K={K}, N={N}, {live} of {E} groups "
               f"live, {total} rows) on {card}: bf16 dW {ms:.4f} ms back to back, device "
               f"{fmt_ms(dev_ms)} ms (bound {bound_ms:.4f} ms by {bound_by}, "
@@ -1360,13 +1395,14 @@ def check_gmm_dw(torch, ref, gmm, gmm_dw, card):
             "bound_by": bound_by, "library_ms": lib_ms, "fp32_ms": ms32, "fp32_device_ms": dev32,
             "fp32_bound_ms": bound32}
         dx_ms = time_ms(torch, lambda: gmm(dy, w, gs, transpose_w=True), trials=10)
-        dx_dev = device_ms(torch, lambda: gmm(dy, w, gs, transpose_w=True), "gmm_dx_kernel", n=10)
         dx_plain = time_ms(torch, lambda: ref.grouped_matmul_ref(dy, w.transpose(1, 2), gs),
                            trials=3, per_trial=1, warmup=1)
         wt = w.transpose(1, 2)
         dx_lib, dx_lib_name = _grouped_mm_lib(torch, lambda: torch._grouped_mm(dy, wt, offs=ends))
         dx_bytes = live * K * N * 2 + M * N * 2 + M * K * 2 + E * 4
         dx_bound, dx_by = bound(flops, dx_bytes)
+        dx_dev = device_ms(torch, lambda: gmm(dy, w, gs, transpose_w=True), "gmm_dx_kernel", n=10,
+                           floor=dx_bound)
         print(f"gmm transposed (dx = dy @ w[g]^T) scout {shape} training shape (M={M}, depth {N}, "
               f"out {K}) on {card}: {dx_ms:.4f} ms back to back, device {fmt_ms(dx_dev)} ms "
               f"(bound {dx_bound:.4f} ms by {dx_by}, {per_device_ms(flops, dx_dev, 'TFLOP/s', 1e9)}, "
@@ -1450,12 +1486,12 @@ def check_ssd_scan(torch, ref, ssd_scan, card):
     B, S, H, P = x.shape
     N = Bm.shape[3]
     ms = time_ms(torch, lambda: ssd_scan(*args), trials=10)
-    dev_ms = device_ms(torch, lambda: ssd_scan(*args), "ssd_scan_kernel", n=10)
     plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(*args, chunk=128), trials=3, per_trial=2,
                        warmup=1)
     flops = ssd_flops(B, S, H, P, N)
     nbytes = 2 * B * S * H * P * 2 + B * H * P * N * 4 + B * S * H * 4 + 2 * B * S * N * 2
     bound_ms, bound_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    dev_ms = device_ms(torch, lambda: ssd_scan(*args), "ssd_scan_kernel", n=10, floor=bound_ms)
     print(f"ssd_scan mamba2-2.7b prefill (B={B}, S={S}, H={H}, P={P}, N={N}) bf16 on {card}: "
           f"{ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (bound {bound_ms:.4f} ms by "
           f"{bound_by}: {flops / 1e9:.2f} GFLOP of the recurrence at fp32 peak, "
@@ -1465,6 +1501,22 @@ def check_ssd_scan(torch, ref, ssd_scan, card):
             "replaces": "src/repro/kernels/ssd_scan.py:136", "launches": 0, "max_abs_err": max_err,
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
+
+
+def generation_load(np, vocab: int, n: int, max_new: int, seed: int = 0):
+    """The generation phases' load: ``n`` prompts of 64-1024 random ids
+    below ``vocab`` drawn from ``seed``, and their sampling parameters
+    (even ones greedy, odd ones sampled with a seed of their own and
+    log-probabilities) -> (lengths, prompts, params)."""
+    from repro_torch.serving.sampling import SamplingParams
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(64, 1025, size=n)
+    prompts = [rng.integers(0, vocab, size=int(L)).tolist() for L in lengths]
+    params = [SamplingParams(max_new=max_new) if i % 2 == 0 else
+              SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=i, max_new=max_new,
+                             logprobs=True) for i in range(n)]
+    return lengths, prompts, params
 
 
 def generate_phase(torch, counters, card):
@@ -1480,7 +1532,6 @@ def generate_phase(torch, counters, card):
     from repro_torch.models.model import Model, build_model
     from repro_torch.serving.api import LLM
     from repro_torch.serving.engine import Request
-    from repro_torch.serving.sampling import SamplingParams
 
     failed = []
 
@@ -1497,12 +1548,7 @@ def generate_phase(torch, counters, card):
           f"{cfg.num_kv_heads} heads, {cfg.param_count() / 1e9:.2f}B params, bf16) on cuda in "
           f"{t_build:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
     slots, max_len, n, max_new = 32, 2048, 64, 256
-    rng = np.random.default_rng(0)
-    lengths = rng.integers(64, 1025, size=n)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(L)).tolist() for L in lengths]
-    params = [SamplingParams(max_new=max_new) if i % 2 == 0 else
-              SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=i, max_new=max_new,
-                             logprobs=True) for i in range(n)]
+    lengths, prompts, params = generation_load(np, cfg.vocab_size, n, max_new)
     llm = LLM(model, slots=slots, max_len=max_len)
     eng = llm.engine
     L = cfg.num_layers
@@ -1726,6 +1772,7 @@ def compare_logits(torch, got, want, label, expect):
           f"({int((agree & ~decided).sum())} agree)")
     expect(bool((cos >= 0.999).all()), f"{label}: cosine below 0.999")
     expect(bool(agree[decided].all()), f"{label}: top-1 differs where decided")
+    return cos.min().item()
 
 
 def paged_phase(torch, counters, card, model, load):
@@ -1741,7 +1788,6 @@ def paged_phase(torch, counters, card, model, load):
     from repro_torch.models.model import Model
     from repro_torch.serving.api import LLM
     from repro_torch.serving.engine import Request, to_host
-    from repro_torch.serving.sampling import SamplingParams
 
     failed = []
 
@@ -2042,10 +2088,9 @@ def moe_phase(torch, counters, card):
 
     from repro_torch.configs import get_config
     from repro_torch.models import moe
-    from repro_torch.models.model import Model, build_model
+    from repro_torch.models.model import build_model
     from repro_torch.serving.api import LLM
     from repro_torch.serving.engine import Request
-    from repro_torch.serving.sampling import SamplingParams
 
     failed = []
 
@@ -2066,12 +2111,7 @@ def moe_phase(torch, counters, card):
           f"{cfg.sliding_window}, {cfg.param_count() / 1e9:.2f}B params, bf16) on cuda in "
           f"{t_build:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
     slots, max_len, n, max_new = 32, 2048, 64, 256
-    rng = np.random.default_rng(0)
-    lengths = rng.integers(64, 1025, size=n)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(L)).tolist() for L in lengths]
-    params = [SamplingParams(max_new=max_new) if i % 2 == 0 else
-              SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=i, max_new=max_new,
-                             logprobs=True) for i in range(n)]
+    lengths, prompts, params = generation_load(np, cfg.vocab_size, n, max_new)
     llm = LLM(model, slots=slots, max_len=max_len)
     eng = llm.engine
     L = cfg.num_layers
@@ -2185,28 +2225,54 @@ def moe_phase(torch, counters, card):
     eng.run()
     del prof, llm, eng
 
-    # kernel route against plain route through the engine: 8 prompts, the
-    # first token's logits and 32 teacher-forced decode steps.  The plain
-    # route is put on the kernel route's experts (RouteLog replay): top-1
-    # routing of random weights flips at near-ties of the fp32 router over
-    # hidden states that the two routes round differently, and a flipped
-    # token moves the later ones through attention and capacity, so held
-    # free the two routes drift apart on the routing, not on the kernels'
-    # arithmetic.  The flips are counted from the plain route's own router,
-    # and each must be a near-tie.
+    # kernel route against plain route through the engine, on the kernel
+    # route's experts, and each MoE layer on its real input
     picks = [int(i) for i in np.argsort(lengths)[:: n // 8]]
     n_forced = 32
     forced = torch.zeros((n_forced, slots), dtype=torch.int32, device=model.device)
     for slot, i in enumerate(picks):
         forced[:, slot] = torch.tensor(first[i].tokens[:n_forced], dtype=torch.int32)
+    moe_route_check(torch, np, model, dict(slots=slots, max_len=max_len),
+                    [prompts[i] for i in picks], forced, expect)
+    del model
+    check(not failed, "MoE generation phase: " + "; ".join(failed))
+    return launches
+
+
+# The Scout route check's two bounds, each twice the largest reading of its
+# statistic on sound kernels: 5 seeded draws of the phase's route prompts,
+# each through the mma.sync gmm forward and three sound attention forwards
+# (moe_route_faults.py --spread, on an H100), read 0.0871-0.1206 and 1-2
+MOE_NEAR_TIE = 0.25     # the largest router margin, in log-probability, of a decision that flips
+MOE_LAYER_STEPS = 4     # an MoE layer's output against the plain route's, in bf16 steps of each row's max
+MOE_LAYER_FAULT = "an MoE layer differs from its plain route"
+
+
+def moe_route_check(torch, np, model, engine_kw, route_prompts, forced, expect):
+    """Llama-4-Scout's kernel route against its plain route through the
+    engine (``engine_logits``: the prompts' exact-length prefills, then a
+    teacher-forced decode step per row of ``forced``), the plain route put
+    on the kernel route's experts (``RouteLog`` replay): top-1 routing of
+    random weights flips at near-ties of the fp32 router over hidden
+    states that the two routes round differently, and a flipped token
+    moves the later ones through attention and capacity, so held free the
+    two routes drift apart on the routing, not on the kernels' arithmetic.
+    The flips are counted from the plain route's own router: at most 2% of
+    the decisions, each a near-tie (the kernel route's margin of its choice
+    at most ``MOE_NEAR_TIE``); the logits by ``compare_logits``; then
+    ``moe_layer_check`` on the shortest and the longest prompt.  Returns
+    the readings."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+
+    cfg = model.cfg
+    L = cfg.num_layers
     plain = Model(dataclasses.replace(cfg, kernel_impl="torch"), model.params.tree())
-    route = dict(slots=slots, max_len=max_len)
-    route_prompts = [prompts[i] for i in picks]
     with RouteLog(moe) as k_log:
-        k_lg, _ = engine_logits(torch, np, model, route, route_prompts, forced)
+        k_lg, _ = engine_logits(torch, np, model, engine_kw, route_prompts, forced)
     with RouteLog(moe, replay=k_log.calls) as p_log:
-        p_lg, _ = engine_logits(torch, np, plain, route, route_prompts, forced)
-    npk = len(route_prompts)
+        p_lg, _ = engine_logits(torch, np, plain, engine_kw, route_prompts, forced)
+    npk, n_forced = len(route_prompts), forced.shape[0]
     check(len(k_log.calls) == len(p_log.calls) == L * (npk + n_forced), "route log lengths")
     # per layer call: the live rows (a whole prompt, or one row per live
     # slot), whether the plain route's own router chose another expert,
@@ -2230,17 +2296,62 @@ def moe_phase(torch, counters, card):
     print(f"plain route's own router against the kernel route's experts: {n_flip} of {decisions} "
           f"router decisions (token x layer) differ ({n_flip / decisions:.4f}; limit 0.02), "
           f"largest kernel-route margin of such a choice {margin:.4f} in log-probability (a "
-          f"near-tie: at most 0.1); {int(slot_flips.sum())} of {slot_flips.numel()} slot-steps "
-          f"({slot_flips.float().mean().item():.4f}) have one in some layer of the compared token")
+          f"near-tie: at most {MOE_NEAR_TIE}); {int(slot_flips.sum())} of {slot_flips.numel()} "
+          f"slot-steps ({slot_flips.float().mean().item():.4f}) have one in some layer of the "
+          f"compared token")
     expect(n_flip <= 0.02 * decisions, "the routes' routers disagree too often")
-    expect(margin <= 0.1, "a routing difference between the routes is not a near-tie")
-    compare_logits(torch, k_lg, p_lg,
-                   f"Scout kernel path vs plain path through the engine on the same experts (8 "
-                   f"slots of 32, prompts of {sorted(int(lengths[i]) for i in picks)} tokens, "
-                   f"exact-length prefill + {n_forced} teacher-forced decode steps)", expect)
-    del plain, model, k_lg, p_lg
-    check(not failed, "MoE generation phase: " + "; ".join(failed))
-    return launches
+    expect(margin <= MOE_NEAR_TIE, "a routing difference between the routes is not a near-tie")
+    cos_min = compare_logits(
+        torch, k_lg, p_lg,
+        f"Scout kernel path vs plain path through the engine on the same experts ({npk} slots of "
+        f"{engine_kw['slots']}, prompts of {sorted(len(p) for p in route_prompts)} tokens, "
+        f"exact-length prefill + {n_forced} teacher-forced decode steps)", expect)
+    del k_lg, p_lg
+    by_len = sorted(route_prompts, key=len)
+    steps = moe_layer_check(torch, model, plain.cfg, [by_len[0], by_len[-1]], expect)
+    return {"flips": n_flip, "decisions": decisions, "margin": margin, "cos_min": cos_min,
+            "layer_steps": steps}
+
+
+def moe_layer_check(torch, model, plain_cfg, prompts, expect):
+    """Every MoE layer of the kernel route's prefill of each prompt against
+    the plain route on the same input (the layer's real activations, on the
+    kernel route's experts): the output within ``MOE_LAYER_STEPS`` bf16
+    steps of each row's max|plain|.  Catches a gmm fault too small for the
+    route check (``moe_route_faults.py``).  Returns the worst reading of
+    each prompt, in steps."""
+    from repro_torch.models import moe
+
+    apply, worst = moe.moe_apply, []
+    for prompt in prompts:
+        seen = []
+
+        def spy(cfg, params, x):
+            with RouteLog(moe) as log:
+                out, aux = apply(cfg, params, x)
+            seen.append((params, x, out, log.calls))
+            return out, aux
+
+        moe.moe_apply = spy
+        try:
+            model.prefill(model.params.tree(),
+                          {"tokens": torch.tensor([prompt], device=model.device)}, len(prompt))
+        finally:
+            moe.moe_apply = apply
+        w = 0.0
+        for params, x, out, calls in seen:
+            with RouteLog(moe, replay=calls):
+                want, _ = apply(plain_cfg, params, x)
+            top = want.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+            step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+            w = max(w, ((out.float() - want.float()).abs() / step).max().item())
+        worst.append(w)
+        del seen
+    print(f"each MoE layer on its real input (prompts of {[len(p) for p in prompts]} tokens): the "
+          f"kernel route's output within {', '.join(f'{w:.3g}' for w in worst)} bf16 steps of "
+          f"each row's max|plain| (tol {MOE_LAYER_STEPS})")
+    expect(max(worst) <= MOE_LAYER_STEPS, MOE_LAYER_FAULT)
+    return worst
 
 
 def ssm_phase(torch, counters, card):
@@ -2257,7 +2368,6 @@ def ssm_phase(torch, counters, card):
     from repro_torch.models.model import Model, build_model
     from repro_torch.serving.api import LLM
     from repro_torch.serving.engine import Request
-    from repro_torch.serving.sampling import SamplingParams
 
     failed = []
 
@@ -2274,12 +2384,7 @@ def ssm_phase(torch, counters, card):
           f"heads of {cfg.ssm_headdim}, state {cfg.ssm_state}, {cfg.param_count() / 1e9:.2f}B "
           f"params, bf16) on cuda in {t_build:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
     slots, max_len, n, max_new = 32, 2048, 64, 256
-    rng = np.random.default_rng(0)
-    lengths = rng.integers(64, 1025, size=n)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(L)).tolist() for L in lengths]
-    params = [SamplingParams(max_new=max_new) if i % 2 == 0 else
-              SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=i, max_new=max_new,
-                             logprobs=True) for i in range(n)]
+    lengths, prompts, params = generation_load(np, cfg.vocab_size, n, max_new)
     llm = LLM(model, slots=slots, max_len=max_len)
     eng = llm.engine
     L = cfg.num_layers
@@ -2828,10 +2933,10 @@ def main() -> int:
     w, b = randn(d, dtype=torch.float32), randn(d, dtype=torch.float32)
     wl, bl = w.to(torch.bfloat16), b.to(torch.bfloat16)
     ln_ms = time_ms(torch, lambda: layernorm(x, w, b))
-    ln_dev_ms = device_ms(torch, lambda: layernorm(x, w, b), "layernorm")
     ln_plain_ms = time_ms(torch, lambda: ref.layernorm_ref(x, w, b))
     ln_lib_ms = time_ms(torch, lambda: F.layer_norm(x, (d,), wl, bl, 1e-5))
     ln_bound_ms, ln_bound_by = bound(8 * rows * d, 2 * rows * d * 2 + 2 * d * 4, PEAK_FP32_FLOPS)
+    ln_dev_ms = device_ms(torch, lambda: layernorm(x, w, b), "layernorm", floor=ln_bound_ms)
     print(f"layernorm ({rows}, {d}) bf16 on {card}: {ln_ms:.4f} ms (device {fmt_ms(ln_dev_ms)} ms; "
           f"bound {ln_bound_ms:.4f} ms by {ln_bound_by}, "
           f"{(2 * rows * d * 2 + 2 * d * 4) / ln_ms / 1e6:.0f} GB/s), plain {ln_plain_ms:.4f} ms, "

@@ -1,7 +1,8 @@
 // Ragged grouped matmul for Hopper (sm_90a): the MoE expert GEMMs after
 // sort-by-expert dispatch and their backward, bf16 in, fp32 accumulation.
 //
-// gmm_kernel replaces the TPU kernel `_gmm_kernel` behind `gmm` in
+// The forward (gmm_fwd_rows_kernel, or gmm_fwd_split_kernel and
+// gmm_fwd_sum_kernel) replaces the TPU kernel `_gmm_kernel` behind `gmm` in
 // src/repro/kernels/grouped_matmul.py (its pallas_call): x (M, K) with rows
 // sorted by group, w (E, K, N), group_sizes (E,) int32 on the device -> y
 // (M, N) with y[i] = x[i] @ w[g(i)], where group g owns the contiguous rows
@@ -16,29 +17,45 @@
 // sums written once in fp32 or bf16; an empty group's slice is exactly 0 and
 // rows past sum(sizes) are never summed.
 //
-// No kernel here uses atomics or sums across blocks: each output element is
-// summed in one fixed order by one block and written once, so a call
-// repeats bit for bit. Every block derives its work from the sizes on the
-// device; the grids are fixed by static bounds, so the host never reads the
-// sizes and a call makes no host sync. E is at most 128.
+// No kernel here uses atomics: each output element is summed in one fixed
+// order and written once (the forward's decode mode sums its K splits'
+// partials in a second pass, in order), so a call repeats bit for bit.
+// Every block derives its work from the sizes on the device; the grids are
+// fixed by static bounds, so the host never reads the sizes and a call
+// makes no host sync. E is at most 128.
 //
-// The forward, gmm_kernel (mma.sync). The TPU kernel walks a flattened
-// (group, m-tile) schedule from scalar prefetch along a sequential grid
-// axis. Here a block-wide prefix sum of the sizes gives each group's rows,
-// a second one of each group's m-tile count gives the work list, and block
-// x of a grid of (num_m_tiles + E) items x (N / 128) column tiles takes
-// item x; items past the list return at once, those past the groups
-// zero-fill rows [sum(sizes), M). An item (g, m-tile) computes the tile's
-// rows against w[g] through mma.sync m16n8k16 (mma.cuh; 4 warps, 16 rows
-// at decode sizes, 64 above, a 3-stage cp.async ring of 32-deep slices) and
-// stores only the rows group g owns. It serves Llama-4-Scout's generation,
-// whose route check (chip_smoke.py) reads the largest router margin among
-// the routes' differing decisions against a bound that equally accurate
-// kernels straddle, so any change to this kernel's bits can trip that
-// check: it keeps the mma.sync design and its summation order.
+// The forward. The TPU kernel walks a flattened (group, m-tile) schedule
+// from scalar prefetch along a sequential grid axis, its m-tiles counted
+// from row 0, so a group that straddles tiles reads its weights once a tile.
+// Here both modes are persistent wgmma + TMA kernels (below), and neither
+// reads a weight tile twice within an item:
 //
-// The backward kernels are persistent (one block an SM, block b taking
-// items b, b + grid, ...) wgmma + TMA kernels on hopper.cuh: a producer
+// gmm_fwd_rows_kernel (M > 128: admissions, prefill chunks, training) is the
+// transposed mode's design (gmm_dx_kernel, below) with w[g] read MN-major:
+// row tiles of 256 from each group's first row, only the m64 blocks holding
+// the group's rows loaded and multiplied, 128 output columns an item, items
+// group by group, column tile major, so each live group's weights come from
+// device memory about once a call. w[g] (K, N) is read through a 3-D (N, K,
+// E) map in boxes of 64 columns x 64 deep, as wgmma's B with the transpose
+// flag, as gmm_dw_kernel reads dy.
+//
+// gmm_fwd_split_kernel and gmm_fwd_sum_kernel (M <= 128: decode) stream the
+// weights. A live group holds a few of the rows, so the weights go on
+// wgmma's M side, y_g^T = w_g^T x_g^T: A is 64 output columns of w[g], 64
+// deep, read MN-major through the same map; B is the group's rows in chunks
+// of 32 read K-major, the product n = 8, 16 or 32 wide (a 2-row group pads
+// to 8, not to 64). A product's columns are independent, so a chunk loads
+// whatever rows follow the group and stores only the group's. An item is
+// (live group, 128 output columns, 1 / S of K): S is chosen on the device
+// from the number of live groups, so that the items fill whole waves of the
+// SMs (pick_split). Each split writes its fp32 partial sums to its own slice
+// of a workspace, and gmm_fwd_sum_kernel adds the S partials in order,
+// rounds once to bf16 and writes the rows past the groups as zeros. A ring
+// of 6 stages of 32 KB keeps up to 96 KB of weights in flight an SM.
+//
+// The backward kernels, like the forward, are persistent (one block an SM,
+// block b taking items b, b + grid, ...) wgmma + TMA kernels on hopper.cuh:
+// a producer
 // warpgroup, of which one thread has the Tensor Memory Accelerator copy
 // 64-deep slices (128-byte swizzle) into rings of stages with full / empty
 // mbarriers, and two consumer warpgroups that run wgmma with fp32
@@ -88,8 +105,9 @@
 // K * N = 172 GFLOP (0.17 ms) against the dw write, 1.34 GB in bf16 (0.41
 // ms with x and dy) or 2.68 GB in fp32 (0.81 ms): memory, by the write.
 // The transposed gmm reads each live group's (K, N) weight once, 1.34 GB
-// (0.42 ms), against the same 172 GFLOP: memory. The forward at decode
-// (16 live experts, M 32) reads the same weights for 2.7 GFLOP.
+// (0.42 ms), against the same 172 GFLOP: memory, and so does the forward
+// at prefill. The forward at decode (16 live experts, M 32) reads the same
+// weights for 2.7 GFLOP.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -99,206 +117,14 @@
 #include "mma.cuh"
 
 namespace {
-
-// ==== the forward: gmm_kernel, mma.sync
-
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kBN = 128;       // output columns per block, 32 per warp
-constexpr int kBK = 32;        // depth of one pipeline stage
-constexpr int kStages = 3;
-constexpr int kMaxGroups = kThreads;  // the schedule scans one group per thread
-using T = __nv_bfloat16;              // every served config runs in bf16
-
-struct Params {
-  const uint16_t* x;  // (M, K)
-  const uint16_t* w;  // (E, K, N)
-  const int* sizes;   // (E,)
-  uint16_t* y;        // (M, N)
-  int M, K, N, E;
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = full ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// inclusive prefix sum over the block, one value per thread; `total` gets
-// the block's sum
-__device__ __forceinline__ int block_scan(int v, int& total, int* s_warp) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int n = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v += n;
-  }
-  if (lane == 31) s_warp[warp] = v;
-  __syncthreads();
-  int before = 0;
-  total = 0;
-#pragma unroll
-  for (int i = 0; i < kWarps; ++i) {
-    before += i < warp ? s_warp[i] : 0;
-    total += s_warp[i];
-  }
-  __syncthreads();  // s_warp free for the next scan
-  return v + before;
-}
-
-template <int BM>
-__global__ void __launch_bounds__(kThreads) gmm_kernel(const Params p) {
-  __shared__ __align__(16) uint16_t sX[kStages][BM][kBK + kPad];
-  // one stage of w: (k, n) rows of 128 columns
-  __shared__ __align__(16) uint16_t sW[kStages][kBK][kBN + kPad];
-  __shared__ int s_warp[kWarps];
-  __shared__ int s_kind, s_g, s_lo, s_hi, s_m0;  // kind: 0 none, 1 group rows, 2 zero rows
-
-  const int tid = threadIdx.x, item = blockIdx.x;
-
-  // ---- the schedule, from the sizes on the device
-  if (tid == 0) s_kind = 0;
-  const int e = tid;
-  const int sz = e < p.E ? max(p.sizes[e], 0) : 0;
-  int sum;
-  const int end_raw = block_scan(sz, sum, s_warp);
-  const int start = min(end_raw - sz, p.M), end = min(end_raw, p.M);
-  const int total = min(sum, p.M);
-  const int tiles = end > start ? (end - 1) / BM - start / BM + 1 : 0;
-  int n_group_items;
-  const int cum = block_scan(tiles, n_group_items, s_warp);
-  if (tiles > 0 && item >= cum - tiles && item < cum) {
-    s_kind = 1;
-    s_g = e;
-    s_lo = start;
-    s_hi = end;
-    s_m0 = (start / BM + item - (cum - tiles)) * BM;
-  }
-  if (tid == 0 && total < p.M) {  // the zero tail: rows [total, M)
-    const int first = total / BM, n_tail = (p.M - 1) / BM - first + 1;
-    if (item >= n_group_items && item < n_group_items + n_tail) {
-      s_kind = 2;
-      s_lo = total;
-      s_hi = p.M;
-      s_m0 = (first + item - n_group_items) * BM;
-    }
-  }
-  __syncthreads();
-  const int kind = s_kind;
-  if (kind == 0) return;  // past the work list
-  const int m0 = s_m0, n0 = blockIdx.y * kBN;
-  const int lo = max(s_lo, m0), hi = min(s_hi, m0 + BM);
-
-  if (kind == 2) {
-    for (int c = tid; c < BM * (kBN / 2); c += kThreads) {
-      const int row = m0 + c / (kBN / 2), col = n0 + (c % (kBN / 2)) * 2;
-      if (row >= lo && row < hi && col < p.N)
-        *reinterpret_cast<uint32_t*>(p.y + (long long)row * p.N + col) = 0u;
-    }
-    return;
-  }
-
-  // ---- y[lo:hi, n0:n0+128] = x[lo:hi] @ w[g][:, n0:n0+128]
-  const uint16_t* wg = p.w + (long long)s_g * p.K * p.N;
-  const int nk = (p.K + kBK - 1) / kBK;
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * kBK;
-    for (int c = tid; c < BM * (kBK / 8); c += kThreads) {
-      const int r = c / (kBK / 8), col = (c % (kBK / 8)) * 8;
-      const int row = m0 + r, k = k0 + col;
-      const bool ok = row >= lo && row < hi && k < p.K;
-      cp_async16(&sX[stage][r][col], ok ? p.x + (long long)row * p.K + k : p.x, ok);
-    }
-    for (int c = tid; c < kBK * (kBN / 8); c += kThreads) {
-      const int r = c / (kBN / 8), col = (c % (kBN / 8)) * 8;
-      const int k = k0 + r, n = n0 + col;
-      const bool ok = k < p.K && n < p.N;
-      cp_async16(&sW[stage][r][col], ok ? wg + (long long)k * p.N + n : p.w, ok);
-    }
-  };
-
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  float acc[BM / 16][4][4];
-#pragma unroll
-  for (int mi = 0; mi < BM / 16; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();  // slice kt has landed
-    __syncthreads();               // ... for every thread; slice kt - 1 is consumed
-    const int pre = kt + kStages - 1;
-    if (pre < nk) load_stage(pre % kStages, pre);
-    cp_async_commit();
-    const uint16_t* xs = &sX[kt % kStages][0][0];
-    const uint16_t* ws = &sW[kt % kStages][0][0];
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t b[4][2];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        b_frag_cols<kBN>(b[ni][0], b[ni][1], ws, kk, warp * 32 + ni * 8, g, t);
-#pragma unroll
-      for (int mi = 0; mi < BM / 16; ++mi) {
-        uint32_t a[4];
-        a_frag<kBK>(a, xs, mi * 16, kk, g, t);
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) Mma<T>::run(acc[mi][ni], a, b[ni][0], b[ni][1]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // accumulator (mi, ni): rows m0 + 16 mi + g (+ 8), columns 2t, 2t + 1 of
-  // the warp's n8 tile ni; only the group's rows are stored
-#pragma unroll
-  for (int mi = 0; mi < BM / 16; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + warp * 32 + ni * 8 + 2 * t;
-      if (col >= p.N) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + mi * 16 + g + 8 * h;
-        if (row >= lo && row < hi)
-          *reinterpret_cast<uint32_t*>(p.y + (long long)row * p.N + col) =
-              Mma<T>::pack(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
-    }
-}
-
-template <int BM>
-int launch(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.M + BM - 1) / BM + p.E, (p.N + kBN - 1) / kBN);
-  gmm_kernel<BM><<<grid, kThreads, 0, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// ==== the backward: gmm_dw_kernel and gmm_dx_kernel, wgmma fed by TMA
-namespace bwd {
+namespace persistent {
 
 using namespace hopper;
 
 constexpr int kThreads = 384;  // two consumer warpgroups and a producer warpgroup
 constexpr int kBox = 8192;     // bytes of one 64 x 64 box of 16-bit values (64 rows of 128 bytes)
 constexpr int kScan = 160;     // entries of a schedule's prefix sums: 5 a lane of one warp
+constexpr int kMaxGroups = 128;
 
 // The exclusive prefix sums of value(0 .. n - 1) into out[0 .. n], each
 // capped at cap; out[n] is the (capped) total. n < kScan; one warp calls it.
@@ -515,12 +341,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wtid == 0) bulk_wait<0>();  // every store has landed before the block ends
 }
 
-// ---- gmm (transposed): y (M, N) = x_g (depth K) @ w[g]^T, w stored (E, N, K)
+// ---- the row-tile kernels: gmm (transposed), y (M, N) = x_g (depth K) @
+// w[g]^T with w stored (E, N, K), and the forward's row-tile mode, y = x_g @
+// w[g] with w stored (E, K, N)
 namespace dx {
 constexpr int kBM = 256;                   // rows a tile: four m64 blocks, two a consumer warpgroup
 constexpr int kBN = 128;                   // output columns a tile
 constexpr int kABytes = 4 * kBox;          // x's slice: 256 rows x 64 deep, 32 KB
-constexpr int kBBytes = 2 * kBox;          // w's slice: 128 rows (output columns) x 64 deep, 16 KB
+constexpr int kBBytes = 2 * kBox;          // w's slice: 128 output columns x 64 deep, 16 KB
 constexpr int kStageBytes = kABytes + kBBytes;
 constexpr int kStages = 4;
 constexpr int kSmem = kStages * kStageBytes + 1024;  // + swizzle alignment
@@ -558,9 +386,13 @@ struct DxItem {
   }
 };
 
-__global__ void __launch_bounds__(kThreads, 1)
-    gmm_dx_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
-                  const int* __restrict__ sizes, const DxParams p) {
+// Both row-tile kernels: A is x's rows, K-major; B is w[g], K-major through
+// a 3-D (depth, N, E) map in one 128 x 64 box for the transposed mode, or
+// MN-major through a 3-D (N, K, E) map in two 64 x 64 boxes for the forward
+// (kFwd).
+template <bool kFwd>
+__device__ __forceinline__ void rows_body(const CUtensorMap* mx, const CUtensorMap* mw,
+                                          const int* __restrict__ sizes, const DxParams& p) {
   using namespace dx;
   extern __shared__ uint8_t smem[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
@@ -598,8 +430,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], nblk * kBox + kBBytes);
           const uint32_t st = base + stage * kStageBytes;
-          for (int b = 0; b < nblk; ++b) tma_load(st + b * kBox, &mx, 64 * s, it.m0 + 64 * b, &full[stage]);
-          tma_load(st + kABytes, &mw, 64 * s, it.n0, it.q, &full[stage]);
+          for (int b = 0; b < nblk; ++b) tma_load(st + b * kBox, mx, 64 * s, it.m0 + 64 * b, &full[stage]);
+          if constexpr (kFwd) {
+            tma_load(st + kABytes, mw, it.n0, 64 * s, it.q, &full[stage]);
+            tma_load(st + kABytes + kBox, mw, it.n0 + 64, 64 * s, it.q, &full[stage]);
+          } else {
+            tma_load(st + kABytes, mw, 64 * s, it.n0, it.q, &full[stage]);
+          }
           if (++stage == kStages) {
             stage = 0;
             phase ^= 1;
@@ -636,9 +473,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = 0; j < 2; ++j)
         if (wg + 2 * j < nblk) {
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            Wgmma<__nv_bfloat16>::ss<0, 0>(acc[j], kmajor_desc(st + (wg + 2 * j) * kBox, kk),
-                                           kmajor_desc(st + kABytes, kk), s > 0 || kk > 0);
+          for (int kk = 0; kk < 4; ++kk) {
+            if constexpr (kFwd)
+              Wgmma<__nv_bfloat16>::ss<0, 1>(acc[j], kmajor_desc(st + (wg + 2 * j) * kBox, kk),
+                                             mnmajor_desc(st + kABytes, kk, kBox), s > 0 || kk > 0);
+            else
+              Wgmma<__nv_bfloat16>::ss<0, 0>(acc[j], kmajor_desc(st + (wg + 2 * j) * kBox, kk),
+                                             kmajor_desc(st + kABytes, kk), s > 0 || kk > 0);
+          }
         }
       wgmma_commit();
       wgmma_wait<1>();  // the slice before this one is read
@@ -671,6 +513,248 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    gmm_dx_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
+                  const int* __restrict__ sizes, const DxParams p) {
+  rows_body<false>(&mx, &mw, sizes, p);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    gmm_fwd_rows_kernel(const __grid_constant__ CUtensorMap mx,
+                        const __grid_constant__ CUtensorMap mw, const int* __restrict__ sizes,
+                        const DxParams p) {
+  rows_body<true>(&mx, &mw, sizes, p);
+}
+
+// ---- the forward's decode mode: y_g^T = w_g^T x_g^T, split over K
+namespace split {
+constexpr int kMaxRows = 128;                   // M at most: a group's rows in up to 4 chunks
+constexpr int kChunk = 32;                      // rows a chunk, the widest product of this mode
+constexpr int kChunkBytes = kChunk * 128;       // a chunk's slice: 32 rows x 64 deep, 4 KB
+constexpr int kBN = 128;                        // output columns an item: 64 a consumer warpgroup
+constexpr int kABytes = 2 * kBox;               // w's slice: 64 deep x 128 columns, 16 KB
+constexpr int kBBytes = (kMaxRows / kChunk) * kChunkBytes;  // x's slice, 16 KB
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kStages = 6;
+constexpr int kSmem = kStages * kStageBytes + 1024;  // + swizzle alignment
+constexpr int kMaxSplit = 8;                    // the workspace holds this many partials
+constexpr int kItemCost = 1;                    // an item's fixed cost, in 64-deep slices
+}  // namespace split
+
+struct SplitParams {
+  float* ws;  // (kMaxSplit, M, N): split s's partial sums of row r in ws[s][r]
+  uint16_t* y;
+  int M, K, N, E, tiles_n, n_slices, sms;
+};
+
+// The number of K splits: the S in 1 .. kMaxSplit (at most one a slice)
+// whose items, `tiles` (live group, column tile) pairs times S, take the
+// fewest slices on the busiest of `sms` blocks, counting each item's fixed
+// cost; the smaller S on a tie. Every block of both decode-mode kernels
+// computes it from the same sizes.
+__device__ __forceinline__ int pick_split(int tiles, int n_slices, int sms) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int s = 1; s <= split::kMaxSplit && s <= n_slices; ++s) {
+    const long long waves = ((long long)tiles * s + sms - 1) / sms;
+    const long long cost = waves * ((n_slices + s - 1) / s + split::kItemCost);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = s;
+    }
+  }
+  return best;
+}
+
+// s_live[0 .. L) = the groups that own rows, in order; returns L. One warp
+// calls it after group_starts.
+__device__ __forceinline__ int live_groups(int E, const int* s_start, int* s_live) {
+  const int lane = threadIdx.x & 31;
+  int count = 0;
+  for (int e0 = 0; e0 < E; e0 += 32) {
+    const int e = e0 + lane;
+    const bool live = e < E && s_start[e + 1] > s_start[e];
+    const unsigned mask = __ballot_sync(0xffffffffu, live);
+    if (live) s_live[count + __popc(mask & ((1u << lane) - 1))] = e;
+    count += __popc(mask);
+  }
+  __syncwarp();
+  return count;
+}
+
+// Item i: (live group j, column tile t, split k), split fastest, then
+// column tile: i = (j * tiles_n + t) * S + k. Split k sums the 64-deep
+// slices [k * n_slices / S, (k + 1) * n_slices / S).
+struct SplitItem {
+  int g, start, end, n0, s0, s1, k;
+  __device__ __forceinline__ SplitItem(const SplitParams& p, const int* s_start,
+                                       const int* s_live, int n_split, int i) {
+    k = i % n_split;
+    const int t = i / n_split;
+    n0 = (t % p.tiles_n) * split::kBN;
+    g = s_live[t / p.tiles_n];
+    start = s_start[g];
+    end = s_start[g + 1];
+    s0 = k * p.n_slices / n_split;
+    s1 = (k + 1) * p.n_slices / n_split;
+  }
+};
+
+// One item's products and partial sums for a product NR rows wide (8, 16 or
+// 32): chunk c of the group's rows is B's columns, A is this warpgroup's 64
+// output columns of the weight slice.
+template <int NR>
+__device__ __forceinline__ void split_item(const SplitParams& p, const SplitItem& it, uint32_t base,
+                                           uint64_t* full, uint64_t* empty, int& stage,
+                                           uint32_t& phase, int wg, int wtid) {
+  using namespace split;
+  const int lane = wtid & 31, nch = (it.end - it.start + kChunk - 1) / kChunk;
+  float acc[kMaxRows / kChunk][NR / 2];
+  int prev = -1;
+  for (int s = it.s0; s < it.s1; ++s) {
+    mbar_wait(&full[stage], phase);
+    const uint32_t st = base + stage * kStageBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < kMaxRows / kChunk; ++c)
+        if (c < nch)
+          Wgmma<__nv_bfloat16>::ss<1, 0>(acc[c], mnmajor_desc(st + wg * kBox, kk, kBox),
+                                         kmajor_desc(st + kABytes + c * kChunkBytes, kk),
+                                         s > it.s0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the slice before this one is read
+    if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+    prev = stage;
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < kMaxRows / kChunk; ++c) reg_fence(acc[c]);
+  if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+  // acc[c][4 i + 2 hh + e]: output column n0 + 64 wg + 16 w + g + 8 hh, row
+  // start + 32 c + 8 i + 2 t + e of the group; only the group's rows stored
+  float* const out = p.ws + (long long)it.k * p.M * p.N;
+  const int col = it.n0 + 64 * wg + 16 * (wtid >> 5) + (lane >> 2);
+#pragma unroll
+  for (int c = 0; c < kMaxRows / kChunk; ++c) {
+    if (c >= nch) continue;
+#pragma unroll
+    for (int i = 0; i < NR / 8; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = it.start + kChunk * c + 8 * i + 2 * (lane & 3) + e, n = col + 8 * hh;
+          if (r < it.end && n < p.N) out[(long long)r * p.N + n] = acc[c][4 * i + 2 * hh + e];
+        }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    gmm_fwd_split_kernel(const __grid_constant__ CUtensorMap mx,
+                         const __grid_constant__ CUtensorMap mw, const int* __restrict__ sizes,
+                         const SplitParams p) {
+  using namespace split;
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  __shared__ int s_start[kScan], s_live[kScan], s_count;
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (tid < 32) {
+    group_starts(sizes, p.E, p.M, s_start);
+    const int n_live = live_groups(p.E, s_start, s_live);
+    if (tid == 0) s_count = n_live;
+  }
+  if (tid == 32) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int n_split = pick_split(s_count * p.tiles_n, p.n_slices, p.sms);
+  const int n_items = s_count * p.tiles_n * n_split;
+
+  if (wg == 2) {  // the producer warpgroup: one thread copies
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+        const SplitItem it(p, s_start, s_live, n_split, i);
+        const int nch = (it.end - it.start + kChunk - 1) / kChunk;
+        for (int s = it.s0; s < it.s1; ++s) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], kABytes + nch * kChunkBytes);
+          const uint32_t st = base + stage * kStageBytes;
+          tma_load(st, &mw, it.n0, 64 * s, it.g, &full[stage]);
+          tma_load(st + kBox, &mw, it.n0 + 64, 64 * s, it.g, &full[stage]);
+          for (int c = 0; c < nch; ++c)
+            tma_load(st + kABytes + c * kChunkBytes, &mx, 64 * s, it.start + kChunk * c, &full[stage]);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroups: wg owns output columns [64 wg, 64 wg + 64) of each item
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int wtid = tid & 127;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+    const SplitItem it(p, s_start, s_live, n_split, i);
+    const int rows = it.end - it.start;
+    if (rows <= 8)
+      split_item<8>(p, it, base, full, empty, stage, phase, wg, wtid);
+    else if (rows <= 16)
+      split_item<16>(p, it, base, full, empty, stage, phase, wg, wtid);
+    else
+      split_item<32>(p, it, base, full, empty, stage, phase, wg, wtid);
+  }
+}
+
+// y[r] = the S partials of row r added in order and rounded once to bf16,
+// for the rows the groups own; the rows past them exactly 0. Four columns a
+// thread.
+__global__ void __launch_bounds__(256)
+    gmm_fwd_sum_kernel(const int* __restrict__ sizes, const SplitParams p) {
+  __shared__ int s_start[kScan], s_live[kScan], s_count;
+  if (threadIdx.x < 32) {
+    group_starts(sizes, p.E, p.M, s_start);
+    const int n_live = live_groups(p.E, s_start, s_live);
+    if (threadIdx.x == 0) s_count = n_live;
+  }
+  __syncthreads();
+  const int n_split = pick_split(s_count * p.tiles_n, p.n_slices, p.sms);
+  const int total = s_start[p.E];
+  const long long quads = (long long)p.M * p.N / 4, plane = (long long)p.M * p.N;
+  for (long long q = blockIdx.x * 256ll + threadIdx.x; q < quads; q += 256ll * gridDim.x) {
+    const long long o = 4 * q;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (o / p.N < total)
+      for (int k = 0; k < n_split; ++k) {
+        const float4 w = *reinterpret_cast<const float4*>(p.ws + k * plane + o);
+        v.x += w.x;
+        v.y += w.y;
+        v.z += w.z;
+        v.w += w.w;
+      }
+    *reinterpret_cast<uint2*>(p.y + o) =
+        make_uint2(Mma<__nv_bfloat16>::pack(v.x, v.y), Mma<__nv_bfloat16>::pack(v.z, v.w));
   }
 }
 
@@ -744,36 +828,76 @@ int launch_dx(const void* x, const void* w, const int* sizes, void* y, int M, in
   return cudaGetLastError();
 }
 
-}  // namespace bwd
+// the forward: the row-tile mode above 128 rows, the decode mode (split
+// over K, then the ordered sum of the partials in ws) at or below
+int launch_fwd(const void* x, const void* w, const int* sizes, void* y, void* ws, int M, int K,
+               int N, int E, cudaStream_t stream) {
+  CUtensorMap mx, mw;
+  if (M > split::kMaxRows) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        gmm_fwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dx::kSmem);
+    if (attr != cudaSuccess) return attr;
+    if (!map2d(&mx, x, K, M, 64) || !map3d(&mw, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, K, E, 64))
+      return -1;
+    DxParams p;
+    p.y = static_cast<uint16_t*>(y);
+    p.M = M;
+    p.K = K;
+    p.N = N;
+    p.E = E;
+    p.tiles_n = (N + dx::kBN - 1) / dx::kBN;
+    const long long bound = ((long long)(M + dx::kBM - 1) / dx::kBM + E + 1) * p.tiles_n;
+    const int grid = int(bound < num_sms() ? bound : num_sms());
+    gmm_fwd_rows_kernel<<<grid, kThreads, dx::kSmem, stream>>>(mx, mw, sizes, p);
+    return cudaGetLastError();
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gmm_fwd_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, split::kSmem);
+  if (attr != cudaSuccess) return attr;
+  if (ws == nullptr) return cudaErrorInvalidValue;
+  if (!map2d(&mx, x, K, M, split::kChunk) ||
+      !map3d(&mw, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, K, E, 64))
+    return -1;
+  SplitParams p;
+  p.ws = static_cast<float*>(ws);
+  p.y = static_cast<uint16_t*>(y);
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.E = E;
+  p.tiles_n = (N + split::kBN - 1) / split::kBN;
+  p.n_slices = (K + 63) / 64;
+  p.sms = num_sms();
+  gmm_fwd_split_kernel<<<p.sms, kThreads, split::kSmem, stream>>>(mx, mw, sizes, p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long quads = (long long)M * N / 4;
+  const int blocks = int(quads / 256 + 1 < 4 * p.sms ? quads / 256 + 1 : 4 * p.sms);
+  gmm_fwd_sum_kernel<<<blocks, 256, 0, stream>>>(sizes, p);
+  return cudaGetLastError();
+}
+
+}  // namespace persistent
 
 }  // namespace
 
 // bf16 operands, all contiguous and 16-byte aligned; sizes is (E,) int32 on
 // the device; K and N multiples of 8 (16-byte rows); E at most 128.
 // trans_w = 0: y (M, N) = x (M, K) @ w[g], w stored (E, K, N), by
-// gmm_kernel with block_m (16 or 64) rows per m-tile;
+// gmm_fwd_rows_kernel when M > 128, else by gmm_fwd_split_kernel and
+// gmm_fwd_sum_kernel with ws, an fp32 workspace of (8, M, N);
 // trans_w = 1: y (M, N) = x (M, K) @ w[g]^T, w stored (E, N, K), by
-// gmm_dx_kernel (block_m is not read).
+// gmm_dx_kernel (ws is not read).
 // Returns the cudaError_t of the launch (0 = launched), or -1 if the driver
 // refused a tensor map.
-extern "C" int grouped_matmul(const void* x, const void* w, const int* sizes, void* y, int M,
-                              int K, int N, int E, int block_m, int trans_w, void* stream) {
+extern "C" int grouped_matmul(const void* x, const void* w, const int* sizes, void* y, void* ws,
+                              int M, int K, int N, int E, int trans_w, void* stream) {
+  using persistent::kMaxGroups;
   if (M <= 0 || N <= 0 || K <= 0 || E <= 0 || E > kMaxGroups || K % 8 || N % 8)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (trans_w) return bwd::launch_dx(x, w, sizes, y, M, K, N, E, s);
-  Params p;
-  p.x = static_cast<const uint16_t*>(x);
-  p.w = static_cast<const uint16_t*>(w);
-  p.sizes = sizes;
-  p.y = static_cast<uint16_t*>(y);
-  p.M = M;
-  p.K = K;
-  p.N = N;
-  p.E = E;
-  if (block_m == 16) return launch<16>(p, s);
-  if (block_m == 64) return launch<64>(p, s);
-  return cudaErrorInvalidValue;
+  if (trans_w) return persistent::launch_dx(x, w, sizes, y, M, K, N, E, s);
+  return persistent::launch_fwd(x, w, sizes, y, ws, M, K, N, E, s);
 }
 
 // dw (E, K, N) = per group x_g^T @ dy_g: x (M, K) and dy (M, N) bf16,
@@ -783,9 +907,10 @@ extern "C" int grouped_matmul(const void* x, const void* w, const int* sizes, vo
 // tensor map.
 extern "C" int grouped_matmul_dw(const void* x, const void* dy, const int* sizes, void* dw, int M,
                                  int K, int N, int E, int out_bf16, void* stream) {
+  using persistent::kMaxGroups;
   if (M < 0 || N <= 0 || K <= 0 || E <= 0 || E > kMaxGroups || K % 8 || N % 8)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? bwd::launch_dw<true>(x, dy, sizes, dw, M, K, N, E, s)
-                  : bwd::launch_dw<false>(x, dy, sizes, dw, M, K, N, E, s);
+  return out_bf16 ? persistent::launch_dw<true>(x, dy, sizes, dw, M, K, N, E, s)
+                  : persistent::launch_dw<false>(x, dy, sizes, dw, M, K, N, E, s);
 }

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) primitives shared by the port's wgmma + TMA kernels: the
 // cross-entropy GEMM mainloop (ce_gemm.cuh), the flash-attention forward
 // and backward (flash_attention_fwd.cu, flash_attention_bwd.cu) and the
-// grouped matmul's backward (grouped_matmul.cu).
+// grouped matmul (grouped_matmul.cu).
 //
 // - mbarriers (init, arrive, arrive with an expected transaction count, and
 //   a parity wait that traps after ~2^33 cycles instead of hanging the card);
@@ -12,9 +12,10 @@
 //   write and the async proxy (wgmma, TMA) then reads;
 // - wgmma shared-memory descriptors of 128-byte-swizzled tiles, K-major and
 //   MN-major;
-// - wgmma.mma_async m64n64k16 and m64n128k16 with fp32 accumulators, bf16
-//   or fp16 operands, A from shared memory (SS) or from registers (RS), and
-//   the fence / commit / wait around them;
+// - wgmma.mma_async m64nNk16 with fp32 accumulators and bf16 or fp16
+//   operands: N = 8, 16, 32 (the grouped matmul's decode mode), 64 and 128
+//   with A from shared memory (SS), 64 and 128 with A from registers (RS);
+//   and the fence / commit / wait around them;
 // - on the host: the driver's tensor-map encoder (reached through the
 //   runtime, no -lcuda), an N-D tensor map with the 128-byte swizzle, and
 //   the SM count.
@@ -211,6 +212,9 @@ __device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+#define HOP_D4 "{%0, %1, %2, %3}"
+#define HOP_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define HOP_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define HOP_D32                                                                               \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -222,13 +226,16 @@ __device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
 #define HOP_ACC8(b)                                                                           \
   "+f"(d[b]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]), "+f"(d[b + 5]), \
       "+f"(d[b + 6]), "+f"(d[b + 7])
+#define HOP_ACC4 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+#define HOP_ACC16 HOP_ACC8(0), HOP_ACC8(8)
 #define HOP_ACC32 HOP_ACC8(0), HOP_ACC8(8), HOP_ACC8(16), HOP_ACC8(24)
 #define HOP_ACC64 HOP_ACC32, HOP_ACC8(32), HOP_ACC8(40), HOP_ACC8(48), HOP_ACC8(56)
 
-// D (64 x N, fp32, see the layout below) (+)= A (64 x 16) B (16 x N) for N
-// = 64 or 128, T = __nv_bfloat16 or __half. ss: A and B from shared memory
-// (descriptors; kTA / kTB = 1 reads that operand MN-major). rs: A from four
-// registers, B from shared memory. accumulate = 0 overwrites D.
+// D (64 x N, fp32, see the layout below) (+)= A (64 x 16) B (16 x N), T =
+// __nv_bfloat16 or __half; the accumulator array's length, N / 2, picks N.
+// ss: A and B from shared memory (descriptors; kTA / kTB = 1 reads that
+// operand MN-major), N = 8, 16, 32, 64 or 128. rs: A from four registers, B
+// from shared memory, N = 64 or 128. accumulate = 0 overwrites D.
 //
 // Layouts, for thread tid of the warpgroup (w = tid / 32, g = (tid % 32) /
 // 4, t = tid % 4): d[4 i + 2 hh + e] is row 16 w + g + 8 hh, column 8 i +
@@ -243,6 +250,33 @@ struct Wgmma;
 #define HOP_WGMMA(CT, TY)                                                                      \
   template <>                                                                                  \
   struct Wgmma<CT> {                                                                           \
+    template <int kTA, int kTB>                                                                \
+    static __device__ __forceinline__ void ss(float (&d)[4], uint64_t da, uint64_t db,        \
+                                              int accumulate) {                                \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"                                 \
+                   "wgmma.mma_async.sync.aligned.m64n8k16.f32." TY "." TY " " HOP_D4           \
+                   ", %4, %5, p, 1, 1, %7, %8;\n}\n"                                           \
+                   : HOP_ACC4                                                                  \
+                   : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));                   \
+    }                                                                                          \
+    template <int kTA, int kTB>                                                                \
+    static __device__ __forceinline__ void ss(float (&d)[8], uint64_t da, uint64_t db,        \
+                                              int accumulate) {                                \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                                \
+                   "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " " HOP_D8          \
+                   ", %8, %9, p, 1, 1, %11, %12;\n}\n"                                         \
+                   : HOP_ACC8(0)                                                               \
+                   : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));                   \
+    }                                                                                          \
+    template <int kTA, int kTB>                                                                \
+    static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db,       \
+                                              int accumulate) {                                \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                                \
+                   "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " HOP_D16         \
+                   ", %16, %17, p, 1, 1, %19, %20;\n}\n"                                       \
+                   : HOP_ACC16                                                                 \
+                   : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));                   \
+    }                                                                                          \
     template <int kTA, int kTB>                                                                \
     static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db,       \
                                               int accumulate) {                                \
@@ -289,9 +323,14 @@ HOP_WGMMA(__half, "f16")
 #undef HOP_WGMMA
 #undef HOP_ACC64
 #undef HOP_ACC32
+#undef HOP_ACC16
 #undef HOP_ACC8
+#undef HOP_ACC4
 #undef HOP_D64
 #undef HOP_D32
+#undef HOP_D16
+#undef HOP_D8
+#undef HOP_D4
 
 // the A fragment of k-step kk of an rs product from accumulators d of the
 // layout above (columns [16 kk, 16 kk + 16)), each value rounded to T once

@@ -1,5 +1,5 @@
 """Ragged grouped matmul and its backward: the CUDA kernels' wrappers, their
-plain versions, the host side of the backward kernels' schedules, and the
+plain versions, the host side of the kernels' schedules, and the
 differentiable op that pairs them.
 
 ``gmm`` replaces the TPU kernel ``gmm`` (``_gmm_kernel``) of the reference
@@ -11,21 +11,25 @@ expert GEMMs of the MoE layer after sort-by-expert dispatch.  With
 weights, the backward's dx, with no transposed copy.  ``gmm_dw`` replaces
 ``gmm_dw`` (``_tgmm_kernel``): ``dw[g] = x_gᵀ · dy_g`` -> (E, K, N), fp32
 sums, an empty group's slice exactly 0.  The kernels are in
-``csrc/grouped_matmul.cu``, CUDA C++ for sm_90a: the forward an mma.sync
-kernel; the transposed mode and ``gmm_dw`` persistent wgmma + TMA kernels on
-``csrc/hopper.cuh`` (a producer warpgroup, two consumer warpgroups), dW
-written through TMA stores.  Every block derives its work from the sizes on
-the device, the grids are fixed by static bounds, and no two blocks write
-one element, so a call repeats bit for bit; the source note gives the
-designs and the bounds.  The plain versions are ``ref.grouped_matmul_ref``
-and ``ref.grouped_matmul_dw_ref``.
+``csrc/grouped_matmul.cu``, CUDA C++ for sm_90a: persistent wgmma + TMA
+kernels on ``csrc/hopper.cuh`` (a producer warpgroup, two consumer
+warpgroups).  The forward has two modes: above ``SPLIT_MAX_ROWS`` rows the
+transposed mode's row tiles of 256 from each group's start; at or below
+(decode) the weights on wgmma's M side, each live group's K split S ways
+into an fp32 workspace that a second kernel adds up in order.  dW is
+written through TMA stores.  Every block derives its work from the sizes
+on the device, the grids are fixed by static bounds, and each output
+element is summed in one fixed order, so a call repeats bit for bit; the
+source note gives the designs and the bounds.  The plain versions are
+``ref.grouped_matmul_ref`` and ``ref.grouped_matmul_dw_ref``.
 
-The backward kernels' schedules are mirrored here so that the CPU tests
-reach them: ``group_starts`` (each group's first row), ``dw_tiles`` (the
-gmm_dw tiles: group, 128 rows of K, 256 columns of N), ``dw_slices`` (a
-group's 64-row slices) and ``dx_items`` (the transposed mode's row tiles of
-256 from each group's start, then the zero tail); the kernels compute the
-same on the device.
+The kernels' schedules are mirrored here so that the CPU tests reach them:
+``group_starts`` (each group's first row), ``fwd_split`` and ``fwd_items``
+(the forward's items in either mode), ``dw_tiles`` (the gmm_dw tiles:
+group, 128 rows of K, 256 columns of N), ``dw_slices`` (a group's 64-row
+slices) and ``dx_items`` (the transposed mode's row tiles of 256 from each
+group's start, then the zero tail); the kernels compute the same on the
+device.
 
 ``grouped_matmul`` is the ``torch.autograd.Function`` that pairs them as
 the reference's ``_gmm_pallas_fwd/_bwd`` do: dx by ``gmm`` on the
@@ -35,7 +39,8 @@ the sizes get no cotangent.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises.  Nothing reads ``group_sizes`` on the host, so a call makes no
-host sync.  ``gmm.launches`` (the forward and the transposed mode),
+host sync.  ``gmm.launches`` (one a call of the forward, whose decode
+mode launches its sum pass beside it, or of the transposed mode),
 ``gmm.dx_launches`` (the transposed mode alone) and ``gmm_dw.launches``
 count kernel launches.
 """
@@ -49,14 +54,21 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import grouped_matmul_dw_ref, grouped_matmul_ref
 
-_MAX_GROUPS = 128   # the forward's schedule scans one group per thread of a block
+_MAX_GROUPS = 128   # the schedules scan the groups' sizes with one warp, 5 a lane
 
-# the backward kernels' tiles (csrc/grouped_matmul.cu, namespaces bwd::dw and bwd::dx)
-SLICE = 64             # rows of x and dy a gmm_dw slice; depth of a dx slice
+# the kernels' tiles (csrc/grouped_matmul.cu, namespaces persistent::dw, ::dx
+# and ::split; the forward's row-tile mode takes dx's)
+SLICE = 64             # rows of x and dy a gmm_dw slice; depth of a dx or forward slice
 DW_TILE_K = 128        # rows of dW (K) a tile
 DW_TILE_N = 256        # columns of dW (N) a tile
 DX_TILE_M = 256        # rows a transposed-mode tile: four m64 blocks from the group's start
 DX_TILE_N = 128        # output columns a transposed-mode tile
+SPLIT_MAX_ROWS = 128   # M at or below: the forward's decode mode
+SPLIT_CHUNK = 32       # rows a decode-mode product takes at once (wgmma n 8, 16 or 32)
+SPLIT_TILE_N = 128     # output columns a decode-mode item
+MAX_SPLIT = 8          # K splits at most: the workspace's partials
+SPLIT_ITEM_COST = 1    # an item's fixed cost, in slices, when the split is chosen
+SMS = 132              # an H100 SXM's SM count: the kernels' grid, the mirror's default
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -116,9 +128,41 @@ def dx_grid_bound(M: int, E: int, N: int) -> int:
     return (_cdiv(M, DX_TILE_M) + E + 1) * _cdiv(N, DX_TILE_N)
 
 
-def block_m(M: int) -> int:
-    """Rows per m-tile: 16 at decode sizes (a few rows per expert), 64 above."""
-    return 16 if M <= 128 else 64
+def fwd_split(tiles: int, n_slices: int, sms: int = SMS) -> int:
+    """The decode mode's number of K splits (``pick_split``): the S in 1 ..
+    ``MAX_SPLIT`` (at most ``n_slices``) whose ``tiles`` x S items take the
+    fewest slices on the busiest of ``sms`` blocks, counting each item's
+    fixed cost; the smaller S on a tie."""
+    best, best_cost = 1, None
+    for s in range(1, min(MAX_SPLIT, n_slices) + 1):
+        cost = _cdiv(tiles * s, sms) * (_cdiv(n_slices, s) + SPLIT_ITEM_COST)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def fwd_items(sizes: Sequence[int], M: int, K: int, N: int, sms: int = SMS
+              ) -> List[Tuple[int, int, int, int, int, int]]:
+    """The forward's work items in order: (group, first row, end row, first
+    output column, first and end depth).  Above ``SPLIT_MAX_ROWS`` rows the
+    row-tile mode's, ``dx_items`` over the whole depth, the zero tail as
+    pseudo-group E.  At or below, the decode mode's: for each live group,
+    column tile and K split, split fastest, all the group's rows over
+    1 / S of the 64-deep slices; then, as pseudo-group E with no depth, the
+    rows past the groups that the sum pass writes as zeros."""
+    if M > SPLIT_MAX_ROWS:
+        return [(q, m0, hi, n0, 0, K) for q, m0, hi, n0 in dx_items(sizes, M, N)]
+    starts = group_starts(sizes, M)
+    E = len(sizes)
+    live = [g for g in range(E) if starts[g + 1] > starts[g]]
+    tiles_n, n_slices = _cdiv(N, SPLIT_TILE_N), _cdiv(K, SLICE)
+    S = fwd_split(len(live) * tiles_n, n_slices, sms)
+    items = [(g, starts[g], starts[g + 1], t * SPLIT_TILE_N, SLICE * (k * n_slices // S),
+              min(K, SLICE * ((k + 1) * n_slices // S)))
+             for g in live for t in range(tiles_n) for k in range(S)]
+    if starts[E] < M:
+        items += [(E, starts[E], M, t * SPLIT_TILE_N, 0, 0) for t in range(tiles_n)]
+    return items
 
 
 def _check_sizes(name: str, E: int, group_sizes: torch.Tensor) -> None:
@@ -167,7 +211,7 @@ def _lib():
     lib = _build.load("grouped_matmul")
     if lib.grouped_matmul.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.grouped_matmul.argtypes = [p] * 4 + [i] * 6 + [p]
+        lib.grouped_matmul.argtypes = [p] * 5 + [i] * 5 + [p]
         lib.grouped_matmul.restype = i
         lib.grouped_matmul_dw.argtypes = [p] * 4 + [i] * 5 + [p]
         lib.grouped_matmul_dw.restype = i
@@ -190,9 +234,12 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return y
+    ws = None   # the decode mode's partial sums, one (M, N) fp32 slice a K split
+    if not transpose_w and M <= SPLIT_MAX_ROWS:
+        ws = torch.empty((MAX_SPLIT, M, N), dtype=torch.float32, device=x.device)
     err = _lib().grouped_matmul(x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), y.data_ptr(),
-                                M, K, N, E, block_m(M), int(transpose_w),
-                                torch.cuda.current_stream(x.device).cuda_stream)
+                                None if ws is None else ws.data_ptr(), M, K, N, E,
+                                int(transpose_w), torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"gmm kernel launch failed: cudaError {err}")
     gmm.launches += 1

@@ -3,7 +3,8 @@ against the reference's TPU kernel run in Pallas interpret mode and against
 its gather oracle, on the same seeded numpy inputs, across group counts and
 ragged edge cases; its gradients against ``jax.vjp`` of the reference's
 custom VJP; the op's dispatch; the kernel wrappers' refusals; and the host
-mirror of the backward kernels' schedules against the reference's."""
+mirror of the kernels' schedules (the forward's in both modes, the
+backward's) against the reference's."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,6 +16,7 @@ import numpy as np  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.grouped_matmul import gmm as jax_gmm  # noqa: E402
+from repro.kernels.grouped_matmul import gmm_metadata as jax_gmm_metadata  # noqa: E402
 from repro.kernels.grouped_matmul import tgmm_metadata as jax_tgmm_metadata  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -209,11 +211,7 @@ def test_dw_kernel_argument_checks(bad, match):
         gm.check_dw_args(x, dy, gs)
 
 
-def test_block_m_follows_the_row_count():
-    assert [gm.block_m(m) for m in (1, 32, 128, 129, 1024)] == [16, 16, 16, 64, 64]
-
-
-# ---- the backward kernels' schedules (their host mirror in grouped_matmul.py)
+# ---- the kernels' schedules (their host mirror in grouped_matmul.py)
 
 def _router_draw(tokens, E, cap, seed):
     """Group sizes of a seeded skewed top-1 router draw, each cut to the
@@ -230,11 +228,12 @@ SCHEDULE_CASES = CASES + [(16, 2048, _router_draw(2048, 16, 160, 3)),
                           (128, 1024, _router_draw(1024, 128, 16, 4))]
 
 
-def _reference_rows(sizes, M):
-    """Each group's rows as the reference's dW schedule masks them
-    (``tgmm_metadata``: an entry's m-tile rows within [lo, hi))."""
+def _reference_rows(sizes, M, metadata=jax_tgmm_metadata):
+    """Each group's rows as the reference's dW schedule (or, with
+    ``gmm_metadata``, its forward's) masks them: an entry's m-tile rows
+    within [lo, hi)."""
     bm = 16
-    gid, mid, lo, hi, _ = (np.asarray(a) for a in jax_tgmm_metadata(
+    gid, mid, lo, hi, _ = (np.asarray(a) for a in metadata(
         jnp.asarray(sizes, jnp.int32), -(-M // bm), bm))
     rows = {g: set() for g in range(len(sizes))}
     for g, m, a, b in zip(gid, mid, lo, hi):
@@ -296,6 +295,79 @@ def test_dx_row_tiles_start_at_group_starts_and_partition_the_rows(E, M, sizes, 
         assert cols == sorted(cols)
 
 
+@pytest.mark.parametrize("K,N", [(96, 80), (200, 136), (5120, 8192)])
+@pytest.mark.parametrize("E,M,sizes", SCHEDULE_CASES, ids=lambda c: str(c)[:40])
+def test_forward_items_cover_each_groups_rows_once_from_its_start(E, M, sizes, K, N):
+    """The forward's items, in either mode (decode at 128 rows or fewer,
+    row tiles above): for every column tile, each row the reference's
+    forward schedule gives a group is computed by that group's items over
+    the whole depth exactly once, the depth in 64-deep K splits taken in
+    order, each split once; a group's tiles start at its first row; and the
+    rows [sum(sizes), M) are written once, as zeros; the row-tile mode's
+    items fit its static bound."""
+    items = gm.fwd_items(sizes, M, K, N)
+    starts = gm.group_starts(sizes, M)
+    want = _reference_rows(sizes, M, jax_gmm_metadata)
+    total, decode = starts[E], M <= gm.SPLIT_MAX_ROWS
+    if not decode:   # the row-tile mode's static bound, as the transposed mode's
+        assert len(items) <= gm.dx_grid_bound(M, E, N)
+    tile_n = gm.SPLIT_TILE_N if decode else gm.DX_TILE_N
+    n0s = sorted({n0 for _, _, _, n0, _, _ in items})
+    assert n0s == list(range(0, N, tile_n)) or (total == M == 0)
+    for n0 in n0s:
+        col = [it for it in items if it[3] == n0]
+        tail = [(m0, hi) for q, m0, hi, _, _, _ in col if q == E]
+        assert sorted(r for m0, hi in tail for r in range(m0, hi)) == list(range(total, M))
+        for g in range(E):
+            mine = [(m0, hi, k0, k1) for q, m0, hi, _, k0, k1 in col if q == g]
+            depths = {}
+            for m0, hi, k0, k1 in mine:
+                assert starts[g] <= m0 < hi <= starts[g + 1]
+                tile = gm.SPLIT_MAX_ROWS if decode else gm.DX_TILE_M
+                assert (m0 - starts[g]) % tile == 0                    # from the group's start
+                assert 0 <= k0 < k1 <= K and k0 % gm.SLICE == 0
+                for r in range(m0, hi):
+                    depths.setdefault(r, []).append((k0, k1))
+            assert set(depths) == want[g], g
+            for r, ks in depths.items():                                # [0, K) once, in order
+                assert [k0 for k0, _ in ks] == [0] + [k1 for _, k1 in ks[:-1]] and ks[-1][1] == K
+            if decode and mine:
+                assert {(m0, hi) for m0, hi, _, _ in mine} == {(starts[g], starts[g + 1])}
+                n_split = len(mine)
+                assert 1 <= n_split <= min(gm.MAX_SPLIT, -(-K // gm.SLICE))
+                assert all(len(ks) == n_split for ks in depths.values())
+
+
+@pytest.mark.parametrize("K,N", [(5120, 8192), (8192, 5120)])
+def test_decode_split_fills_the_waves_of_the_sms(K, N):
+    """At Scout's decode widths, for every number of live experts, the
+    chosen K split keeps the busiest of the 132 SMs within 1 / 0.85 of an
+    even share of the slices (with each item's fixed cost), where no split
+    leaves it at up to 3.3 times that."""
+    tiles_n, n_slices = -(-N // gm.SPLIT_TILE_N), -(-K // gm.SLICE)
+    worst_unsplit = 1.0
+    for live in range(1, 17):
+        tiles = live * tiles_n
+        S = gm.fwd_split(tiles, n_slices)
+        even = tiles * n_slices / gm.SMS
+        busiest = -(-tiles * S // gm.SMS) * (-(-n_slices // S) + gm.SPLIT_ITEM_COST)
+        assert even / busiest >= 0.85, (live, S)
+        worst_unsplit = min(worst_unsplit, even / (-(-tiles // gm.SMS) * (n_slices + 1)))
+    assert worst_unsplit < 0.85
+
+
+def test_forward_mode_follows_the_row_count():
+    """128 rows or fewer take the decode mode (one split item a live group,
+    column tile and K split, all the group's rows); more rows take row
+    tiles of 256 from each group's start."""
+    sizes = [60, 0, 68]
+    decode = gm.fwd_items(sizes, 128, 256, 128)
+    assert {(q, m0, hi) for q, m0, hi, *_ in decode} == {(0, 0, 60), (2, 60, 128)}
+    rows = gm.fwd_items(sizes + [1], 129, 256, 128)
+    assert [it[:3] for it in rows] == [(0, 0, 60), (2, 60, 128), (3, 128, 129)]
+    assert all(it[4:] == (0, 256) for it in rows)
+
+
 def _misaligned(*shape):
     """A contiguous bf16 tensor whose base lies 2 bytes past a 16-byte
     boundary."""
@@ -305,22 +377,25 @@ def _misaligned(*shape):
     return t
 
 
-@pytest.mark.parametrize("entry", ["gmm", "gmm transposed", "gmm_dw"])
+@pytest.mark.parametrize("entry", ["gmm", "gmm weights", "gmm transposed", "gmm_dw"])
 @pytest.mark.parametrize("what", ["base", "row stride"])
 def test_kernel_argument_checks_for_tma(entry, what):
     """What the tensor maps demand of every operand: a 16-byte aligned base
     and rows whose byte stride is a multiple of 16 (K and N multiples of 8
-    in bf16)."""
+    in bf16) — the forward's x map, its (N, K, E) weight map, the
+    transposed mode's and gmm_dw's."""
     z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)  # noqa: E731
     gs = torch.zeros(2, dtype=torch.int32)
     if what == "base":
         match = "16-byte aligned"
         args = {"gmm": (_misaligned(4, 16), z(2, 16, 8)),
+                "gmm weights": (z(4, 16), _misaligned(2, 16, 8)),
                 "gmm transposed": (z(4, 16), _misaligned(2, 8, 16)),
                 "gmm_dw": (z(4, 16), _misaligned(4, 8))}[entry]
     else:
         match = "multiples of 8"
         args = {"gmm": (z(4, 12), z(2, 12, 8)),
+                "gmm weights": (z(4, 16), z(2, 16, 12)),
                 "gmm transposed": (z(4, 20), z(2, 8, 20)),
                 "gmm_dw": (z(4, 16), z(4, 12))}[entry]
     with pytest.raises(ValueError, match=match):
