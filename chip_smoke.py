@@ -734,108 +734,164 @@ def train_phase(torch, model, counters, card):
 
 
 def check_rmsnorm(torch, F, ref, rmsnorm, randn, card):
-    """Row 6 against ``rmsnorm_ref`` at Qwen2-7B's decode and prefill
-    shapes; times both.  Returns its kernel record, timed at the decode
-    shape the main path runs most (launches filled in later)."""
-    d = 3584
+    """Row 6 against ``rmsnorm_ref`` at the served widths (Mamba2's 2560,
+    Qwen2-7B's 3584, Scout's 5120) at the decode and prefill row counts, in
+    bf16 and fp32, and with weights in another dtype than x; times Qwen2's
+    decode and prefill shapes and Scout's decode shape, and reads the
+    prefill shape's device time over inputs rotated past the 50 MB L2.
+    Returns its kernel record, timed at the decode shape the main path runs
+    most (launches filled in later)."""
+    import itertools
+
+    cases = [(rows, d, dt, dt) for d in (2560, 3584, 5120) for rows in (32, 2048)
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [(32, 3584, torch.bfloat16, torch.float32), (32, 3584, torch.float32, torch.bfloat16),
+              (32, 3584, torch.float16, torch.float16), (7, 256, torch.bfloat16, torch.bfloat16)]
+    for rows, d, dt, wdt in cases:
+        x = randn(rows, d, dtype=dt, scale=3.0, shift=0.5)
+        w = randn(d, dtype=wdt)
+        y = rmsnorm(x, w)
+        torch.cuda.synchronize()
+        r = ref.rmsnorm_ref(x, w)
+        err = (y.float() - r.float()).abs()
+        # 16-bit output: at most one output rounding step apart (2^-7 of
+        # |y| in bf16); fp32: the same moments summed in another order
+        rtol = {torch.bfloat16: 2**-7, torch.float16: 2**-10, torch.float32: 1e-5}[dt]
+        ok = bool((err <= 1e-5 + rtol * r.float().abs()).all()) and y.dtype == dt
+        print(f"rmsnorm ({rows}, {d}) x {str(dt)[6:]}, w {str(wdt)[6:]}: max err "
+              f"{err.max().item():.3g} (tol 1e-5 + {rtol:.3g}*|y|)")
+        check(ok, f"rmsnorm ({rows}, {d}) {dt} w {wdt}")
     rec = None
-    for rows in (32, 2048):
-        for dt in (torch.bfloat16, torch.float32):
-            x = randn(rows, d, dtype=dt, scale=3.0, shift=0.5)
-            w = randn(d, dtype=dt)
-            y = rmsnorm(x, w)
-            torch.cuda.synchronize()
-            r = ref.rmsnorm_ref(x, w)
-            err = (y.float() - r.float()).abs()
-            # bf16: at most one bf16 step apart (2^-7 of |y|), from the output
-            # rounding; fp32: the same moments summed in another order
-            rtol = 2**-7 if dt == torch.bfloat16 else 1e-5
-            ok = bool((err <= 1e-5 + rtol * r.float().abs()).all())
-            print(f"rmsnorm ({rows}, {d}) {str(dt)[6:]}: max err {err.max().item():.3g} "
-                  f"(tol 1e-5 + {rtol:.3g}*|y|)")
-            check(ok, f"rmsnorm ({rows}, {d}) {dt}")
+    for rows, d in ((32, 3584), (2048, 3584), (32, 5120)):
         x = randn(rows, d, scale=3.0, shift=0.5)
         w = randn(d)
-        ms = time_ms(torch, lambda: rmsnorm(x, w))
+        # the kernel and F.rms_norm in turns (kernel, library, library,
+        # kernel): both are bound by the host's launch path at these sizes,
+        # and the host's speed drifts within a run
+        turns = {"kernel": [], "library": []}
+        for who in ("kernel", "library", "library", "kernel"):
+            turns[who].append(time_ms(torch, (lambda: rmsnorm(x, w)) if who == "kernel"
+                                      else (lambda: F.rms_norm(x, (d,), w, 1e-5))))
+        ms, lib_ms = (statistics.mean(turns[who]) for who in ("kernel", "library"))
         plain_ms = time_ms(torch, lambda: ref.rmsnorm_ref(x, w))
-        lib_ms = time_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-5))
         nbytes = 2 * rows * d * 2 + d * 2
         bound_ms, bound_by = bound(4 * rows * d, nbytes, PEAK_FP32_FLOPS)
         dev_ms = device_ms(torch, lambda: rmsnorm(x, w), "rmsnorm", floor=bound_ms)
+        # the same shape over enough inputs that each call reads x from
+        # DRAM, as a layer's norm does: its reading against the byte bound
+        copies = -(-3 * 50 * 2**20 // (rows * d * 2))
+        xs = itertools.cycle([randn(rows, d, scale=3.0, shift=0.5) for _ in range(copies)])
+        dram_ms = device_ms(torch, lambda: rmsnorm(next(xs), w), "rmsnorm", floor=bound_ms)
+        del xs
         print(f"rmsnorm ({rows}, {d}) bf16 on {card}: {ms:.4f} ms back to back, device {fmt_ms(dev_ms)} "
-              f"ms (bound {bound_ms:.5f} ms by {bound_by}, "
-              f"{per_device_ms(nbytes, dev_ms, 'GB/s', 1e6)}), plain {plain_ms:.4f} ms, "
-              f"F.rms_norm {lib_ms:.4f} ms")
+              f"ms, over {copies} inputs rotated past L2 {fmt_ms(dram_ms)} ms (bound {bound_ms:.5f} "
+              f"ms by {bound_by}, {per_device_ms(nbytes, dram_ms, 'GB/s', 1e6)}), plain "
+              f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms")
+        reading = {"ms": ms, "device_ms": dev_ms, "device_ms_dram": dram_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
         if rec is None:
             err = (rmsnorm(x, w).float() - ref.rmsnorm_ref(x, w).float()).abs().max().item()
-            rec = {"name": "rmsnorm", "route": "triton", "source": "src/repro_torch/kernels/rmsnorm.py",
+            rec = {"name": "rmsnorm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
                    "replaces": "src/repro/kernels/rmsnorm.py:54", "launches": 0,
-                   "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": lib_ms}
+                   "max_abs_err": err, **reading}
+        else:
+            rec[f"({rows}, {d})"] = reading
     return rec
 
 
 def check_flash_decode(torch, F, ref, flash_decode, randn, card):
-    """Row 8 against ``decode_attention_ref`` at Qwen2-7B's decode shape
-    with ragged lengths (0, 1 and T among them), at group 1 and at D 64, in
-    bf16 (the only dtype the kernel takes); times the main shape.  Returns
-    its kernel record."""
+    """Row 8 against ``decode_attention_ref`` at Qwen2-7B's and Scout's
+    decode shapes with ragged lengths (0, 1 and T among them), at the
+    256-key split edges, at groups 1 and 16, at D 64, with a softcap and
+    through strided views of a stacked cache, in bf16 (the only dtype the
+    kernel takes); a row alone must equal its row in the batch bit for bit,
+    and a repeat the first call.  Times both decode shapes.  Returns its
+    kernel record (Qwen2's shape; Scout's under "scout")."""
     import numpy as np
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
-    # the plain version rounds the normalized P to the input dtype before
-    # PV (2^-9 relative in bf16) where the kernel keeps fp32
+    # the plain version rounds the normalized P to bf16 before PV; the
+    # kernel rounds the unnormalized P to bf16 for the tensor cores and
+    # divides by the fp32 sum at the end
     tol = 2e-2
+    edges = [0, 255, 256, 257, 511, 512, 1, 767]
     cases = [
-        ("qwen2-7b decode shape", dict(B=32, T=2048, H=28, Hkv=4, D=128)),
+        ("qwen2-7b decode shape", dict(B=32, T=2048, H=28, Hkv=4, D=128, timed=True)),
+        ("scout decode shape, group 5", dict(B=32, T=2048, H=40, Hkv=8, D=128, timed=True)),
+        ("split edges", dict(B=8, T=768, H=28, Hkv=4, D=128, lens=edges)),
         ("group 1", dict(B=8, T=700, H=8, Hkv=8, D=128)),
+        ("group 16", dict(B=4, T=900, H=32, Hkv=2, D=128)),
         ("D=64, group 4", dict(B=8, T=333, H=16, Hkv=4, D=64)),
+        ("D=64, group 16", dict(B=4, T=520, H=16, Hkv=1, D=64, lens=[0, 1, 256, 520])),
+        ("softcap 30", dict(B=8, T=600, H=28, Hkv=4, D=128, softcap=30.0)),
+        ("strided stacked-cache views", dict(B=8, T=640, H=28, Hkv=4, D=128, strided=True)),
     ]
-    main = None
+    shapes = {}
     for label, c in cases:
         B, T, H, Hkv, D = c["B"], c["T"], c["H"], c["Hkv"], c["D"]
-        lens = rng.integers(0, T + 1, size=B)
-        lens[:3] = [0, 1, T]
+        cap = c.get("softcap", 0.0)
+        if "lens" in c:
+            lens = np.asarray(c["lens"])
+        else:
+            lens = rng.integers(0, T + 1, size=B)
+            lens[:3] = [0, 1, T]
         lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
         q = randn(B, 1, H, D)
-        k = randn(B, T, Hkv, D)
-        v = randn(B, T, Hkv, D)
-        out = flash_decode(q, k, v, lengths)
+        if c.get("strided"):
+            # a layer's K and V as views of one (B, T, 2, Hkv, D) buffer
+            kv = randn(B, T, 2, Hkv, D)
+            k, v = kv[:, :, 0], kv[:, :, 1]
+        else:
+            k = randn(B, T, Hkv, D)
+            v = randn(B, T, Hkv, D)
+        out = flash_decode(q, k, v, lengths, softcap=cap)
         torch.cuda.synchronize()
-        want = ref.decode_attention_ref(q, k, v, lengths)
+        want = ref.decode_attention_ref(q, k, v, lengths, softcap=cap)
         err = row_rel_err(out, want)
-        zero = bool((out[0] == 0).all())
-        print(f"flash_decode {label} (B={B}, T={T}, H={H}, Hkv={Hkv}, D={D}) bf16: rel err "
-              f"{err:.3g} (tol {tol} of each row's max|ref|), length-0 row exactly 0: {zero}")
-        check(err <= tol and zero and bool(out.isfinite().all()), f"flash_decode {label}")
-        if main is None:
-            main = (q, k, v, lengths, lens, (out.float() - want.float()).abs().max().item())
-    q, k, v, lengths, lens, err0 = main
-    B, T, Hkv, D = k.shape
-    H = q.shape[2]
-    ms = time_ms(torch, lambda: flash_decode(q, k, v, lengths))
-    plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, lengths), trials=5, per_trial=5)
-    qt = q.transpose(1, 2)                                   # (B, H, 1, D)
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)            # (B, Hkv, T, D)
-    mask = (torch.arange(T, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                                   enable_gqa=True))
-    live = int(lens.sum())
-    # this run's data: q and out once, each live cache row of K and V once,
-    # the lengths; QK and PV of every query head over its live rows
-    nbytes = 2 * B * H * D * 2 + 2 * live * Hkv * D * 2 + B * 4
-    bound_ms, bound_by = bound(4 * H * D * live, nbytes)
-    dev_ms = device_ms(torch, lambda: flash_decode(q, k, v, lengths), "flash_decode", floor=bound_ms)
-    print(f"flash_decode B={B} T={T} H={H} Hkv={Hkv} D={D} bf16, {live} live rows of {B * T}, on "
-          f"{card}: {ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (bound {bound_ms:.4f} ms by "
-          f"{bound_by}, {per_device_ms(nbytes, dev_ms, 'GB/s', 1e6)}), "
-          f"plain {plain_ms:.4f} ms, scaled_dot_product_attention (length mask, GQA) {lib_ms:.4f} ms")
-    return {"name": "flash_decode", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
-            "replaces": "src/repro/kernels/flash_decode.py:116", "launches": 0, "max_abs_err": err0,
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms}
+        zero = bool((out[lengths == 0] == 0).all())
+        repeat = torch.equal(flash_decode(q, k, v, lengths, softcap=cap), out)
+        # each row alone (a batch of one) against its row in the batch
+        alone = all(torch.equal(flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1], lengths[i:i + 1],
+                                             softcap=cap), out[i:i + 1])
+                    for i in range(min(B, 6)))
+        print(f"flash_decode {label} (B={B}, T={T}, H={H}, Hkv={Hkv}, D={D}, softcap {cap}) bf16: rel "
+              f"err {err:.3g} (tol {tol} of each row's max|ref|), length-0 rows exactly 0: {zero}, "
+              f"repeat bit-identical: {repeat}, rows alone = in the batch: {alone}")
+        check(err <= tol and zero and repeat and alone and bool(out.isfinite().all()),
+              f"flash_decode {label}")
+        if c.get("timed"):
+            shapes[label] = (q, k, v, lengths, lens, (out.float() - want.float()).abs().max().item())
+    recs = []
+    for label, (q, k, v, lengths, lens, err0) in shapes.items():
+        B, T, Hkv, D = k.shape
+        H = q.shape[2]
+        ms = time_ms(torch, lambda: flash_decode(q, k, v, lengths))
+        plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, lengths), trials=5,
+                           per_trial=5)
+        qt = q.transpose(1, 2)                                   # (B, H, 1, D)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)            # (B, Hkv, T, D)
+        mask = (torch.arange(T, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                       enable_gqa=True))
+        live = int(lens.sum())
+        # this run's data: q and out once, each live cache row of K and V
+        # once, the lengths; QK and PV of every query head over its live rows
+        nbytes = 2 * B * H * D * 2 + 2 * live * Hkv * D * 2 + B * 4
+        bound_ms, bound_by = bound(4 * H * D * live, nbytes)
+        dev_ms = device_ms(torch, lambda: flash_decode(q, k, v, lengths), "flash_decode",
+                           floor=bound_ms)
+        print(f"flash_decode {label} B={B} T={T} H={H} Hkv={Hkv} D={D} bf16, {live} live rows of "
+              f"{B * T}, on {card}: {ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (bound "
+              f"{bound_ms:.4f} ms by {bound_by}, {per_device_ms(nbytes, dev_ms, 'GB/s', 1e6)}), "
+              f"plain {plain_ms:.4f} ms, scaled_dot_product_attention (length mask, GQA) "
+              f"{lib_ms:.4f} ms")
+        recs.append({"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms, "max_abs_err": err0})
+    rec = {"name": "flash_decode", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+           "replaces": "src/repro/kernels/flash_decode.py:116", "launches": 0, **recs[0]}
+    rec["scout"] = recs[1]
+    return rec
 
 
 def check_sampling(torch, ref, fused_sample, randn, card):
@@ -2883,7 +2939,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.finish_builds(_build.start_builds(
         ["flash_attention_fwd", "flash_attention_bwd", "cross_entropy", "flash_decode", "sampling",
-         "paged_attention", "grouped_matmul", "ssd_scan"]))
+         "paged_attention", "grouped_matmul", "ssd_scan", "rmsnorm"]))
     t_nvcc = time.perf_counter() - t0
     for name, log in logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill stores" in ln
@@ -2892,9 +2948,8 @@ def main() -> int:
     t0 = time.perf_counter()
     xw = torch.ones(8, 1280, device=dev, dtype=torch.bfloat16)
     layernorm(xw, torch.ones(1280, device=dev), torch.zeros(1280, device=dev))
-    rmsnorm(xw, torch.ones(1280, device=dev))
     torch.cuda.synchronize()
-    print(f"compiled layernorm and rmsnorm (Triton) in {time.perf_counter() - t0:.1f} s")
+    print(f"compiled layernorm (Triton) in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. each kernel against its plain version, on the card
     g = torch.Generator(device=dev).manual_seed(0)
@@ -3050,7 +3105,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- 7. slice 4a: Qwen2-7B generation through LLM.generate
+    # ---- 7. slice 4a: Qwen2-7B generation through LLM.generate; from here
+    # on no path runs the one Triton kernel (LayerNorm)
+    layernorm.launches = 0
     counters.update(rmsnorm=rmsnorm, flash_decode=flash_decode, fused_sample=fused_sample)
     gen_launches, model, load = generate_phase(torch, counters, card)
     gc.collect()
@@ -3082,6 +3139,8 @@ def main() -> int:
     # ---- 11. slice 5b: Llama-4-Scout (1 of 48 layers) MoE training
     counters.update(gmm_dw=gmm_dw)
     moe_train_launches = moe_train_phase(torch, counters, card)
+    print(f"Triton launches on the generation and MoE training paths: {layernorm.launches} (want 0)")
+    check(layernorm.launches == 0, "a Triton kernel launched on a generation or MoE path")
 
     # launches: each kernel's count in the run of its path — the training
     # run for rows 1-5 (the embed and generation runs' counts of the

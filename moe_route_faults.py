@@ -190,7 +190,7 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
     t0 = time.perf_counter()
-    names = ["flash_attention_fwd", "flash_decode", "sampling", "grouped_matmul"]
+    names = ["flash_attention_fwd", "flash_decode", "sampling", "grouped_matmul", "rmsnorm"]
     jobs = _build.start_builds(names)
     if args.spread:
         import attention_variants

@@ -10,10 +10,15 @@
   ``csrc/ce_gemm.cuh``), wrapped by ``cross_entropy.py``; replace the
   reference's ``cross_entropy.py::fused_cross_entropy`` /
   ``fused_cross_entropy_bwd``.
-* LayerNorm and RMSNorm: Triton, in ``rmsnorm.py``; replace the
-  reference's TPU kernels ``rmsnorm.py::layernorm`` / ``rmsnorm``.
-* flash-decoding: ``csrc/flash_decode.cu`` (CUDA C++ for sm_90a), wrapped
-  by ``flash_decode.py``; replaces ``flash_decode.py::flash_decode``.
+* LayerNorm: Triton, in ``rmsnorm.py``; replaces the reference's TPU
+  kernel ``rmsnorm.py::layernorm``.
+* RMSNorm: ``csrc/rmsnorm.cu`` (CUDA C++ for sm_90a: Triton's launcher
+  cost ~40× the norm's device time at the decode shape), wrapped by
+  ``rmsnorm.py``; replaces ``rmsnorm.py::rmsnorm``.
+* flash-decoding: ``csrc/flash_decode.cu`` (CUDA C++ for sm_90a: cp.async
+  rings of 16-key K/V stages, mma.sync products, an online softmax in one
+  pass), wrapped by ``flash_decode.py``; replaces
+  ``flash_decode.py::flash_decode``.
 * fused sampling: ``csrc/sampling.cu`` (CUDA C++ for sm_90a), wrapped by
   ``sampling.py``; replaces ``sampling.py::fused_sample``.
 * paged-KV attention: ``csrc/paged_attention.cu`` (CUDA C++ for sm_90a),

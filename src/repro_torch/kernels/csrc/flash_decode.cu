@@ -14,23 +14,33 @@
 // (splits, Hkv, B), one block per (row, kv head, 256-key chunk), holding the
 // group's query heads. The chunk size is fixed, so the split of a row
 // depends on neither the batch nor the other rows: a request's bits do not
-// move with its batch mates. A block computes the exact softmax of its
-// chunk (scores staged in shared memory: no online rescaling inside the
-// block) and writes fp32 partials (m, l, acc); a second small kernel
-// combines the partials of each (row, head) in split order. No atomics, so a
-// step repeats bit for bit. Blocks whose chunk starts at or past the row's
-// length return before any load, and the combine reads only the live
-// splits. The QK and PV products are fp32 FMAs on the CUDA cores: a panel
-// of `group` (7 for Qwen2) query rows underfills an mma tile, and the
-// kernel is bound by memory. K and V tiles go through shared memory in
-// 16-byte vector loads; P stays fp32 (the plain version rounds the
-// normalized P to the input dtype, as the reference's XLA path does).
+// move with its batch mates. Blocks whose chunk starts at or past the row's
+// length return before any load.
+//
+// Inside a block, four warps share the chunk's 16-key sub-tiles, warp w
+// taking sub-tiles w, w + 4, ... (balanced when the row ends inside the
+// chunk). Each warp streams its sub-tiles through its own ring of
+// shared-memory stages (kStages deep, K and V of one sub-tile a stage) with
+// 16-byte cp.async copies: the next stages are in flight while the warp
+// computes on this one, and a row past the length is zero-filled, not
+// read. A sub-tile's K and V are consumed together, in one pass, with an
+// online softmax across the warp's sub-tiles (fp32 m and l, expf): S = Q K^T
+// and O += P V run on the tensor cores as mma.sync m16n8k16, the group's
+// query heads on the M side padded to 16 rows with zeros, P rounded to bf16
+// from the S accumulators in registers (the plain version rounds the
+// normalized P to bf16 too), V's fragments read with ldmatrix.trans. At the
+// end the four warps' (m, l, O) merge through shared memory in warp order,
+// and the block writes fp32 partials (m, l, acc) for its chunk; a second
+// small kernel combines the partials of each (row, head) in split order. No
+// atomics, so a step repeats bit for bit. A stage is 16 keys, one page of
+// the paged cache: the row addresses of a stage come from one base pointer
+// and the row stride (`kv_stage`), which a block-table lookup can replace.
 //
 // Bound on an H100 SXM (3.35 TB/s): memory. Each live cache row is read
 // once for K and once for V: at Qwen2-7B's decode shape (B=32, T=2048,
 // Hkv=4, D=128 bf16) a full cache is 134 MB (40 us); a ragged batch reads
-// sum(lengths) * Hkv * D * 4 B. The FMAs (4 * H * D per live key) are a
-// third of what the CUDA cores do in that time.
+// sum(lengths) * Hkv * D * 4 B. The products (4 * H * D per live key, 16/7
+// of that with the padded rows) take ~2 us of the tensor cores.
 
 #include <cuda_runtime.h>
 
@@ -39,8 +49,10 @@
 namespace {
 
 constexpr int kChunk = 256;   // keys per split
-constexpr int kTile = 64;     // keys per shared-memory tile
-constexpr int kThreads = 128;
+constexpr int kSub = 16;      // keys per ring stage
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 2;    // ring stages per warp
 constexpr int kMaxGroup = 16;
 constexpr float kNegInf = -1e30f;
 using T = __nv_bfloat16;  // every served config runs in bf16
@@ -64,158 +76,213 @@ __device__ __forceinline__ int row_length(const Params& p, int b) {
   return min(max(p.lengths[b], 0), p.T);
 }
 
-// cache rows [row0, row0 + kTile) into shared memory; rows >= row_end are
-// zero-filled
+// shared memory of one block: each warp's ring (K and V of kStages
+// sub-tiles, rows of D + kPad), later reused for the warps' O to merge
 template <int D>
-__device__ __forceinline__ void load_tile(uint16_t (*dst)[D + kPad], const uint16_t* base,
-                                          long long row_stride, int row0, int row_end) {
-  constexpr int kVec = 8;  // 8 x 16 bit = one 16-byte load
-  constexpr int kPerRow = D / kVec;
-  for (int c = threadIdx.x; c < kTile * kPerRow; c += kThreads) {
-    const int r = c / kPerRow, col = (c % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < row_end)
-      val = *reinterpret_cast<const uint4*>(base + (long long)(row0 + r) * row_stride + col);
-    *reinterpret_cast<uint4*>(&dst[r][col]) = val;
+struct Smem {
+  static constexpr int kPitch = D + kPad;
+  static constexpr int kTile = kSub * kPitch;              // 16-bit elements
+  static constexpr int kRing = kStages * 2 * kTile;        // a warp's ring
+  static constexpr int kOPitch = D + 8;                    // fp32 merge rows
+  static constexpr int kRingBytes = kWarps * kRing * 2;
+  static constexpr int kMergeBytes = kWarps * 16 * kOPitch * 4;
+  static constexpr int kBytes = kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes;
+};
+
+// one warp copies cache rows [key0, key0 + kSub) of a (row, kv head) into a
+// stage; rows at or past `end` are zero-filled without a read
+template <int D>
+__device__ __forceinline__ void kv_stage(uint16_t* dst, const uint16_t* base, long long row_stride,
+                                         int key0, int end, int lane) {
+  constexpr int kPerRow = D / 8;  // 16-byte pieces
+#pragma unroll
+  for (int i = 0; i < kSub * kPerRow / 32; ++i) {
+    const int c = lane + 32 * i;
+    const int r = c / kPerRow, col = (c % kPerRow) * 8;
+    const bool live = key0 + r < end;
+    cp_async16(dst + r * Smem<D>::kPitch + col,
+               base + (long long)(live ? key0 + r : key0) * row_stride + col, live);
   }
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(const Params p) {
-  __shared__ __align__(16) uint16_t sKV[kTile][D + kPad];
-  __shared__ __align__(16) float sQ[kMaxGroup][D];
-  __shared__ __align__(16) float sS[kMaxGroup][kChunk];
-  __shared__ float sM[kMaxGroup], sL[kMaxGroup];
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ float sM[kWarps][16], sL[kWarps][16];
+  using S = Smem<D>;
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int len = row_length(p, b);
   const int k0 = split * kChunk;
   if (k0 >= len) return;  // past the row's length: no loads, no partials
-  const int k_end = min(k0 + kChunk, len);
-  const int n = k_end - k0;
-  const int n_pad = (n + kTile - 1) / kTile * kTile;
-  const int g = p.group, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  const int n = min(kChunk, len - k0);
+  const int grp = p.group;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 
-  for (int i = tid; i < g * D; i += kThreads) {
-    const int h = i / D, d = i % D;
-    sQ[h][d] = Mma<T>::to_float(p.q[b * p.q_sb + (hk * g + h) * p.q_sh + d]);
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem) + warp * S::kRing;
+  const uint16_t* kbase = p.k + b * p.k_sb + hk * p.k_sh + k0 * p.k_st;
+  const uint16_t* vbase = p.v + b * p.v_sb + hk * p.v_sh + k0 * p.v_st;
+  const int nsub = (n + kSub - 1) / kSub;
+  const int mine = warp < nsub ? (nsub - warp + kWarps - 1) / kWarps : 0;
+
+#pragma unroll
+  for (int st = 0; st < kStages; ++st) {
+    if (st < mine) {
+      const int key0 = (warp + st * kWarps) * kSub;
+      kv_stage<D>(ring + 2 * st * S::kTile, kbase, p.k_st, key0, n, lane);
+      kv_stage<D>(ring + (2 * st + 1) * S::kTile, vbase, p.v_st, key0, n, lane);
+    }
+    cp_async_commit();
   }
-  const uint16_t* kbase = p.k + b * p.k_sb + hk * p.k_sh;
-  const uint16_t* vbase = p.v + b * p.v_sb + hk * p.v_sh;
 
-  // scores: thread tid owns key tid % kTile of each tile and the heads
-  // h = tid / kTile + 2i
-  const int j = tid % kTile, hset = tid / kTile;
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    __syncthreads();  // sQ written; the previous tile's readers done
-    load_tile<D>(sKV, kbase, p.k_st, k0 + t0, k_end);
-    __syncthreads();
-    if (t0 + j >= n) continue;
-    float acc[kMaxGroup / 2];
+  // Q as the A operand: rows g and g + 8 are query heads hk * group + row,
+  // zero past the group
+  uint32_t qa[D / 16][4];
+  {
+    const uint16_t* q0 = p.q + b * p.q_sb + (long long)(hk * grp) * p.q_sh;
+    const bool r0 = g < grp, r1 = g + 8 < grp;
 #pragma unroll
-    for (int i = 0; i < kMaxGroup / 2; ++i) acc[i] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(&sKV[j][c]);
-      const uint16_t* kh = reinterpret_cast<const uint16_t*>(&raw);
-      float kf[8];
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 + 2 * t;
+      qa[kk][0] = r0 ? *reinterpret_cast<const uint32_t*>(q0 + g * p.q_sh + c) : 0u;
+      qa[kk][1] = r1 ? *reinterpret_cast<const uint32_t*>(q0 + (g + 8) * p.q_sh + c) : 0u;
+      qa[kk][2] = r0 ? *reinterpret_cast<const uint32_t*>(q0 + g * p.q_sh + c + 8) : 0u;
+      qa[kk][3] = r1 ? *reinterpret_cast<const uint32_t*>(q0 + (g + 8) * p.q_sh + c + 8) : 0u;
+    }
+  }
+
+  // this thread's rows g (index 0) and g + 8 (index 1): running max, its
+  // columns' share of the sum, and O's columns 8 j + 2 t, + 1
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) kf[e] = Mma<T>::to_float(kh[e]);
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int it = 0; it < mine; ++it) {
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const int st = it % kStages;
+    const uint16_t* sK = ring + 2 * st * S::kTile;
+    const uint16_t* sV = sK + S::kTile;
+    const int key0 = (warp + it * kWarps) * kSub;
+
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-      for (int i = 0; i < kMaxGroup / 2; ++i) {
-        const int h = hset + 2 * i;
-        if (h < g) {
-          const float4 qa = *reinterpret_cast<const float4*>(&sQ[h][c]);
-          const float4 qb = *reinterpret_cast<const float4*>(&sQ[h][c + 4]);
-          float s = acc[i];
-          s = fmaf(qa.x, kf[0], s);
-          s = fmaf(qa.y, kf[1], s);
-          s = fmaf(qa.z, kf[2], s);
-          s = fmaf(qa.w, kf[3], s);
-          s = fmaf(qb.x, kf[4], s);
-          s = fmaf(qb.y, kf[5], s);
-          s = fmaf(qb.z, kf[6], s);
-          s = fmaf(qb.w, kf[7], s);
-          acc[i] = s;
-        }
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        uint32_t b0, b1;
+        b_frag_rows<D>(b0, b1, sK, nt * 8, kk * 16, g, t);
+        Mma<T>::run(s[nt], qa[kk], b0, b1);
       }
     }
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int i = 0; i < kMaxGroup / 2; ++i) {
-      const int h = hset + 2 * i;
-      if (h < g) {
-        float s = acc[i] * p.scale;
-        if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
-        sS[h][t0 + j] = s;
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * p.scale;
+        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
+        if (key0 + nt * 8 + 2 * t + (e & 1) >= n) x = kNegInf;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - mn);
+      m[r] = mn;
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = expf(s[nt][e] - m[e >> 1]);
+        ps[e >> 1] += s[nt][e];
+      }
+    }
+    l[0] = l[0] * alpha[0] + ps[0];
+    l[1] = l[1] * alpha[1] + ps[1];
+    // P as the A operand (16 heads x 16 keys) straight from S's registers
+    const uint32_t pa[4] = {Mma<T>::pack(s[0][0], s[0][1]), Mma<T>::pack(s[0][2], s[0][3]),
+                            Mma<T>::pack(s[1][0], s[1][1]), Mma<T>::pack(s[1][2], s[1][3])};
+#pragma unroll
+    for (int j = 0; j < D / 8; j += 2) {
+      uint32_t vb[4];
+      b_frag_cols_x2<D>(vb, sV, 0, j * 8, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* c = o[j + h];
+        c[0] *= alpha[0];
+        c[1] *= alpha[0];
+        c[2] *= alpha[1];
+        c[3] *= alpha[1];
+        Mma<T>::run(o[j + h], pa, vb[2 * h], vb[2 * h + 1]);
+      }
+    }
+    __syncwarp();  // every lane is done with this stage: refill it
+    const int next = it + kStages;
+    if (next < mine) {
+      const int key1 = (warp + next * kWarps) * kSub;
+      kv_stage<D>(ring + 2 * st * S::kTile, kbase, p.k_st, key1, n, lane);
+      kv_stage<D>(ring + (2 * st + 1) * S::kTile, vbase, p.v_st, key1, n, lane);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // merge the four warps in warp order: row max M, each warp's O scaled by
+  // exp(m_w - M), summed; l likewise
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if (t == 0) {
+    sM[warp][g] = m[0];
+    sM[warp][g + 8] = m[1];
+    sL[warp][g] = l[0];
+    sL[warp][g + 8] = l[1];
+  }
+  __syncthreads();  // (m, l) written; every warp done with its ring
+  float f[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sM[w][g + 8 * r]);
+    f[r] = expf(m[r] - mm);
+  }
+  float* sO = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    *reinterpret_cast<float2*>(&sO[(warp * 16 + g) * S::kOPitch + col]) =
+        make_float2(o[j][0] * f[0], o[j][1] * f[0]);
+    *reinterpret_cast<float2*>(&sO[(warp * 16 + g + 8) * S::kOPitch + col]) =
+        make_float2(o[j][2] * f[1], o[j][3] * f[1]);
   }
   __syncthreads();
-
-  // the chunk's softmax, one warp per head: p = exp(s - m) in place, zero
-  // past n up to the tile edge; (m, l) to shared memory
-  for (int h = warp; h < g; h += kThreads / 32) {
-    float mx = kNegInf;
-    for (int t = lane; t < n; t += 32) mx = fmaxf(mx, sS[h][t]);
+  for (int i = threadIdx.x; i < grp * D; i += kThreads) {
+    const int h = i / D, d = i % D;
+    float acc = 0.f;
 #pragma unroll
-    for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.f;
-    for (int t = lane; t < n_pad; t += 32) {
-      const float e = t < n ? expf(sS[h][t] - mx) : 0.f;
-      sS[h][t] = e;
-      sum += e;
-    }
+    for (int w = 0; w < kWarps; ++w) acc += sO[(w * 16 + h) * S::kOPitch + d];
+    const long long idx = (long long)(b * p.H + hk * grp + h) * p.splits + split;
+    p.part_acc[idx * D + d] = acc;
+    if (d == 0) {
+      float mm = kNegInf, ll = 0.f;
 #pragma unroll
-    for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (lane == 0) {
-      sM[h] = mx;
-      sL[h] = sum;
-    }
-  }
-
-  // O = P V: thread tid owns column d = tid % D of the heads
-  // h = tid / D + kSets * i
-  constexpr int kSets = kThreads / D;
-  constexpr int kPerThread = kMaxGroup / kSets;
-  const int d = tid % D, oset = tid / D;
-  float o[kPerThread];
+      for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sM[w][h]);
 #pragma unroll
-  for (int i = 0; i < kPerThread; ++i) o[i] = 0.f;
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    __syncthreads();  // the softmax is done; the previous tile's readers done
-    load_tile<D>(sKV, vbase, p.v_st, k0 + t0, k_end);
-    __syncthreads();
-    for (int t = 0; t < kTile; t += 4) {
-      float vf[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) vf[e] = Mma<T>::to_float(sKV[t + e][d]);
-#pragma unroll
-      for (int i = 0; i < kPerThread; ++i) {
-        const int h = oset + kSets * i;
-        if (h < g) {
-          const float4 pr = *reinterpret_cast<const float4*>(&sS[h][t0 + t]);
-          float s = o[i];
-          s = fmaf(pr.x, vf[0], s);
-          s = fmaf(pr.y, vf[1], s);
-          s = fmaf(pr.z, vf[2], s);
-          s = fmaf(pr.w, vf[3], s);
-          o[i] = s;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const int h = oset + kSets * i;
-    if (h < g) {
-      const long long idx = (long long)(b * p.H + hk * g + h) * p.splits + split;
-      p.part_acc[idx * D + d] = o[i];
-      if (d == 0) {
-        p.part_m[idx] = sM[h];
-        p.part_l[idx] = sL[h];
-      }
+      for (int w = 0; w < kWarps; ++w) ll += sL[w][h] * expf(sM[w][h] - mm);
+      p.part_m[idx] = mm;
+      p.part_l[idx] = ll;
     }
   }
 }
@@ -247,7 +314,10 @@ __global__ void __launch_bounds__(D / 2) flash_decode_combine_kernel(const Param
 
 template <int D>
 cudaError_t launch(const Params& p, int B, int Hkv, cudaStream_t stream) {
-  flash_decode_split_kernel<D><<<dim3(p.splits, Hkv, B), kThreads, 0, stream>>>(p);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_decode_split_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::kBytes);
+  if (attr != cudaSuccess) return attr;
+  flash_decode_split_kernel<D><<<dim3(p.splits, Hkv, B), kThreads, Smem<D>::kBytes, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_decode_combine_kernel<D><<<B * p.H, D / 2, 0, stream>>>(p);

@@ -5,7 +5,10 @@
 // of two T, the first in the low half) and to_float (one T from its 16-bit
 // pattern). The fragment loads read 16-bit tiles held row-major in shared
 // memory with rows of COLS + kPad elements; g = lane / 4 and t = lane % 4,
-// as in the PTX fragment layout of m16n8k16.
+// as in the PTX fragment layout of m16n8k16. Below them: 16-byte cp.async
+// copies into shared memory (zero-filled when the source is not live) with
+// their commit and wait, and ldmatrix.x4.trans for B fragments whose k
+// index runs down the rows of a tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -87,6 +90,38 @@ __device__ __forceinline__ void b_frag_cols(uint32_t& b0, uint32_t& b1, const ui
   const uint16_t* p = s + (row + 2 * t) * (COLS + kPad) + col + g;
   b0 = uint32_t(p[0]) | (uint32_t(p[COLS + kPad]) << 16);
   b1 = uint32_t(p[8 * (COLS + kPad)]) | (uint32_t(p[9 * (COLS + kPad)]) << 16);
+}
+
+// ---- asynchronous copies into shared memory (sm_80+)
+// 16 bytes from global src to shared dst; a copy that is not live reads
+// nothing and writes 16 zero bytes (src must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the B fragments of two n8 tiles (16 x 16, k down the rows, n along them)
+// at rows [row, row + 16), columns [col, col + 16) of a row-major tile:
+// b[0], b[1] for columns col..col+7 and b[2], b[3] for col+8..col+15
+template <int COLS>
+__device__ __forceinline__ void b_frag_cols_x2(uint32_t (&b)[4], const uint16_t* s, int row,
+                                               int col, int lane) {
+  const uint16_t* p = s + (row + (lane & 15)) * (COLS + kPad) + col + (lane >> 4) * 8;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
 }
 
 }  // namespace

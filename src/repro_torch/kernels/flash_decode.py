@@ -4,8 +4,11 @@ Replaces the TPU kernel ``flash_decode`` (``_fd_kernel``) of the reference
 package: one query token per row against a dense KV cache with a per-row
 valid length.  The kernel is ``csrc/flash_decode.cu`` (CUDA C++ for sm_90a:
 the cache split into fixed 256-key chunks, one block per (row, kv head,
-chunk), fp32 partials combined in a second pass; its source note gives the
-design and the bound).  The plain version is ``ref.decode_attention_ref``.
+chunk); its warps stream 16-key K and V stages through cp.async rings and
+run QKᵀ and PV on the tensor cores with an online softmax, and the fp32
+partials are combined in split order by a second kernel; its source note
+gives the design and the bound).  The plain version is
+``ref.decode_attention_ref``.
 
 The wrapper takes the reference's layout — q (B, 1, H, D), k/v (B, T, Hkv,
 D), lengths (B,) — through strides, so a layer's slice of the stacked
@@ -78,14 +81,15 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: tor
     lib = _lib()
     splits = lib.flash_decode_splits(T)
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
-    part = torch.empty((B * H * splits * (D + 2),), dtype=torch.float32, device=q.device)
     n = B * H * splits
+    part = torch.empty((n * (D + 2),), dtype=torch.float32, device=q.device)
+    base = part.data_ptr()       # m (n), l (n), acc (n, D), fp32
     err = lib.flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        part.data_ptr(), part[n:].data_ptr(), part[2 * n:].data_ptr(),
+        base, base + 4 * n, base + 8 * n,
         B, T, H, Hkv, D,
         q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3], out.stride(0), out.stride(2),
-        float(softcap), torch.cuda.current_stream(q.device).cuda_stream,
+        float(softcap), torch._C._cuda_getCurrentRawStream(q.device.index),
     )
     if err:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError {err}")

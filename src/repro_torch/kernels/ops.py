@@ -91,8 +91,13 @@ def cross_entropy(
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5, *,
             impl: str = "auto") -> torch.Tensor:
     """RMSNorm over the last dim, fp32 math, output in x.dtype;
-    differentiable."""
-    return _ln.rmsnorm_ad(x, w, eps, plain=_plain(impl))
+    differentiable.  Without a gradient to take (serving, or
+    ``torch.no_grad``) the forward is called directly: no autograd node,
+    the same output."""
+    plain = _plain(impl)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _ln.rmsnorm_ad(x, w, eps, plain=plain)
+    return (_ref.rmsnorm_ref if plain else _ln.rmsnorm)(x, w, eps)
 
 
 def decode_attention(

@@ -82,6 +82,58 @@ def test_rmsnorm_plain_version_is_differentiable_and_the_kernel_is_not_asked(dty
     assert rmsnorm.launches == 0
 
 
+@pytest.mark.parametrize("impl", ["auto", "torch"])
+def test_rmsnorm_without_a_gradient_builds_no_autograd_node(impl):
+    """``ops.rmsnorm`` calls the forward directly when no gradient is
+    wanted: the same output as through ``rmsnorm_ad`` and no node; with
+    ``requires_grad`` it goes through the autograd function, and under
+    ``no_grad`` it does not."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_ad
+
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy((2 * rng.standard_normal((4, 3, 64)) + 0.5).astype(np.float32)).bfloat16()
+    w = torch.from_numpy((1 + 0.3 * rng.standard_normal(64)).astype(np.float32)).bfloat16()
+    want = rmsnorm_ad(x, w, plain=impl == "torch")
+    got = ops.rmsnorm(x, w, impl=impl)
+    assert got.grad_fn is None and torch.equal(got, want)
+    xg = x.clone().requires_grad_(True)
+    tracked = ops.rmsnorm(xg, w, impl=impl)
+    assert tracked.grad_fn is not None and torch.equal(tracked.detach(), want)
+    with torch.no_grad():
+        assert ops.rmsnorm(xg, w, impl=impl).grad_fn is None
+    assert rmsnorm.launches == 0
+
+
+def test_rmsnorm_argument_checks():
+    """What the CUDA kernel does not take raises before a launch: dtype, a
+    strided last dim, the weight's shape and layout, widths that are not a
+    multiple of 8 or too wide, misaligned rows, another device."""
+    from repro_torch.kernels.rmsnorm import check_rmsnorm_args
+
+    x = torch.zeros(4, 64, dtype=torch.bfloat16)
+    w = torch.ones(64, dtype=torch.bfloat16)
+    check_rmsnorm_args(x, w)
+    check_rmsnorm_args(x.float(), w)                       # w's dtype may differ from x's
+    check_rmsnorm_args(torch.zeros(3, 5, 128)[:, 1:3], torch.ones(128))   # strided rows
+    bad = [
+        ((x.double(), w), TypeError),
+        ((x, w.to(torch.int32)), TypeError),
+        ((torch.zeros(4, 128, dtype=torch.bfloat16)[:, ::2], w), ValueError),   # last dim strided
+        ((x, torch.ones(32, dtype=torch.bfloat16)), ValueError),                # weight shape
+        ((x, torch.ones(64, 2, dtype=torch.bfloat16)[:, 0]), ValueError),       # weight strided
+        ((torch.zeros(4, 60, dtype=torch.bfloat16), torch.ones(60)), ValueError),  # not 8k wide
+        ((torch.zeros(2, 1 << 15, dtype=torch.bfloat16), torch.ones(1 << 15)), ValueError),
+        ((torch.zeros(4, 68, dtype=torch.bfloat16)[:, :64], w), ValueError),    # 136-byte rows
+        ((torch.zeros(4 * 64 + 1, dtype=torch.bfloat16)[1:].view(4, 64), w), ValueError),
+        ((x, w.to("meta")), ValueError),
+    ]
+    for args, err in bad:
+        with pytest.raises(err):
+            check_rmsnorm_args(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm(x.to("meta"), w.to("meta"))
+
+
 # ------------------------------------------------------------------ decode attention
 # (B, T, H, Hkv, D, lengths, softcap): T is not a multiple of the reference
 # kernel's 512-row blocks; lengths include 0, 1 and T
