@@ -894,48 +894,98 @@ def check_flash_decode(torch, F, ref, flash_decode, randn, card):
     return rec
 
 
-def check_sampling(torch, ref, fused_sample, randn, card):
-    """Row 7 against ``sample_ref`` at Qwen2-7B's decode shape (32, 152064)
-    with -1e30 columns: identical tokens, logp within 1e-4.  Times the mix,
-    all-greedy and all-sampled rows.  Returns its kernel record."""
-    B, V = 32, 152064
+# per row, in turn: greedy, top-k only, top-p only, both, temperature 0
+# with filters set, plain temperature
+SAMPLE_MIX = [(0.0, 0, 1.0), (0.8, 50, 1.0), (1.0, 0, 0.95), (0.8, 50, 0.95), (0.0, 50, 0.9),
+              (1.3, 0, 1.0)]
+# the edges, in turn: greedy, top-k 1, top-k >= V (off), a tiny top-p, both
+# filters, plain temperature, temperatures 0.3 and 2
+SAMPLE_EDGES = [(0.0, 0, 1.0), (0.7, 1, 1.0), (1.0, -1, 0.9), (0.9, 0, 1e-6), (0.8, 50, 0.95),
+                (1.3, 0, 1.0), (0.3, 20, 0.8), (2.0, 0, 0.99)]
+
+
+def sample_inputs(torch, randn, B, V, rows, ties=False):
+    """Logits (B, V) bf16 with every 97th column masked (-1e30) and half of
+    row 5 masked, the per-row (temperature, top_k, top_p) of ``rows`` in
+    turn (top_k -1: V + 5), seeds past 2^31 and steps; ``ties``: rows 0 and
+    1 get a three-way tie at the top (columns 3, V // 2, V - 1)."""
     dev = torch.device("cuda")
     x = randn(B, V, scale=2.0)
     x[:, torch.arange(0, V, 97, device=dev)] = -1e30
-    x[5, : V // 2] = -1e30
-    # per row, in turn: greedy, top-k only, top-p only, both, temperature 0
-    # with filters set, plain temperature; seeds past 2^31
-    mix = [(0.0, 0, 1.0), (0.8, 50, 1.0), (1.0, 0, 0.95), (0.8, 50, 0.95), (0.0, 50, 0.9),
-           (1.3, 0, 1.0)]
-    rows = [mix[i % len(mix)] for i in range(B)]
+    if B > 5:
+        x[5, : V // 2] = -1e30
+    if ties:
+        for r in range(min(B, 2)):
+            x[r, [3, V // 2, V - 1]] = (x[r].float().max() + 1.0).to(x.dtype)
+    rows = [rows[i % len(rows)] for i in range(B)]
     temp = torch.tensor([r[0] for r in rows], device=dev)
-    top_k = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+    top_k = torch.tensor([V + 5 if r[1] < 0 else r[1] for r in rows], dtype=torch.int32, device=dev)
     top_p = torch.tensor([r[2] for r in rows], device=dev)
-    seed = torch.tensor([(2**31 + 977 * i) % 2**32 for i in range(B)], device=dev)
-    step = torch.tensor([3 * i for i in range(B)], device=dev)
-    tok, logp = fused_sample(x, temp, top_k, top_p, seed, step)
-    torch.cuda.synchronize()
-    r_tok, r_logp = ref.sample_ref(x, temp, top_k, top_p, seed, step)
-    same = int((tok == r_tok).sum())
-    err = (logp - r_logp).abs().max().item()
-    masked = bool((x.gather(1, tok.long()[:, None]) > -1e29).all())
-    greedy = temp <= 0
-    argmax_ok = bool((tok[greedy] == x[greedy].float().argmax(dim=-1).to(torch.int32)).all())
-    print(f"fused_sample ({B}, {V}) bf16 mix: {same}/{B} tokens equal to the plain version's, "
-          f"logp err {err:.3g} (tol 1e-4), no masked column drawn: {masked}, greedy rows = "
-          f"first-index argmax: {argmax_ok}")
-    check(same == B and err <= 1e-4 and masked and argmax_ok, "fused_sample")
-    ms = time_ms(torch, lambda: fused_sample(x, temp, top_k, top_p, seed, step))
-    plain_ms = time_ms(torch, lambda: ref.sample_ref(x, temp, top_k, top_p, seed, step),
-                       trials=5, per_trial=2)
+    seed = torch.tensor([(2**31 + 977 * i) % 2**32 for i in range(B)], device=dev).to(torch.int32)
+    step = torch.tensor([3 * i for i in range(B)], dtype=torch.int32, device=dev)
+    return x, temp, top_k, top_p, seed, step
+
+
+def check_sampling(torch, ref, fused_sample, randn, card):
+    """Row 7 against ``sample_ref``: at Qwen2-7B's decode shape (32, 152064)
+    with the mix of rows, then at Mamba2's 50 432 and Scout's padded 202 240
+    columns, a small odd V (1 000), one row, and a V past what a cluster
+    holds in shared memory, each over the edges (top-k 1 and >= V, a tiny
+    top-p, ties at the top, temperatures 0.3-2): identical tokens, logp
+    within 1e-4, greedy rows = first-index argmax, no masked column drawn,
+    a repeat bit-identical, and each row alone equal (token and logp bits)
+    to its row in the batch.  Times the mix, all-greedy and all-sampled
+    rows at the main shape.  Returns its kernel record."""
+    from repro_torch.kernels import _build
+
+    cases = [("qwen2-7b decode shape, the mix", 32, 152064, SAMPLE_MIX, False),
+             ("mamba2 vocab 50432, edges", 32, 50432, SAMPLE_EDGES, True),
+             ("scout padded vocab 202240, edges", 32, 202240, SAMPLE_EDGES, True),
+             ("V 1000, edges", 16, 1000, SAMPLE_EDGES, True),
+             ("one row", 1, 152064, SAMPLE_EDGES[3:4], False),
+             ("V 600000, past shared memory", 4, 600000, SAMPLE_EDGES, True)]
+    lib = _build.load("sampling")
+    main = None
+    for label, B, V, rows, ties in cases:
+        args = sample_inputs(torch, randn, B, V, rows, ties)
+        x, temp = args[0], args[1]
+        tok, logp = fused_sample(*args)
+        torch.cuda.synchronize()
+        r_tok, r_logp = ref.sample_ref(*args)
+        same = int((tok == r_tok).sum())
+        err = (logp - r_logp).abs().max().item()
+        masked = bool((x.gather(1, tok.long()[:, None]) > -1e29).all())
+        greedy = temp <= 0
+        argmax_ok = bool((tok[greedy] == x[greedy].float().argmax(dim=-1).to(torch.int32)).all())
+        t2, l2 = fused_sample(*args)
+        repeat = torch.equal(t2, tok) and torch.equal(l2, logp)
+        alone = True
+        for i in range(B):
+            ta, la = fused_sample(*(a[i:i + 1] for a in args))
+            alone &= torch.equal(ta, tok[i:i + 1]) and torch.equal(la.view(torch.int32),
+                                                                   logp[i:i + 1].view(torch.int32))
+        waves = -(-B // max(lib.fused_sample_max_clusters(V), 1))
+        print(f"fused_sample {label} ({B}, {V}) bf16: {same}/{B} tokens equal to the plain "
+              f"version's, logp err {err:.3g} (tol 1e-4), no masked column drawn: {masked}, "
+              f"greedy rows = first-index argmax: {argmax_ok}, repeat bit-identical: {repeat}, "
+              f"rows alone = in the batch: {alone}; {lib.fused_sample_max_clusters(V)} clusters "
+              f"of {lib.fused_sample_cluster()} resident ({waves} wave(s))")
+        check(same == B and err <= 1e-4 and masked and argmax_ok and repeat and alone,
+              f"fused_sample {label}")
+        if main is None:
+            main = (args, err)
+    args, err = main
+    x, temp, top_k, top_p, seed, step = args
+    B, V = x.shape
+    ms = time_ms(torch, lambda: fused_sample(*args))
+    plain_ms = time_ms(torch, lambda: ref.sample_ref(*args), trials=5, per_trial=2)
     zeros = torch.zeros_like(temp)
     greedy_ms = time_ms(torch, lambda: fused_sample(x, zeros, top_k, top_p, seed, step))
     hot = torch.full_like(temp, 0.8)
     sampled_ms = time_ms(torch, lambda: fused_sample(x, hot, top_k, top_p, seed, step), trials=5)
     # the function reads the logits once and writes two scalars a row
     bound_ms, bound_by = bound(0, B * V * 2 + B * 20 + B * 8)
-    dev_ms = device_ms(torch, lambda: fused_sample(x, temp, top_k, top_p, seed, step), "fused_sample",
-                       floor=bound_ms)
+    dev_ms = device_ms(torch, lambda: fused_sample(*args), "fused_sample", floor=bound_ms)
     print(f"fused_sample ({B}, {V}) bf16 on {card}: mix {ms:.4f} ms (device {fmt_ms(dev_ms)} ms; bound "
           f"{bound_ms:.5f} ms by "
           f"{bound_by}), all greedy {greedy_ms:.4f} ms, all sampled {sampled_ms:.4f} ms; plain "
@@ -943,7 +993,8 @@ def check_sampling(torch, ref, fused_sample, randn, card):
     return {"name": "fused_sample", "route": "cuda", "source": "src/repro_torch/kernels/csrc/sampling.cu",
             "replaces": "src/repro/kernels/sampling.py:217", "launches": 0, "max_abs_err": err,
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "greedy_ms": greedy_ms,
+            "sampled_ms": sampled_ms}
 
 
 def _paged_layout(torch, np, rng, lens, page, n_tables, num_pages, dev):
@@ -958,12 +1009,19 @@ def _paged_layout(torch, np, rng, lens, page, n_tables, num_pages, dev):
     return torch.as_tensor(table, device=dev)
 
 
-def check_paged_decode(torch, F, ref, paged_decode, randn, card):
+def check_paged_decode(torch, F, ref, paged_decode, flash_decode, randn, card):
     """Row 9 against ``paged_decode_attention_ref`` at Qwen2-7B's decode
     shape over the default pool (4 097 pages of 16, 128 a row): ragged
     lengths that are not page multiples, a length-0 row, null-page entries
-    past each length, shuffled page order; and at group 1 and at D 64.
-    Times the main shape.  Returns its kernel record."""
+    past each length, shuffled page order; and at group 1 with pages of 8,
+    at D 64, and with pages of 32.  Each case: within 2e-2 of each row's
+    max, length-0 rows exactly 0, a repeat bit-identical, each row alone
+    bit-equal to its row in the batch, and the output bit-equal to
+    ``flash_decode`` over the same rows gathered into a dense cache (the
+    two share their split body; at a page of 8 the stage is read row by
+    row, at 16 and 32 a page at a time).  Times the main shape beside SDPA
+    over the pre-gathered cache and beside the gather and SDPA together.
+    Returns its kernel record."""
     import numpy as np
 
     dev = torch.device("cuda")
@@ -973,6 +1031,7 @@ def check_paged_decode(torch, F, ref, paged_decode, randn, card):
         ("qwen2-7b decode shape", dict(B=32, cap=2048, H=28, Hkv=4, D=128, page=16, P=4097)),
         ("group 1, page 8", dict(B=8, cap=704, H=8, Hkv=8, D=128, page=8, P=712)),
         ("D=64, group 4", dict(B=8, cap=336, H=16, Hkv=4, D=64, page=16, P=170)),
+        ("page 32, group 7", dict(B=8, cap=1024, H=28, Hkv=4, D=128, page=32, P=260)),
     ]
     main = None
     for label, c in cases:
@@ -992,11 +1051,19 @@ def check_paged_decode(torch, F, ref, paged_decode, randn, card):
         torch.cuda.synchronize()
         want = ref.paged_decode_attention_ref(q, k_pool, v_pool, bt, lengths)
         err = row_rel_err(out, want)
-        zero = bool((out[0] == 0).all())
+        zero = bool((out[lengths == 0] == 0).all())
+        repeat = torch.equal(paged_decode(q, k_pool, v_pool, bt, lengths), out)
+        alone = all(torch.equal(paged_decode(q[i:i + 1], k_pool, v_pool, bt[i:i + 1],
+                                             lengths[i:i + 1]), out[i:i + 1])
+                    for i in range(min(B, 6)))
+        dense = torch.equal(flash_decode(q, ref._gather_pages(k_pool, bt),
+                                         ref._gather_pages(v_pool, bt), lengths), out)
         print(f"paged_decode {label} (B={B}, capacity {cap}, H={H}, Hkv={Hkv}, D={D}, page {page}, "
               f"{P} pages) bf16: rel err {err:.3g} (tol {tol} of each row's max|ref|), length-0 row "
-              f"exactly 0: {zero}")
-        check(err <= tol and zero and bool(out.isfinite().all()), f"paged_decode {label}")
+              f"exactly 0: {zero}, repeat bit-identical: {repeat}, rows alone = in the batch: "
+              f"{alone}, = flash_decode over the gathered rows bit for bit: {dense}")
+        check(err <= tol and zero and repeat and alone and dense and bool(out.isfinite().all()),
+              f"paged_decode {label}")
         if main is None:
             main = (q, k_pool, v_pool, bt, lengths, lens,
                     (out.float() - want.float()).abs().max().item())
@@ -1007,14 +1074,19 @@ def check_paged_decode(torch, F, ref, paged_decode, randn, card):
     ms = time_ms(torch, lambda: paged_decode(q, k_pool, v_pool, bt, lengths))
     plain_ms = time_ms(torch, lambda: ref.paged_decode_attention_ref(q, k_pool, v_pool, bt, lengths),
                        trials=5, per_trial=5)
-    # the yardstick: no single PyTorch call reads through a block table, so
-    # SDPA over the cache gathered beforehand (the gather is not timed)
+    # the yardsticks: no single PyTorch call reads through a block table, so
+    # SDPA over the cache gathered beforehand (the gather not timed), and the
+    # gather and SDPA together (the same work as the kernel)
     kt = ref._gather_pages(k_pool, bt).transpose(1, 2)
     vt = ref._gather_pages(v_pool, bt).transpose(1, 2)
     mask = (torch.arange(T, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
     qt = q.transpose(1, 2)
     lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                                    enable_gqa=True))
+    gather_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, ref._gather_pages(k_pool, bt).transpose(1, 2),
+        ref._gather_pages(v_pool, bt).transpose(1, 2), attn_mask=mask, enable_gqa=True))
+    del kt, vt
     live = int(lens.sum())
     # this run's data: q and out once, each live K and V row once, the
     # lengths and the table rows; QK and PV of every query head over its
@@ -1027,12 +1099,14 @@ def check_paged_decode(torch, F, ref, paged_decode, randn, card):
           f"of {B * T}, on {card}: {ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (bound "
           f"{bound_ms:.4f} ms by {bound_by}, {per_device_ms(nbytes, dev_ms, 'GB/s', 1e6)}), "
           f"plain {plain_ms:.4f} ms, scaled_dot_product_attention over the pre-gathered dense "
-          f"cache (length mask, GQA) {lib_ms:.4f} ms")
+          f"cache (length mask, GQA) {lib_ms:.4f} ms, the page gather and SDPA together "
+          f"{gather_ms:.4f} ms")
     return {"name": "paged_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:135", "launches": 0,
             "max_abs_err": err0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "gather_sdpa_ms": gather_ms}
 
 
 def check_paged_prefill(torch, F, ref, paged_prefill, randn, card):
@@ -1553,10 +1627,23 @@ def check_ssd_scan(torch, ref, ssd_scan, card):
           f"{bound_by}: {flops / 1e9:.2f} GFLOP of the recurrence at fp32 peak, "
           f"{nbytes / 1e6:.1f} MB; {per_device_ms(flops, dev_ms, 'TFLOP/s', 1e9)}), plain "
           f"{plain_ms:.4f} ms, library: none (no single PyTorch call computes the scan)")
+    # the admission lengths the Mamba2 path sees (prompts of 64-1024 tokens,
+    # mean ~544): device time and bound at each
+    by_s = {}
+    for s_len in (64, 256, 544, 1024):
+        a = _ssd_case(torch, g, 1, s_len, H, P, 1, N, -4.0)
+        b_ms, _ = bound(ssd_flops(1, s_len, H, P, N),
+                        2 * s_len * H * P * 2 + H * P * N * 4 + s_len * H * 4 + 2 * s_len * N * 2,
+                        PEAK_FP32_FLOPS)
+        by_s[s_len] = (device_ms(torch, lambda: ssd_scan(*a), "ssd_scan_kernel", n=10, floor=b_ms),
+                       b_ms)
+    print(f"ssd_scan at the admission lengths (B=1, H={H}, P={P}, N={N}) on {card}: " + ", ".join(
+        f"S={k} device {fmt_ms(v[0])} ms (bound {v[1]:.4f})" for k, v in by_s.items()))
     return {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:136", "launches": 0, "max_abs_err": max_err,
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None,
+            "device_ms_by_S": {str(k): v[0] for k, v in by_s.items()}}
 
 
 def generation_load(np, vocab: int, n: int, max_new: int, seed: int = 0):
@@ -3004,7 +3091,7 @@ def main() -> int:
     gen_recs = [check_rmsnorm(torch, F, ref, rmsnorm, randn, card),
                 check_sampling(torch, ref, fused_sample, randn, card),
                 check_flash_decode(torch, F, ref, flash_decode, randn, card)]
-    paged_recs = [check_paged_decode(torch, F, ref, paged_decode, randn, card),
+    paged_recs = [check_paged_decode(torch, F, ref, paged_decode, flash_decode, randn, card),
                   check_paged_prefill(torch, F, ref, paged_prefill, randn, card),
                   check_paged_kv_write(torch, ref, paged_kv_write, randn, card)]
     gmm_rec = check_gmm(torch, ref, gmm, card)

@@ -1,56 +1,53 @@
 #!/usr/bin/env python3
-"""Time the decode step's flash-decoding and RMSNorm kernels against the
-parent's, and flash-decoding against variants of its design, at
-Qwen2-7B's and Llama-4-Scout's decode shapes.
+"""Time the decode step's sampling and paged flash-decoding kernels against
+the parent's and against variants of their designs, and flash-decoding
+against the parent's, at Qwen2-7B's (and Scout's and Mamba2's) decode
+shapes.
 
     python3 decode_variants.py --save-parent REV   # in a git checkout
     python3 decode_variants.py [--parent [DIR]]     # on one card
 
-``--save-parent REV`` writes ``git show REV:`` of ``csrc/flash_decode.cu``,
-``csrc/mma.cuh`` and ``kernels/rmsnorm.py`` into DIR (by default
-``.chip_archive/parent/``: ignored by git, skipped by pytest, carried by a
-copy of the tree) and stops.  On the card, ``--parent`` adds that
-``flash_decode.cu`` (built with its own header beside it, which is found
-before the tree's) and that ``rmsnorm.py`` (a module of its own; before
-the CUDA RMSNorm its kernel is Triton).
+``--save-parent REV`` writes ``git show REV:`` of ``csrc/sampling.cu``,
+``csrc/paged_attention.cu``, ``csrc/flash_decode.cu``, ``csrc/mma.cuh``,
+``kernels/sampling.py`` and ``kernels/paged_attention.py`` into DIR (by
+default ``.chip_archive/parent/``: ignored by git, skipped by pytest,
+carried by a copy of the tree) and stops.  On the card, ``--parent`` adds
+those sources as the library "parent" of each kernel (built with its own
+header beside it, which is found before the tree's), and times those
+wrappers' host path (they launch the tree's kernels, whose C entry points
+are unchanged).
 
-Needs one card.  Each variant is a textual edit of ``csrc/flash_decode.cu``
-built into its own library under ``kernels/build/variants/`` (the source
-in the tree is not changed), one nvcc each, all started together:
+Needs one card.  Each variant is a textual edit of a source or header,
+written with the other edited files into a directory of its own under
+``kernels/build/variants/`` (the tree is not changed) and built with the
+tree's headers behind it, one nvcc each, all started together:
 
-- "ring 1 stage", "ring 3 stages", "ring 4 stages": each warp's ring of
-  16-key K/V stages that deep (the tree: 2);
-- "2 warps a block", "8 warps a block" (the tree: 4);
-- "4 blocks an SM": the split kernel's registers capped for 4 resident
-  blocks;
-- "chunk 512": 512-key splits (the tree: 256).
+- fused_sample: "cluster 2", "cluster 3", "cluster 8" (blocks a row; the
+  tree: 4), "levels 1", "levels 4", "levels 5" (bisection levels a pass,
+  with 1024, 512 and 256 threads a block; the tree: 3, 1024 threads),
+  "512 threads" (levels 3);
+- paged_decode: "ring 1 stage", "ring 3 stages" (each warp's ring of
+  16-key stages; the tree: 2, in ``decode_split.cuh``, which flash_decode
+  shares), "rows one by one at page 16" (each row's address looked up by
+  its own lane, the path of pages that are not a multiple of 16).
 
-and of ``csrc/rmsnorm.cu``:
-
-- "128 threads of 4 vectors": blocks of at most 128 threads, each holding
-  up to four 8-element vectors of the row (the tree: a thread a vector,
-  up to 1024 threads).
-
-For every flash-decoding library, in the order parent, tree, variants and
-then back, each decode shape (ragged lengths from ``chip_smoke``'s seeded
-draw) is timed: CUDA events over back-to-back calls and the profiler's
-device time (``chip_smoke.device_ms``), beside the bound, SDPA with a
-length mask and GQA, each library's row error against the plain version
-and whether its output equals the tree's bit for bit; the tree's device
-time is also split between its two kernels.  RMSNorm, the
-parent's, the tree's and the variant's (where the width fits it) in turns
-at (32, 3584), (32, 5120) and (2048,
-3584) bf16: back to back, device time on one input and over inputs
-rotated past the 50 MB L2, ``F.rms_norm`` beside them; then the host's
-cost of the tree's wrapper and its parts (µs a call over back-to-back
-calls).  Writes the readings to ``chiprun_out/decode_variants.json``.
+Each library runs in turns (the order and then back) at each shape: CUDA
+events over back-to-back calls and the profiler's device time
+(``chip_smoke.device_ms``), beside the bound, whether its output is the
+plain version's (tokens equal and logp within 1e-4; rows within 2e-2 of
+each row's max) and whether it equals the tree's bit for bit.  The
+sampler at (32, 152064) with chip_smoke's mix of rows, all greedy and all
+sampled, and with the mix at Scout's 202 240 and Mamba2's 50 432 columns
+(parent and tree); paged_decode at Qwen2's decode shape over chip_smoke's
+pool, split into its two kernels; flash_decode at Qwen2's and Scout's
+decode shapes (parent and tree); then each wrapper's host µs a call.
+Writes the readings to ``chiprun_out/decode_variants.json``.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import importlib.util
-import itertools
 import json
 import subprocess
 import sys
@@ -59,23 +56,28 @@ from pathlib import Path
 
 import chip_smoke as cs
 
-PARENT_FILES = {"flash_decode.cu": "src/repro_torch/kernels/csrc/flash_decode.cu",
-                "mma.cuh": "src/repro_torch/kernels/csrc/mma.cuh",
-                "rmsnorm.py": "src/repro_torch/kernels/rmsnorm.py"}
+PARENT_FILES = {name: f"src/repro_torch/kernels/csrc/{name}"
+                for name in ("sampling.cu", "paged_attention.cu", "flash_decode.cu", "mma.cuh")}
+PARENT_FILES.update({f"{m}.py": f"src/repro_torch/kernels/{m}.py"
+                     for m in ("sampling", "paged_attention")})
 PARENT_DIR = cs.ROOT / ".chip_archive" / "parent"
-VARIANTS = {
-    "ring 1 stage": [("constexpr int kStages = 2;", "constexpr int kStages = 1;")],
-    "ring 3 stages": [("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
-    "ring 4 stages": [("constexpr int kStages = 2;", "constexpr int kStages = 4;")],
-    "2 warps a block": [("constexpr int kWarps = 4;", "constexpr int kWarps = 2;")],
-    "8 warps a block": [("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")],
-    "4 blocks an SM": [("__launch_bounds__(kThreads) flash_decode_split_kernel",
-                        "__launch_bounds__(kThreads, 4) flash_decode_split_kernel")],
-    "chunk 512": [("constexpr int kChunk = 256;", "constexpr int kChunk = 512;")],
+THREADS = "constexpr int kThreads = kLevels <= 3 ? 1024 : kLevels == 4 ? 512 : 256;"
+SAMPLE_VARIANTS = {
+    "cluster 2": [("sampling.cu", "constexpr int kCluster = 4;", "constexpr int kCluster = 2;")],
+    "cluster 3": [("sampling.cu", "constexpr int kCluster = 4;", "constexpr int kCluster = 3;")],
+    "cluster 8": [("sampling.cu", "constexpr int kCluster = 4;", "constexpr int kCluster = 8;")],
+    "levels 1": [("sampling.cu", "constexpr int kLevels = 3;", "constexpr int kLevels = 1;")],
+    "levels 4": [("sampling.cu", "constexpr int kLevels = 3;", "constexpr int kLevels = 4;")],
+    "levels 5": [("sampling.cu", "constexpr int kLevels = 3;", "constexpr int kLevels = 5;")],
+    "512 threads": [("sampling.cu", THREADS, "constexpr int kThreads = 512;")],
 }
-NORM_VARIANTS = {
-    "128 threads of 4 vectors": [("constexpr int kMaxThreads = 1024;", "constexpr int kMaxThreads = 128;"),
-                                 ("constexpr int kMaxVpt = 2;", "constexpr int kMaxVpt = 4;")],
+PAGED_VARIANTS = {
+    "ring 1 stage": [("decode_split.cuh", "constexpr int kStages = 2;", "constexpr int kStages = 1;")],
+    "ring 3 stages": [("decode_split.cuh", "constexpr int kStages = 2;",
+                       "constexpr int kStages = 3;")],
+    "rows one by one at page 16": [("paged_attention.cu",
+                                    "const bool by_row = pl.page % decode::kSub != 0;",
+                                    "const bool by_row = true;")],
 }
 
 
@@ -88,47 +90,49 @@ def save_parent(rev: str, out: Path) -> None:
     print(f"wrote {rev}'s {', '.join(PARENT_FILES)} into {out}")
 
 
-def build(src_name, variants, parent=None):
-    """One nvcc per variant of ``csrc/<src_name>.cu`` (and the parent's
-    source), all started together -> {name: running job}; ``finish``
-    waits for them."""
+def build(name, variants, parent=None):
+    """One nvcc per variant of ``csrc/<name>.cu`` (and the parent's
+    source), all started together -> {label: (library, running job)}."""
     from repro_torch.kernels import _build
 
-    src = (_build.CSRC / f"{src_name}.cu").read_text()
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     sources = {}
-    for i, (name, edits) in enumerate(variants.items()):
-        text = src
-        for old, new in edits:
+    for i, (label, edits) in enumerate(variants.items()):
+        texts = {}
+        for fname, old, new in edits:
+            text = texts.get(fname) or (_build.CSRC / fname).read_text()
             if text.count(old) != 1:
-                raise RuntimeError(f"variant {name!r}: {old!r} is not in the source once")
-            text = text.replace(old, new)
-        cu = out_dir / f"{src_name}_variant{i}.cu"
-        cu.write_text(text)
-        sources[name] = cu
+                raise RuntimeError(f"variant {label!r}: {old!r} is not in {fname} once")
+            texts[fname] = text.replace(old, new)
+        texts.setdefault(f"{name}.cu", (_build.CSRC / f"{name}.cu").read_text())
+        d = out_dir / f"{name}_{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        for fname, text in texts.items():
+            (d / fname).write_text(text)
+        sources[label] = d / f"{name}.cu"
     if parent:
-        sources["parent"] = parent
+        sources["parent"] = parent / f"{name}.cu"
     jobs = {}
-    for i, (name, cu) in enumerate(sources.items()):
-        so = out_dir / f"{src_name}_variant{i}.so"
+    for label, cu in sources.items():
+        so = out_dir / f"{name}_{''.join(ch if ch.isalnum() else '_' for ch in label)}.so"
         cmd = [_build.nvcc(), *_build.FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(cu)]
-        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                           text=True))
+        jobs[label] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True))
     return jobs
 
 
 def finish(jobs):
-    """{name: library path} of the jobs of ``build`` that built."""
+    """{label: library path} of the jobs of ``build`` that built."""
     built = {}
-    for name, (so, proc) in jobs.items():
+    for label, (so, proc) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode:   # a variant that does not build is reported and left out
-            print(f"variant {name!r} did not build:\n{log}")
-            if name == "parent":
+            print(f"variant {label!r} did not build:\n{log}")
+            if label == "parent":
                 raise RuntimeError("the parent's source did not build")
         else:
-            built[name] = so
+            built[label] = so
     return built
 
 
@@ -145,6 +149,20 @@ def per_call_us(torch, fn, n: int = 2000) -> float:
     return t / n * 1e6
 
 
+def in_turns(torch, names, call, kernel, bound_ms):
+    """{name: (mean ms back to back, mean device ms, runs)}: each library
+    timed in the order of ``names`` and then back."""
+    runs = {n: [] for n in names}
+    for n in list(names) + list(names)[::-1]:
+        runs[n].append((cs.time_ms(torch, lambda: call(n)),
+                        cs.device_ms(torch, lambda: call(n), kernel, floor=bound_ms)))
+    out = {}
+    for n, r in runs.items():
+        devs = [t[1] for t in r if t[1]]
+        out[n] = (sum(t[0] for t in r) / len(r), sum(devs) / len(devs) if devs else None, r)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--save-parent", metavar="REV", default="")
@@ -156,188 +174,221 @@ def main() -> int:
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("decode_variants: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels import flash_decode as fd
-    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sampling as sp
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
     parent = Path(args.parent).resolve() if args.parent else None
-    jobs = _build.start_builds(["flash_decode", "rmsnorm"])
-    fd_jobs = build("flash_decode", VARIANTS, parent and parent / "flash_decode.cu")
-    norm_jobs = build("rmsnorm", NORM_VARIANTS)
-    libs = {"tree": None, **finish(fd_jobs)}
-    norm_libs = finish(norm_jobs)
+    jobs = _build.start_builds(["sampling", "paged_attention", "flash_decode"])
+    s_jobs = build("sampling", SAMPLE_VARIANTS, parent)
+    p_jobs = build("paged_attention", PAGED_VARIANTS, parent)
+    f_jobs = build("flash_decode", {}, parent)
     _build.finish_builds(jobs)
-    libs["tree"] = _build.lib_path("flash_decode")
-    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fns = {}
-    for name, so in libs.items():
-        lib = ctypes.CDLL(str(so))
-        lib.flash_decode.argtypes = [P] * 8 + [I] * 5 + [I64] * 10 + [ctypes.c_float, P]
-        lib.flash_decode_splits.argtypes = [I]
-        fns[name] = lib
-
-    def decode(name, q, k, v, lengths):
-        lib = fns[name]
-        B, _, H, D = q.shape
-        T, Hkv = k.shape[1], k.shape[2]
-        splits = lib.flash_decode_splits(T)
-        out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
-        n = B * H * splits
-        part = torch.empty((n * (D + 2),), dtype=torch.float32, device=q.device)
-        base = part.data_ptr()
-        err = lib.flash_decode(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                               out.data_ptr(), base, base + 4 * n, base + 8 * n, B, T, H, Hkv, D,
-                               q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3],
-                               out.stride(0), out.stride(2), 0.0,
-                               torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"{name}: flash_decode launch failed ({err})")
-        return out
-
+    P, I, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    libs = {}
+    for kern, more in (("sampling", finish(s_jobs)), ("paged_attention", finish(p_jobs)),
+                       ("flash_decode", finish(f_jobs))):
+        paths = {"tree": _build.lib_path(kern), **more}
+        libs[kern] = {}
+        for label, so in paths.items():
+            lib = ctypes.CDLL(str(so))
+            if kern == "sampling":
+                lib.fused_sample.argtypes = [P, I, I, I64] + [P] * 7 + [P]
+            elif kern == "paged_attention":
+                lib.paged_flash_decode.argtypes = [P] * 9 + [I] * 6 + [I64] * 8 + [F32, P]
+                lib.paged_decode_splits.argtypes = [I]
+            else:
+                lib.flash_decode.argtypes = [P] * 8 + [I] * 5 + [I64] * 10 + [F32, P]
+                lib.flash_decode_splits.argtypes = [I]
+            libs[kern][label] = lib
+    order = {k: ["parent"] * bool(parent) + ["tree"] + [n for n in v if n not in ("parent", "tree")]
+             for k, v in libs.items()}
+    stream = torch.cuda.current_stream().cuda_stream
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    readings = {"card": card}
-    order = ["parent"] * bool(parent) + ["tree"] + [n for n in VARIANTS if n in fns]
 
-    # flash-decoding at the decode shapes, lengths as chip_smoke draws them
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale + shift).to(dtype)
+
+    def sample(label, x, temp, top_k, top_p, seed, step):
+        B, V = x.shape
+        tok = torch.empty((B,), dtype=torch.int32, device=dev)
+        logp = torch.empty((B,), dtype=torch.float32, device=dev)
+        err = libs["sampling"][label].fused_sample(
+            x.data_ptr(), B, V, x.stride(0), temp.data_ptr(), top_k.data_ptr(), top_p.data_ptr(),
+            seed.data_ptr(), step.data_ptr(), tok.data_ptr(), logp.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"{label}: fused_sample launch failed ({err})")
+        return tok, logp
+
+    readings = {"card": card}
+
+    # ---- fused_sample
+    for label, (B, V, rows, how, names) in {
+        "qwen2-7b (32, 152064), the mix": (32, 152064, cs.SAMPLE_MIX, None, order["sampling"]),
+        "qwen2-7b (32, 152064), all greedy": (32, 152064, cs.SAMPLE_MIX, 0.0, order["sampling"][:2]),
+        "qwen2-7b (32, 152064), all sampled": (32, 152064, cs.SAMPLE_MIX, 0.8,
+                                               order["sampling"][:2]),
+        "scout (32, 202240), the mix": (32, 202240, cs.SAMPLE_MIX, None, order["sampling"][:2]),
+        "mamba2 (32, 50432), the mix": (32, 50432, cs.SAMPLE_MIX, None, order["sampling"][:2]),
+    }.items():
+        a = list(cs.sample_inputs(torch, randn, B, V, rows))
+        if how is not None:
+            a[1] = torch.full_like(a[1], how)
+        bound_ms, bound_by = cs.bound(0, B * V * 2 + B * 20 + B * 8)
+        r_tok, r_logp = ref.sample_ref(*a)
+        tree = sample("tree", *a)
+        t = in_turns(torch, names, lambda n: sample(n, *a), "fused_sample", bound_ms)
+        print(f"---- fused_sample {label} on {card}: bound {bound_ms:.5f} ms by {bound_by}")
+        for n in names:
+            tok, logp = sample(n, *a)
+            r = {"ms": t[n][0], "device_ms": t[n][1], "runs": t[n][2], "bound_ms": bound_ms,
+                 "tokens_equal_plain": int((tok == r_tok).sum()),
+                 "logp_err": (logp - r_logp).abs().max().item(),
+                 "bit_identical_to_tree": torch.equal(tok, tree[0]) and torch.equal(logp, tree[1])}
+            if n != "parent":    # the parent runs a block a row
+                r["clusters_resident"] = libs["sampling"][n].fused_sample_max_clusters(V)
+            readings.setdefault(n, {})[f"fused_sample {label}"] = r
+            print(f"{n}: {r['ms']:.4f} ms back to back, device {cs.fmt_ms(r['device_ms'])} ms, runs "
+                  f"{r['runs']}, tokens equal to the plain version's {r['tokens_equal_plain']}/{B}, "
+                  f"logp err {r['logp_err']:.3g}, bit-identical to the tree: "
+                  f"{r['bit_identical_to_tree']}, clusters resident {r.get('clusters_resident')}")
+
+    # ---- paged_decode at Qwen2-7B's decode shape over chip_smoke's pool
+    B, cap, H, Hkv, D, page, npages = 32, 2048, 28, 4, 128, 16, 4097
+    lens = np.random.default_rng(1).integers(0, cap + 1, size=B)
+    lens[:3] = [0, 1, cap]
+    bt = cs._paged_layout(torch, np, np.random.default_rng(9), lens, page, cap // page, npages, dev)
+    lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    q = randn(B, 1, H, D)
+    k_pool, v_pool = randn(npages, page, Hkv, D), randn(npages, page, Hkv, D)
+
+    def paged(label):
+        lib = libs["paged_attention"][label]
+        n = B * H * lib.paged_decode_splits(cap)
+        out = torch.empty((B, 1, H, D), dtype=q.dtype, device=dev)
+        part = torch.empty((n * (D + 2),), dtype=torch.float32, device=dev)
+        base = part.data_ptr()
+        err = lib.paged_flash_decode(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                                     bt.data_ptr(), lengths.data_ptr(), out.data_ptr(), base,
+                                     base + 4 * n, base + 8 * n, B, H, Hkv, D, page, cap // page,
+                                     q.stride(0), q.stride(2), *k_pool.stride()[:3], bt.stride(0),
+                                     out.stride(0), out.stride(2), 0.0, stream)
+        if err:
+            raise RuntimeError(f"{label}: paged_decode launch failed ({err})")
+        return out
+
+    live = int(lens.sum())
+    nbytes = 2 * B * H * D * 2 + 2 * live * Hkv * D * 2 + B * 4 + bt.numel() * 4
+    bound_ms, bound_by = cs.bound(4 * H * D * live, nbytes)
+    want = ref.paged_decode_attention_ref(q, k_pool, v_pool, bt, lengths)
+    tree_out = paged("tree")
+    names = order["paged_attention"]
+    t = in_turns(torch, names, paged, "paged_decode", bound_ms)
+    print(f"---- paged_decode at qwen2-7b's decode shape (B={B}, capacity {cap}, H={H}, Hkv={Hkv}, "
+          f"D={D}, page {page}, {live} live rows) on {card}: bound {bound_ms:.4f} ms by {bound_by}")
+    for n in names:
+        out = paged(n)
+        r = {"ms": t[n][0], "device_ms": t[n][1], "runs": t[n][2], "bound_ms": bound_ms,
+             "row_err": cs.row_rel_err(out, want), "bit_identical_to_tree": torch.equal(out, tree_out)}
+        if n in ("parent", "tree"):
+            r["device_ms_by_kernel"] = cs.device_ms_by_kernel(torch, lambda: paged(n),
+                                                              ("split_kernel", "combine_kernel"))
+        readings.setdefault(n, {})["paged_decode qwen2-7b"] = r
+        print(f"{n}: {r['ms']:.4f} ms back to back, device {cs.fmt_ms(r['device_ms'])} ms "
+              f"({cs.per_device_ms(nbytes, r['device_ms'], 'GB/s', 1e6)}), runs {r['runs']}, row err "
+              f"{r['row_err']:.3g}, bit-identical to the tree: {r['bit_identical_to_tree']}"
+              + (f", by kernel {r['device_ms_by_kernel']}" if "device_ms_by_kernel" in r else ""))
+
+    # ---- flash_decode, parent and tree, at the decode shapes
     rng = np.random.default_rng(1)
     for label, (B, T, H, Hkv, D) in {"qwen2-7b": (32, 2048, 28, 4, 128),
                                      "scout": (32, 2048, 40, 8, 128)}.items():
         lens = rng.integers(0, T + 1, size=B)
         lens[:3] = [0, 1, T]
         lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
-        q, k, v = (torch.randn(s, generator=g, device=dev).bfloat16()
-                   for s in ((B, 1, H, D), (B, T, Hkv, D), (B, T, Hkv, D)))
-        fd.check_args(q, k, v, lengths)
+        q, k, v = randn(B, 1, H, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
+
+        def dense(n):
+            lib = libs["flash_decode"][n]
+            m = B * H * lib.flash_decode_splits(T)
+            out = torch.empty((B, 1, H, D), dtype=q.dtype, device=dev)
+            part = torch.empty((m * (D + 2),), dtype=torch.float32, device=dev)
+            base = part.data_ptr()
+            err = lib.flash_decode(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                                   out.data_ptr(), base, base + 4 * m, base + 8 * m, B, T, H, Hkv, D,
+                                   q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3],
+                                   out.stride(0), out.stride(2), 0.0, stream)
+            if err:
+                raise RuntimeError(f"{n}: flash_decode launch failed ({err})")
+            return out
+
         live = int(lens.sum())
         nbytes = 2 * B * H * D * 2 + 2 * live * Hkv * D * 2 + B * 4
-        bound_ms, bound_by = cs.bound(4 * H * D * live, nbytes)
-        want = ref.decode_attention_ref(q, k, v, lengths)
-        tree_out = decode("tree", q, k, v, lengths)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        mask = (torch.arange(T, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-        lib_ms = cs.time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True))
-        times = {name: [] for name in order}
-        for name in order + order[::-1]:
-            times[name].append((cs.time_ms(torch, lambda: decode(name, q, k, v, lengths)),
-                                cs.device_ms(torch, lambda: decode(name, q, k, v, lengths),
-                                             "flash_decode", floor=bound_ms)))
-        print(f"---- flash_decode at {label}'s decode shape (B={B}, T={T}, H={H}, Hkv={Hkv}, D={D}, "
-              f"{live} live rows) on {card}: bound {bound_ms:.4f} ms by {bound_by}; SDPA (length "
-              f"mask, GQA) {lib_ms:.4f} ms")
-        for name in order:
-            out = decode(name, q, k, v, lengths)
-            ms = sum(t[0] for t in times[name]) / 2
-            devs = [t[1] for t in times[name] if t[1]]
-            dev_ms = sum(devs) / len(devs) if devs else None
-            r = {"ms": ms, "device_ms": dev_ms, "runs": times[name], "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": lib_ms,
-                 "row_err": cs.row_rel_err(out, want), "bit_identical_to_tree": torch.equal(out, tree_out)}
-            readings.setdefault(name, {})[f"flash_decode {label}"] = r
-            print(f"{name}: {ms:.4f} ms back to back, device {cs.fmt_ms(dev_ms)} ms "
-                  f"({cs.per_device_ms(nbytes, dev_ms, 'GB/s', 1e6)}), runs {times[name]}, row err "
-                  f"{r['row_err']:.3g}, bit-identical to the tree: {r['bit_identical_to_tree']}")
-        split = cs.device_ms_by_kernel(torch, lambda: decode("tree", q, k, v, lengths),
-                                       ("split", "combine"))
-        readings["tree"][f"flash_decode {label}"]["device_ms_by_kernel"] = split
-        print(f"tree's device ms by kernel: {split}")
-        del q, k, v, kt, vt
+        bound_ms, _ = cs.bound(4 * H * D * live, nbytes)
+        tree_out = dense("tree")
+        names = order["flash_decode"]
+        t = in_turns(torch, names, dense, "flash_decode", bound_ms)
+        print(f"---- flash_decode at {label}'s decode shape ({live} live rows) on {card}: bound "
+              f"{bound_ms:.4f} ms")
+        for n in names:
+            r = {"ms": t[n][0], "device_ms": t[n][1], "runs": t[n][2], "bound_ms": bound_ms,
+                 "bit_identical_to_tree": torch.equal(dense(n), tree_out)}
+            readings.setdefault(n, {})[f"flash_decode {label}"] = r
+            print(f"{n}: {r['ms']:.4f} ms back to back, device {cs.fmt_ms(r['device_ms'])} ms, runs "
+                  f"{r['runs']}, bit-identical to the tree: {r['bit_identical_to_tree']}")
+        del q, k, v
 
-    # RMSNorm: the parent's wrapper and kernel and the variants' kernels
-    # (called through ctypes) against the tree's
-    norms = {"tree": rn.rmsnorm}
-    if parent:
-        spec = importlib.util.spec_from_file_location("parent_rmsnorm", parent / "rmsnorm.py")
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        norms = {"parent": mod.rmsnorm, **norms}
-
-    def norm_variant(lib):
-        lib.rmsnorm.argtypes = [P, P, P, I, I, I64, I, ctypes.c_float, P]
-
-        def call(x, w):
-            y = torch.empty_like(x)
-            err = lib.rmsnorm(x.data_ptr(), w.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
-                              x.shape[1], 1 | 1 << 2, 1e-5, torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"rmsnorm variant launch failed ({err})")
-            return y
-        call.max_width = lib.rmsnorm_max_width()
-        return call
-
-    variants = {name: norm_variant(ctypes.CDLL(str(so))) for name, so in norm_libs.items()}
-    for rows, d in ((32, 3584), (32, 5120), (2048, 3584)):
-        norms_here = {**norms, **{n: f for n, f in variants.items() if d <= f.max_width},
-                      "F.rms_norm": lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-5)}
-        x = (torch.randn(rows, d, generator=g, device=dev) * 3 + 0.5).bfloat16()
-        w = torch.randn(d, generator=g, device=dev).bfloat16()
-        copies = -(-3 * 50 * 2**20 // (rows * d * 2))
-        xs = [(torch.randn(rows, d, generator=g, device=dev) * 3 + 0.5).bfloat16() for _ in range(copies)]
-        nbytes = 2 * rows * d * 2 + d * 2
-        bound_ms, bound_by = cs.bound(4 * rows * d, nbytes, cs.PEAK_FP32_FLOPS)
-        want = ref.rmsnorm_ref(x, w)
-        tree_out = rn.rmsnorm(x, w)
-        lib_ms = cs.time_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-5))
-        times = {name: [] for name in norms_here}
-        for name in list(norms_here) + list(norms_here)[::-1]:
-            fn = norms_here[name]
-            rot = itertools.cycle(xs)
-            times[name].append((cs.time_ms(torch, lambda: fn(x, w)),
-                                cs.device_ms(torch, lambda: fn(x, w), "rmsnorm", floor=bound_ms),
-                                cs.device_ms(torch, lambda: fn(next(rot), w), "rmsnorm",
-                                             floor=bound_ms)))
-        print(f"---- rmsnorm ({rows}, {d}) bf16 on {card}: bound {bound_ms:.5f} ms by {bound_by}; "
-              f"F.rms_norm {lib_ms:.4f} ms")
-        for name, fn in norms_here.items():
-            out = fn(x, w)
-            ms = sum(t[0] for t in times[name]) / 2
-            avg = [[t[i] for t in times[name] if t[i]] for i in (1, 2)]
-            dev_ms, dram_ms = (sum(a) / len(a) if a else None for a in avg)
-            r = {"ms": ms, "device_ms": dev_ms, "device_ms_dram": dram_ms, "runs": times[name],
-                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-                 "max_err": (out.float() - want.float()).abs().max().item(),
-                 "bit_identical_to_tree": torch.equal(out, tree_out)}
-            readings.setdefault(name, {})[f"rmsnorm ({rows}, {d})"] = r
-            print(f"{name}: {ms:.4f} ms back to back, device {cs.fmt_ms(dev_ms)} ms, over {copies} "
-                  f"inputs rotated past L2 {cs.fmt_ms(dram_ms)} ms, runs {times[name]}, max err "
-                  f"{r['max_err']:.3g}, bit-identical to the tree: {r['bit_identical_to_tree']}")
-        del xs
-
-    # the host's cost of the tree's RMSNorm wrapper and its parts, at the
-    # decode shape
-    x = (torch.randn(32, 3584, generator=g, device=dev) * 3 + 0.5).bfloat16()
-    w = torch.randn(3584, generator=g, device=dev).bfloat16()
-    y = torch.empty_like(x)
-    fn = rn._rmsnorm_fn()
-    xp, wp, yp = x.data_ptr(), w.data_ptr(), y.data_ptr()
-    stream = torch._C._cuda_getCurrentRawStream(0)
+    # ---- the host's cost of the wrappers, at the decode shapes
+    x, temp, top_k, top_p, seed, step = cs.sample_inputs(torch, randn, 32, 152064, cs.SAMPLE_MIX)
+    q = randn(32, 1, 28, 128)
+    lengths = torch.as_tensor(np.random.default_rng(1).integers(0, 2049, size=32),
+                              dtype=torch.int32, device=dev)
+    fn = sp._fn()
+    tok = torch.empty((32,), dtype=torch.int32, device=dev)
+    logp = torch.empty((32,), dtype=torch.float32, device=dev)
+    raw = [x.data_ptr(), 32, 152064, x.stride(0), temp.data_ptr(), top_k.data_ptr(),
+           top_p.data_ptr(), seed.data_ptr(), step.data_ptr(), tok.data_ptr(), logp.data_ptr(),
+           stream]
+    pfn = pa._decode_fn_c()
+    out = torch.empty((32, 1, 28, 128), dtype=torch.bfloat16, device=dev)
+    part = pa._partials(0, 32 * 28 * 8 * 130)
+    praw = [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), part.data_ptr(), part.data_ptr() + 4 * 7168,
+            part.data_ptr() + 8 * 7168, 32, 28, 4, 128, 16, 128, q.stride(0), q.stride(2),
+            *k_pool.stride()[:3], bt.stride(0), out.stride(0), out.stride(2), 0.0, stream]
     parts = {
         "an empty Python call": lambda: None,
-        "x.new_empty(shape)": lambda: x.new_empty(x.shape),
-        "torch.empty_like(x)": lambda: torch.empty_like(x),
-        "torch.empty(shape, dtype, device)": lambda: torch.empty(x.shape, dtype=x.dtype,
-                                                                 device=x.device),
-        "the raw stream": lambda: torch._C._cuda_getCurrentRawStream(0),
-        "the ctypes call and launch alone": lambda: fn(xp, wp, yp, 32, 3584, 3584, 1 | 1 << 2,
-                                                       1e-5, stream),
-        "rmsnorm (the tree's wrapper)": lambda: rn.rmsnorm(x, w),
-        "F.rms_norm": lambda: F.rms_norm(x, (3584,), w, 1e-5),
+        "x.new_empty((32,), int32)": lambda: x.new_empty((32,), dtype=torch.int32),
+        "torch._C._cuda_getCurrentRawStream": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "fused_sample: the ctypes call and launch alone": lambda: fn(*raw),
+        "paged_decode: the ctypes call and launch alone": lambda: pfn(*praw),
+        "fused_sample (the tree's wrapper)": lambda: sp.fused_sample(x, temp, top_k, top_p, seed,
+                                                                    step),
+        "paged_decode (the tree's wrapper)": lambda: pa.paged_decode(q, k_pool, v_pool, bt,
+                                                                    lengths),
     }
     if parent:
-        parts["rmsnorm (the parent's Triton wrapper)"] = lambda: norms["parent"](x, w)
-    host = {name: per_call_us(torch, f) for name, f in parts.items()}
-    readings["host µs a call, (32, 3584) bf16"] = host
-    print(f"---- host µs a call at (32, 3584) bf16 on {card}: " +
-          ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
+        for mod in ("sampling", "paged_attention"):
+            spec = importlib.util.spec_from_file_location(f"parent_{mod}", parent / f"{mod}.py")
+            m = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(m)
+            if mod == "sampling":
+                parts["fused_sample (the parent's wrapper)"] = (
+                    lambda m=m: m.fused_sample(x, temp, top_k, top_p, seed, step))
+            else:
+                parts["paged_decode (the parent's wrapper)"] = (
+                    lambda m=m: m.paged_decode(q, k_pool, v_pool, bt, lengths))
+    host = {name: per_call_us(torch, f, n=500) for name, f in parts.items()}
+    readings["host µs a call"] = host
+    print(f"---- host µs a call on {card}: " + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
 
     out = cs.ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -17,12 +17,14 @@
   ``rmsnorm.py``; replaces ``rmsnorm.py::rmsnorm``.
 * flash-decoding: ``csrc/flash_decode.cu`` (CUDA C++ for sm_90a: cp.async
   rings of 16-key K/V stages, mma.sync products, an online softmax in one
-  pass), wrapped by ``flash_decode.py``; replaces
-  ``flash_decode.py::flash_decode``.
-* fused sampling: ``csrc/sampling.cu`` (CUDA C++ for sm_90a), wrapped by
+  pass, in ``csrc/decode_split.cuh``), wrapped by ``flash_decode.py``;
+  replaces ``flash_decode.py::flash_decode``.
+* fused sampling: ``csrc/sampling.cu`` (CUDA C++ for sm_90a: a cluster of
+  blocks a row over distributed shared memory), wrapped by
   ``sampling.py``; replaces ``sampling.py::fused_sample``.
-* paged-KV attention: ``csrc/paged_attention.cu`` (CUDA C++ for sm_90a),
-  wrapped by ``paged_attention.py``; its decode, chunk-prefill and
+* paged-KV attention: ``csrc/paged_attention.cu`` (CUDA C++ for sm_90a; the
+  decode on flash-decoding's split body, addressed through the block
+  table), wrapped by ``paged_attention.py``; its decode, chunk-prefill and
   K/V-insert kernels replace ``paged_attention.py::paged_flash_decode``,
   ``paged_flash_prefill`` and ``paged_kv_write``.
 * ragged grouped matmul: ``csrc/grouped_matmul.cu`` (CUDA C++ for sm_90a),

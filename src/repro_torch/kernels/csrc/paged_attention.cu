@@ -22,16 +22,20 @@
 // and computes each K/V row's address as
 //   pool + bt[b, pos / page] * page_stride + (pos % page) * row_stride
 // (64-bit), so no dense (B, T) cache is ever built.
-//   * decode: the design of flash_decode.cu with that address, computed
-//     once a row for the block's chunk and kept in shared memory. Hopper
-//     blocks run in no order, so the TPU's sequential page axis becomes
-//     fixed 256-key chunks (16 pages of 16): one block per (row, kv head,
-//     chunk), an exact softmax over the chunk in shared memory, fp32
-//     partials (m, l, acc), and a combine kernel in chunk order. No
-//     atomics, so a step repeats bit for bit, and a row's split depends
-//     only on its own length. Chunks past the row's length return before
-//     any load. fp32 FMAs on the CUDA cores (7 query rows underfill an mma
-//     tile).
+//   * decode: flash_decode.cu's split and combine kernels, whose bodies it
+//     shares (decode_split.cuh): fixed 256-key chunks, one block per (row,
+//     kv head, chunk), four warps streaming 16-key K/V stages through
+//     cp.async rings, QK^T and PV on mma.sync with an online softmax, fp32
+//     partials combined in chunk order. Only a stage's address differs.
+//     At a page that is a multiple of 16 (the served 16) a stage lies in
+//     one page: one table read gives its base, `pool + bt[b, pos / page] *
+//     page_stride + (pos % page) * row_stride`, and the rows follow at the
+//     row stride. At any other page (8, 12, ...) a stage spans pages, and
+//     lane r of the warp looks up row r's offset, which the copy reads by
+//     shuffle. The arithmetic and its order are flash_decode's, so at page
+//     16 a paged row gives bit for bit what flash_decode gives over the
+//     same rows gathered into a dense cache. No atomics, so a step repeats
+//     bit for bit, and a row's split depends only on its own length.
 //   * prefill: tensor-core work (a 512-token chunk at group 7 is 3 584
 //     query rows per kv head), so it is flash_attention_fwd.cu's design:
 //     one block per (b, query head, 64-query tile), four warps of 16 rows,
@@ -63,15 +67,14 @@
 
 #include <cuda_runtime.h>
 
+#include "decode_split.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int kChunk = 256;   // decode: keys per split
-constexpr int kTile = 64;     // keys per shared-memory tile (both kernels)
+constexpr int kTile = 64;     // prefill: keys per shared-memory tile
 constexpr int kBlockQ = 64;   // prefill: query rows per block, 4 warps x 16
 constexpr int kThreads = 128;
-constexpr int kMaxGroup = 16;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 using T = __nv_bfloat16;
@@ -132,200 +135,94 @@ struct Pool {
 };
 
 // ------------------------------------------------------------------ decode
-struct DecodeParams {
-  Pool pool;
-  const uint16_t* q;
-  const int* lengths;
-  uint16_t* o;
-  float* part_m;    // (B*H, splits)
-  float* part_l;    // (B*H, splits)
-  float* part_acc;  // (B*H, splits, D)
-  int H, group, splits;
-  long long q_sb, q_sh, o_sb, o_sh;
-  float scale;    // 1/sqrt(D)
-  float softcap;  // 0 = off
+// one warp copies the kSub rows whose pool offsets lane r < kSub holds in
+// `off` (-1: not live, zero-filled without a read) into a stage
+template <int D>
+__device__ __forceinline__ void kv_stage_rows(uint16_t* dst, const uint16_t* base, long long off,
+                                              int lane) {
+  constexpr int kPerRow = D / 8;
+#pragma unroll
+  for (int i = 0; i < decode::kSub * kPerRow / 32; ++i) {
+    const int c = lane + 32 * i;
+    const int r = c / kPerRow, col = (c % kPerRow) * 8;
+    const long long o = __shfl_sync(0xffffffffu, off, r);
+    cp_async16(dst + r * decode::Smem<D>::kPitch + col, base + (o < 0 ? 0 : o) + col, o >= 0);
+  }
+}
+
+// a stage's K and V rows through the block table: kByRow false, the page a
+// multiple of 16, so the stage lies in one page; kByRow true, any page,
+// each row looked up by its own lane
+template <bool kByRow>
+struct Paged {
+  const uint16_t* k;
+  const uint16_t* v;
+  const int* bt;  // (B, n_tables)
+  int page;
+  long long page_stride, row_stride, head_stride, bt_sb;
+
+  template <int D>
+  __device__ __forceinline__ void stage(uint16_t* dk, uint16_t* dv, int b, int hk, int k0,
+                                        int key0, int n, int lane) const {
+    const int* row = bt + b * bt_sb;
+    const int pos0 = k0 + key0;
+    const long long head = hk * head_stride;
+    if (!kByRow) {
+      const long long base = (long long)row[pos0 / page] * page_stride +
+                             (long long)(pos0 % page) * row_stride + head;
+      decode::kv_stage<D>(dk, k + base, row_stride, 0, n - key0, lane);
+      decode::kv_stage<D>(dv, v + base, row_stride, 0, n - key0, lane);
+    } else {
+      long long off = -1;
+      if (lane < decode::kSub && key0 + lane < n) {
+        const int pos = pos0 + lane;
+        off = (long long)row[pos / page] * page_stride + (long long)(pos % page) * row_stride;
+      }
+      kv_stage_rows<D>(dk, k + head, off, lane);
+      kv_stage_rows<D>(dv, v + head, off, lane);
+    }
+  }
 };
 
-__device__ __forceinline__ int row_length(const DecodeParams& p, int b) {
-  return min(max(p.lengths[b], 0), p.pool.n_tables * p.pool.page);
+template <int D, bool kByRow>
+__global__ void __launch_bounds__(decode::kThreads)
+    paged_decode_split_kernel(const decode::Split p, const Paged<kByRow> a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  decode::split_body<D>(p, a, smem);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(const DecodeParams p) {
-  __shared__ __align__(16) uint16_t sKV[kTile][D + kPad];
-  __shared__ __align__(16) float sQ[kMaxGroup][D];
-  __shared__ __align__(16) float sS[kMaxGroup][kChunk];
-  __shared__ float sM[kMaxGroup], sL[kMaxGroup];
-  __shared__ long long sOff[kChunk];   // the chunk's row offsets, for K and for V
-
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int len = row_length(p, b);
-  const int k0 = split * kChunk;
-  if (k0 >= len) return;  // past the row's length: no loads, no partials
-  const int k_end = min(k0 + kChunk, len);
-  const int n = k_end - k0;
-  const int n_pad = (n + kTile - 1) / kTile * kTile;
-  const int g = p.group, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const Pool pl = p.pool;
-
-  for (int i = tid; i < g * D; i += kThreads) {
-    const int h = i / D, d = i % D;
-    sQ[h][d] = Mma<T>::to_float(p.q[b * p.q_sb + (hk * g + h) * p.q_sh + d]);
-  }
-  row_offsets(sOff, kChunk, pl.bt + b * pl.bt_sb, pl.page, pl.page_stride, pl.row_stride, k0,
-              k_end);
-  const uint16_t* kbase = pl.k + hk * pl.head_stride;
-  const uint16_t* vbase = pl.v + hk * pl.head_stride;
-
-  // scores: thread tid owns key tid % kTile of each tile and the heads
-  // h = tid / kTile + 2i
-  const int j = tid % kTile, hset = tid / kTile;
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    __syncthreads();  // sQ and sOff written; the previous tile's readers done
-    load_paged_tile<D>(sKV, kbase, sOff + t0);
-    __syncthreads();
-    if (t0 + j >= n) continue;
-    float acc[kMaxGroup / 2];
-#pragma unroll
-    for (int i = 0; i < kMaxGroup / 2; ++i) acc[i] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(&sKV[j][c]);
-      const uint16_t* kh = reinterpret_cast<const uint16_t*>(&raw);
-      float kf[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) kf[e] = Mma<T>::to_float(kh[e]);
-#pragma unroll
-      for (int i = 0; i < kMaxGroup / 2; ++i) {
-        const int h = hset + 2 * i;
-        if (h < g) {
-          const float4 qa = *reinterpret_cast<const float4*>(&sQ[h][c]);
-          const float4 qb = *reinterpret_cast<const float4*>(&sQ[h][c + 4]);
-          float s = acc[i];
-          s = fmaf(qa.x, kf[0], s);
-          s = fmaf(qa.y, kf[1], s);
-          s = fmaf(qa.z, kf[2], s);
-          s = fmaf(qa.w, kf[3], s);
-          s = fmaf(qb.x, kf[4], s);
-          s = fmaf(qb.y, kf[5], s);
-          s = fmaf(qb.z, kf[6], s);
-          s = fmaf(qb.w, kf[7], s);
-          acc[i] = s;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kMaxGroup / 2; ++i) {
-      const int h = hset + 2 * i;
-      if (h < g) {
-        float s = acc[i] * p.scale;
-        if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
-        sS[h][t0 + j] = s;
-      }
-    }
-  }
-  __syncthreads();
-
-  // the chunk's softmax, one warp per head: p = exp(s - m) in place, zero
-  // past n up to the tile edge; (m, l) to shared memory
-  for (int h = warp; h < g; h += kThreads / 32) {
-    float mx = kNegInf;
-    for (int t = lane; t < n; t += 32) mx = fmaxf(mx, sS[h][t]);
-#pragma unroll
-    for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.f;
-    for (int t = lane; t < n_pad; t += 32) {
-      const float e = t < n ? expf(sS[h][t] - mx) : 0.f;
-      sS[h][t] = e;
-      sum += e;
-    }
-#pragma unroll
-    for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (lane == 0) {
-      sM[h] = mx;
-      sL[h] = sum;
-    }
-  }
-
-  // O = P V: thread tid owns column d = tid % D of the heads
-  // h = tid / D + kSets * i
-  constexpr int kSets = kThreads / D;
-  constexpr int kPerThread = kMaxGroup / kSets;
-  const int d = tid % D, oset = tid / D;
-  float o[kPerThread];
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) o[i] = 0.f;
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    __syncthreads();  // the softmax is done; the previous tile's readers done
-    load_paged_tile<D>(sKV, vbase, sOff + t0);
-    __syncthreads();
-    for (int t = 0; t < kTile; t += 4) {
-      float vf[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) vf[e] = Mma<T>::to_float(sKV[t + e][d]);
-#pragma unroll
-      for (int i = 0; i < kPerThread; ++i) {
-        const int h = oset + kSets * i;
-        if (h < g) {
-          const float4 pr = *reinterpret_cast<const float4*>(&sS[h][t0 + t]);
-          float s = o[i];
-          s = fmaf(pr.x, vf[0], s);
-          s = fmaf(pr.y, vf[1], s);
-          s = fmaf(pr.z, vf[2], s);
-          s = fmaf(pr.w, vf[3], s);
-          o[i] = s;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const int h = oset + kSets * i;
-    if (h < g) {
-      const long long idx = (long long)(b * p.H + hk * g + h) * p.splits + split;
-      p.part_acc[idx * D + d] = o[i];
-      if (d == 0) {
-        p.part_m[idx] = sM[h];
-        p.part_l[idx] = sL[h];
-      }
-    }
-  }
+__global__ void __launch_bounds__(D / 2) paged_decode_combine_kernel(const decode::Split p) {
+  decode::combine_body<D>(p);
 }
 
-// one block per (row, query head), D / 2 threads of two columns each: the
-// live splits combined in split order
-template <int D>
-__global__ void __launch_bounds__(D / 2) paged_decode_combine_kernel(const DecodeParams p) {
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int ns = (row_length(p, b) + kChunk - 1) / kChunk;
-  const float* m = p.part_m + (long long)bh * p.splits;
-  const float* l = p.part_l + (long long)bh * p.splits;
-  const float* acc = p.part_acc + (long long)bh * p.splits * D;
-  const int d = 2 * threadIdx.x;
-  float mx = kNegInf;
-  for (int s = 0; s < ns; ++s) mx = fmaxf(mx, m[s]);
-  float sum = 0.f, a0 = 0.f, a1 = 0.f;
-  for (int s = 0; s < ns; ++s) {
-    const float w = expf(m[s] - mx);
-    sum = fmaf(l[s], w, sum);
-    a0 = fmaf(acc[s * D + d], w, a0);
-    a1 = fmaf(acc[s * D + d + 1], w, a1);
-  }
-  const bool empty = ns == 0 || mx <= kNegInf / 2;
-  const float denom = fmaxf(sum, 1e-30f);
-  *reinterpret_cast<uint32_t*>(p.o + b * p.o_sb + h * p.o_sh + d) =
-      Mma<T>::pack(empty ? 0.f : a0 / denom, empty ? 0.f : a1 / denom);
-}
-
-template <int D>
-cudaError_t launch_decode(const DecodeParams& p, int B, int Hkv, cudaStream_t stream) {
-  paged_decode_split_kernel<D><<<dim3(p.splits, Hkv, B), kThreads, 0, stream>>>(p);
+template <int D, bool kByRow>
+cudaError_t launch_decode(const decode::Split& p, const Paged<kByRow>& a, int B, int Hkv,
+                          cudaStream_t stream) {
+  constexpr int kBytes = decode::Smem<D>::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      paged_decode_split_kernel<D, kByRow>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (attr != cudaSuccess) return attr;
+  paged_decode_split_kernel<D, kByRow>
+      <<<dim3(p.splits, Hkv, B), decode::kThreads, kBytes, stream>>>(p, a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_decode_combine_kernel<D><<<B * p.H, D / 2, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_decode(const decode::Split& p, const Pool& pl, int B, int Hkv,
+                          cudaStream_t stream) {
+  const bool by_row = pl.page % decode::kSub != 0;
+  if (by_row) {
+    const Paged<true> a{pl.k, pl.v, pl.bt, pl.page, pl.page_stride, pl.row_stride,
+                        pl.head_stride, pl.bt_sb};
+    return launch_decode<D, true>(p, a, B, Hkv, stream);
+  }
+  const Paged<false> a{pl.k, pl.v, pl.bt, pl.page, pl.page_stride, pl.row_stride,
+                       pl.head_stride, pl.bt_sb};
+  return launch_decode<D, false>(p, a, B, Hkv, stream);
 }
 
 // ----------------------------------------------------------------- prefill
@@ -528,7 +425,7 @@ Pool make_pool(const void* k_pool, const void* v_pool, const int* bt, int page, 
 
 // The number of splits a table of `capacity` = n_tables * page rows is cut
 // into (the wrapper sizes the partials with it).
-extern "C" int paged_decode_splits(int capacity) { return (capacity + kChunk - 1) / kChunk; }
+extern "C" int paged_decode_splits(int capacity) { return decode::splits_of(capacity); }
 
 // bf16 operands; strides in elements, the head dim contiguous; K and V
 // pools share one layout. part_m, part_l and part_acc are fp32 scratch of
@@ -541,26 +438,17 @@ extern "C" int paged_flash_decode(
     long long q_sb, long long q_sh,
     long long page_stride, long long row_stride, long long head_stride, long long bt_sb,
     long long o_sb, long long o_sh, float softcap, void* stream) {
-  if (Hkv <= 0 || H % Hkv || H / Hkv > kMaxGroup || page <= 0) return cudaErrorInvalidValue;
-  DecodeParams p;
-  p.pool = make_pool(k_pool, v_pool, block_table, page, n_tables, page_stride, row_stride,
-                     head_stride, bt_sb);
-  p.q = static_cast<const uint16_t*>(q);
-  p.lengths = lengths;
-  p.o = static_cast<uint16_t*>(out);
-  p.part_m = part_m;
-  p.part_l = part_l;
-  p.part_acc = part_acc;
-  p.H = H;
-  p.group = H / Hkv;
-  p.splits = paged_decode_splits(n_tables * page);
-  p.q_sb = q_sb; p.q_sh = q_sh;
-  p.o_sb = o_sb; p.o_sh = o_sh;
-  p.scale = 1.0f / sqrtf(float(D));
-  p.softcap = softcap;
+  if (Hkv <= 0 || H % Hkv || H / Hkv > decode::kMaxGroup || page <= 0)
+    return cudaErrorInvalidValue;
+  decode::Split p = decode::make_split(q, lengths, out, part_m, part_l, part_acc, H, Hkv, D, q_sb,
+                                       q_sh, o_sb, o_sh, softcap);
+  p.T = n_tables * page;
+  p.splits = decode::splits_of(p.T);
+  const Pool pl = make_pool(k_pool, v_pool, block_table, page, n_tables, page_stride, row_stride,
+                            head_stride, bt_sb);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_decode<64>(p, B, Hkv, s);
-  if (D == 128) return launch_decode<128>(p, B, Hkv, s);
+  if (D == 64) return launch_decode<64>(p, pl, B, Hkv, s);
+  if (D == 128) return launch_decode<128>(p, pl, B, Hkv, s);
   return cudaErrorInvalidValue;
 }
 

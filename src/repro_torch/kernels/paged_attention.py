@@ -5,8 +5,9 @@ Replaces the three TPU kernels of the reference's
 through a block table), ``paged_flash_prefill`` (chunk attention through a
 block table, under a causal mask shifted by the chunk's start) and
 ``paged_kv_write`` (the in-place per-token K/V insert).  The kernels are
-``csrc/paged_attention.cu`` (CUDA C++ for sm_90a; its source note gives the
-designs and the bounds); the plain versions are
+``csrc/paged_attention.cu`` (CUDA C++ for sm_90a; the decode kernels share
+their split and combine bodies with flash-decoding, ``csrc/decode_split.cuh``;
+the source notes give the designs and the bounds); the plain versions are
 ``ref.paged_decode_attention_ref``, ``ref.paged_prefill_attention_ref`` and
 ``ref.paged_kv_write_ref``.
 
@@ -145,31 +146,76 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+_CHUNK = 256          # csrc/decode_split.cuh: keys a split
+_decode_fn = None
+_workspace = {}       # (device index, elements) -> the decode's fp32 partials
+
+
+def _decode_fn_c():
+    """The decode kernel's C entry point, its argument types set once."""
+    global _decode_fn
+    if _decode_fn is None:
+        lib = _lib()
+        if lib.paged_decode_splits(2 * _CHUNK + 1) != 3:
+            raise RuntimeError(f"the paged decode kernel's splits are not {_CHUNK} keys")
+        _decode_fn = lib.paged_flash_decode
+    return _decode_fn
+
+
+def _partials(dev: int, n: int) -> torch.Tensor:
+    """fp32 scratch of n elements on card ``dev``, made once and kept: the
+    kernels that use it run in stream order on the current stream, and each
+    launch writes the partials it reads."""
+    w = _workspace.get((dev, n))
+    if w is None:
+        w = _workspace[(dev, n)] = torch.empty((n,), dtype=torch.float32,
+                                               device=torch.device("cuda", dev))
+    return w
+
+
 def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  block_table: torch.Tensor, lengths: torch.Tensor, *,
                  softcap: float = 0.0) -> torch.Tensor:
     """(B, 1, H, D) in q.dtype: each row's query over the first
     ``lengths[b]`` positions its block-table row maps; a row of length 0
-    gives zeros."""
-    if q.device.type == "cpu":
-        return paged_decode_attention_ref(q, k_pool, v_pool, block_table, lengths,
-                                          softcap=softcap)
-    _build.check_device("paged_decode", q, k_pool, v_pool, block_table, lengths)
-    check_decode_args(q, k_pool, v_pool, block_table, lengths)
-    B, _, H, D = q.shape
-    _, page, Hkv, _ = k_pool.shape
-    n_tables = block_table.shape[1]
-    lib = _lib()
-    splits = lib.paged_decode_splits(n_tables * page)
-    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
-    n = B * H * splits
-    part = torch.empty((n * (D + 2),), dtype=torch.float32, device=q.device)
-    err = lib.paged_flash_decode(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), part.data_ptr(), part[n:].data_ptr(),
-        part[2 * n:].data_ptr(), B, H, Hkv, D, page, n_tables, q.stride(0), q.stride(2),
-        *k_pool.stride()[:3], block_table.stride(0), out.stride(0), out.stride(2),
-        float(softcap), _stream(q))
+    gives zeros.  On the card the common case costs attribute reads, one
+    allocation and the launch: the full checks run only to name what the
+    kernel does not take, and the fp32 partials are kept per (device,
+    size)."""
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return paged_decode_attention_ref(q, k_pool, v_pool, block_table, lengths,
+                                              softcap=softcap)
+        raise ValueError(f"paged_decode: q must lie on the CPU or a CUDA device; got {q.device}")
+    fn = _decode_fn or _decode_fn_c()
+    dev = q.get_device()
+    qs, ks, bs = q.shape, k_pool.shape, block_table.shape
+    bf = torch.bfloat16
+    if (len(qs) != 4 or qs[1] != 1 or len(ks) != 4 or ks != v_pool.shape or ks[3] != qs[3]
+            or qs[3] not in (64, 128) or qs[2] % ks[2] or qs[2] // ks[2] > _MAX_GROUP
+            or q.dtype != bf or k_pool.dtype != bf or v_pool.dtype != bf
+            or len(bs) != 2 or bs[0] != qs[0] or lengths.shape != (qs[0],)
+            or block_table.dtype != torch.int32 or lengths.dtype != torch.int32
+            or not (block_table.is_contiguous() and lengths.is_contiguous()
+                    and k_pool.is_contiguous() and v_pool.is_contiguous())
+            or q.stride(3) != 1 or q.stride(0) % 8 or q.stride(2) % 8
+            or (q.data_ptr() | k_pool.data_ptr() | v_pool.data_ptr()) % 16
+            or qs[0] > _MAX_GRID_YZ or ks[2] > _MAX_GRID_YZ
+            or k_pool.get_device() != dev or v_pool.get_device() != dev
+            or block_table.get_device() != dev or lengths.get_device() != dev):
+        _build.check_device("paged_decode", q, k_pool, v_pool, block_table, lengths)
+        check_decode_args(q, k_pool, v_pool, block_table, lengths)
+    B, _, H, D = qs
+    _, page, Hkv, _ = ks
+    n_tables = bs[1]
+    out = q.new_empty((B, 1, H, D))
+    n = B * H * ((n_tables * page + _CHUNK - 1) // _CHUNK)
+    base = _partials(dev, n * (D + 2)).data_ptr()     # m (n), l (n), acc (n, D)
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), base, base + 4 * n, base + 8 * n,
+             B, H, Hkv, D, page, n_tables, q.stride(0), q.stride(2),
+             page * Hkv * D, Hkv * D, D, n_tables, out.stride(0), out.stride(2),
+             softcap, torch._C._cuda_getCurrentRawStream(dev))
     if err:
         raise RuntimeError(f"paged_decode kernel launch failed: cudaError {err}")
     paged_decode.launches += 1

@@ -428,6 +428,81 @@ def sample_ref(
     return tok[:, 0].to(torch.int32), logp[:, 0]
 
 
+def _heap_midpoints(lo: torch.Tensor, hi: torch.Tensor, levels: int) -> torch.Tensor:
+    """(R, 2^levels - 1): the midpoints of the next ``levels`` bisection
+    steps from (lo, hi) of shape (R, 1), in heap order (column 0 the root,
+    the children of column i at 2i + 1 and 2i + 2), each ``0.5 * (lo +
+    hi)`` of its interval in fp32, as the sequential loop computes it."""
+    los, his, mids = [lo], [hi], []
+    for i in range((1 << levels) - 1):
+        mid = 0.5 * (los[i] + his[i])
+        mids.append(mid)
+        los += [los[i], mid]
+        his += [mid, his[i]]
+    return torch.cat(mids, dim=1)
+
+
+def sample_levels_ref(
+    logits: torch.Tensor,       # (B, V) any float dtype; masked entries -1e30
+    temperature: torch.Tensor,  # (B,) <= 0: greedy
+    top_k: torch.Tensor,        # (B,) 0 disables
+    top_p: torch.Tensor,        # (B,) 1.0 disables
+    seed: torch.Tensor,         # (B,) integer, taken mod 2^32
+    step: torch.Tensor,         # (B,) integer generation index
+    levels: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``sample_ref`` with the bisection walked as ``csrc/sampling.cu``
+    walks it: each pass evaluates all 2^levels - 1 midpoints of the next
+    ``levels`` steps of each search (integer counts, masses) and then
+    descends that many levels.  The midpoints and the descent are the
+    sequential loop's, so the thresholds are its own (the top-k one bit for
+    bit; the masses are summed in another order).  The top-k search is
+    skipped where top-k is off, as the kernel skips it.  Returns (tok,
+    logp, lo_k, lo_p), the thresholds (B,) fp32.  A definition for the
+    tests, not a path of the port."""
+    x = logits.float()
+    B, V = x.shape
+    temp = temperature.float()[:, None]
+    valid = x > NEG_INF / 2
+    greedy = temp <= 0.0
+    z = torch.where(valid, x / torch.where(greedy, 1.0, temp), NEG_INF)
+    m = z.amax(dim=-1, keepdim=True)
+    mn = torch.where(valid, z, m).amin(dim=-1, keepdim=True)
+    e = torch.where(valid, torch.exp(z - m), 0.0)
+    tk = top_k.long()[:, None]
+    k = torch.where(tk <= 0, V, tk.clamp(1, V)).float()
+    k_on = (tk > 0) & (tk < V)
+    pZ = top_p.float()[:, None].clamp(1e-9, 1.0) * e.sum(dim=-1, keepdim=True)
+    lo_k, hi_k, lo_p, hi_p = mn, m + 1.0, mn, m + 1.0
+    for it in range(0, _BISECT_ITERS, levels):
+        mk, mp = _heap_midpoints(lo_k, hi_k, levels), _heap_midpoints(lo_p, hi_p, levels)
+        cnt = torch.stack([(z >= mk[:, j:j + 1]).sum(dim=-1) for j in range(mk.shape[1])], 1)
+        mass = torch.stack([torch.where(z >= mp[:, j:j + 1], e, 0.0).sum(dim=-1)
+                            for j in range(mp.shape[1])], 1)
+        nk = torch.zeros((B, 1), dtype=torch.long)
+        np_ = torch.zeros((B, 1), dtype=torch.long)
+        for _ in range(min(levels, _BISECT_ITERS - it)):
+            mid = 0.5 * (lo_k + hi_k)
+            ok = cnt.gather(1, nk).float() >= k
+            lo_k = torch.where(k_on & ok, mid, lo_k)
+            hi_k = torch.where(k_on & ~ok, mid, hi_k)
+            nk = 2 * nk + 1 + ok.long()
+            mid = 0.5 * (lo_p + hi_p)
+            ok = mass.gather(1, np_) >= pZ
+            lo_p, hi_p = torch.where(ok, mid, lo_p), torch.where(ok, hi_p, mid)
+            np_ = 2 * np_ + 1 + ok.long()
+    tau = torch.where(greedy, mn, torch.minimum(torch.maximum(lo_k, lo_p), m))
+    idx = torch.arange(V)[None, :]
+    g = torch.where(greedy, 0.0, gumbel_noise(seed[:, None], step[:, None], idx))
+    keep = valid & (z >= tau)
+    y = torch.where(keep, z + g, NEG_INF)
+    tok = torch.where(y == y.amax(dim=-1, keepdim=True), idx, V).amin(dim=-1, keepdim=True)
+    z_tok = torch.gather(z, 1, tok.clamp_max(V - 1))
+    Zf = torch.where(keep, e, 0.0).sum(dim=-1, keepdim=True)
+    logp = z_tok - m - torch.log(Zf.clamp_min(1e-30))
+    return tok[:, 0].to(torch.int32), logp[:, 0], lo_k[:, 0], lo_p[:, 0]
+
+
 def grouped_matmul_ref(
     x: torch.Tensor,            # (M, K) rows sorted by group
     w: torch.Tensor,            # (E, K, N) per-group weights

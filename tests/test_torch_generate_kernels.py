@@ -316,6 +316,100 @@ def test_u32_bits_wraps_like_uint32():
     np.testing.assert_array_equal(sp._u32_bits(t).numpy().view(np.uint32), want)
 
 
+# (temperature, top_k, top_p) a row: ties at the top and at the k-th
+# value, masked columns, k = 1, k >= V, a tiny p, temperatures 0.3-2, and
+# a greedy row whose filters are set
+LEVEL_ROWS = [(0.3, 0, 0.9), (0.7, 1, 1.0), (1.0, 50, 0.95), (2.0, 1000, 0.5),
+              (1.3, 5000, 1.0), (0.5, 0, 1e-6), (1.0, 7, 0.8), (0.0, 3, 0.9)]
+
+
+@pytest.fixture(scope="module")
+def level_case():
+    """bf16-valued logits and the reference's tokens, logp and bisection
+    thresholds (lo_k, lo_p), the thresholds read out of ``_sample_rows``'s
+    own fori_loop by a debug callback."""
+    rng = np.random.default_rng(23)
+    B, V = len(LEVEL_ROWS), 1000
+    x = (2.0 * rng.standard_normal((B, V))).astype(np.float32)
+    x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    x[:, rng.choice(V, size=120, replace=False)] = -1e30
+    for b in (0, 7):                                           # a three-way tie at the top
+        x[b, [10, 20, 30]] = x[b].max() + 1.0
+    for b, kth in ((2, 50), (6, 7)):                           # ties at the k-th value
+        top = np.sort(x[b][x[b] > -5e29])[::-1]
+        x[b, 100:105] = top[kth - 2]
+    temp, k, p = (np.asarray(c, dt) for c, dt in zip(zip(*LEVEL_ROWS),
+                                                    (np.float32, np.int32, np.float32)))
+    seed = (np.arange(B, dtype=np.uint64) * 7919 + 2**31).astype(np.uint32)
+    step = np.arange(B, dtype=np.uint32) * 3
+    orig, got = jax.lax.fori_loop, []
+
+    def spy(lo, hi, body, init):
+        out = orig(lo, hi, body, init)
+        jax.debug.callback(lambda *a: got.append([np.asarray(v) for v in a]), *out)
+        return out
+
+    jax.lax.fori_loop = spy
+    try:
+        tok, logp = jax_sampling.sample_xla(*[jnp.asarray(a) for a in (x, temp, k, p, seed, step)])
+        tok, logp = np.asarray(tok), np.asarray(logp)
+    finally:
+        jax.lax.fori_loop = orig
+    assert len(got) == 1
+    lo_k, _, lo_p, _ = (a[:, 0] for a in got[0])
+    return (x, temp, k, p, seed, step), (tok, logp, lo_k, lo_p)
+
+
+def _kept(x, temp, lo_k, lo_p):
+    """The reference's kept set from its thresholds, in fp32."""
+    valid = x > -5e29
+    greedy = temp <= 0
+    z = np.where(valid, x / np.where(greedy, 1.0, temp).astype(np.float32)[:, None], -1e30)
+    m = z.max(-1)
+    mn = np.where(valid, z, m[:, None]).min(-1)
+    tau = np.where(greedy, mn, np.minimum(np.maximum(lo_k, lo_p), m))
+    return valid & (z >= tau[:, None])
+
+
+@pytest.mark.parametrize("levels", [1, 3, 4, 5])
+def test_bisection_walked_levels_a_pass_is_the_references(level_case, levels):
+    """The kernel's walk of the bisection, ``levels`` steps a pass, against
+    the reference's 32 sequential steps: the top-k threshold bit for bit,
+    the kept set and the token equal, logp within 1e-4."""
+    (x, temp, k, p, seed, step), (want_tok, want_logp, want_lo_k, want_lo_p) = level_case
+    tok, logp, lo_k, lo_p = ref.sample_levels_ref(
+        torch.from_numpy(x), torch.from_numpy(temp), torch.from_numpy(k), torch.from_numpy(p),
+        torch.from_numpy(seed.astype(np.int64)), torch.from_numpy(step.astype(np.int64)), levels)
+    np.testing.assert_array_equal(lo_k.numpy().view(np.uint32), want_lo_k.view(np.uint32))
+    np.testing.assert_array_equal(_kept(x, temp, lo_k.numpy(), lo_p.numpy()),
+                                  _kept(x, temp, want_lo_k, want_lo_p))
+    np.testing.assert_array_equal(tok.numpy(), want_tok)
+    np.testing.assert_allclose(logp.numpy(), want_logp, atol=1e-4, rtol=0)
+    assert (tok.numpy()[temp <= 0] == 10).all()                # greedy: the first of the tie
+
+
+def test_fused_sample_argument_checks():
+    B = 3
+    t, p = torch.ones(B), torch.ones(B)
+    k, s = torch.zeros(B, dtype=torch.int32), torch.zeros(B, dtype=torch.int32)
+    for V in (1, 999, 152064, 202240, 600000):     # any V: a slice past shared memory streams
+        sp.check_args(torch.zeros(B, V, dtype=torch.bfloat16), t, k, p, s, s)
+    x = torch.zeros(B, 1000, dtype=torch.bfloat16)
+    bad = [
+        (x.float(), t, k, p, s, s),                     # fp32 logits
+        (x[:, ::2], t, k, p, s, s),                     # strided vocab dim
+        (x[None], t, k, p, s, s),                       # 3-D
+        (torch.zeros(B, 0, dtype=torch.bfloat16), t, k, p, s, s),   # empty vocabulary
+        (x, t[:2], k, p, s, s),                         # a short per-row vector
+        (x, t, k[:, None], p, s, s),                    # a 2-D per-row vector
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            sp.check_args(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        sp.fused_sample(x.to("meta"), t, k, p, s, s)
+
+
 def test_cpu_dispatch_launches_no_generation_kernel():
     x, temp, k, p, seed, step = _sampling_inputs(B=2, V=64)
     _port_sample(x, temp, k, p, seed, step)

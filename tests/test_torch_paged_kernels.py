@@ -69,6 +69,7 @@ DECODE_CASES = {
     "page16_group7": (3, 7, 1, 128, 16, 5, [80, 17, 0], 0.0),
     "page16_group7_softcap": (3, 14, 2, 64, 16, 4, [64, 5, 40], 20.0),
     "page8_group2_softcap": (2, 4, 2, 64, 8, 6, [0, 41], 20.0),
+    "page32_group4": (2, 8, 2, 64, 32, 3, [70, 33], 0.0),
 }
 
 
@@ -228,6 +229,9 @@ def test_paged_wrapper_argument_checks():
     bt = torch.zeros(2, 3, dtype=torch.int32)
     ln = torch.zeros(2, dtype=torch.int32)
     pa.check_decode_args(q, pool, pool, bt, ln)
+    for page in (1, 8, 12, 16, 32, 64):     # a stage through one page, or row by row
+        pages = torch.zeros(5, page, 2, 64, dtype=bf)
+        pa.check_decode_args(q, pages, pages, bt, ln)
     bad_decode = [
         ((q[:, :, :5], pool, pool, bt, ln), ValueError),                     # H % Hkv
         ((q.float(), pool.float(), pool.float(), bt, ln), TypeError),
