@@ -1109,89 +1109,131 @@ def check_paged_decode(torch, F, ref, paged_decode, flash_decode, randn, card):
             "gather_sdpa_ms": gather_ms}
 
 
-def check_paged_prefill(torch, F, ref, paged_prefill, randn, card):
+def check_paged_prefill(torch, F, ref, paged_prefill, flash_attention_fwd, randn, card):
     """Row 10 against ``paged_prefill_attention_ref`` at Qwen2-7B's chunk
     shape (a 512-token chunk, H 28, Hkv 4, D 128, pages of 16): at start 0,
     at start 512 over pages shared with another row (a cached preamble),
-    with fewer valid rows than the bucket, and at a 64-token bucket; and at
-    page 8, group 1.  Times the start-512 chunk.  Returns its kernel
-    record."""
+    with fewer valid rows than the bucket, and at a 64-token bucket; at
+    page 8, group 1, D 64 with a fully masked row; and at page 12 (rows
+    gathered one by one).  Each case within 2e-2 of each query row's max,
+    and each row bit-equal to ``flash_attention_fwd`` with q_offset = start
+    over the same rows gathered into a dense cache of length lengths[b]
+    (the two share their consumer body and key tiles).  Times the
+    start-512 chunk and the 64-token bucket beside SDPA over the
+    pre-gathered cache, the gather and SDPA together, and the dense forward
+    over the gathered rows.  Returns its kernel record."""
     import numpy as np
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(10)
     tol = 2e-2   # as the attention forward: P rounded to bf16 before PV
+
+    def dense_equal(q, k_pool, v_pool, bt, st, ln, out):
+        """Whether each row with a key equals the dense forward over its
+        gathered rows bit for bit, and the largest difference."""
+        worst, equal = 0.0, True
+        for b in range(q.shape[0]):
+            L = int(ln[b])
+            if L == 0:
+                continue
+            kd = ref._gather_pages(k_pool, bt[b:b + 1])[:, :L]
+            vd = ref._gather_pages(v_pool, bt[b:b + 1])[:, :L]
+            want, _ = flash_attention_fwd(q[b:b + 1], kd, vd, causal=True, q_offset=int(st[b]))
+            equal &= torch.equal(want, out[b:b + 1])
+            worst = max(worst, (want.float() - out[b:b + 1].float()).abs().max().item())
+        return equal, worst
+
     H, Hkv, D, page, P, n_tables = 28, 4, 128, 16, 4097, 128
     pools = (randn(P, page, Hkv, D), randn(P, page, Hkv, D))
     # two rows that share their first 32 pages (a 512-token preamble)
     base = _paged_layout(torch, np, rng, [2048, 2048], page, n_tables, P, dev)
     base[1, :32] = base[0, :32]
-    cases = [  # label, S, starts, valid rows, table
-        ("512-token chunk at start 0", 512, [0, 0], [512, 512], base),
-        ("512-token chunk at start 512 over shared pages", 512, [512, 512], [512, 300], base),
-        ("64-token bucket, 37 valid, start 1000", 64, [1000, 530], [37, 64], base),
-    ]
-    main = None
-    for label, S, starts, valid, bt in cases:
-        B = len(starts)
-        q = randn(B, S, H, D)
-        st = torch.tensor(starts, dtype=torch.int32, device=dev)
-        ln = torch.tensor([s + v for s, v in zip(starts, valid)], dtype=torch.int32, device=dev)
-        out = paged_prefill(q, *pools, bt, st, ln)
-        torch.cuda.synchronize()
-        want = ref.paged_prefill_attention_ref(q, *pools, bt, st, ln)
-        err = row_rel_err(out, want, dims=2)
-        print(f"paged_prefill {label} (B={B}, S={S}, valid {valid}, H={H}, Hkv={Hkv}, D={D}, page "
-              f"{page}) bf16: rel err {err:.3g} (tol {tol} of each query row's max|ref|)")
-        check(err <= tol and bool(out.isfinite().all()), f"paged_prefill {label}")
-        if "start 512" in label:
-            main = (q[:1], bt[:1], st[:1], ln[:1], (out.float() - want.float()).abs().max().item())
-    # page 8, group 1, D 64, a fully masked row (length 0)
+    k12, v12 = randn(200, 12, 2, D), randn(200, 12, 2, D)
+    bt12 = _paged_layout(torch, np, rng, [300, 100], 12, 30, 200, dev)
     k8, v8 = randn(300, 8, 4, 64), randn(300, 8, 4, 64)
     bt8 = _paged_layout(torch, np, rng, [200, 0], 8, 30, 300, dev)
-    q8 = randn(2, 40, 4, 64)
-    st8 = torch.tensor([150, 0], dtype=torch.int32, device=dev)
-    ln8 = torch.tensor([190, 0], dtype=torch.int32, device=dev)
-    out8 = paged_prefill(q8, k8, v8, bt8, st8, ln8)
-    torch.cuda.synchronize()
-    err8 = row_rel_err(out8, ref.paged_prefill_attention_ref(q8, k8, v8, bt8, st8, ln8), dims=2)
-    zero = bool((out8[1] == 0).all())
-    print(f"paged_prefill page 8, group 1, D=64: rel err {err8:.3g} (tol {tol} of each query "
-          f"row's max|ref|), fully masked row exactly 0: {zero}")
-    check(err8 <= tol and zero, "paged_prefill page 8")
+    cases = [  # label, (S, H, pools, table), starts, valid rows
+        ("512-token chunk at start 0", (512, H, pools, base), [0, 0], [512, 512]),
+        ("512-token chunk at start 512 over shared pages", (512, H, pools, base), [512, 512],
+         [512, 300]),
+        ("64-token bucket, 37 valid, start 1000", (64, H, pools, base), [1000, 530], [37, 64]),
+        ("page 8, group 1, D=64, a fully masked row", (40, 4, (k8, v8), bt8), [150, 0], [40, 0]),
+        ("page 12 (rows gathered one by one), group 7", (200, 14, (k12, v12), bt12), [130, 0],
+         [170, 100]),
+    ]
+    recs = {}
+    for label, (S, h, (kp, vp), bt), starts, valid in cases:
+        B = len(starts)
+        q = randn(B, S, h, kp.shape[3])
+        st = torch.tensor(starts, dtype=torch.int32, device=dev)
+        ln = torch.tensor([s + v for s, v in zip(starts, valid)], dtype=torch.int32, device=dev)
+        out = paged_prefill(q, kp, vp, bt, st, ln)
+        torch.cuda.synchronize()
+        want = ref.paged_prefill_attention_ref(q, kp, vp, bt, st, ln)
+        err = row_rel_err(out, want, dims=2)
+        zero = bool((out[ln == 0] == 0).all())
+        equal, worst = dense_equal(q, kp, vp, bt, st, ln, out)
+        print(f"paged_prefill {label} (B={B}, S={S}, valid {valid}, H={h}, Hkv={kp.shape[2]}, "
+              f"D={kp.shape[3]}, page {kp.shape[1]}) bf16: rel err {err:.3g} (tol {tol} of each "
+              f"query row's max|ref|), rows of length 0 exactly 0: {zero}, = flash_attention_fwd "
+              f"over the gathered rows bit for bit: {equal} (max |diff| {worst:.3g})")
+        check(err <= tol and zero and equal and bool(out.isfinite().all()),
+              f"paged_prefill {label}")
+        if "start 512" in label or "bucket" in label:
+            recs[label] = (q[:1], bt[:1], st[:1], ln[:1],
+                           (out[:1].float() - want[:1].float()).abs().max().item())
 
-    q, bt, st, ln, err0 = main
-    S = q.shape[1]
-    start, L = int(st[0]), int(ln[0])
-    fn = lambda: paged_prefill(q, *pools, bt, st, ln)     # noqa: E731
-    ms = time_ms(torch, fn)
-    plain_ms = time_ms(torch, lambda: ref.paged_prefill_attention_ref(q, *pools, bt, st, ln),
-                       trials=5, per_trial=2)
-    T = bt.shape[1] * page
-    kt = ref._gather_pages(pools[0], bt).transpose(1, 2)
-    vt = ref._gather_pages(pools[1], bt).transpose(1, 2)
-    kpos = torch.arange(T, device=dev)
-    qpos = start + torch.arange(S, device=dev)
-    mask = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < L)
-    qt = q.transpose(1, 2)
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                                   enable_gqa=True))
-    # QK and PV over each query row's visible keys; q and out once, the live
-    # K and V rows once, the table row
-    visible = sum(min(start + i + 1, L) for i in range(S))
-    nbytes = 2 * S * H * D * 2 + 2 * L * Hkv * D * 2 + bt.numel() * 4 + 8
-    bound_ms, bound_by = bound(4 * H * D * visible, nbytes)
-    dev_ms = device_ms(torch, fn, "paged_prefill", floor=bound_ms)
-    print(f"paged_prefill S={S} at start {start} (context {L}) H={H} Hkv={Hkv} D={D} page {page} "
-          f"bf16 on {card}: {ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (bound {bound_ms:.4f} "
-          f"ms by {bound_by}, {per_device_ms(4 * H * D * visible, dev_ms, 'TFLOP/s', 1e9)}), "
-          f"plain {plain_ms:.4f} ms, scaled_dot_product_attention over the pre-gathered dense cache "
-          f"(causal offset mask, GQA) {lib_ms:.4f} ms")
+    def timed(q, bt, st, ln):
+        S = q.shape[1]
+        start, L = int(st[0]), int(ln[0])
+        fn = lambda: paged_prefill(q, *pools, bt, st, ln)     # noqa: E731
+        T = bt.shape[1] * page
+        kt = ref._gather_pages(pools[0], bt).transpose(1, 2)
+        vt = ref._gather_pages(pools[1], bt).transpose(1, 2)
+        kpos = torch.arange(T, device=dev)
+        qpos = start + torch.arange(S, device=dev)
+        mask = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < L)
+        qt = q.transpose(1, 2)
+        kd, vd = kt.transpose(1, 2)[:, :L].contiguous(), vt.transpose(1, 2)[:, :L].contiguous()
+        fwd = lambda: flash_attention_fwd(q, kd, vd, causal=True, q_offset=start)   # noqa: E731
+        # QK and PV over each query row's visible keys; q and out once, the
+        # live K and V rows once, the table row
+        visible = sum(min(start + i + 1, L) for i in range(S))
+        nbytes = 2 * S * H * D * 2 + 2 * L * Hkv * D * 2 + bt.numel() * 4 + 8
+        bound_ms, bound_by = bound(4 * H * D * visible, nbytes)
+        r = {"ms": time_ms(torch, fn),
+             "device_ms": device_ms(torch, fn, "paged_prefill", floor=bound_ms),
+             "plain_ms": time_ms(torch, lambda: ref.paged_prefill_attention_ref(q, *pools, bt, st,
+                                                                                ln),
+                                 trials=5, per_trial=2),
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+             "gather_sdpa_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                 qt, ref._gather_pages(pools[0], bt).transpose(1, 2),
+                 ref._gather_pages(pools[1], bt).transpose(1, 2), attn_mask=mask,
+                 enable_gqa=True)),
+             "flash_fwd_gathered_ms": time_ms(torch, fwd),
+             "flash_fwd_gathered_device_ms": device_ms(torch, fwd, "flash_attention_fwd",
+                                                       floor=bound_ms)}
+        print(f"paged_prefill S={S} at start {start} (context {L}) H={H} Hkv={Hkv} D={D} page "
+              f"{page} bf16 on {card}: {r['ms']:.4f} ms back to back, device "
+              f"{fmt_ms(r['device_ms'])} ms (bound {bound_ms:.4f} ms by {bound_by}, "
+              f"{per_device_ms(4 * H * D * visible, r['device_ms'], 'TFLOP/s', 1e9)}), plain "
+              f"{r['plain_ms']:.4f} ms; flash_attention_fwd over the same rows gathered "
+              f"beforehand (q_offset = start) {r['flash_fwd_gathered_ms']:.4f} ms, device "
+              f"{fmt_ms(r['flash_fwd_gathered_device_ms'])}; scaled_dot_product_attention over "
+              f"the pre-gathered dense cache (causal offset mask, GQA) {r['library_ms']:.4f} ms, "
+              f"the page gather and SDPA together {r['gather_sdpa_ms']:.4f} ms")
+        return r
+
+    main = recs["512-token chunk at start 512 over shared pages"]
+    rec = timed(*main[:4])
+    bucket = timed(*recs["64-token bucket, 37 valid, start 1000"][:4])
     return {"name": "paged_prefill", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:258", "launches": 0,
-            "max_abs_err": err0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "max_abs_err": main[4], **rec, "bucket_64": bucket}
 
 
 def check_paged_kv_write(torch, ref, paged_kv_write, randn, card):
@@ -1571,10 +1613,36 @@ def _ssd_case(torch, g, B, S, H, P, G, N, dt_shift):
 def ssd_flops(B, S, H, P, N):
     """FLOPs of the cheapest exact form of the scan, the sequential
     recurrence: per token and head the state's decay and update (3·P·N),
-    its read-out y = h·C (2·P·N), dt·x and D·x (3·P).  The chunked dual
-    form needs more at any chunk: at L = 64 with only the causal triangle
-    of C·Bᵀ and att·x, 2·(L(L+1)/2·(N + P) + 2·L·P·N) + P·N a chunk."""
+    its read-out y = h·C (2·P·N), dt·x and D·x (3·P).  At fp32's rate this
+    was the kernel's bound while its products ran on fp32 FMA; it is still
+    printed beside the bound, labelled, so that the kernel table's rows
+    stay comparable."""
     return (5 * P * N + 3 * P) * B * S * H
+
+
+def ssd_chunked_flops(B, S, H, P, G, N, L=64):
+    """FLOPs of the products of the chunked dual form at the kernel's chunk
+    of L rows, for this S: per chunk of r rows the causal half of C·Bᵀ once
+    per group (r(r+1)/2·N), and per head the causal half of att·x
+    (r(r+1)/2·P), C·hᵀ and the state update (r·P·N each), two FLOPs a
+    product, and the state's decay (P·N)."""
+    total = 0
+    for c0 in range(0, S, L):
+        r = min(L, S - c0)
+        tri = r * (r + 1) // 2
+        total += 2 * (G * tri * N + H * (tri * P + 2 * r * P * N)) + H * P * N
+    return B * total
+
+
+def ssd_bound(B, S, H, P, G, N):
+    """(the scan's least time in ms, what bounds it, the fp32-recurrence
+    figure): the larger of the bytes of x, y, dt, B, C and the state over
+    the card's memory rate and the chunked form's products at the bf16
+    tensor-core rate; beside it the sequential recurrence at fp32's rate
+    (the bound before the products moved to the tensor cores)."""
+    nbytes = 2 * B * S * H * P * 2 + B * H * P * N * 4 + B * S * H * 4 + 2 * B * S * G * N * 2
+    ms, by = bound(ssd_chunked_flops(B, S, H, P, G, N), nbytes)
+    return ms, by, bound(ssd_flops(B, S, H, P, N), nbytes, PEAK_FP32_FLOPS)[0], nbytes
 
 
 def check_ssd_scan(torch, ref, ssd_scan, card):
@@ -1582,7 +1650,9 @@ def check_ssd_scan(torch, ref, ssd_scan, card):
     configs' chunk of 128) at Mamba2-2.7B's prefill shape at S = 1024 and
     at a tail length, batch 4, two groups, S shorter than a chunk, and
     large steps (dt·|A| up to ~50 a row, so exp(cum_t − cum_s) overflows
-    above the diagonal and must be selected away).  y within 2 bf16 steps
+    above the diagonal and must be selected away), and N = 12 (C's rows
+    start off a 16-byte boundary, so the kernel copies them element by
+    element, and N pads to 16).  y within 2 bf16 steps
     of each row's max|plain|, the state within 1e-4 of each head's
     max|plain|, no NaN.  Times the S = 1024 shape.  Returns its record."""
     g = torch.Generator(device="cuda").manual_seed(16)
@@ -1594,6 +1664,7 @@ def check_ssd_scan(torch, ref, ssd_scan, card):
         ("S < chunk", (1, 37, 80, 64, 1, 128), -4.0),
         ("jamba reduced shape", (1, 77, 16, 32, 1, 16), -4.0),
         ("large steps", (1, 256, 8, 64, 1, 128), 1.5),
+        ("N=12: C's rows not 16-byte aligned, columns past N", (1, 100, 8, 32, 1, 12), -4.0),
     ]
     inputs = {}
     for label, (B, S, H, P, G, N), shift in cases:
@@ -1618,32 +1689,34 @@ def check_ssd_scan(torch, ref, ssd_scan, card):
     ms = time_ms(torch, lambda: ssd_scan(*args), trials=10)
     plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(*args, chunk=128), trials=3, per_trial=2,
                        warmup=1)
-    flops = ssd_flops(B, S, H, P, N)
-    nbytes = 2 * B * S * H * P * 2 + B * H * P * N * 4 + B * S * H * 4 + 2 * B * S * N * 2
-    bound_ms, bound_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    G = Bm.shape[2]
+    flops = ssd_chunked_flops(B, S, H, P, G, N)
+    bound_ms, bound_by, fp32_ms, nbytes = ssd_bound(B, S, H, P, G, N)
     dev_ms = device_ms(torch, lambda: ssd_scan(*args), "ssd_scan_kernel", n=10, floor=bound_ms)
     print(f"ssd_scan mamba2-2.7b prefill (B={B}, S={S}, H={H}, P={P}, N={N}) bf16 on {card}: "
           f"{ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (bound {bound_ms:.4f} ms by "
-          f"{bound_by}: {flops / 1e9:.2f} GFLOP of the recurrence at fp32 peak, "
-          f"{nbytes / 1e6:.1f} MB; {per_device_ms(flops, dev_ms, 'TFLOP/s', 1e9)}), plain "
+          f"{bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP of the chunked form's "
+          f"products at the bf16 rate; {per_device_ms(nbytes, dev_ms, 'GB/s', 1e6)}; the "
+          f"sequential recurrence at fp32's rate, the bound while the products ran on fp32 "
+          f"FMA: {fp32_ms:.4f} ms), plain "
           f"{plain_ms:.4f} ms, library: none (no single PyTorch call computes the scan)")
     # the admission lengths the Mamba2 path sees (prompts of 64-1024 tokens,
     # mean ~544): device time and bound at each
     by_s = {}
     for s_len in (64, 256, 544, 1024):
         a = _ssd_case(torch, g, 1, s_len, H, P, 1, N, -4.0)
-        b_ms, _ = bound(ssd_flops(1, s_len, H, P, N),
-                        2 * s_len * H * P * 2 + H * P * N * 4 + s_len * H * 4 + 2 * s_len * N * 2,
-                        PEAK_FP32_FLOPS)
+        b_ms, _, f_ms, _ = ssd_bound(1, s_len, H, P, 1, N)
         by_s[s_len] = (device_ms(torch, lambda: ssd_scan(*a), "ssd_scan_kernel", n=10, floor=b_ms),
-                       b_ms)
+                       b_ms, f_ms)
     print(f"ssd_scan at the admission lengths (B=1, H={H}, P={P}, N={N}) on {card}: " + ", ".join(
-        f"S={k} device {fmt_ms(v[0])} ms (bound {v[1]:.4f})" for k, v in by_s.items()))
+        f"S={k} device {fmt_ms(v[0])} ms (bound {v[1]:.4f}; fp32 recurrence {v[2]:.4f})"
+        for k, v in by_s.items()))
     return {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:136", "launches": 0, "max_abs_err": max_err,
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "device_ms_by_S": {str(k): v[0] for k, v in by_s.items()}}
+            "bound_by": bound_by, "library_ms": None, "fp32_recurrence_ms": fp32_ms,
+            "device_ms_by_S": {str(k): v[0] for k, v in by_s.items()},
+            "bound_ms_by_S": {str(k): v[1] for k, v in by_s.items()}}
 
 
 def generation_load(np, vocab: int, n: int, max_new: int, seed: int = 0):
@@ -2109,6 +2182,22 @@ def paged_phase(torch, counters, card, model, load):
             eng.cancel(r)
     eng.alloc.check_invariants()
     expect(eng.alloc.free_pages == eng.alloc.num_pages - 1, "pages leaked after the paged run")
+    # where a chunk's time goes: one 512-token chunk at start 512 through the
+    # model over the engine's pools, profiled (its K/V rows land in pages
+    # 1-128, which this engine, deleted next, no longer reads)
+    pages = torch.arange(1, 1 + eng.cache["block_table"].shape[1], dtype=torch.int32,
+                         device=model.device)[None]
+    ids = torch.as_tensor(np.asarray([prompts[1][:chunk]], np.int32), device=model.device)
+    model.prefill_chunk(model.params.tree(), eng.cache["layers"], ids, pages, chunk, chunk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.prefill_chunk(model.params.tree(), eng.cache["layers"], ids, pages, chunk, chunk)
+        torch.cuda.synchronize()
+    busy_ms, groups, _ = kernel_groups(prof, DeviceType)
+    print(f"profile of one 512-token chunk at start 512 on {card}: device busy {busy_ms:.3f} ms, "
+          f"paged_prefill {groups['paged_prefill']:.3f} ms over its {cfg.num_layers} launches "
+          f"({groups['paged_prefill'] / max(busy_ms, 1e-9):.1%})")
+    del prof
     del llm, eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2631,6 +2720,20 @@ def ssm_phase(torch, counters, card):
             f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ({e.count})" for e in host))
     eng.run()
     del prof, llm, eng
+    # where an admission's time goes: the exact-length prefill of the
+    # median prompt, profiled
+    mid = prompts[int(np.argsort(lengths)[n // 2])]
+    tokens = torch.tensor([mid], device=model.device)
+    model.prefill(model.params.tree(), {"tokens": tokens}, len(mid))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.prefill(model.params.tree(), {"tokens": tokens}, len(mid))
+        torch.cuda.synchronize()
+    busy_ms, groups, _ = kernel_groups(prof, DeviceType)
+    print(f"profile of one Mamba2 admission ({len(mid)} tokens, the median prompt) on {card}: "
+          f"device busy {busy_ms:.3f} ms, ssd_scan {groups['ssd_scan']:.3f} ms over its {L} "
+          f"launches ({groups['ssd_scan'] / max(busy_ms, 1e-9):.1%})")
+    del prof
 
     try:
         LLM(model, slots=2, max_len=64, cache_layout="paged")
@@ -3092,7 +3195,8 @@ def main() -> int:
                 check_sampling(torch, ref, fused_sample, randn, card),
                 check_flash_decode(torch, F, ref, flash_decode, randn, card)]
     paged_recs = [check_paged_decode(torch, F, ref, paged_decode, flash_decode, randn, card),
-                  check_paged_prefill(torch, F, ref, paged_prefill, randn, card),
+                  check_paged_prefill(torch, F, ref, paged_prefill, flash_attention_fwd, randn,
+                                      card),
                   check_paged_kv_write(torch, ref, paged_kv_write, randn, card)]
     gmm_rec = check_gmm(torch, ref, gmm, card)
     gmm_dw_rec, gmm_dx_rec = check_gmm_dw(torch, ref, gmm, gmm_dw, card)

@@ -81,13 +81,16 @@ PAGED_VARIANTS = {
 }
 
 
-def save_parent(rev: str, out: Path) -> None:
+def save_parent(rev: str, out: Path, files=None) -> None:
+    """``git show REV:`` of each of ``files`` ({name: path in the repo};
+    by default this script's) into ``out``."""
+    files = files or PARENT_FILES
     out.mkdir(parents=True, exist_ok=True)
-    for name, path in PARENT_FILES.items():
+    for name, path in files.items():
         text = subprocess.run(["git", "show", f"{rev}:{path}"], cwd=cs.ROOT, capture_output=True,
                               text=True, check=True).stdout
         (out / name).write_text(text)
-    print(f"wrote {rev}'s {', '.join(PARENT_FILES)} into {out}")
+    print(f"wrote {rev}'s {', '.join(files)} into {out}")
 
 
 def build(name, variants, parent=None):

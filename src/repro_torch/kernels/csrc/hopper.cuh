@@ -1,10 +1,12 @@
 // Hopper (sm_90a) primitives shared by the port's wgmma + TMA kernels: the
 // cross-entropy GEMM mainloop (ce_gemm.cuh), the flash-attention forward
-// and backward (flash_attention_fwd.cu, flash_attention_bwd.cu) and the
-// grouped matmul (grouped_matmul.cu).
+// and backward (flash_attention_fwd.cu, flash_attention_bwd.cu, and the
+// forward's consumer side attention_fwd.cuh, which the paged chunk prefill
+// in paged_attention.cu shares) and the grouped matmul (grouped_matmul.cu).
 //
 // - mbarriers (init, arrive, arrive with an expected transaction count, and
-//   a parity wait that traps after ~2^33 cycles instead of hanging the card);
+//   a parity wait that traps after ~2^33 cycles instead of hanging the card),
+//   and 16-byte cp.async copies that arrive on one when they complete;
 // - Tensor Memory Accelerator loads of a 2-D, 3-D or 4-D box into shared
 //   memory, completing on an mbarrier, and stores of a 3-D box from shared
 //   memory with an L2 cache policy, completing in bulk groups;
@@ -79,6 +81,22 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         __trap();
     }
   }
+}
+
+// ---- cp.async: 16 bytes from global src to shared dst (a copy that is not
+// live reads nothing and writes zeros; src must still be a valid address),
+// and an arrival on bar once this thread's earlier copies have landed. The
+// barrier's count includes that arrival (.noinc); a reader that waits on
+// it fences the async proxy before wgmma reads what the copies wrote.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // ---- TMA: a box of the tensor map at the given coordinates (innermost

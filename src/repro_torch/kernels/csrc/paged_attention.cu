@@ -37,16 +37,32 @@
 //     same rows gathered into a dense cache. No atomics, so a step repeats
 //     bit for bit, and a row's split depends only on its own length.
 //   * prefill: tensor-core work (a 512-token chunk at group 7 is 3 584
-//     query rows per kv head), so it is flash_attention_fwd.cu's design:
-//     one block per (b, query head, 64-query tile), four warps of 16 rows,
-//     mma.sync m16n8k16 with fp32 accumulation, (m, l, acc) in registers.
-//     K/V tiles of 64 keys are gathered row by row through the table (each
-//     row's offset computed once, in shared memory, for K and V). Key
-//     tiles are aligned to absolute positions (multiples of 64), not to the
-//     chunk's start, so a query row's result does not depend on where the
-//     chunk boundaries fell; the key loop stops at min(lengths[b],
-//     starts[b] + tile_end + 1). Rows past the chunk's valid rows are
-//     computed (the caller discards them), as in the reference.
+//     query rows per kv head), so it is flash_attention_fwd.cu's design on
+//     the consumer body they share (attention_fwd.cuh): persistent blocks
+//     taking (128-query tile, b, h) items heaviest (last) tile first; two
+//     consumer warpgroups of 64 query rows with S = Q K^T and O += P V on
+//     wgmma and the online softmax in registers; a producer warp filling a
+//     ring of (K tile, V tile) stages through `full` / `empty` mbarriers.
+//     Key tiles (64 keys at D 128, 128 at D 64) are aligned to absolute
+//     positions, not to the chunk's start, so a query row's result does not
+//     depend on where the chunk boundaries fell, and the arithmetic is the
+//     dense forward's: a chunk gives, bit for bit, what flash_attention_fwd
+//     gives with q_offset = start over the same rows gathered into a dense
+//     cache of length lengths[b]. Only the producer differs: it reads the
+//     block table and gathers each tile. At a page that is a multiple of 8
+//     a tile is boxes of R rows (R the largest of 64, 32, 16, 8 dividing the
+//     page), one Tensor Memory Accelerator copy each per 64-column half,
+//     from a 3-D map over each pool as (D, Hkv, num_pages * page rows) with
+//     the 128-byte swizzle; the swizzle's atom is 8 rows, so the boxes land
+//     where one dense box would. A box that starts at or past lengths[b]
+//     is aimed past the pool's last row, which the copy fills with zeros;
+//     the rest of a box that starts below it is read from its page and
+//     masked (the engine's pools hold finite values). At any other page the
+//     producer warp gathers the tile with cp.async, row by row, into the
+//     same swizzled layout (rows past the length zero-filled), and each
+//     lane's copies arrive on the stage's barrier; the consumers fence the
+//     async proxy before wgmma reads them. Rows past the chunk's valid rows
+//     are computed (the caller discards them), as in the reference.
 //   * insert: one block per slot writes that slot's one K row and one V row
 //     (Hkv * D values each) with 16-byte stores; the TPU kernel rewrites the
 //     whole page because its BlockSpec works in pages, which gives the same
@@ -61,70 +77,23 @@
 //   * prefill: the larger of 4 * H * D * (visible keys summed over the
 //     query rows) operations and the bytes of q, out and the live K/V rows
 //     read once; a 512-token chunk at start 512 (B 1, 5.6 GFLOP) is ~0.0057 ms
-//     by operations.
+//     by operations. Each (query tile, head) item reads its K/V tiles
+//     itself: the 7 query heads of a GQA group read them from L2.
 //   * insert: 2 * B * Hkv * D * 2 bytes read and written, 0.13 MB at B 32
 //     (0.04 us): its time is the launch.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "attention_fwd.cuh"
 #include "decode_split.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int kTile = 64;     // prefill: keys per shared-memory tile
-constexpr int kBlockQ = 64;   // prefill: query rows per block, 4 warps x 16
-constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kThreads = 128;  // the insert kernel's block
 using T = __nv_bfloat16;
-
-// the pool offset of each of the n rows at positions [row0, row0 + n) of
-// one block-table row, -1 at positions >= row_end: the table is read and
-// the position divided once a row, not once a 16-byte load. The caller
-// syncs before the offsets are read.
-__device__ __forceinline__ void row_offsets(long long* off, int n, const int* bt_row, int page,
-                                            long long page_stride, long long row_stride, int row0,
-                                            int row_end) {
-  for (int r = threadIdx.x; r < n; r += kThreads) {
-    const int pos = row0 + r;
-    off[r] = pos < row_end
-                 ? (long long)bt_row[pos / page] * page_stride + (long long)(pos % page) * row_stride
-                 : -1;
-  }
-}
-
-// kTile pool rows at the offsets `off` into shared memory; rows at offset
-// -1 are zero-filled. `pool` is offset to the kv head.
-template <int D>
-__device__ __forceinline__ void load_paged_tile(uint16_t (*dst)[D + kPad], const uint16_t* pool,
-                                                const long long* off) {
-  constexpr int kVec = 8;  // 8 x 16 bit = one 16-byte load
-  constexpr int kPerRow = D / kVec;
-  for (int c = threadIdx.x; c < kTile * kPerRow; c += kThreads) {
-    const int r = c / kPerRow, col = (c % kPerRow) * kVec;
-    const long long o = off[r];
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (o >= 0) val = *reinterpret_cast<const uint4*>(pool + o + col);
-    *reinterpret_cast<uint4*>(&dst[r][col]) = val;
-  }
-}
-
-// rows [row0, row0 + kTile) of a (rows, D) strided matrix; rows >= nrows
-// are zero-filled
-template <int D>
-__device__ __forceinline__ void load_tile(uint16_t (*dst)[D + kPad], const uint16_t* base,
-                                          long long row_stride, int row0, int nrows) {
-  constexpr int kVec = 8;
-  constexpr int kPerRow = D / kVec;
-  for (int c = threadIdx.x; c < kTile * kPerRow; c += kThreads) {
-    const int r = c / kPerRow, col = (c % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows)
-      val = *reinterpret_cast<const uint4*>(base + (long long)(row0 + r) * row_stride + col);
-    *reinterpret_cast<uint4*>(&dst[r][col]) = val;
-  }
-}
 
 struct Pool {
   const uint16_t* k;
@@ -227,156 +196,184 @@ cudaError_t launch_decode(const decode::Split& p, const Pool& pl, int B, int Hkv
 
 // ----------------------------------------------------------------- prefill
 struct PrefillParams {
-  Pool pool;
-  const uint16_t* q;
+  const int* bt;  // (B, n_tables)
   const int* starts;
   const int* lengths;
+  const uint16_t* k;  // the pools, (num_pages, page, Hkv, D) contiguous: gathered rows
+  const uint16_t* v;
   uint16_t* o;
-  int S, H, group;
-  long long q_sb, q_ss, q_sh, o_sb, o_ss, o_sh;
+  int S, H, group, n_q_tiles, n_items, page, n_tables;
+  int box_rows;   // rows of a TMA box (0: the page is not a multiple of 8)
+  int pool_rows;  // num_pages * page: a box aimed here lies past the pool (zeros)
+  long long bt_sb, o_sb, o_ss, o_sh;
   float scale;    // 1/sqrt(D)
   float softcap;  // 0 = off
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) paged_prefill_kernel(const PrefillParams p) {
-  __shared__ __align__(16) uint16_t sK[kTile][D + kPad];
-  __shared__ __align__(16) uint16_t sV[kTile][D + kPad];
-  __shared__ long long sOff[kTile];    // the tile's row offsets, for K and for V
+// one work item as attn::consume_item reads it: the mask (keys below the
+// row's length, causal at the chunk's start) and where the rows go
+struct ItemView {
+  int T, q_offset, causal, window, S;
+  float scale, softcap;
+  uint16_t* o;
+  long long o_sb, o_ss, o_sh;
+  float* lse;  // not written
+};
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column pair
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H, hk = h / p.group;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int wrow = warp * 16;
-  const Pool pl = p.pool;
+// work item i -> its query tile, row and head, the row's start and length,
+// and n, its key tiles [0, n * kBN): tile-major, the heaviest (last) query
+// tile first
+struct PrefillItem {
+  int q0, b, h, start, len, n;
+};
 
-  // the Q tile, staged through sK, stays in registers as mma A fragments
-  load_tile<D>(sK, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.S);
+template <int kBN>
+__device__ __forceinline__ PrefillItem prefill_item(const PrefillParams& p, int i) {
+  const int BH = p.n_items / p.n_q_tiles, bh = i % BH;
+  PrefillItem it;
+  it.q0 = (p.n_q_tiles - 1 - i / BH) * attn::kBM;
+  it.b = bh / p.H;
+  it.h = bh % p.H;
+  it.start = p.starts[it.b];
+  it.len = min(max(p.lengths[it.b], 0), p.n_tables * p.page);
+  const int kv_end = min(it.len, it.start + min(it.q0 + attn::kBM, p.S));
+  it.n = kv_end > 0 ? (kv_end + kBN - 1) / kBN : 0;
+  return it;
+}
+
+// the K and V tiles of keys [k0, k0 + kBN) at sk, in TMA boxes of
+// box_rows rows through the table row: lane r copies box r
+template <int D, int kBN>
+__device__ __forceinline__ void paged_boxes(const PrefillParams& p, const CUtensorMap* mk,
+                                            const CUtensorMap* mv, uint32_t sk,
+                                            const int* bt_row, int k0, int len, int hk, int lane,
+                                            uint64_t* bar) {
+  const int R = p.box_rows;
+  if (lane >= kBN / R) return;
+  const int r0 = lane * R, pos = k0 + r0;
+  const int row = pos < len ? bt_row[pos / p.page] * p.page + pos % p.page : p.pool_rows;
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    const uint32_t dst = sk + c * kBN * 128 + r0 * 128;
+    hopper::tma_load(dst, mk, 64 * c, hk, row, bar);
+    hopper::tma_load(dst + attn::Layout<D>::kTileBytes, mv, 64 * c, hk, row, bar);
+  }
+}
+
+// the same tiles gathered row by row with cp.async into the 128-byte
+// swizzled layout (16-byte chunk j of row r at chunk j ^ (r % 8)); rows at
+// or past the length are zero-filled. Every lane's copies arrive on bar.
+template <int D, int kBN>
+__device__ __forceinline__ void paged_rows(const PrefillParams& p, uint32_t sk, const int* bt_row,
+                                           int k0, int len, int hk, int lane, uint64_t* bar) {
+  constexpr int kPerRow = D / 8;  // 16-byte chunks a row
+  const int q = lane % kPerRow;
+  const long long row_stride = (long long)(p.H / p.group) * D;
+  const long long col = (long long)hk * D + 8 * q;
+  const uint32_t half = (q / 8) * kBN * 128;
+  for (int r = lane / kPerRow; r < kBN; r += 32 / kPerRow) {
+    const int pos = k0 + r;
+    const bool live = pos < len;
+    const long long off =
+        live ? ((long long)bt_row[pos / p.page] * p.page + pos % p.page) * row_stride + col : 0;
+    const uint32_t dst = sk + half + r * 128 + (((q % 8) ^ (r & 7)) << 4);
+    hopper::cp_async16(dst, p.k + off, live);
+    hopper::cp_async16(dst + attn::Layout<D>::kTileBytes, p.v + off, live);
+  }
+  hopper::cp_async_arrive(bar);
+}
+
+template <int D, bool kGather>
+__global__ void __launch_bounds__(attn::kThreads, 1)
+    paged_prefill_kernel(const __grid_constant__ CUtensorMap mq,
+                         const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv, const PrefillParams p) {
+  using namespace hopper;
+  using L = attn::Layout<D>;
+  constexpr int kBN = L::kBN;
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t full[L::kStages], empty[L::kStages], q_full, q_empty;
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t sq = base, ring = base + L::kQBytes;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (tid == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&full[s], kGather ? 32 : 1);  // each gathering lane, or one expect_tx
+      mbar_init(&empty[s], attn::kConsumers * 4);
+    }
+    mbar_init(&q_full, 1);
+    mbar_init(&q_empty, attn::kConsumers * 4);
+    mbar_init_fence();
+  }
   __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) a_frag<D>(qa[kk], &sK[0][0], wrow, kk * 16, g, t);
 
-  const int start = p.starts[b];
-  const int len = min(max(p.lengths[b], 0), pl.n_tables * pl.page);
-  // this thread's rows are g and g + 8 of the warp's 16; m is the running
-  // max in log2 units, l this thread's partial row sum
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  if (wg == attn::kConsumers) {  // the producer warpgroup: one warp copies
+    // 40 registers (not the dense forward's 24) for the table walk:
+    // 128 x 40 + 256 x 232 is still the block's 384 x 168
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid < attn::kConsumers * 128 + 32) {
+      const int lane = tid & 31;
+      int stage = 0;
+      uint32_t phase = 0, q_phase = 0;
+      for (int i = blockIdx.x; i < p.n_items; i += gridDim.x) {
+        const PrefillItem it = prefill_item<kBN>(p, i);
+        if (it.n == 0) continue;  // the consumers write the empty rows alone
+        const int hk = it.h / p.group;
+        const int* bt_row = p.bt + it.b * p.bt_sb;
+        mbar_wait(&q_empty, q_phase ^ 1);
+        q_phase ^= 1;
+        if (lane == 0) {
+          mbar_expect_tx(&q_full, L::kQBytes);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const int qpos[2] = {start + q0 + wrow + g, start + q0 + wrow + g + 8};
-
-  // the keys any row of this block can see, in tiles aligned to absolute
-  // positions
-  const int q_last = start + min(q0 + kBlockQ, p.S) - 1;
-  const int kv_end = min(len, q_last + 1);
-  const int* bt_row = pl.bt + b * pl.bt_sb;
-  const uint16_t* kbase = pl.k + hk * pl.head_stride;
-  const uint16_t* vbase = pl.v + hk * pl.head_stride;
-  const float scale_log2 = p.scale * kLog2e;
-
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    __syncthreads();  // every warp is done with the previous tile
-    row_offsets(sOff, kTile, bt_row, pl.page, pl.page_stride, pl.row_stride, k0, kv_end);
-    __syncthreads();
-    load_paged_tile<D>(sK, kbase, sOff);
-    load_paged_tile<D>(sV, vbase, sOff);
-    __syncthreads();
-
-    // S = Q K^T for the warp's 16 rows x 64 keys
-    float s[kTile / 8][4];
+          for (int c = 0; c < D / 64; ++c)
 #pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n) {
-        uint32_t b0, b1;
-        b_frag_rows<D>(b0, b1, &sK[0][0], n * 8, kk * 16, g, t);
-        Mma<T>::run(s[n], qa[kk], b0, b1);
+            for (int r = 0; r < attn::kBM / attn::kBox; ++r)
+              tma_load(sq + c * attn::kBM * 128 + r * attn::kBox * 128, &mq, 64 * c,
+                       it.q0 + r * attn::kBox, it.h, it.b, &q_full);
+        }
+        for (int j = 0; j < it.n; ++j) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          const uint32_t sk = ring + stage * L::kStageBytes;
+          if (kGather) {
+            paged_rows<D, kBN>(p, sk, bt_row, j * kBN, it.len, hk, lane, &full[stage]);
+          } else {
+            if (lane == 0) mbar_expect_tx(&full[stage], L::kStageBytes);
+            __syncwarp();
+            paged_boxes<D, kBN>(p, &mk, &mv, sk, bt_row, j * kBN, it.len, hk, lane,
+                                &full[stage]);
+          }
+          if (++stage == L::kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
     }
-
-    // scale, softcap, the shifted causal mask and the length; row max
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        const int key = k0 + n * 8 + 2 * t + (i & 1);
-        float x = p.softcap > 0.f ? p.softcap * tanhf(s[n][i] * p.scale / p.softcap) * kLog2e
-                                  : s[n][i] * scale_log2;
-        x = (key < len && key <= qpos[r]) ? x : kNegInf;
-        s[n][i] = x;
-        mx[r] = fmaxf(mx[r], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f(m[r] - mx[r]);
-      l[r] *= alpha[r];
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        // a row with no visible key so far stays inert
-        const float pr = mx[r] <= kNegInf / 2 ? 0.f : exp2f(s[n][i] - mx[r]);
-        s[n][i] = pr;
-        l[r] += pr;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // O += P V: the S accumulators of two adjacent 8-key tiles are the A
-    // fragment of one 16-key step
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        uint32_t b0, b1;
-        b_frag_cols<D>(b0, b1, &sV[0][0], kk * 16, j * 8, g, t);
-        Mma<T>::run(acc[j], pa, b0, b1);
-      }
+  } else {  // two consumer warpgroups, 64 query rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    int stage = 0;
+    uint32_t phase = 0, q_phase = 0;
+    for (int i = blockIdx.x; i < p.n_items; i += gridDim.x) {
+      const PrefillItem it = prefill_item<kBN>(p, i);
+      const ItemView v{it.len, it.start, 1, 0, p.S, p.scale, p.softcap, p.o, p.o_sb, p.o_ss,
+                       p.o_sh, nullptr};
+      attn::consume_item<T, D, false, kGather>(v, it.q0, it.n, 0, it.b, it.h, 0, sq, ring, full,
+                                               empty, &q_full, &q_empty, stage, phase, q_phase);
     }
   }
+}
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wrow + g + 8 * r;
-    if (row >= p.S) continue;
-    const float denom = fmaxf(l[r], 1e-30f);   // a fully masked row: acc = 0, out = 0
-    uint16_t* orow = p.o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_ss;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
-          Mma<T>::pack(acc[j][2 * r] / denom, acc[j][2 * r + 1] / denom);
-  }
+template <int D, bool kGather>
+int launch_prefill(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                   const PrefillParams& p, cudaStream_t stream) {
+  auto kernel = paged_prefill_kernel<D, kGather>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, attn::Layout<D>::kSmem);
+  if (err != cudaSuccess) return err;
+  const int sms = hopper::num_sms();
+  kernel<<<p.n_items < sms ? p.n_items : sms, attn::kThreads, attn::Layout<D>::kSmem, stream>>>(
+      mq, mk, mv, p);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ insert
@@ -452,36 +449,64 @@ extern "C" int paged_flash_decode(
   return cudaErrorInvalidValue;
 }
 
-// bf16 operands; strides in elements, the head dim contiguous. Returns the
-// cudaError_t of the launch (0 = launched).
+// bf16 operands; q's and out's strides in elements, the head dim
+// contiguous; the pools contiguous and 16-byte aligned. Returns the
+// cudaError_t of the launch (0 = launched), or -1 if the driver refused a
+// tensor map.
 extern "C" int paged_flash_prefill(
     const void* q, const void* k_pool, const void* v_pool, const int* block_table,
     const int* starts, const int* lengths, void* out,
-    int B, int S, int H, int Hkv, int D, int page, int n_tables,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long page_stride, long long row_stride, long long head_stride, long long bt_sb,
+    int B, int S, int H, int Hkv, int D, int page, int n_tables, int num_pages,
+    long long q_sb, long long q_ss, long long q_sh, long long bt_sb,
     long long o_sb, long long o_ss, long long o_sh, float softcap, void* stream) {
-  if (Hkv <= 0 || H % Hkv || page <= 0) return cudaErrorInvalidValue;
+  if (Hkv <= 0 || H % Hkv || page <= 0 || num_pages <= 0 || (D != 64 && D != 128))
+    return cudaErrorInvalidValue;
   PrefillParams p;
-  p.pool = make_pool(k_pool, v_pool, block_table, page, n_tables, page_stride, row_stride,
-                     head_stride, bt_sb);
-  p.q = static_cast<const uint16_t*>(q);
+  p.bt = block_table;
   p.starts = starts;
   p.lengths = lengths;
+  p.k = static_cast<const uint16_t*>(k_pool);
+  p.v = static_cast<const uint16_t*>(v_pool);
   p.o = static_cast<uint16_t*>(out);
   p.S = S;
   p.H = H;
   p.group = H / Hkv;
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
+  p.n_q_tiles = (S + attn::kBM - 1) / attn::kBM;
+  p.n_items = p.n_q_tiles * B * H;
+  p.page = page;
+  p.n_tables = n_tables;
+  p.box_rows = page % 64 == 0 ? 64 : page % 32 == 0 ? 32 : page % 16 == 0 ? 16
+                                   : page % 8 == 0 ? 8 : 0;
+  p.pool_rows = num_pages * page;
+  p.bt_sb = bt_sb;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.scale = 1.0f / sqrtf(float(D));
   p.softcap = softcap;
+  if (p.n_items == 0) return cudaSuccess;
+  // q as the dense forward maps it: (D, S, H, B), a size-1 dim taking the
+  // contiguous stride; the pools as (D, Hkv, rows), boxes of box_rows rows
+  const long long sq[3] = {S > 1 ? q_ss : (long long)H * D, H > 1 ? q_sh : D,
+                           B > 1 ? q_sb : (long long)S * H * D};
+  const cuuint64_t qdims[4] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(H), cuuint64_t(B)};
+  const cuuint64_t qstrides[3] = {cuuint64_t(sq[0] * 2), cuuint64_t(sq[1] * 2),
+                                  cuuint64_t(sq[2] * 2)};
+  const cuuint32_t qbox[4] = {64, attn::kBox, 1, 1};
+  const cuuint64_t kdims[3] = {cuuint64_t(D), cuuint64_t(Hkv), cuuint64_t(p.pool_rows)};
+  const cuuint64_t kstrides[2] = {cuuint64_t(D * 2), cuuint64_t((long long)Hkv * D * 2)};
+  const cuuint32_t kbox[3] = {64, 1, cuuint32_t(p.box_rows ? p.box_rows : 8)};
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap mq, mk, mv;
+  if (!hopper::make_map(&mq, bf, 4, q, qdims, qstrides, qbox) ||
+      !hopper::make_map(&mk, bf, 3, k_pool, kdims, kstrides, kbox) ||
+      !hopper::make_map(&mv, bf, 3, v_pool, kdims, kstrides, kbox))
+    return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
-  if (D == 64) paged_prefill_kernel<64><<<grid, kThreads, 0, s>>>(p);
-  else if (D == 128) paged_prefill_kernel<128><<<grid, kThreads, 0, s>>>(p);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  const bool gather = p.box_rows == 0;
+  if (D == 64)
+    return gather ? launch_prefill<64, true>(mq, mk, mv, p, s)
+                  : launch_prefill<64, false>(mq, mk, mv, p, s);
+  return gather ? launch_prefill<128, true>(mq, mk, mv, p, s)
+                : launch_prefill<128, false>(mq, mk, mv, p, s);
 }
 
 // bf16 pools (num_pages, page, Hkv, D) with the head dim contiguous and

@@ -18,14 +18,24 @@ the kernel or raises.  Each wrapper counts its launches
 (``paged_decode.launches``, ``paged_prefill.launches``,
 ``paged_kv_write.launches``; a call counts one, however many passes it
 runs).
+
+The prefill kernel is the dense attention forward's design (its consumer
+body is shared, ``csrc/attention_fwd.cuh``) with a producer that gathers
+each key tile through the block table.  Its addressing is mirrored here so
+that the CPU tests reach it: ``box_rows`` (the rows of one TMA box, or 0
+where the page is not a multiple of 8 and rows are gathered one by one),
+``prefill_key_tiles`` (the key tiles a query tile streams) and
+``tile_sources`` (where each box or row of a tile comes from).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import List, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import TILE
 from repro_torch.kernels.ref import (
     paged_decode_attention_ref,
     paged_kv_write_ref,
@@ -101,8 +111,38 @@ def check_prefill_args(q, k_pool, v_pool, block_table, starts, lengths) -> None:
         raise ValueError(f"paged_prefill: expected q (B, S, H, D); got {tuple(q.shape)}")
     _check_attention("paged_prefill", q, k_pool, v_pool, block_table, starts=starts,
                      lengths=lengths)
-    if q.shape[0] * q.shape[2] > _MAX_GRID_YZ:
-        raise ValueError("paged_prefill: batch x heads exceed the kernel's grid limit")
+
+
+def box_rows(page: int) -> int:
+    """Rows of one TMA box of the prefill kernel's K/V tiles: the largest of
+    64, 32, 16 and 8 that divides the page (a box then lies in one page and
+    lands where a dense box's rows would), or 0 where the page is not a
+    multiple of 8 (each row is gathered by cp.async)."""
+    return next((r for r in (64, 32, 16, 8) if page % r == 0), 0)
+
+
+def prefill_key_tiles(q0: int, S: int, start: int, length: int, keys: int) -> range:
+    """Start keys of the ``keys``-wide tiles, aligned to absolute positions,
+    that the query tile of ``TILE`` rows at q0 streams: every key below the
+    row's length that one of its rows (at positions ``start + i``) sees."""
+    end = min(length, start + min(q0 + TILE, S))
+    return range(0, max(end, 0), keys)
+
+
+def tile_sources(table_row, k0: int, keys: int, page: int, length: int,
+                 pool_rows: int) -> List[Tuple[int, int, int]]:
+    """(first tile row, first pool row, rows) of each copy that fills the
+    tile of keys [k0, k0 + keys) of one block-table row: boxes of
+    ``box_rows(page)`` rows, or single rows where that is 0.  Pool rows are
+    ``table_row[pos // page] * page + pos % page``; a copy that starts at or
+    past ``length`` is aimed at ``pool_rows`` (past the pool: zeros)."""
+    rows = box_rows(page) or 1
+    out = []
+    for r0 in range(0, keys, rows):
+        pos = k0 + r0
+        src = int(table_row[pos // page]) * page + pos % page if pos < length else pool_rows
+        out.append((r0, src, rows))
+    return out
 
 
 def check_write_args(k_pool, v_pool, k_new, v_new, page_idx, row) -> None:
@@ -135,7 +175,7 @@ def _lib():
         lib.paged_decode_splits.restype = i
         lib.paged_flash_decode.argtypes = [p] * 9 + [i] * 6 + [i64] * 8 + [f, p]
         lib.paged_flash_decode.restype = i
-        lib.paged_flash_prefill.argtypes = [p] * 7 + [i] * 7 + [i64] * 10 + [f, p]
+        lib.paged_flash_prefill.argtypes = [p] * 7 + [i] * 8 + [i64] * 7 + [f, p]
         lib.paged_flash_prefill.restype = i
         lib.paged_kv_write.argtypes = [p] * 6 + [i] * 3 + [i64] * 7 + [p]
         lib.paged_kv_write.restype = i
@@ -234,14 +274,16 @@ def paged_prefill(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     _build.check_device("paged_prefill", q, k_pool, v_pool, block_table, starts, lengths)
     check_prefill_args(q, k_pool, v_pool, block_table, starts, lengths)
     B, S, H, D = q.shape
-    _, page, Hkv, _ = k_pool.shape
+    num_pages, page, Hkv, _ = k_pool.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     err = _lib().paged_flash_prefill(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
         starts.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, S, H, Hkv, D, page, block_table.shape[1], *q.stride()[:3],
-        *k_pool.stride()[:3], block_table.stride(0), *out.stride()[:3],
-        float(softcap), _stream(q))
+        B, S, H, Hkv, D, page, block_table.shape[1], num_pages, *q.stride()[:3],
+        block_table.stride(0), *out.stride()[:3], float(softcap), _stream(q))
+    if err == -1:
+        raise RuntimeError("paged_prefill: the driver refused a tensor map "
+                           "(cuTensorMapEncodeTiled)")
     if err:
         raise RuntimeError(f"paged_prefill kernel launch failed: cudaError {err}")
     paged_prefill.launches += 1

@@ -3,14 +3,16 @@
 Replaces the TPU kernel ``ssd_scan`` (``_ssd_kernel``) of the reference
 package: x (B, S, H, P), dt (B, S, H) fp32, A and D (H,), B and C (B, S, G,
 N) -> y (B, S, H, P) in x.dtype and the final state (B, H, P, N) fp32, the
-SSD recurrence of every head in its chunked dual form with fp32 products —
+SSD recurrence of every head in its chunked dual form, to fp32 accuracy —
 the prefill of every SSM layer.  The kernel is ``csrc/ssd_scan.cu`` (CUDA
-C++ for sm_90a: one block per batch row, head and 32-row slice of P walks
-the chunks in order with its slice of the state in shared memory; its
-source note gives the design and the bound).  It takes any S — unlike the
-TPU kernel, which asserts ``S % chunk == 0`` — since SSM prompts prefill at
-their exact length: the last chunk's rows past S count as x = 0, dt = 0.
-The plain version is ``ref.ssd_scan_ref``.
+C++ for sm_90a: one block per batch row, head and 64-row slice of P walks
+the chunks in order with its slice of the state in its warps' registers,
+the four products on the tensor cores with the fp32 operands split into
+bf16 high and low halves, the next chunk's tiles copied while this one
+computes; its source note gives the design and the bound).  It takes any
+S — unlike the TPU kernel, which asserts ``S % chunk == 0`` — since SSM
+prompts prefill at their exact length: the last chunk's rows past S count
+as x = 0, dt = 0.  The plain version is ``ref.ssd_scan_ref``.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises.  The kernel chunks at its own 64 rows, whatever ``chunk`` says:

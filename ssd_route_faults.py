@@ -9,7 +9,9 @@ bf16 steps of its plain twin).
 
 Needs one card.  Each fault is a textual edit of ``csrc/ssd_scan.cu``
 built into its own library under ``kernels/build/faults/`` (the source in
-the tree is not changed); the wrapper's library is swapped for it while
+the tree is not changed): a product's low bf16 half dropped from att x or
+from the state update, y's carried-state term decayed one row short, or
+D x dropped; the wrapper's library is swapped for it while
 the checks run.  The route check is the Mamba2 phase's: Mamba2-2.7B at
 full width and depth with seeded random bf16 weights, the phase's prompts
 (the 8 it picks, exact-length prefill into 8 of 32 slots), then 32 decode
@@ -29,20 +31,20 @@ import time
 import chip_smoke as cs
 
 FAULTS = {
-    "att rounded to bf16": (
-        "o[i] = s <= t ? acc[i][j] * expf(cum[t] - cum[s]) * dts[s] : 0.f;",
-        "o[i] = s <= t ? __bfloat162float(__float2bfloat16(acc[i][j] * expf(cum[t] - cum[s]) * "
-        "dts[s])) : 0.f;"),
-    "state-update weights rounded to bf16": (
-        "if (tid < kL) ws[tid] = dts[tid] * expf(seg - cum[tid]);",
-        "if (tid < kL) ws[tid] = __bfloat162float(__float2bfloat16(dts[tid] * "
-        "expf(seg - cum[tid])));"),
+    "att's low half dropped (att rounded to bf16)": (
+        """          Mma<T>::run(y[2 * jp], al, bx[0], bx[1]);
+          Mma<T>::run(y[2 * jp + 1], al, bx[2], bx[3]);
+""", ""),
+    "the state-update operand's low half dropped (bf16 update weights)": (
+        """          Mma<T>::run(hs[2 * jn], al, bb[0], bb[1]);
+          Mma<T>::run(hs[2 * jn + 1], al, bb[2], bb[3]);
+""", ""),
     "carried state decayed one row short": (
-        "const float e = expf(cum[t]);",
-        "const float e = expf(cum[t] - dts[t] * a);"),
+        "const float ea = ex2(ca_), eb = ex2(cb_);",
+        "const float ea = ex2(ca_ - dts[ta] * a2), eb = ex2(cb_ - dts[tb] * a2);"),
     "D x dropped": (
-        " + xs[t * kPT + 4 * pp + k] * dsc;",
-        ";"),
+        "Mma<T>::pack(y[j][2 * r] + xv.x * dsc, y[j][2 * r + 1] + xv.y * dsc);",
+        "Mma<T>::pack(y[j][2 * r], y[j][2 * r + 1]);"),
 }
 
 

@@ -54,7 +54,8 @@ def _imported_modules(path):
 @pytest.mark.parametrize("path",
                          PORT_FILES + [ROOT / name for name in (
                              "chip_smoke.py", "ssd_route_faults.py", "attention_variants.py",
-                             "gmm_variants.py", "moe_route_faults.py", "decode_variants.py")],
+                             "gmm_variants.py", "moe_route_faults.py", "decode_variants.py",
+                             "prefill_variants.py")],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):

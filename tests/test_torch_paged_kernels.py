@@ -15,6 +15,7 @@ from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import paged_attention as jax_pa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels.flash_attention import FWD_KEYS, TILE  # noqa: E402
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -164,6 +165,54 @@ def test_paged_prefill_fully_masked_rows_give_zeros_and_match_one_shot_attention
     dense_v = ref._gather_pages(v, bt[:1])[:, :S]
     want, _ = ref.attention_ref(q[:1], dense_k, dense_v, causal=True)
     np.testing.assert_allclose(got[:1].numpy(), want.numpy(), atol=1e-5, rtol=0)
+
+
+def test_prefill_box_rows_follow_the_page():
+    """A TMA box lies in one page and is a whole number of 8-row swizzle
+    atoms; any other page is gathered row by row."""
+    want = {8: 8, 16: 16, 24: 8, 32: 32, 48: 16, 64: 64, 128: 64, 256: 64, 1: 0, 12: 0, 20: 0}
+    assert {page: pa.box_rows(page) for page in want} == want
+
+
+@pytest.mark.parametrize("page", [8, 16, 12])
+@pytest.mark.parametrize("case", list(PREFILL_CASES))
+def test_paged_prefill_tiles_cover_exactly_the_admitted_keys(case, page):
+    """The prefill kernel's addressing, mirrored on the host: for every
+    (row, query tile) of each case, the key tiles it streams and the boxes
+    (or single rows) that fill them read every key the plain version's mask
+    admits for some row of the tile from that key's own pool row, read no
+    key past the length rounded up to a box, stream no tile past the last
+    admitted key, and aim a copy past the pool (zeros) only at or past the
+    length."""
+    S, _, _, D, _, _, starts, valid, _ = PREFILL_CASES[case]
+    lens = [s + c for s, c in zip(starts, valid)]
+    n_tables = -(-max(lens) // page) + 1
+    num_pages = 2 + len(starts) * n_tables
+    _, _, table = _pool_and_table(np.random.default_rng(5), len(starts), num_pages, page, 1, 8,
+                                  lens, n_tables)
+    keys, rows = FWD_KEYS[D], pa.box_rows(page) or 1
+    pool_rows = num_pages * page
+    for b, (start, length) in enumerate(zip(starts, lens)):
+        for q0 in range(0, S, TILE):
+            last = start + min(q0 + TILE, S) - 1   # the tile's last query position
+            admitted = [k for k in range(length) if k <= last]
+            tiles = pa.prefill_key_tiles(q0, S, start, length, keys)
+            read = {}
+            for k0 in tiles:
+                for r0, src, n in pa.tile_sources(table[b], k0, keys, page, length, pool_rows):
+                    assert n == rows
+                    if src == pool_rows:
+                        assert k0 + r0 >= length
+                        continue
+                    for i in range(n):
+                        read[k0 + r0 + i] = src + i
+            for k in admitted:
+                assert read.get(k) == table[b, k // page] * page + k % page, (b, q0, k)
+            assert all(k < -(-length // rows) * rows for k in read)
+            if admitted:
+                assert tiles[-1] <= admitted[-1] < tiles[-1] + keys
+            else:
+                assert len(tiles) == 0
 
 
 # ------------------------------------------------------------------ the K/V writes

@@ -2,8 +2,11 @@
 chunked scan ``ssd_scan_ref`` (the CUDA kernel's math) against the
 reference's Pallas ``ssd_scan`` in interpret mode and against the
 sequential oracle ``ssd_ref`` at tail lengths, the recurrent decode step
-against ``ops.ssd_decode_step``, a decode chain against the scan, and the
-kernel wrapper's CPU route and argument checks."""
+against ``ops.ssd_decode_step``, a decode chain against the scan, the
+CUDA kernel's arithmetic (bf16 tensor-core products with the fp32
+operands split into high and low halves) emulated in torch against the
+reference's Pallas kernel, and the kernel wrapper's CPU route and
+argument checks."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -153,3 +156,89 @@ def test_wrapper_runs_the_plain_version_on_the_cpu_and_checks_its_arguments():
             ss.check_args(*a)
     with pytest.raises(ValueError, match="unknown kernel impl"):
         ops.ssd_decode_step(*_args(inp, _torch)[:6], torch.zeros(1, 2, 32, 16), impl="triton")
+
+
+def _split(v):
+    """v's bf16 high part and the bf16 of what is left, both as fp32."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _kernel_scan(x, dt, A, Bm, Cm, D, *, L=64, split_update=True):
+    """csrc/ssd_scan.cu's arithmetic in torch: chunks of L rows; C·Bᵀ of
+    the bf16 inputs summed in fp32; att, the carried state (in C·hᵀ) and x∘w
+    (in the state update) each split into bf16 high and low halves, one
+    product for each half, summed in fp32.  ``split_update=False`` drops
+    the update operand's low half (bf16 update weights)."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf = Bm.float().repeat_interleave(rep, dim=2)
+    Cf = Cm.float().repeat_interleave(rep, dim=2)
+    pad = -S % L
+
+    def padded(t):
+        return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+
+    xp, dtp, Bp, Cp = padded(xf), padded(dtf), padded(Bf), padded(Cf)
+    causal = torch.ones(L, L, dtype=torch.bool).tril()[None, :, :, None]
+    h = torch.zeros(Bsz, H, P, N)
+    ys = []
+    for c0 in range(0, S + pad, L):
+        xc, dtc, bc, cc = (t[:, c0:c0 + L] for t in (xp, dtp, Bp, Cp))
+        cum = torch.cumsum(dtc * Af, dim=1)                        # (B, L, H)
+        seg = cum[:, -1]
+        diff = cum[:, :, None, :] - cum[:, None, :, :]
+        cb = torch.einsum("blhn,bshn->blsh", cc, bc)
+        att = torch.where(causal, cb * torch.exp(diff.masked_fill(~causal, 0.0))
+                          * dtc[:, None], 0.0)
+        h_hi, h_lo = _split(h)
+        y = (torch.einsum("blhn,bhpn->blhp", cc, h_hi)
+             + torch.einsum("blhn,bhpn->blhp", cc, h_lo)) * torch.exp(cum)[..., None]
+        a_hi, a_lo = _split(att)
+        y = y + torch.einsum("blsh,bshp->blhp", a_hi, xc) + torch.einsum("blsh,bshp->blhp",
+                                                                         a_lo, xc)
+        xw_hi, xw_lo = _split(xc * (dtc * torch.exp(seg[:, None] - cum))[..., None])
+        upd = torch.einsum("blhp,blhn->bhpn", xw_hi, bc)
+        if split_update:
+            upd = upd + torch.einsum("blhp,blhn->bhpn", xw_lo, bc)
+        h = h * torch.exp(seg)[..., None, None] + upd
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :S] + xf * D.float()[None, None, :, None]
+    return y.to(x.dtype), h
+
+
+def _bf16_steps(got, want):
+    """max |got − want| in bf16 steps of each row's max |want| (rows: all
+    but the last axis), chip_smoke.check_ssd_scan's measure."""
+    top = want.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return ((got.float() - want.float()).abs() / step).max().item()
+
+
+def _state_err(got, want):
+    """max |got − want| over each head's max |want|."""
+    g, w = got.flatten(2), want.flatten(2)
+    return ((g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("case", ["mamba2_head", "large_steps"])
+def test_kernel_arithmetic_matches_the_pallas_kernel_at_the_chip_gates(case):
+    """The split products hold y to 2 bf16 steps and the state to 1e-4 of
+    the reference's kernel (the chip check's gates) on Mamba2-2.7B's head
+    shape (P 64, N 128) and with large steps (dt·|A| up to ~50 a row);
+    without the update operand's low half the state misses its gate."""
+    large = case == "large_steps"
+    inp = _inputs(1, 256, 3, 64, 1, 128, seed=11, dt_shift=1.5 if large else -2.0)
+    if large:
+        inp["A"] = -(1 + 15 * np.random.default_rng(12).random(3)).astype(np.float32)
+    args = _args(inp, _torch, "bfloat16")
+    want_y, want_h = jax_ssd_scan(*_args(inp, _jax, "bfloat16"), chunk=128, interpret=True)
+    want_y, want_h = (torch.from_numpy(np.array(_np(t))) for t in (want_y, want_h))
+    y, h = _kernel_scan(*args)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
+    assert _bf16_steps(y, want_y) <= 2
+    assert _state_err(h, want_h) <= 1e-4
+    _, h_bf16 = _kernel_scan(*args, split_update=False)
+    assert _state_err(h_bf16, want_h) > 1e-4
