@@ -799,13 +799,46 @@ def check_rmsnorm(torch, F, ref, rmsnorm, randn, card):
     return rec
 
 
+# flash_decode's output bits on ``flash_decode_bits``'s inputs, as the
+# parent of the fused paged insert gave them (``decode_variants.py
+# --parent`` prints the parent's and the tree's): the split body that
+# flash_decode shares with paged_decode (``csrc/decode_split.cuh``) keeps
+# its bits, and with them Scout's route statistic
+FLASH_DECODE_BITS = "133938a2565538c8"
+
+
+def flash_decode_bits(torch, call) -> str:
+    """sha256 (16 hex digits) of the bf16 output of ``call(q, k, v,
+    lengths)`` at Qwen2-7B's decode shape (B 32, T 2048, 28 / 4 heads of
+    128; lengths 0, 1 and T among them) on inputs that numpy makes from
+    seed 5, so that the digest depends on the kernel alone."""
+    import hashlib
+
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    B, T, H, Hkv, D = 32, 2048, 28, 4, 128
+    dev = torch.device("cuda")
+
+    def arr(*shape):
+        x = rng.standard_normal(shape, dtype=np.float32)
+        return torch.from_numpy(x).to(dev).to(torch.bfloat16)
+
+    q, k, v = arr(B, 1, H, D), arr(B, T, Hkv, D), arr(B, T, Hkv, D)
+    lens = rng.integers(0, T + 1, size=B)
+    lens[:3] = [0, 1, T]
+    out = call(q, k, v, torch.as_tensor(lens, dtype=torch.int32, device=dev))
+    return hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def check_flash_decode(torch, F, ref, flash_decode, randn, card):
     """Row 8 against ``decode_attention_ref`` at Qwen2-7B's and Scout's
     decode shapes with ragged lengths (0, 1 and T among them), at the
     256-key split edges, at groups 1 and 16, at D 64, with a softcap and
     through strided views of a stacked cache, in bf16 (the only dtype the
     kernel takes); a row alone must equal its row in the batch bit for bit,
-    and a repeat the first call.  Times both decode shapes.  Returns its
+    a repeat the first call, and its bits on ``flash_decode_bits``'s inputs
+    the parent's (``FLASH_DECODE_BITS``).  Times both decode shapes.  Returns its
     kernel record (Qwen2's shape; Scout's under "scout")."""
     import numpy as np
 
@@ -862,6 +895,10 @@ def check_flash_decode(torch, F, ref, flash_decode, randn, card):
               f"flash_decode {label}")
         if c.get("timed"):
             shapes[label] = (q, k, v, lengths, lens, (out.float() - want.float()).abs().max().item())
+    bits = flash_decode_bits(torch, flash_decode)
+    print(f"flash_decode bits at qwen2-7b's decode shape on numpy-seeded inputs: {bits} (the "
+          f"parent's {FLASH_DECODE_BITS})")
+    check(bits == FLASH_DECODE_BITS, "flash_decode's bits moved from the parent's")
     recs = []
     for label, (q, k, v, lengths, lens, err0) in shapes.items():
         B, T, Hkv, D = k.shape
@@ -1236,12 +1273,14 @@ def check_paged_prefill(torch, F, ref, paged_prefill, flash_attention_fwd, randn
             "max_abs_err": main[4], **rec, "bucket_64": bucket}
 
 
-def check_paged_kv_write(torch, ref, paged_kv_write, randn, card):
-    """Row 11 against ``paged_kv_write_ref`` at the decode shape (B 32, the
-    default pool of 4 097 pages of 16, Hkv 4, D 128): live slots on distinct
-    pages, idle slots colliding on row 0 of the null page.  The written rows
-    must be equal bit for bit; the null page's row 0 holds idle slots' data.
-    Returns its kernel record."""
+def check_paged_kv_write(torch, ref, paged_kv_write, paged_decode, flash_decode, randn, card):
+    """Row 11.  The standalone insert against ``paged_kv_write_ref`` at the
+    decode shape (B 32, the default pool of 4 097 pages of 16, Hkv 4, D
+    128): live slots on distinct pages, idle slots colliding on row 0 of the
+    null page.  The written rows must be equal bit for bit; the null page's
+    row 0 holds idle slots' data.  Then the insert the decode step runs,
+    fused into the paged decode (``check_paged_append``), with the pair and
+    the fused launch timed in turns.  Returns its kernel record."""
     import numpy as np
 
     dev = torch.device("cuda")
@@ -1293,11 +1332,138 @@ def check_paged_kv_write(torch, ref, paged_kv_write, randn, card):
     print(f"paged_kv_write B={B} Hkv={Hkv} D={D} bf16 on {card}: {ms:.4f} ms back to back, device "
           f"{fmt_ms(dev_ms)} ms (bound {bound_ms:.6f} ms by {bound_by}), plain {plain_ms:.4f} ms, "
           f"index_put_ pair {lib_ms:.4f} ms")
+    fused = check_paged_append(torch, ref, paged_kv_write, paged_decode, flash_decode, randn,
+                               card)
     return {"name": "paged_kv_write", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:340", "launches": 0,
-            "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "max_abs_err": fused.pop("max_abs_err"), "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "fused": fused}
+
+
+def _append_case(torch, np, rng, randn, B, cap, H, Hkv, D, page, P, lens, idle, masked):
+    """A decode step's inputs over a pool of ``P`` pages: slot b live on
+    pages of its own at length ``lens[b]`` (its new row at lens[b] - 1),
+    the ``idle`` slots at position 0 and the ``masked`` ones at position
+    lens[b] - 1, both with their table rows on the null page, as the engine
+    leaves them; the addresses from ``paged_decode_addressing``."""
+    from repro_torch.models.attention import paged_decode_addressing
+
+    dev = torch.device("cuda")
+    live = np.ones(B, bool)
+    live[list(idle) + list(masked)] = False
+    lens = np.maximum(lens, 1)                 # a decode step's new row: length >= 1
+    pos = np.where(np.isin(np.arange(B), idle), 0, lens - 1)
+    bt = _paged_layout(torch, np, rng, np.where(live, lens, 0), page, cap // page, P, dev)
+    addr = paged_decode_addressing(bt, torch.as_tensor(pos, dtype=torch.int32, device=dev), page)
+    return dict(q=randn(B, 1, H, D), k_pool=randn(P, page, Hkv, D), v_pool=randn(P, page, Hkv, D),
+                k_new=randn(B, 1, Hkv, D), v_new=randn(B, 1, Hkv, D), bt=bt,
+                lengths=addr["lengths"], pi=addr["page_idx"], ri=addr["row"],
+                live=torch.as_tensor(live, device=dev), n_live=int((pos + 1)[live].sum()))
+
+
+def check_paged_append(torch, ref, paged_kv_write, paged_decode, flash_decode, randn, card):
+    """The decode step's K/V insert fused into the paged decode
+    (``paged_decode`` with ``k_new, v_new, page_idx, row``) against the
+    standalone insert followed by ``paged_decode`` (the pair), at Qwen2-7B's
+    decode shape over the default pool (pages of 16, check_paged_decode's
+    lengths, slot 0 idle, slot 3 masked mid-prefill), at pages of 8 (group
+    1) and at pages of 12 (D 64, group 7; lengths 1, the capacity and the
+    256-key split edge among them).  Each case: the live rows of the
+    output equal to the pair's bit for bit and to flash_decode over the
+    updated pools gathered, within 2e-2 of each row's max of the plain
+    version; the pools equal to the pair's and the plain version's outside
+    the null page; a repeat bit-identical there and on the live rows; the
+    idle and masked rows finite.  Then the pair, the fused launch and
+    paged_decode alone at the main shape, in turns (the order and back,
+    twice).  Returns the fused launch's record."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    tol = 2e-2   # as check_paged_decode: the plain version rounds P to bf16
+    cases = [
+        ("qwen2-7b decode shape, page 16", dict(B=32, cap=2048, H=28, Hkv=4, D=128, page=16,
+                                                P=4097)),
+        ("group 1, page 8", dict(B=8, cap=704, H=8, Hkv=8, D=128, page=8, P=712)),
+        ("D=64, group 7, page 12", dict(B=8, cap=720, H=14, Hkv=2, D=64, page=12, P=490)),
+    ]
+    main, max_err = None, 0.0
+    for label, c in cases:
+        B, cap = c["B"], c["cap"]
+        if main is None:     # check_paged_decode's main lengths (31 163 live rows)
+            lens = np.random.default_rng(1).integers(0, cap + 1, size=B)
+            lens[:3] = [0, 1, cap]
+        else:
+            lens = rng.integers(1, cap + 1, size=B)
+            lens[1:6] = [1, cap, lens[3], 256, 257]
+        x = _append_case(torch, np, rng, randn, B, cap, c["H"], c["Hkv"], c["D"], c["page"],
+                         c["P"], lens, idle=[0], masked=[3])
+        q, bt, lengths, live = x["q"], x["bt"], x["lengths"], x["live"]
+        new = dict(k_new=x["k_new"], v_new=x["v_new"], page_idx=x["pi"], row=x["ri"])
+        pk, pv = x["k_pool"].clone(), x["v_pool"].clone()
+        paged_kv_write(pk, pv, x["k_new"], x["v_new"], x["pi"], x["ri"])
+        pair = paged_decode(q, pk, pv, bt, lengths)
+        fk, fv = x["k_pool"].clone(), x["v_pool"].clone()
+        out = paged_decode(q, fk, fv, bt, lengths, **new)
+        torch.cuda.synchronize()
+        rk, rv = x["k_pool"].clone(), x["v_pool"].clone()
+        again = paged_decode(q, rk, rv, bt, lengths, **new)
+        wk, wv = x["k_pool"].clone(), x["v_pool"].clone()
+        want = ref.paged_decode_append_ref(q, wk, wv, bt, lengths, x["k_new"], x["v_new"], x["pi"],
+                                           x["ri"])
+        dense = flash_decode(q, ref._gather_pages(fk, bt), ref._gather_pages(fv, bt), lengths)
+        err = row_rel_err(out[live], want[live])
+        same = torch.equal(out[live], pair[live])
+        pools = all(torch.equal(a[1:], b[1:]) for a, b in ((fk, pk), (fv, pv), (fk, wk), (fv, wv)))
+        repeat = (torch.equal(again[live], out[live]) and torch.equal(rk[1:], fk[1:])
+                  and torch.equal(rv[1:], fv[1:]))
+        flash = torch.equal(dense[live], out[live])
+        finite = bool(out.isfinite().all())
+        print(f"paged_decode with the fused insert, {label} (B={B}, capacity {cap}, H={c['H']}, "
+              f"Hkv={c['Hkv']}, D={c['D']}, {c['P']} pages; slot 0 idle, slot 3 masked) bf16: live "
+              f"rows = the pair (paged_kv_write, then paged_decode) bit for bit {same}, = "
+              f"flash_decode over the updated pools gathered {flash}; rel err {err:.3g} (tol {tol} "
+              f"of each row's max|plain|); pools = the pair's and the plain version's outside "
+              f"the null page {pools}; repeat bit-identical {repeat}; every row finite {finite}")
+        check(same and flash and err <= tol and pools and repeat and finite,
+              f"paged_decode with the fused insert, {label}")
+        max_err = max(max_err, (fk[1:].float() - wk[1:].float()).abs().max().item(),
+                      (fv[1:].float() - wv[1:].float()).abs().max().item())
+        if main is None:
+            main = (x, new, fk, fv)
+    x, new, tk, tv = main
+    q, bt, lengths = x["q"], x["bt"], x["lengths"]
+    B, _, H, D = q.shape
+    Hkv = tk.shape[2]
+    calls = {
+        "pair": lambda: (paged_kv_write(tk, tv, x["k_new"], x["v_new"], x["pi"], x["ri"]),
+                         paged_decode(q, tk, tv, bt, lengths)),
+        "fused": lambda: paged_decode(q, tk, tv, bt, lengths, **new),
+        "alone": lambda: paged_decode(q, tk, tv, bt, lengths),
+    }
+    names = {"pair": ("paged_kv_write", "paged_decode"), "fused": ("paged_decode",),
+             "alone": ("paged_decode",)}
+    runs = {n: [] for n in calls}
+    for n in ["pair", "fused", "alone", "alone", "fused", "pair"] * 2:
+        runs[n].append((time_ms(torch, calls[n]), device_ms(torch, calls[n], *names[n])))
+    mean = {n: (statistics.mean(t for t, _ in r),
+                statistics.mean(d for _, d in r) if all(d for _, d in r) else None)
+            for n, r in runs.items()}
+    diffs = ([f[1] - a[1] for f, a in zip(runs["fused"], runs["alone"])]
+             if mean["fused"][1] and mean["alone"][1] else [])
+    print(f"in turns at qwen2-7b's decode shape ({x['n_live']} live rows) on {card}: pair "
+          f"{mean['pair'][0]:.4f} ms back to back, device {fmt_ms(mean['pair'][1])} ms; fused "
+          f"{mean['fused'][0]:.4f}, device {fmt_ms(mean['fused'][1])}; paged_decode alone "
+          f"{mean['alone'][0]:.4f}, device {fmt_ms(mean['alone'][1])}; the insert inside the "
+          f"fused launch (fused - alone, device, each turn) "
+          f"{[round(d, 5) for d in diffs] or 'not measured'}; readings {runs}")
+    return {"source": "src/repro_torch/kernels/csrc/paged_attention.cu", "launches": 0,
+            "max_abs_err": max_err, "pair_ms": mean["pair"][0], "pair_device_ms": mean["pair"][1],
+            "fused_ms": mean["fused"][0], "fused_device_ms": mean["fused"][1],
+            "alone_ms": mean["alone"][0], "alone_device_ms": mean["alone"][1],
+            "insert_device_ms": statistics.mean(diffs) if diffs else None,
+            "insert_device_ms_turns": diffs, "runs": runs}
 
 
 def _router_sizes(np, rng, tokens, E, empty=(), cap=None):
@@ -2031,9 +2197,12 @@ def paged_phase(torch, counters, card, model, load):
     def zero():
         for name in names:
             counters[name].launches = 0
+        counters["paged_decode"].appends = 0
 
     def read():
-        return {name: counters[name].launches for name in names}
+        got = {name: counters[name].launches for name in names}
+        got["paged_decode.appends"] = counters["paged_decode"].appends
+        return got
 
     # the main path: every count set to 0 just before, read just after
     torch.cuda.reset_peak_memory_stats()
@@ -2047,7 +2216,7 @@ def paged_phase(torch, counters, card, model, load):
     n_dec, n_chunk = eng.decode_steps - dec0, eng.prefill_chunks - ch0
     want = {"flash_attention_fwd": 0, "flash_decode": 0, "rmsnorm": (2 * L + 1) * (n_dec + n_chunk),
             "fused_sample": n + n_dec, "paged_decode": L * n_dec, "paged_prefill": L * n_chunk,
-            "paged_kv_write": L * n_dec}
+            "paged_kv_write": 0, "paged_decode.appends": L * n_dec}
     stats1 = dict(eng.alloc.stats)
     print(f"paged main path: LLM.generate of {n} prompts ({sum(plens)} prompt tokens, half behind "
           f"a 512-token preamble) on {slots} slots, pages of {page} ({eng.alloc.num_pages} pages, "
@@ -2133,7 +2302,8 @@ def paged_phase(torch, counters, card, model, load):
     eng.step()
     per_step = read()
     want_step = {"flash_attention_fwd": 0, "flash_decode": 0, "rmsnorm": 2 * L + 1,
-                 "fused_sample": 1, "paged_decode": L, "paged_prefill": 0, "paged_kv_write": L}
+                 "fused_sample": 1, "paged_decode": L, "paged_prefill": 0, "paged_kv_write": 0,
+                 "paged_decode.appends": L}
     print(f"one steady paged decode step: launches {per_step} (want {want_step})")
     expect(per_step == want_step, "launches per paged decode step")
     table = eng.cache["block_table"]
@@ -3197,7 +3367,8 @@ def main() -> int:
     paged_recs = [check_paged_decode(torch, F, ref, paged_decode, flash_decode, randn, card),
                   check_paged_prefill(torch, F, ref, paged_prefill, flash_attention_fwd, randn,
                                       card),
-                  check_paged_kv_write(torch, ref, paged_kv_write, randn, card)]
+                  check_paged_kv_write(torch, ref, paged_kv_write, paged_decode, flash_decode,
+                                       randn, card)]
     gmm_rec = check_gmm(torch, ref, gmm, card)
     gmm_dw_rec, gmm_dx_rec = check_gmm_dw(torch, ref, gmm, gmm_dw, card)
     ssd_rec = check_ssd_scan(torch, ref, ssd_scan, card)
@@ -3355,6 +3526,10 @@ def main() -> int:
         rec["launches"] = gen_launches[rec["name"]]
     for rec in paged_recs:
         rec["launches"] = paged_launches[rec["name"]]
+    # row 11's insert runs inside paged_decode's launches on the main path
+    ins = paged_recs[2]
+    ins["standalone_launches"] = ins["launches"]
+    ins["launches"] = ins["fused"]["launches"] = paged_launches["paged_decode.appends"]
     gmm_rec["launches"] = moe_launches["gmm"]
     gmm_dw_rec["launches"] = moe_train_launches["gmm_dw"]
     gmm_dx_rec["launches"] = moe_train_launches["gmm dx"]

@@ -8,12 +8,15 @@ shapes.
     python3 decode_variants.py [--parent [DIR]]     # on one card
 
 ``--save-parent REV`` writes ``git show REV:`` of ``csrc/sampling.cu``,
-``csrc/paged_attention.cu``, ``csrc/flash_decode.cu``, ``csrc/mma.cuh``,
-``kernels/sampling.py`` and ``kernels/paged_attention.py`` into DIR (by
-default ``.chip_archive/parent/``: ignored by git, skipped by pytest,
-carried by a copy of the tree) and stops.  On the card, ``--parent`` adds
-those sources as the library "parent" of each kernel (built with its own
-header beside it, which is found before the tree's), and times those
+``csrc/paged_attention.cu``, ``csrc/flash_decode.cu``, the headers they
+include (``mma.cuh``, ``decode_split.cuh``, ``attention_fwd.cuh``,
+``hopper.cuh``), ``kernels/sampling.py`` and ``kernels/paged_attention.py``
+into DIR (by default ``.chip_archive/parent/``: ignored by git, skipped by
+pytest, carried by a copy of the tree) and stops.  On the card,
+``--parent`` adds those sources as the library "parent" of each kernel
+(built with its own headers beside it, which are found before the tree's:
+a header that another header includes resolves beside it too, so no
+header is included from both places), and times those
 wrappers' host path (they launch the tree's kernels, whose C entry points
 are unchanged).
 
@@ -29,7 +32,22 @@ tree's headers behind it, one nvcc each, all started together:
 - paged_decode: "ring 1 stage", "ring 3 stages" (each warp's ring of
   16-key stages; the tree: 2, in ``decode_split.cuh``, which flash_decode
   shares), "rows one by one at page 16" (each row's address looked up by
-  its own lane, the path of pages that are not a multiple of 16).
+  its own lane, the path of pages that are not a multiple of 16);
+- the fused insert, timed with the insert only: "insert loads after the
+  copies" (the writing lane loads its piece of the new row after the
+  stage's copies are issued; the tree: before), "swap only, no insert
+  store" (the new row read from k_new / v_new, nothing stored: the
+  insert's cost without its store; its pools then differ).
+
+The decode step's K/V insert is timed with the parent: the parent's pair
+(``paged_kv_write``, then ``paged_flash_decode``) and its decode alone
+against the tree's pair, the tree's decode with the insert fused
+(``paged_decode_append``) and its decode alone, each through its library's
+C entry points, in turns twice, at Qwen2's decode shape with slot 0 idle
+and slot 3 masked to the null page (``chip_smoke._append_case``): whether
+the fused launch's live rows and pools (outside the null page) equal the
+parent pair's, and the insert's device time inside the fused launch (fused
+minus alone, each turn).
 
 Each library runs in turns (the order and then back) at each shape: CUDA
 events over back-to-back calls and the profiler's device time
@@ -39,8 +57,10 @@ each row's max) and whether it equals the tree's bit for bit.  The
 sampler at (32, 152064) with chip_smoke's mix of rows, all greedy and all
 sampled, and with the mix at Scout's 202 240 and Mamba2's 50 432 columns
 (parent and tree); paged_decode at Qwen2's decode shape over chip_smoke's
-pool, split into its two kernels; flash_decode at Qwen2's and Scout's
-decode shapes (parent and tree); then each wrapper's host µs a call.
+pool, split into its two kernels; the insert as above; flash_decode at
+Qwen2's and Scout's decode shapes (parent and tree) and its bits on
+``chip_smoke.flash_decode_bits``'s inputs; then each wrapper's host µs a
+call.
 Writes the readings to ``chiprun_out/decode_variants.json``.
 """
 from __future__ import annotations
@@ -57,7 +77,8 @@ from pathlib import Path
 import chip_smoke as cs
 
 PARENT_FILES = {name: f"src/repro_torch/kernels/csrc/{name}"
-                for name in ("sampling.cu", "paged_attention.cu", "flash_decode.cu", "mma.cuh")}
+                for name in ("sampling.cu", "paged_attention.cu", "flash_decode.cu", "mma.cuh",
+                             "decode_split.cuh", "attention_fwd.cuh", "hopper.cuh")}
 PARENT_FILES.update({f"{m}.py": f"src/repro_torch/kernels/{m}.py"
                      for m in ("sampling", "paged_attention")})
 PARENT_DIR = cs.ROOT / ".chip_archive" / "parent"
@@ -71,6 +92,20 @@ SAMPLE_VARIANTS = {
     "levels 5": [("sampling.cu", "constexpr int kLevels = 3;", "constexpr int kLevels = 5;")],
     "512 threads": [("sampling.cu", THREADS, "constexpr int kThreads = 512;")],
 }
+INSERT_LOADS = """    if (ins) {
+      dst = (lane < kPerRow ? app.k_pool : app.v_pool) + (long long)app.page_idx[b] * page_stride +
+            (long long)app.row[b] * row_stride + head + col;
+      piece = *reinterpret_cast<const uint4*>((lane < kPerRow ? kn : vn) + col);
+    }
+"""
+INSERT_STORE = "    if (ins) *reinterpret_cast<uint4*>(dst) = piece;\n"
+# the fused insert's variants, timed only with the insert (csrc/paged_attention.cu)
+INSERT_VARIANTS = {
+    "insert loads after the copies": [("paged_attention.cu", INSERT_LOADS, ""),
+                                      ("paged_attention.cu", INSERT_STORE,
+                                       INSERT_LOADS + INSERT_STORE)],
+    "swap only, no insert store": [("paged_attention.cu", INSERT_STORE, "")],
+}
 PAGED_VARIANTS = {
     "ring 1 stage": [("decode_split.cuh", "constexpr int kStages = 2;", "constexpr int kStages = 1;")],
     "ring 3 stages": [("decode_split.cuh", "constexpr int kStages = 2;",
@@ -78,6 +113,7 @@ PAGED_VARIANTS = {
     "rows one by one at page 16": [("paged_attention.cu",
                                     "const bool by_row = pl.page % decode::kSub != 0;",
                                     "const bool by_row = true;")],
+    **INSERT_VARIANTS,
 }
 
 
@@ -152,13 +188,16 @@ def per_call_us(torch, fn, n: int = 2000) -> float:
     return t / n * 1e6
 
 
-def in_turns(torch, names, call, kernel, bound_ms):
+def in_turns(torch, names, call, kernel, bound_ms, rounds: int = 1):
     """{name: (mean ms back to back, mean device ms, runs)}: each library
-    timed in the order of ``names`` and then back."""
+    timed in the order of ``names`` and then back, ``rounds`` times; the
+    device time sums the kernels whose names hold ``kernel`` (a name or a
+    tuple of names)."""
     runs = {n: [] for n in names}
-    for n in list(names) + list(names)[::-1]:
+    kernels = (kernel,) if isinstance(kernel, str) else kernel
+    for n in (list(names) + list(names)[::-1]) * rounds:
         runs[n].append((cs.time_ms(torch, lambda: call(n)),
-                        cs.device_ms(torch, lambda: call(n), kernel, floor=bound_ms)))
+                        cs.device_ms(torch, lambda: call(n), *kernels, floor=bound_ms)))
     out = {}
     for n, r in runs.items():
         devs = [t[1] for t in r if t[1]]
@@ -207,6 +246,9 @@ def main() -> int:
             elif kern == "paged_attention":
                 lib.paged_flash_decode.argtypes = [P] * 9 + [I] * 6 + [I64] * 8 + [F32, P]
                 lib.paged_decode_splits.argtypes = [I]
+                lib.paged_kv_write.argtypes = [P] * 6 + [I] * 3 + [I64] * 7 + [P]
+                if hasattr(lib, "paged_decode_append"):
+                    lib.paged_decode_append.argtypes = [P] * 13 + [I] * 6 + [I64] * 12 + [F32, P]
             else:
                 lib.flash_decode.argtypes = [P] * 8 + [I] * 5 + [I64] * 10 + [F32, P]
                 lib.flash_decode_splits.argtypes = [I]
@@ -293,7 +335,7 @@ def main() -> int:
     bound_ms, bound_by = cs.bound(4 * H * D * live, nbytes)
     want = ref.paged_decode_attention_ref(q, k_pool, v_pool, bt, lengths)
     tree_out = paged("tree")
-    names = order["paged_attention"]
+    names = [n for n in order["paged_attention"] if n not in INSERT_VARIANTS]
     t = in_turns(torch, names, paged, "paged_decode", bound_ms)
     print(f"---- paged_decode at qwen2-7b's decode shape (B={B}, capacity {cap}, H={H}, Hkv={Hkv}, "
           f"D={D}, page {page}, {live} live rows) on {card}: bound {bound_ms:.4f} ms by {bound_by}")
@@ -310,6 +352,88 @@ def main() -> int:
               f"{r['row_err']:.3g}, bit-identical to the tree: {r['bit_identical_to_tree']}"
               + (f", by kernel {r['device_ms_by_kernel']}" if "device_ms_by_kernel" in r else ""))
 
+    # ---- the decode step's insert: pair, fused and alone, parent and tree
+    x = cs._append_case(torch, np, np.random.default_rng(12), randn, B, cap, H, Hkv, D, page,
+                        npages, lens, idle=[0], masked=[3])
+    q, bt, lengths, live = x["q"], x["bt"], x["lengths"], x["live"]
+    kn, vn, pi, ri = x["k_new"], x["v_new"], x["pi"], x["ri"]
+
+    def decode_call(label, kp, vp, append):
+        lib = libs["paged_attention"][label]
+        n = B * H * lib.paged_decode_splits(cap)
+        out = torch.empty((B, 1, H, D), dtype=q.dtype, device=dev)
+        part = torch.empty((n * (D + 2),), dtype=torch.float32, device=dev)
+        base = part.data_ptr()
+        head = [q.data_ptr(), kp.data_ptr(), vp.data_ptr(), bt.data_ptr(), lengths.data_ptr()]
+        tail = [out.data_ptr(), base, base + 4 * n, base + 8 * n, B, H, Hkv, D, page, cap // page,
+                q.stride(0), q.stride(2), *kp.stride()[:3], bt.stride(0), out.stride(0),
+                out.stride(2)]
+        if append:
+            err = lib.paged_decode_append(*head, kn.data_ptr(), vn.data_ptr(), pi.data_ptr(),
+                                          ri.data_ptr(), *tail, kn.stride(0), kn.stride(2),
+                                          vn.stride(0), vn.stride(2), 0.0, stream)
+        else:
+            err = lib.paged_flash_decode(*head, *tail, 0.0, stream)
+        if err:
+            raise RuntimeError(f"{label}: paged decode launch failed ({err})")
+        return out
+
+    def write_call(label, kp, vp):
+        err = libs["paged_attention"][label].paged_kv_write(
+            kp.data_ptr(), vp.data_ptr(), kn.data_ptr(), vn.data_ptr(), pi.data_ptr(),
+            ri.data_ptr(), B, Hkv, D, *kp.stride()[:3], kn.stride(0), kn.stride(2), vn.stride(0),
+            vn.stride(2), stream)
+        if err:
+            raise RuntimeError(f"{label}: paged_kv_write launch failed ({err})")
+
+    src = "parent" if parent else "tree"
+    pk, pv = x["k_pool"].clone(), x["v_pool"].clone()
+    write_call(src, pk, pv)
+    pair_out = decode_call(src, pk, pv, False)
+    fk, fv = x["k_pool"].clone(), x["v_pool"].clone()
+    fused_out = decode_call("tree", fk, fv, True)
+    same = {"tree": (fused_out, fk, fv)}
+    for v in INSERT_VARIANTS:
+        if v in libs["paged_attention"]:
+            vk, vv = x["k_pool"].clone(), x["v_pool"].clone()
+            same[v] = (decode_call(v, vk, vv, True), vk, vv)
+    same = {n: {"live rows": torch.equal(o[live], pair_out[live]),
+                "pools outside the null page": torch.equal(a[1:], pk[1:]) and torch.equal(
+                    b[1:], pv[1:])} for n, (o, a, b) in same.items()}
+
+    modes = {f"{src} pair": (src, "pair"), f"{src} alone": (src, "alone")} if parent else {}
+    modes.update({"tree pair": ("tree", "pair"), "tree fused": ("tree", "fused"),
+                  "tree alone": ("tree", "alone")})
+    modes.update({f"{v} fused": (v, "fused") for v in INSERT_VARIANTS
+                  if v in libs["paged_attention"]})
+
+    def insert(label):
+        lib, mode = modes[label]
+        if mode == "pair":
+            write_call(lib, fk, fv)
+            return decode_call(lib, fk, fv, False)
+        return decode_call(lib, fk, fv, mode == "fused")
+
+    names = list(modes)
+    live_rows = x["n_live"]
+    nbytes = 2 * B * H * D * 2 + 2 * live_rows * Hkv * D * 2 + B * 4 + bt.numel() * 4
+    bound_ms, bound_by = cs.bound(4 * H * D * live_rows, nbytes)
+    t = in_turns(torch, names, insert, ("paged_kv_write", "paged_decode"), bound_ms, rounds=2)
+    diffs = [f[1] - a[1] for f, a in zip(t["tree fused"][2], t["tree alone"][2])
+             if f[1] and a[1]]
+    readings["paged insert qwen2-7b"] = {
+        "bits equal to the pair's": same, "bound_ms": bound_ms, "bound_by": bound_by,
+        "live_rows": live_rows, "insert_device_ms_turns": diffs,
+        **{n: {"ms": t[n][0], "device_ms": t[n][1], "runs": t[n][2]} for n in names}}
+    print(f"---- the decode step's insert at qwen2-7b's decode shape ({live_rows} live rows, slot 0 "
+          f"idle, slot 3 masked) on {card}: the decode's bound {bound_ms:.4f} ms by {bound_by}; "
+          f"each fused launch = the {src}'s pair: {same}")
+    for n in names:
+        print(f"{n}: {t[n][0]:.4f} ms back to back, device {cs.fmt_ms(t[n][1])} ms, runs {t[n][2]}")
+    print(f"the insert inside the fused launch (fused - alone, device ms, each turn): "
+          f"{[round(d, 5) for d in diffs]}")
+    paged_in = (q, fk, fv, bt, lengths)    # the host section times the wrappers on these
+
     # ---- flash_decode, parent and tree, at the decode shapes
     rng = np.random.default_rng(1)
     for label, (B, T, H, Hkv, D) in {"qwen2-7b": (32, 2048, 28, 4, 128),
@@ -320,6 +444,11 @@ def main() -> int:
         q, k, v = randn(B, 1, H, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
 
         def dense(n):
+            return flash_call(n, q, k, v, lengths)
+
+        def flash_call(n, q, k, v, lengths):
+            B, T, Hkv, D = k.shape
+            H = q.shape[2]
             lib = libs["flash_decode"][n]
             m = B * H * lib.flash_decode_splits(T)
             out = torch.empty((B, 1, H, D), dtype=q.dtype, device=dev)
@@ -348,19 +477,22 @@ def main() -> int:
             print(f"{n}: {r['ms']:.4f} ms back to back, device {cs.fmt_ms(r['device_ms'])} ms, runs "
                   f"{r['runs']}, bit-identical to the tree: {r['bit_identical_to_tree']}")
         del q, k, v
+    for n in order["flash_decode"]:
+        bits = cs.flash_decode_bits(torch, lambda *a, n=n: flash_call(n, *a))
+        readings.setdefault(n, {})["flash_decode bits"] = bits
+        print(f"flash_decode bits on chip_smoke.flash_decode_bits's inputs, {n}: {bits} "
+              f"(chip_smoke holds the tree to {cs.FLASH_DECODE_BITS})")
 
     # ---- the host's cost of the wrappers, at the decode shapes
     x, temp, top_k, top_p, seed, step = cs.sample_inputs(torch, randn, 32, 152064, cs.SAMPLE_MIX)
-    q = randn(32, 1, 28, 128)
-    lengths = torch.as_tensor(np.random.default_rng(1).integers(0, 2049, size=32),
-                              dtype=torch.int32, device=dev)
+    q, k_pool, v_pool, bt, lengths = paged_in
     fn = sp._fn()
     tok = torch.empty((32,), dtype=torch.int32, device=dev)
     logp = torch.empty((32,), dtype=torch.float32, device=dev)
     raw = [x.data_ptr(), 32, 152064, x.stride(0), temp.data_ptr(), top_k.data_ptr(),
            top_p.data_ptr(), seed.data_ptr(), step.data_ptr(), tok.data_ptr(), logp.data_ptr(),
            stream]
-    pfn = pa._decode_fn_c()
+    pfn = pa._decode_fns_c()[0]
     out = torch.empty((32, 1, 28, 128), dtype=torch.bfloat16, device=dev)
     part = pa._partials(0, 32 * 28 * 8 * 130)
     praw = [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(), lengths.data_ptr(),
@@ -377,6 +509,10 @@ def main() -> int:
                                                                     step),
         "paged_decode (the tree's wrapper)": lambda: pa.paged_decode(q, k_pool, v_pool, bt,
                                                                     lengths),
+        "paged_decode with the insert (the tree's wrapper)": lambda: pa.paged_decode(
+            q, k_pool, v_pool, bt, lengths, k_new=kn, v_new=vn, page_idx=pi, row=ri),
+        "paged_kv_write (the tree's wrapper)": lambda: pa.paged_kv_write(k_pool, v_pool, kn, vn,
+                                                                        pi, ri),
     }
     if parent:
         for mod in ("sampling", "paged_attention"):
@@ -389,6 +525,8 @@ def main() -> int:
             else:
                 parts["paged_decode (the parent's wrapper)"] = (
                     lambda m=m: m.paged_decode(q, k_pool, v_pool, bt, lengths))
+                parts["paged_kv_write (the parent's wrapper)"] = (
+                    lambda m=m: m.paged_kv_write(k_pool, v_pool, kn, vn, pi, ri))
     host = {name: per_call_us(torch, f, n=500) for name, f in parts.items()}
     readings["host µs a call"] = host
     print(f"---- host µs a call on {card}: " + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))

@@ -11,7 +11,9 @@
 //     at position starts[b] + i and attends to the keys k <= starts[b] + i
 //     with k < lengths[b]; a fully masked row gives 0;
 //   * `_kv_write_kernel` behind `paged_kv_write`: pool[page_idx[b], row[b]]
-//     = new[b] for K and V, in place.
+//     = new[b] for K and V, in place. The decode step runs it fused into
+//     the decode's split kernel (`paged_decode_append`); the standalone
+//     kernel stays (`paged_kv_write`).
 // Pools are (num_pages, page, Hkv, D); the block table is (B, n) int32 of
 // physical page ids; page 0 is the null page, which holds no sequence.
 // Scale 1/sqrt(D), optional logit softcap, GQA as query head h reading kv
@@ -69,6 +71,25 @@
 //     result. Idle slots all write to row 0 of the null page 0: blocks may
 //     race there, which is benign, since page 0 holds no sequence and is
 //     read only by rows that no result depends on.
+//   * the decode step's insert fused into the decode (`paged_decode_append`,
+//     the policy's kAppend): a launch of its own moves 0.13 MB and cannot
+//     come near its 0.04 us bound, so the split kernel, which already reads
+//     the slot's table row, does the insert. Slot b's new row sits at
+//     position lengths[b] - 1, which (page_idx[b], row[b]) must address
+//     through the table (the engine's `paged_decode_addressing` gives
+//     that). For each (b, kv head) the one block whose split holds that
+//     position, split (lengths[b] - 1) / 256, the last one that runs, does
+//     it: the warp that stages the sub-tile holding the position (row by
+//     row, at any page) copies that one row from k_new / v_new instead of
+//     the pool, and stores kv head hk's K and V row into the pools with
+//     16-byte stores. No block reads in the same launch a live row that
+//     another block writes, so on every live row the launch gives, bit for
+//     bit, what the standalone insert followed by the decode gives, and
+//     leaves the same pools. Only
+//     the null page is both written and read in one launch: idle slots
+//     (row 0) and mid-prefill slots masked to it write and read its rows,
+//     so a row there may be read torn between writers, 16 bytes at a time.
+//     Every writer's row is finite, and no result depends on page 0.
 //
 // Bounds on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense):
 //   * decode is bound by memory: each live cache row is read once for K
@@ -80,7 +101,7 @@
 //     by operations. Each (query tile, head) item reads its K/V tiles
 //     itself: the 7 query heads of a GQA group read them from L2.
 //   * insert: 2 * B * Hkv * D * 2 bytes read and written, 0.13 MB at B 32
-//     (0.04 us): its time is the launch.
+//     (0.04 us): its time is the launch, which the fused insert saves.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -105,30 +126,50 @@ struct Pool {
 
 // ------------------------------------------------------------------ decode
 // one warp copies the kSub rows whose pool offsets lane r < kSub holds in
-// `off` (-1: not live, zero-filled without a read) into a stage
-template <int D>
+// `off` (-1: not live, zero-filled without a read) into a stage; with
+// kSwap, row `swap` (if any) comes from `alt`, a contiguous row, instead
+template <int D, bool kSwap>
 __device__ __forceinline__ void kv_stage_rows(uint16_t* dst, const uint16_t* base, long long off,
-                                              int lane) {
+                                              int lane, int swap, const uint16_t* alt) {
   constexpr int kPerRow = D / 8;
 #pragma unroll
   for (int i = 0; i < decode::kSub * kPerRow / 32; ++i) {
     const int c = lane + 32 * i;
     const int r = c / kPerRow, col = (c % kPerRow) * 8;
     const long long o = __shfl_sync(0xffffffffu, off, r);
-    cp_async16(dst + r * decode::Smem<D>::kPitch + col, base + (o < 0 ? 0 : o) + col, o >= 0);
+    const uint16_t* src = kSwap && r == swap ? alt : base + (o < 0 ? 0 : o);
+    cp_async16(dst + r * decode::Smem<D>::kPitch + col, src + col, o >= 0);
   }
 }
 
+// the decode step's insert (kAppend): slot b's new K and V rows, (B, 1,
+// Hkv, D) through their batch and head strides, go to (page_idx[b],
+// row[b]), the pool row of position lengths[b] - 1
+struct Append {
+  uint16_t* k_pool;
+  uint16_t* v_pool;
+  const uint16_t* k_new;
+  const uint16_t* v_new;
+  const int* page_idx;
+  const int* row;
+  const int* lengths;
+  int T;  // the table's capacity in rows, as decode::Split's
+  long long kn_sb, kn_sh, vn_sb, vn_sh;
+};
+
 // a stage's K and V rows through the block table: kByRow false, the page a
 // multiple of 16, so the stage lies in one page; kByRow true, any page,
-// each row looked up by its own lane
-template <bool kByRow>
+// each row looked up by its own lane. kAppend: the block of the split that
+// holds position lengths[b] - 1 also inserts the slot's new row, in the
+// stage holding that position (the source note's "fused insert")
+template <bool kByRow, bool kAppend>
 struct Paged {
   const uint16_t* k;
   const uint16_t* v;
   const int* bt;  // (B, n_tables)
   int page;
   long long page_stride, row_stride, head_stride, bt_sb;
+  Append app;
 
   template <int D>
   __device__ __forceinline__ void stage(uint16_t* dk, uint16_t* dv, int b, int hk, int k0,
@@ -136,26 +177,50 @@ struct Paged {
     const int* row = bt + b * bt_sb;
     const int pos0 = k0 + key0;
     const long long head = hk * head_stride;
-    if (!kByRow) {
+    // the stage's row that holds position lengths[b] - 1, where this block
+    // inserts: the split's last row (n - 1) in the split that ends at the
+    // length; -1 elsewhere
+    int swap = -1;
+    if (kAppend && key0 + decode::kSub >= n &&
+        k0 + n == min(max(app.lengths[b], 0), app.T))
+      swap = n - 1 - key0;
+    const uint16_t* kn = app.k_new + b * app.kn_sb + hk * app.kn_sh;
+    const uint16_t* vn = app.v_new + b * app.vn_sb + hk * app.vn_sh;
+    // the insert: kv head hk's K and V row, a 16-byte piece a lane (D <= 128:
+    // at most 32 pieces), loaded before the stage's copies are issued so
+    // that its latency overlaps them, stored after
+    constexpr int kPerRow = D / 8;
+    static_assert(2 * kPerRow <= 32, "one insert piece a lane");
+    const bool ins = swap >= 0 && lane < 2 * kPerRow;
+    const int col = (lane % kPerRow) * 8;
+    uint16_t* dst = nullptr;
+    uint4 piece = {};
+    if (ins) {
+      dst = (lane < kPerRow ? app.k_pool : app.v_pool) + (long long)app.page_idx[b] * page_stride +
+            (long long)app.row[b] * row_stride + head + col;
+      piece = *reinterpret_cast<const uint4*>((lane < kPerRow ? kn : vn) + col);
+    }
+    if (!kByRow && swap < 0) {
       const long long base = (long long)row[pos0 / page] * page_stride +
                              (long long)(pos0 % page) * row_stride + head;
       decode::kv_stage<D>(dk, k + base, row_stride, 0, n - key0, lane);
       decode::kv_stage<D>(dv, v + base, row_stride, 0, n - key0, lane);
-    } else {
+    } else {  // row by row: any page, and the stage whose row `swap` is the new one
       long long off = -1;
       if (lane < decode::kSub && key0 + lane < n) {
         const int pos = pos0 + lane;
         off = (long long)row[pos / page] * page_stride + (long long)(pos % page) * row_stride;
       }
-      kv_stage_rows<D>(dk, k + head, off, lane);
-      kv_stage_rows<D>(dv, v + head, off, lane);
+      kv_stage_rows<D, kAppend>(dk, k + head, off, lane, swap, kn);
+      kv_stage_rows<D, kAppend>(dv, v + head, off, lane, swap, vn);
     }
+    if (ins) *reinterpret_cast<uint4*>(dst) = piece;
   }
 };
 
-template <int D, bool kByRow>
+template <int D, bool kByRow, bool kAppend>
 __global__ void __launch_bounds__(decode::kThreads)
-    paged_decode_split_kernel(const decode::Split p, const Paged<kByRow> a) {
+    paged_decode_split_kernel(const decode::Split p, const Paged<kByRow, kAppend> a) {
   extern __shared__ __align__(16) uint8_t smem[];
   decode::split_body<D>(p, a, smem);
 }
@@ -165,14 +230,15 @@ __global__ void __launch_bounds__(D / 2) paged_decode_combine_kernel(const decod
   decode::combine_body<D>(p);
 }
 
-template <int D, bool kByRow>
-cudaError_t launch_decode(const decode::Split& p, const Paged<kByRow>& a, int B, int Hkv,
+template <int D, bool kByRow, bool kAppend>
+cudaError_t launch_decode(const decode::Split& p, const Paged<kByRow, kAppend>& a, int B, int Hkv,
                           cudaStream_t stream) {
   constexpr int kBytes = decode::Smem<D>::kBytes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_decode_split_kernel<D, kByRow>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(paged_decode_split_kernel<D, kByRow, kAppend>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (attr != cudaSuccess) return attr;
-  paged_decode_split_kernel<D, kByRow>
+  paged_decode_split_kernel<D, kByRow, kAppend>
       <<<dim3(p.splits, Hkv, B), decode::kThreads, kBytes, stream>>>(p, a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -180,18 +246,18 @@ cudaError_t launch_decode(const decode::Split& p, const Paged<kByRow>& a, int B,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_decode(const decode::Split& p, const Pool& pl, int B, int Hkv,
-                          cudaStream_t stream) {
+template <int D, bool kAppend>
+cudaError_t launch_decode(const decode::Split& p, const Pool& pl, const Append& app, int B,
+                          int Hkv, cudaStream_t stream) {
   const bool by_row = pl.page % decode::kSub != 0;
   if (by_row) {
-    const Paged<true> a{pl.k, pl.v, pl.bt, pl.page, pl.page_stride, pl.row_stride,
-                        pl.head_stride, pl.bt_sb};
-    return launch_decode<D, true>(p, a, B, Hkv, stream);
+    const Paged<true, kAppend> a{pl.k, pl.v, pl.bt, pl.page, pl.page_stride, pl.row_stride,
+                                 pl.head_stride, pl.bt_sb, app};
+    return launch_decode<D>(p, a, B, Hkv, stream);
   }
-  const Paged<false> a{pl.k, pl.v, pl.bt, pl.page, pl.page_stride, pl.row_stride,
-                       pl.head_stride, pl.bt_sb};
-  return launch_decode<D, false>(p, a, B, Hkv, stream);
+  const Paged<false, kAppend> a{pl.k, pl.v, pl.bt, pl.page, pl.page_stride, pl.row_stride,
+                                pl.head_stride, pl.bt_sb, app};
+  return launch_decode<D>(p, a, B, Hkv, stream);
 }
 
 // ----------------------------------------------------------------- prefill
@@ -418,6 +484,29 @@ Pool make_pool(const void* k_pool, const void* v_pool, const int* bt, int page, 
   return pl;
 }
 
+template <bool kAppend>
+int run_decode(const void* q, const void* k_pool, const void* v_pool, const int* block_table,
+               const int* lengths, void* out, float* part_m, float* part_l, float* part_acc,
+               const Append& app, int B, int H, int Hkv, int D, int page, int n_tables,
+               long long q_sb, long long q_sh, long long page_stride, long long row_stride,
+               long long head_stride, long long bt_sb, long long o_sb, long long o_sh,
+               float softcap, void* stream) {
+  if (Hkv <= 0 || H % Hkv || H / Hkv > decode::kMaxGroup || page <= 0)
+    return cudaErrorInvalidValue;
+  decode::Split p = decode::make_split(q, lengths, out, part_m, part_l, part_acc, H, Hkv, D, q_sb,
+                                       q_sh, o_sb, o_sh, softcap);
+  p.T = n_tables * page;
+  p.splits = decode::splits_of(p.T);
+  const Pool pl = make_pool(k_pool, v_pool, block_table, page, n_tables, page_stride, row_stride,
+                            head_stride, bt_sb);
+  Append a = app;
+  a.T = p.T;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_decode<64, kAppend>(p, pl, a, B, Hkv, s);
+  if (D == 128) return launch_decode<128, kAppend>(p, pl, a, B, Hkv, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // The number of splits a table of `capacity` = n_tables * page rows is cut
@@ -435,18 +524,43 @@ extern "C" int paged_flash_decode(
     long long q_sb, long long q_sh,
     long long page_stride, long long row_stride, long long head_stride, long long bt_sb,
     long long o_sb, long long o_sh, float softcap, void* stream) {
-  if (Hkv <= 0 || H % Hkv || H / Hkv > decode::kMaxGroup || page <= 0)
-    return cudaErrorInvalidValue;
-  decode::Split p = decode::make_split(q, lengths, out, part_m, part_l, part_acc, H, Hkv, D, q_sb,
-                                       q_sh, o_sb, o_sh, softcap);
-  p.T = n_tables * page;
-  p.splits = decode::splits_of(p.T);
-  const Pool pl = make_pool(k_pool, v_pool, block_table, page, n_tables, page_stride, row_stride,
-                            head_stride, bt_sb);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_decode<64>(p, pl, B, Hkv, s);
-  if (D == 128) return launch_decode<128>(p, pl, B, Hkv, s);
-  return cudaErrorInvalidValue;
+  return run_decode<false>(q, k_pool, v_pool, block_table, lengths, out, part_m, part_l, part_acc,
+                           Append{}, B, H, Hkv, D, page, n_tables, q_sb, q_sh, page_stride,
+                           row_stride, head_stride, bt_sb, o_sb, o_sh, softcap, stream);
+}
+
+// paged_flash_decode with the decode step's K/V insert fused in: in place,
+// k_pool[page_idx[b], row[b]] = k_new[b, 0] (and V) for every b, as
+// paged_kv_write does, before the attention reads them. Precondition:
+// lengths[b] >= 1 and (page_idx[b], row[b]) is the pool row that the
+// block table maps position lengths[b] - 1 to (clamped to the table's
+// capacity); a row of length 0 is not written. The new rows (B, 1, Hkv, D)
+// go through their batch and head strides (multiples of 8 elements,
+// 16-byte aligned). The null page may be both written and read: its rows
+// are finite but may be torn between writers (the source note). Returns
+// the cudaError_t of the launches (0 = launched).
+extern "C" int paged_decode_append(
+    const void* q, void* k_pool, void* v_pool, const int* block_table, const int* lengths,
+    const void* k_new, const void* v_new, const int* page_idx, const int* row,
+    void* out, float* part_m, float* part_l, float* part_acc,
+    int B, int H, int Hkv, int D, int page, int n_tables,
+    long long q_sb, long long q_sh,
+    long long page_stride, long long row_stride, long long head_stride, long long bt_sb,
+    long long o_sb, long long o_sh, long long kn_sb, long long kn_sh, long long vn_sb,
+    long long vn_sh, float softcap, void* stream) {
+  Append app;
+  app.k_pool = static_cast<uint16_t*>(k_pool);
+  app.v_pool = static_cast<uint16_t*>(v_pool);
+  app.k_new = static_cast<const uint16_t*>(k_new);
+  app.v_new = static_cast<const uint16_t*>(v_new);
+  app.page_idx = page_idx;
+  app.row = row;
+  app.lengths = lengths;
+  app.kn_sb = kn_sb; app.kn_sh = kn_sh;
+  app.vn_sb = vn_sb; app.vn_sh = vn_sh;
+  return run_decode<true>(q, k_pool, v_pool, block_table, lengths, out, part_m, part_l, part_acc,
+                          app, B, H, Hkv, D, page, n_tables, q_sb, q_sh, page_stride, row_stride,
+                          head_stride, bt_sb, o_sb, o_sh, softcap, stream);
 }
 
 // bf16 operands; q's and out's strides in elements, the head dim

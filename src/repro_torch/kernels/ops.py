@@ -136,6 +136,35 @@ def paged_decode_attention(
     return _pa.paged_decode(q, k_pool, v_pool, _i32(block_table), _i32(length), softcap=softcap)
 
 
+def paged_decode_append(
+    q: torch.Tensor,            # (B, 1, H, D)
+    k_pool: torch.Tensor,       # (num_pages, page, Hkv, D)
+    v_pool: torch.Tensor,
+    k_new: torch.Tensor,        # (B, 1, Hkv, D) decode-token K per slot
+    v_new: torch.Tensor,
+    block_table: torch.Tensor,  # (B, pages_per_seq) int32
+    length: torch.Tensor,       # (B,) valid cache length per sequence, >= 1
+    page_idx: torch.Tensor,     # (B,) physical page holding position length - 1
+    row: torch.Tensor,          # (B,) row within the page
+    *,
+    softcap: float = 0.0,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """The paged decode step's K/V insert and attention -> (B, 1, H, D):
+    slot b's new K/V row goes in place to ``(page_idx[b], row[b])``, which
+    must be where the table maps position ``length[b] - 1``
+    (``models.attention.paged_decode_addressing``), then each query attends
+    over its first ``length[b]`` positions.  On a CUDA tensor one launch of
+    the paged decode kernel does both; the plain version is
+    ``paged_kv_update`` then ``paged_decode_attention``."""
+    k_new, v_new = k_new.to(k_pool.dtype), v_new.to(v_pool.dtype)
+    if _plain(impl):
+        return _ref.paged_decode_append_ref(q, k_pool, v_pool, block_table, length, k_new, v_new,
+                                            _i32(page_idx), _i32(row), softcap=softcap)
+    return _pa.paged_decode(q, k_pool, v_pool, _i32(block_table), _i32(length), softcap=softcap,
+                            k_new=k_new, v_new=v_new, page_idx=_i32(page_idx), row=_i32(row))
+
+
 def paged_prefill_attention(
     q: torch.Tensor,            # (B, S, H, D) chunk queries
     k_pool: torch.Tensor,       # (num_pages, page, Hkv, D)
@@ -189,7 +218,9 @@ def paged_kv_update(
     impl: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Insert one decode token per slot at (page_idx, row), in place;
-    returns the pools.  One kernel launch writes K and V."""
+    returns the pools.  One kernel launch writes K and V.  The model's
+    decode step inserts through ``paged_decode_append`` instead, inside
+    the decode kernel."""
     k_new, v_new = k_new.to(k_pool.dtype), v_new.to(v_pool.dtype)
     fn = _ref.paged_kv_write_ref if _plain(impl) else _pa.paged_kv_write
     fn(k_pool, v_pool, k_new, v_new, _i32(page_idx), _i32(row))

@@ -19,6 +19,14 @@ the kernel or raises.  Each wrapper counts its launches
 ``paged_kv_write.launches``; a call counts one, however many passes it
 runs).
 
+The decode step inserts its K/V rows inside the decode kernel:
+``paged_decode`` with ``k_new, v_new, page_idx, row`` writes each slot's new
+row into the pools as ``paged_kv_write`` does and attends over it in the
+same launch (counted in ``paged_decode.appends`` beside its launches; the
+plain version is ``ref.paged_decode_append_ref``).  For each (slot, kv
+head) the block of the split that holds position ``lengths[b] - 1`` does
+the insert (``append_sites`` mirrors the choice).
+
 The prefill kernel is the dense attention forward's design (its consumer
 body is shared, ``csrc/attention_fwd.cuh``) with a producer that gathers
 each key tile through the block table.  Its addressing is mirrored here so
@@ -30,13 +38,14 @@ where the page is not a multiple of 8 and rows are gathered one by one),
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import TILE
 from repro_torch.kernels.ref import (
+    paged_decode_append_ref,
     paged_decode_attention_ref,
     paged_kv_write_ref,
     paged_prefill_attention_ref,
@@ -175,6 +184,8 @@ def _lib():
         lib.paged_decode_splits.restype = i
         lib.paged_flash_decode.argtypes = [p] * 9 + [i] * 6 + [i64] * 8 + [f, p]
         lib.paged_flash_decode.restype = i
+        lib.paged_decode_append.argtypes = [p] * 13 + [i] * 6 + [i64] * 12 + [f, p]
+        lib.paged_decode_append.restype = i
         lib.paged_flash_prefill.argtypes = [p] * 7 + [i] * 8 + [i64] * 7 + [f, p]
         lib.paged_flash_prefill.restype = i
         lib.paged_kv_write.argtypes = [p] * 6 + [i] * 3 + [i64] * 7 + [p]
@@ -187,19 +198,42 @@ def _stream(t: torch.Tensor) -> int:
 
 
 _CHUNK = 256          # csrc/decode_split.cuh: keys a split
-_decode_fn = None
+_SUB = 16             # csrc/decode_split.cuh: keys a ring stage
+_decode_fns = None
 _workspace = {}       # (device index, elements) -> the decode's fp32 partials
 
 
-def _decode_fn_c():
-    """The decode kernel's C entry point, its argument types set once."""
-    global _decode_fn
-    if _decode_fn is None:
+def append_sites(length: int, capacity: int) -> List[Tuple[int, int]]:
+    """(split, first key of the stage) of each stage where the decode
+    kernel with its fused insert stores a slot's new K/V row, for one (slot,
+    kv head) of a table of ``capacity`` rows: the grid's splits as
+    ``csrc/paged_attention.cu`` walks them (a split at or past the length
+    returns before any load, ``csrc/decode_split.cuh``), each split's
+    16-key stages, and the store where the stage holds the split's last row
+    and the split ends at the length (``Paged::stage``).  The site's row is
+    position ``length - 1``."""
+    length = min(max(length, 0), capacity)
+    sites = []
+    for split in range(-(-capacity // _CHUNK)):
+        k0 = split * _CHUNK
+        if k0 >= length:
+            continue
+        n = min(_CHUNK, length - k0)
+        sites += [(split, key0) for key0 in range(0, n, _SUB)
+                  if key0 + _SUB >= n and k0 + n == length]
+    return sites
+
+
+def _decode_fns_c():
+    """The decode kernel's C entry points (plain, with the fused insert),
+    their argument types set once."""
+    global _decode_fns
+    if _decode_fns is None:
         lib = _lib()
         if lib.paged_decode_splits(2 * _CHUNK + 1) != 3:
             raise RuntimeError(f"the paged decode kernel's splits are not {_CHUNK} keys")
-        _decode_fn = lib.paged_flash_decode
-    return _decode_fn
+        _decode_fns = (lib.paged_flash_decode, lib.paged_decode_append)
+    return _decode_fns
 
 
 def _partials(dev: int, n: int) -> torch.Tensor:
@@ -213,21 +247,60 @@ def _partials(dev: int, n: int) -> torch.Tensor:
     return w
 
 
+def _lean_append_ok(q, k_pool, k_new, v_new, page_idx, row, dev) -> bool:
+    """The append arguments' common case, by attribute reads alone."""
+    want = (q.shape[0], 1, k_pool.shape[2], k_pool.shape[3])
+    bf = torch.bfloat16
+    return (k_new.shape == want and v_new.shape == want
+            and k_new.dtype == bf and v_new.dtype == bf
+            and page_idx.shape == (want[0],) and row.shape == (want[0],)
+            and page_idx.dtype == torch.int32 and row.dtype == torch.int32
+            and page_idx.is_contiguous() and row.is_contiguous()
+            and k_new.stride(3) == 1 and v_new.stride(3) == 1
+            and not (k_new.stride(0) | k_new.stride(1) | k_new.stride(2)) % 8
+            and not (v_new.stride(0) | v_new.stride(1) | v_new.stride(2)) % 8
+            and not (k_new.data_ptr() | v_new.data_ptr()) % 16
+            and k_new.get_device() == dev and v_new.get_device() == dev
+            and page_idx.get_device() == dev and row.get_device() == dev)
+
+
 def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  block_table: torch.Tensor, lengths: torch.Tensor, *,
-                 softcap: float = 0.0) -> torch.Tensor:
+                 softcap: float = 0.0, k_new: Optional[torch.Tensor] = None,
+                 v_new: Optional[torch.Tensor] = None, page_idx: Optional[torch.Tensor] = None,
+                 row: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, 1, H, D) in q.dtype: each row's query over the first
     ``lengths[b]`` positions its block-table row maps; a row of length 0
-    gives zeros.  On the card the common case costs attribute reads, one
-    allocation and the launch: the full checks run only to name what the
-    kernel does not take, and the fp32 partials are kept per (device,
-    size)."""
+    gives zeros.
+
+    With ``k_new, v_new`` (B, 1, Hkv, D) and ``page_idx, row`` (B,) int32
+    (all four or none), the same launch first inserts each slot's new K
+    and V row in place, ``pool[page_idx[b], row[b]] = new[b, 0]``, as
+    ``paged_kv_write`` does: the decode step's insert, fused.  It requires
+    ``lengths[b] >= 1`` and that ``(page_idx[b], row[b])`` is the pool row
+    that the table maps position ``lengths[b] - 1`` to (clamped to the
+    table's capacity), as ``models.attention.paged_decode_addressing``
+    gives them; the kernel then reads each live row's new K/V from
+    ``k_new``/``v_new`` and no block reads a live row that another
+    writes.  Rows of the null page 0 may be read torn between the slots
+    that write there (idle and masked ones, whose outputs nobody reads).
+
+    On the card the common case costs attribute reads, one allocation and
+    the launch: the full checks run only to name what the kernel does not
+    take, and the fp32 partials are kept per (device, size)."""
+    append = k_new is not None
+    if append != (v_new is not None) or append != (page_idx is not None) \
+            or append != (row is not None):
+        raise ValueError("paged_decode: pass all of k_new, v_new, page_idx and row, or none")
     if not q.is_cuda:
         if q.device.type == "cpu":
+            if append:
+                return paged_decode_append_ref(q, k_pool, v_pool, block_table, lengths, k_new,
+                                               v_new, page_idx, row, softcap=softcap)
             return paged_decode_attention_ref(q, k_pool, v_pool, block_table, lengths,
                                               softcap=softcap)
         raise ValueError(f"paged_decode: q must lie on the CPU or a CUDA device; got {q.device}")
-    fn = _decode_fn or _decode_fn_c()
+    plain_fn, append_fn = _decode_fns or _decode_fns_c()
     dev = q.get_device()
     qs, ks, bs = q.shape, k_pool.shape, block_table.shape
     bf = torch.bfloat16
@@ -242,23 +315,41 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
             or (q.data_ptr() | k_pool.data_ptr() | v_pool.data_ptr()) % 16
             or qs[0] > _MAX_GRID_YZ or ks[2] > _MAX_GRID_YZ
             or k_pool.get_device() != dev or v_pool.get_device() != dev
-            or block_table.get_device() != dev or lengths.get_device() != dev):
-        _build.check_device("paged_decode", q, k_pool, v_pool, block_table, lengths)
+            or block_table.get_device() != dev or lengths.get_device() != dev
+            or (append and not _lean_append_ok(q, k_pool, k_new, v_new, page_idx, row, dev))):
+        new = (k_new, v_new, page_idx, row) if append else ()
+        _build.check_device("paged_decode", q, k_pool, v_pool, block_table, lengths, *new)
         check_decode_args(q, k_pool, v_pool, block_table, lengths)
+        if append:
+            check_write_args(k_pool, v_pool, k_new, v_new, page_idx, row)
+            if k_new.shape[0] != qs[0]:
+                raise ValueError(f"paged_decode: k_new has {k_new.shape[0]} rows, q {qs[0]}")
     B, _, H, D = qs
     _, page, Hkv, _ = ks
     n_tables = bs[1]
     out = q.new_empty((B, 1, H, D))
     n = B * H * ((n_tables * page + _CHUNK - 1) // _CHUNK)
     base = _partials(dev, n * (D + 2)).data_ptr()     # m (n), l (n), acc (n, D)
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), base, base + 4 * n, base + 8 * n,
-             B, H, Hkv, D, page, n_tables, q.stride(0), q.stride(2),
-             page * Hkv * D, Hkv * D, D, n_tables, out.stride(0), out.stride(2),
-             softcap, torch._C._cuda_getCurrentRawStream(dev))
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if append:
+        err = append_fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                        block_table.data_ptr(), lengths.data_ptr(), k_new.data_ptr(),
+                        v_new.data_ptr(), page_idx.data_ptr(), row.data_ptr(), out.data_ptr(),
+                        base, base + 4 * n, base + 8 * n, B, H, Hkv, D, page, n_tables,
+                        q.stride(0), q.stride(2), page * Hkv * D, Hkv * D, D, n_tables,
+                        out.stride(0), out.stride(2), k_new.stride(0), k_new.stride(2),
+                        v_new.stride(0), v_new.stride(2), softcap, stream)
+    else:
+        err = plain_fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
+                       lengths.data_ptr(), out.data_ptr(), base, base + 4 * n, base + 8 * n,
+                       B, H, Hkv, D, page, n_tables, q.stride(0), q.stride(2),
+                       page * Hkv * D, Hkv * D, D, n_tables, out.stride(0), out.stride(2),
+                       softcap, stream)
     if err:
         raise RuntimeError(f"paged_decode kernel launch failed: cudaError {err}")
     paged_decode.launches += 1
+    if append:
+        paged_decode.appends += 1
     return out
 
 
@@ -311,5 +402,6 @@ def paged_kv_write(k_pool: torch.Tensor, v_pool: torch.Tensor, k_new: torch.Tens
 
 
 paged_decode.launches = 0
+paged_decode.appends = 0
 paged_prefill.launches = 0
 paged_kv_write.launches = 0

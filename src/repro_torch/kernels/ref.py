@@ -333,6 +333,17 @@ def paged_kv_write_ref(k_pool: torch.Tensor, v_pool: torch.Tensor, k_new: torch.
     v_pool.index_put_(idx, v_new[:, 0].to(v_pool.dtype))
 
 
+def paged_decode_append_ref(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                            block_table: torch.Tensor, lengths: torch.Tensor,
+                            k_new: torch.Tensor, v_new: torch.Tensor, page_idx: torch.Tensor,
+                            row: torch.Tensor, *, softcap: float = 0.0) -> torch.Tensor:
+    """The paged decode step's insert and attention: ``paged_kv_write_ref``
+    (in place) then ``paged_decode_attention_ref``, the reference's
+    ``ops.paged_kv_update`` then ``ops.paged_decode_attention``."""
+    paged_kv_write_ref(k_pool, v_pool, k_new, v_new, page_idx, row)
+    return paged_decode_attention_ref(q, k_pool, v_pool, block_table, lengths, softcap=softcap)
+
+
 # --------------------------------------------------------------------- #
 # sampling: the counter-hash Gumbel noise and the bisection row math
 # --------------------------------------------------------------------- #

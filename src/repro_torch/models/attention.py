@@ -140,11 +140,11 @@ def attention_apply(
                                             paged["starts"], paged["lengths"],
                                             softcap=cfg.attn_logit_softcap, impl=cfg.kernel_impl)
         else:
-            ops.paged_kv_update(k_pool, v_pool, k, v, paged["page_idx"], paged["row"],
-                                impl=cfg.kernel_impl)
-            o = ops.paged_decode_attention(q, k_pool, v_pool, paged["block_table"],
-                                           paged["lengths"], softcap=cfg.attn_logit_softcap,
-                                           impl=cfg.kernel_impl)
+            # the insert runs inside the decode kernel: (page_idx, row)
+            # address position lengths - 1 (paged_decode_addressing)
+            o = ops.paged_decode_append(q, k_pool, v_pool, k, v, paged["block_table"],
+                                        paged["lengths"], paged["page_idx"], paged["row"],
+                                        softcap=cfg.attn_logit_softcap, impl=cfg.kernel_impl)
         return _out_proj(cfg, params, o), cache
 
     if mode == "decode":

@@ -1,9 +1,10 @@
 """The paged-KV kernel ops on the CPU — decode and chunk-prefill attention
-through a block table and the per-token K/V insert, their plain PyTorch
-versions — against the reference's TPU kernels run in Pallas interpret mode
-and against its XLA paths, on the same seeded numpy inputs; plus the chunk
-row scatter, the kernel wrappers' argument checks, and no kernel launch on
-the CPU."""
+through a block table, the per-token K/V insert and the decode step's
+insert fused into the decode, their plain PyTorch versions — against the
+reference's TPU kernels run in Pallas interpret mode and against its XLA
+paths, on the same seeded numpy inputs; plus the chunk row scatter, the
+fused insert's writer choice, the kernel wrappers' argument checks, and no
+kernel launch on the CPU."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -16,6 +17,7 @@ from repro.kernels import paged_attention as jax_pa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels.flash_attention import FWD_KEYS, TILE  # noqa: E402
+from repro_torch.models.attention import paged_decode_addressing  # noqa: E402
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -248,6 +250,93 @@ def test_paged_kv_write_matches_pallas_with_idle_slots_on_the_null_page(page, dt
     assert pa.paged_kv_write.launches == 0
 
 
+# the decode step's insert fused into the decode: (B, H, Hkv, D, page,
+# n_tables, slots, softcap); a slot is ("live", pos) on pages of its own,
+# ("idle", 0) with its table row on the null page, or ("masked", pos), a
+# mid-prefill slot whose table row is masked to the null page
+APPEND_CASES = {
+    "page8_D64_group1": (5, 2, 2, 64, 8, 6, [("live", 40), ("idle", 0), ("live", 0),
+                                            ("masked", 13), ("live", 7)], 0.0),
+    "page12_D128_group7": (4, 7, 1, 128, 12, 4, [("live", 35), ("live", 12), ("idle", 0),
+                                                ("live", 47)], 0.0),
+    "page16_D128_group7_softcap": (4, 14, 2, 128, 16, 4, [("live", 16), ("masked", 30),
+                                                         ("live", 63), ("idle", 0)], 20.0),
+    "page16_D64_length1": (3, 4, 2, 64, 16, 3, [("live", 0), ("live", 0), ("live", 33)], 0.0),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(APPEND_CASES))
+def test_paged_decode_append_matches_pallas_update_then_decode(case, dtype, monkeypatch):
+    """The fused op's plain version against the reference's decode-step
+    pair, ``ops.paged_kv_update`` then ``ops.paged_decode_attention``, in
+    Pallas interpret mode and on its XLA path, with the addresses of
+    ``paged_decode_addressing``: the live rows' output at the file's
+    tolerances and the pools outside the null page equal; idle and masked
+    slots (on the null page, where their writes collide) finite."""
+    B, H, Hkv, D, page, n, slots, softcap = APPEND_CASES[case]
+    rng = np.random.default_rng(7)
+    pos = np.array([p for _, p in slots], np.int32)
+    live = np.array([kind == "live" for kind, _ in slots])
+    kp, vp, table = _pool_and_table(rng, B, 2 + B * n, page, Hkv, D,
+                                    np.where(live, pos + 1, 0), n)
+    q, jq = _pair(rng.standard_normal((B, 1, H, D)).astype(np.float32), dtype)
+    kn, jkn = _pair(rng.standard_normal((B, 1, Hkv, D)).astype(np.float32), dtype)
+    vn, jvn = _pair(rng.standard_normal((B, 1, Hkv, D)).astype(np.float32), dtype)
+    k, jk = _pair(kp, dtype)
+    v, jv = _pair(vp, dtype)
+    bt = torch.from_numpy(table)
+    addr = paged_decode_addressing(bt, torch.from_numpy(pos), page)
+    a = {name: t.numpy() for name, t in addr.items()}
+    assert (a["lengths"] == pos + 1).all() and (a["page_idx"][~live] == 0).all()
+    jargs = [jnp.asarray(a[name]) for name in ("page_idx", "row")]
+
+    def reference(impl):
+        wk, wv = jax_ops.paged_kv_update(jk, jv, jkn, jvn, *jargs, impl=impl)
+        out = jax_ops.paged_decode_attention(jq, wk, wv, jnp.asarray(table),
+                                             jnp.asarray(a["lengths"]), softcap=softcap,
+                                             impl=impl)
+        return out, wk, wv
+
+    want_x, _, _ = reference("xla")
+    monkeypatch.setenv("REPRO_FORCE_IMPL", "pallas_interpret")
+    want_p, wk, wv = reference("auto")
+    outs = []
+    for impl in ("auto", "torch"):
+        gk, gv = k.clone(), v.clone()
+        got = ops.paged_decode_append(q, gk, gv, kn, vn, bt, addr["lengths"], addr["page_idx"],
+                                      addr["row"], softcap=softcap, impl=impl)
+        assert got.dtype == q.dtype and got.shape == (B, 1, H, D)
+        idx = torch.from_numpy(live)
+        _check_attention(got[idx], _np(want_p)[live], _np(want_x)[live], dtype, case)
+        assert bool(got.isfinite().all())
+        np.testing.assert_array_equal(gk[1:].float().numpy(), _np(wk)[1:])
+        np.testing.assert_array_equal(gv[1:].float().numpy(), _np(wv)[1:])
+        outs.append((got, gk, gv))
+    assert all(torch.equal(x, y) for x, y in zip(*outs))
+    assert pa.paged_decode.launches == pa.paged_decode.appends == 0
+
+
+@pytest.mark.parametrize("capacity", [16, 256, 272, 1000, 2048])
+def test_append_has_one_writer_per_slot_and_kv_head(capacity):
+    """The fused insert's writer, mirrored from the kernel: for every
+    length, exactly one stage of one block of a (slot, kv head) stores the
+    new row, in split (length - 1) // 256, a split the kernel runs (below
+    its split count, before the length: the early return skips only splits
+    past the length), in the stage that holds position length - 1; a
+    length past the capacity writes at capacity - 1, and length 0 nowhere."""
+    splits = -(-capacity // 256)
+    assert pa.append_sites(0, capacity) == []
+    for length in list(range(1, capacity + 1)) + [capacity + 5]:
+        at = min(length, capacity) - 1
+        sites = pa.append_sites(length, capacity)
+        assert len(sites) == 1, (length, sites)
+        split, key0 = sites[0]
+        k0 = split * 256
+        assert split == at // 256 < splits and k0 <= at
+        assert k0 + key0 <= at < k0 + key0 + 16 and key0 % 16 == 0
+
+
 @pytest.mark.parametrize("page", [8, 16])
 def test_paged_kv_update_rows_matches_reference_scatter(page):
     rng = np.random.default_rng(6)
@@ -317,6 +406,10 @@ def test_paged_wrapper_argument_checks():
         pa.paged_prefill(qs.to("meta"), pool, pool, bt, ln, ln)
     with pytest.raises(ValueError, match="CUDA"):
         pa.paged_kv_write(pool.to("meta"), pool, kn, kn, ln, ln)
+    with pytest.raises(ValueError, match="CUDA"):
+        pa.paged_decode(meta, pool, pool, bt, ln, k_new=kn, v_new=kn, page_idx=ln, row=ln)
+    with pytest.raises(ValueError, match="all of"):
+        pa.paged_decode(q, pool, pool, bt, ln, k_new=kn, v_new=kn)
 
 
 def test_cpu_dispatch_launches_no_paged_kernel():
@@ -327,4 +420,7 @@ def test_cpu_dispatch_launches_no_paged_kernel():
     ops.paged_prefill_attention(torch.zeros(1, 4, 2, 64), pool, pool, bt,
                                 torch.tensor([0], dtype=torch.int32), one)
     ops.paged_kv_update(pool, pool, torch.zeros(1, 1, 1, 64), torch.zeros(1, 1, 1, 64), one, one)
+    ops.paged_decode_append(torch.zeros(1, 1, 2, 64), pool, pool, torch.zeros(1, 1, 1, 64),
+                            torch.zeros(1, 1, 1, 64), bt, one, one, one)
     assert pa.paged_decode.launches == pa.paged_prefill.launches == pa.paged_kv_write.launches == 0
+    assert pa.paged_decode.appends == 0
