@@ -19,8 +19,13 @@ at the full width and depth of Mamba2-2.7B on the same load (ids within
 its vocab), then the hybrid unit of Jamba-1.5-Large at ``reduced()`` size;
 and MoE training through ``Trainer.run`` with Llama-4-Scout at full width,
 1 of 48 layers (fp32 master weights, bf16 AdamW moments, 6 steps of 2 x
-1024 packed protein tokens); all with seeded random weights, checking what
-comes out of each.  Prints per-kernel times beside their bounds, the
+1024 packed protein tokens); LoRA fine-tuning of the ESM-2 650M just
+trained (rank 8 on wq/wv, 10 steps); ESM-2 650M training through the data
+plane (a sharded store, size-aware batches behind a background producer,
+10 ``Trainer.run`` steps beside the ``ClusterSampler`` run), a bit-exact
+resume through it (2 of 33 layers) and the training launcher
+``launch.train.main`` with a profiler trace; all with seeded random
+weights, checking what comes out of each.  Prints per-kernel times beside their bounds, the
 embedding throughput, the training step time, tokens/s, MFU and peak
 memory, the generation tokens/s, TTFT, decode-step time and idle share, the
 router's drops, a profile of each path, then one JSON line of kernel
@@ -33,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -574,9 +580,40 @@ def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, ran
     ]
 
 
+def step_launches(num_layers: int):
+    """The launches of one ESM-2 micro-batch's forward and backward: one
+    attention forward and backward a layer, two LayerNorms a layer and the
+    final one, one cross-entropy forward and backward."""
+    return {"flash_attention_fwd": num_layers, "flash_attention_bwd": num_layers,
+            "layernorm": 2 * num_layers + 1, "cross_entropy_fwd": 1, "cross_entropy_bwd": 1}
+
+
+def step_cost(torch, fn):
+    """(wall ms, device busy ms or None, peak GB) of one call of ``fn``
+    after a warm-up call: the wall with a sync, the peak memory allocated
+    in that call, the busy time from one more call under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_ms = kernel_groups(prof, DeviceType)[0]
+    return wall_ms, busy_ms or None, peak_gb
+
+
 def train_phase(torch, model, counters, card):
     """The slice: ESM-2 650M MLM pre-training through ``Trainer.run`` at full
-    width and depth; returns the launch counts of its run."""
+    width and depth; returns the launch counts of its run and the cost of
+    one optimizer step at accum 1 (8 x 1024), ``step_cost``'s triple."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -624,10 +661,7 @@ def train_phase(torch, model, counters, card):
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_micro, L = steps * accum, cfg.num_layers
-    want = {"flash_attention_fwd": L * n_micro, "flash_attention_bwd": L * n_micro,
-            "layernorm": (2 * L + 1) * n_micro, "cross_entropy_fwd": n_micro,
-            "cross_entropy_bwd": n_micro}
+    want = {k: v * steps * accum for k, v in step_launches(cfg.num_layers).items()}
     print(f"main path: Trainer.run of {steps} steps x {accum} micro-batches: launches {launches} "
           f"(want {want})")
     # log_every = steps: the trainer flushes after step 0 and after the last
@@ -704,6 +738,14 @@ def train_phase(torch, model, counters, card):
           f"state leaves differ {differ[:8]}")
     expect(not differ, "a repeated train step is not bit-identical")
     del first, again, a_leaves, b_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one optimizer step at accum 1 on the trainer's own state: the figure
+    # the LoRA step is held beside
+    full = step_cost(torch, lambda: one(state, mb))
+    print(f"one pre-training step at accum 1 (8x1024, clip + AdamW over every weight) on {card}: "
+          f"wall {full[0]:.1f} ms, device busy {fmt_ms(full[1])} ms, peak memory {full[2]:.2f} GB")
 
     # the kernel path against the plain path: loss and every grad leaf at
     # full width and depth on a 2 x 512 batch
@@ -730,7 +772,449 @@ def train_phase(torch, model, counters, card):
     expect(min(cos) >= 0.999, "kernel path gradients disagree with the plain path")
     tmp.cleanup()
     check(not failed, "training phase: " + "; ".join(failed))
+    return launches, full
+
+
+def tree_digest(torch, tree, chunk: int = 1 << 24) -> str:
+    """A digest of every leaf's bytes, taken on the device a chunk at a
+    time: per leaf the sum of its bytes and the sum of its bytes weighted by
+    their position (mod 65521), hashed on the host."""
+    import hashlib
+
+    from repro_torch.core.module import tree_leaves
+
+    sums = []
+    for t in tree_leaves(tree):
+        b = t.detach().contiguous().view(torch.uint8).reshape(-1)
+        acc = torch.zeros(2, dtype=torch.int64, device=b.device)
+        for i in range(0, b.numel(), chunk):
+            x = b[i:i + chunk].long()
+            pos = torch.arange(i, i + x.numel(), device=b.device) % 65521 + 1
+            acc += torch.stack([x.sum(), (x * pos).sum()])
+        sums.append(acc)
+    return hashlib.sha256(torch.stack(sums).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def lora_phase(torch, model, counters, card, full):
+    """LoRA fine-tuning of the ESM-2 650M the train phase trained, at full
+    width and depth: rank-8 adapters (alpha 16) on every layer's wq and wv
+    over the frozen fp32 master params, 10 steps of the reference example's
+    step (the gradient over the adapter tree, then AdamW at lr 2e-3 without
+    decay) on 8 x 1024 MLM batches of a shifted corpus (seed 123).  Gates:
+    the zero-init identity bit for bit, a falling loss, the base
+    bit-unchanged, alpha trained, the launch counts, a bit-identical
+    repeated step and the adapter gradients against the plain route.
+    ``full`` is the train phase's accum-1 step cost, printed beside the
+    LoRA step's.  Returns the launch counts of the 10 steps."""
+    import numpy as np
+
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.core.module import tree_leaves, tree_map
+    from repro_torch.data.dataset import build_synthetic_protein_memmap
+    from repro_torch.data.pipeline import MLMBatches
+    from repro_torch.data.sampler import ClusterSampler, greedy_length_clusters
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.training import lora
+
+    cfg, dev = model.cfg, model.device
+    steps, micro, seq, rank = 10, 8, 1024, 8
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    base = model.params.tree()
+    digest = tree_digest(torch, base)
+    adapters = lora.init_adapters(base, rank=rank, alpha=16.0,
+                                  generator=torch.Generator(dev).manual_seed(0))
+    n_lora = lora.count_trainable(adapters)
+    n_base = sum(p.numel() for p in tree_leaves(base))
+    tmp = tempfile.TemporaryDirectory()
+    ds, tok = build_synthetic_protein_memmap(f"{tmp.name}/shifted", n=1024, seed=123, min_len=100,
+                                             max_len=1023)
+    pipe = iter(MLMBatches(ds, tok, ClusterSampler(greedy_length_clusters(ds.lengths(), 64), seed=1),
+                           micro, seq, mask_prob=cfg.mlm_mask_prob, seed=1))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()} for _ in range(steps)]
+    loss_fn = lora.make_lora_loss(model, base)
+    tc = TrainConfig(learning_rate=2e-3, weight_decay=0.0)
+    lr = torch.tensor(2e-3, device=dev)
+
+    def step(ad, opt, batch):
+        leaves = tree_leaves(ad)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = loss_fn(ad, batch)
+        grads = list(torch.autograd.grad(loss, leaves))
+        return adamw.apply_updates(ad, grads, opt, lr, tc), loss.detach()
+
+    def clone(ad, opt):
+        c = lambda t: t.detach().clone()  # noqa: E731
+        return tree_map(c, ad), adamw.AdamWState(step=opt.step.clone(), mu=tree_map(c, opt.mu),
+                                                 nu=tree_map(c, opt.nu))
+
+    with torch.no_grad():
+        base_loss = model.loss_fn(base, batches[0])[0].item()
+    print(f"LoRA data: {len(ds)} synthetic sequences of 100-1022 residues from motif library "
+          f"seed 123; rank {rank}, alpha 16 on {len(adapters['weights'])} stacked weights "
+          f"({', '.join(sorted(adapters['weights']))}): {n_lora:,} trainable values of "
+          f"{n_base:,} ({n_lora / n_base:.4%}); AdamW lr 2e-3, no decay, {steps} steps of "
+          f"{micro}x{seq}")
+
+    opt = adamw.init_state(adapters)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for b in batches:
+        opt, loss = step(adapters, opt, b)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {k: v * steps for k, v in step_launches(cfg.num_layers).items()}
+    losses = torch.stack(losses).tolist()
+    print(f"main path: {steps} LoRA steps: launches {launches} (want {want}); "
+          f"{wall_s / steps * 1e3:.1f} ms a step (wall, host included)")
+    print("LoRA losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    expect(launches == want, "LoRA launch counts")
+    expect(all(np.isfinite(losses)), "non-finite LoRA loss")
+    expect(losses[0] == base_loss, f"step-0 LoRA loss {losses[0]!r} is not the base's "
+                                   f"{base_loss!r} bit for bit")
+    with torch.no_grad():
+        adapted = loss_fn(adapters, batches[0])[0].item()
+    print(f"zero-init identity: step-0 loss {losses[0]!r} vs loss_fn(base) {base_loss!r}; the "
+          f"first batch's loss: base {base_loss:.4f} -> adapted {adapted:.4f}")
+    expect(adapted < base_loss, "the LoRA loss did not fall")
+    alpha = adapters["alpha"].item()
+    after = tree_digest(torch, base)
+    print(f"alpha 16.0 -> {alpha!r} (trained, as in the reference); base digest {digest} -> {after}")
+    expect(alpha != 16.0, "alpha did not move")
+    expect(after == digest, "the base params changed")
+
+    # one step repeated from the same adapters, moments and batch
+    a1, o1 = clone(adapters, opt)
+    a2, o2 = clone(adapters, opt)
+    o1, _ = step(a1, o1, batches[0])
+    o2, _ = step(a2, o2, batches[0])
+    torch.cuda.synchronize()
+    x = tree_leaves(a1) + tree_leaves(o1.mu) + tree_leaves(o1.nu)
+    y = tree_leaves(a2) + tree_leaves(o2.mu) + tree_leaves(o2.nu)
+    differ = sum(not torch.equal(p, q) for p, q in zip(x, y))
+    print(f"one LoRA step repeated: {differ} of {len(x)} adapter and moment leaves differ")
+    expect(differ == 0, "a repeated LoRA step is not bit-identical")
+    del a1, a2, o1, o2, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    spare = clone(adapters, opt)
+    cost = step_cost(torch, lambda: step(*spare, batches[1]))
+    del spare
+    print(f"LoRA step vs full pre-training step on {card} (8x1024, accum 1, same run): wall "
+          f"{cost[0]:.1f} vs {full[0]:.1f} ms, device busy {fmt_ms(cost[1])} vs {fmt_ms(full[1])} ms, "
+          f"peak memory {cost[2]:.2f} vs {full[2]:.2f} GB; trainable share {n_lora / n_base:.4%}")
+
+    # the kernel route against the plain route: loss and every adapter
+    # gradient on a 2 x 512 batch, at the trained adapters
+    small = {k: v[:2, :512].contiguous() for k, v in batches[0].items()}
+    plain = Model(dataclasses.replace(cfg, kernel_impl="torch"), base)
+
+    def loss_grads(m):
+        leaves = tree_leaves(adapters)
+        loss, _ = lora.make_lora_loss(m, base)(adapters, small)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    k_loss, k_grads = loss_grads(model)
+    p_loss, p_grads = loss_grads(plain)
+    cos = [cosine(torch, a, b) for a, b in zip(k_grads, p_grads)]
+    names = leaf_paths(adapters)
+    worst = min(range(len(cos)), key=lambda i: cos[i])
+    print(f"LoRA kernel route vs plain route (2x512): loss {k_loss:.6f} vs {p_loss:.6f} (|diff| "
+          f"{abs(k_loss - p_loss):.3g}, tol 2e-2); adapter grad cosine min {cos[worst]:.6f} "
+          f"({names[worst]}, of {len(cos)} leaves with alpha's; floor 0.999), alpha's grad "
+          f"{k_grads[0].item():.6g} vs {p_grads[0].item():.6g}")
+    expect(abs(k_loss - p_loss) <= 2e-2, "LoRA kernel route loss disagrees with the plain route")
+    expect(min(cos) >= 0.999, "LoRA kernel route gradients disagree with the plain route")
+    del plain, k_grads, p_grads, batches, adapters, opt
+    tmp.cleanup()
+    check(not failed, "LoRA phase: " + "; ".join(failed))
     return launches
+
+
+def check_bucket_kernels(torch, ref, kernels, shapes, randn, cfg):
+    """The training kernels against their plain versions at each (B, L)
+    that the data-plane, resume and launcher phases trained on, with the
+    tolerances of the kernels' own checks: the attention forward and backward at (B, L, heads, head dim),
+    the cross-entropy forward and backward and the LayerNorm at B·L rows."""
+    fwd, bwd = kernels["flash_attention_fwd"], kernels["flash_attention_bwd"]
+    ce_fwd, ce_bwd, ln = kernels["cross_entropy_fwd"], kernels["cross_entropy_bwd"], kernels["layernorm"]
+    H, D, d = cfg.num_heads, cfg.d_model // cfg.num_heads, cfg.d_model
+    for B, L in sorted(shapes):
+        q, k, v, do = (randn(B, L, H, D) for _ in range(4))
+        out, lse = fwd(q, k, v, causal=False)
+        grads = bwd(q, k, v, out, lse, do, causal=False)
+        r_out, r_lse = ref.attention_ref(q, k, v, causal=False)
+        e_out = (out.float() - r_out.float()).abs().max().item()
+        e_lse = (lse - r_lse).abs().max().item()
+        e_bwd = max(rel_err(g, w) for g, w in zip(grads, ref.attention_bwd_ref(q, k, v, out, lse, do,
+                                                                               causal=False)))
+        del q, k, v, do, out, lse, grads, r_out, r_lse
+        T = B * L
+        h = randn(T, d)
+        w = randn(cfg.padded_vocab, d, scale=0.05).T
+        gen = torch.Generator(h.device).manual_seed(B * 10007 + L)
+        tgt = torch.randint(0, cfg.vocab_size, (T,), device=h.device, generator=gen,
+                            dtype=torch.int32)
+        gl = torch.full((T,), 1.0 / T, device=h.device)
+        gs = torch.zeros(T, device=h.device)
+        loss, lse = ce_fwd(h, w, tgt, vocab=cfg.vocab_size)
+        dh, dw = ce_bwd(h, w, tgt, lse, gl, gs, vocab=cfg.vocab_size)
+        r_loss, r_lse = ref.cross_entropy_ref(h, w, tgt, cfg.vocab_size)
+        r_dh, r_dw = ref.cross_entropy_bwd_ref(h, w, tgt, r_lse, gl, gs, cfg.vocab_size)
+        e_ce = max((loss - r_loss).abs().max().item(), (lse - r_lse).abs().max().item())
+        e_ce_bwd = max(rel_err(dh, r_dh), rel_err(dw, r_dw))
+        x = randn(T, d, scale=3.0, shift=1.0)
+        lw, lb = randn(d, dtype=torch.float32), randn(d, dtype=torch.float32)
+        y, r = ln(x, lw, lb).float(), ref.layernorm_ref(x, lw, lb).float()
+        ln_ok = bool(((y - r).abs() <= 1e-2 + 2**-7 * r.abs()).all())
+        print(f"kernels at bucket shape ({B}, {L}): attention out {e_out:.3g} (tol 3e-2), lse "
+              f"{e_lse:.3g} (1e-4), backward {e_bwd:.3g} (2e-2 of max|ref|); cross-entropy "
+              f"loss/lse {e_ce:.3g} (2e-4), backward {e_ce_bwd:.3g} (2e-2); layernorm within "
+              f"1e-2 + 2^-7|y|: {ln_ok}")
+        check(e_out <= 3e-2 and e_lse <= 1e-4 and e_bwd <= 2e-2, f"attention at bucket ({B}, {L})")
+        check(e_ce <= 2e-4 and e_ce_bwd <= 2e-2, f"cross-entropy at bucket ({B}, {L})")
+        check(ln_ok, f"layernorm at bucket ({B}, {L})")
+        del h, w, dh, dw, r_dh, r_dw, x, y, r
+        torch.cuda.empty_cache()
+
+
+def data_plane_phase(torch, counters, card):
+    """ESM-2 650M MLM training at full width and depth through the data
+    plane: the train phase's 1 024 sequences in a sharded store (shards of
+    2^16 tokens), ``SizeAwareSampler`` (8 192 padded tokens a batch, a
+    ``ClusterSampler`` base) feeding ``MLMBatches`` behind a
+    ``BackgroundProducer`` (depth 4), 10 ``Trainer.run`` steps at accum 1;
+    then the same through the ``ClusterSampler`` alone at 8 x 1024, the
+    train phase's micro-batch.  Each run starts from the train phase's
+    initial weights (``build_model(seed=0)``), so the two are comparable
+    and the loss falls as it does from an initialization.  Gates: a finite, falling loss, no skipped
+    step, every batch within budget, at most ten shapes, each step's
+    launches.  Returns the launch counts of the size-aware run and of the
+    ClusterSampler run, and the (B, L) shapes of both, for
+    ``check_bucket_kernels``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.data.dataset import build_synthetic_protein_store
+    from repro_torch.data.pipeline import MLMBatches
+    from repro_torch.data.producer import BackgroundProducer
+    from repro_torch.data.sampler import ClusterSampler, greedy_length_clusters
+    from repro_torch.data.size_aware import SizeAwareSampler
+    from repro_torch.models.model import build_model
+    from repro_torch.training.loop import Trainer
+
+    cfg = get_config("esm2-650m")
+    steps, seq, budget = 10, 1024, 8192
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    store, tok = build_synthetic_protein_store(f"{tmp.name}/store", n=1024, seed=0,
+                                               shard_tokens=1 << 16, min_len=100, max_len=1023)
+    lengths = np.minimum(store.lengths(), seq)
+    print(f"data plane: the train phase's {len(store)} sequences in a sharded store of "
+          f"{store.num_shards} shards ({store.total_tokens} tokens) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tc = TrainConfig(global_batch=8, seq_len=seq, learning_rate=1e-4, min_lr=1e-5, warmup_steps=2,
+                     decay_steps=3, total_steps=steps, schedule="wsd", weight_decay=0.01,
+                     beta2=0.98, grad_clip=1.0, log_every=steps)
+    one_step = step_launches(cfg.num_layers)
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    def run(sampler, label):
+        pipe = BackgroundProducer(MLMBatches(store, tok, sampler, 8, seq,
+                                             mask_prob=cfg.mlm_mask_prob, seed=0), depth=4)
+        trainer = Trainer(build_model(cfg, device="cuda", seed=0), tc, verbose=False)
+        per_step = []     # (shape, its launches, its real tokens on the device)
+        step_fn = trainer._step_fn
+
+        def spy(state, batch):
+            before = {n: fn.launches for n, fn in counters.items()}
+            out = step_fn(state, batch)
+            per_step.append((tuple(batch["tokens"].shape),
+                             {n: fn.launches - before[n] for n, fn in counters.items()},
+                             (batch["targets"] != tok.pad_id).sum()))
+            return out
+
+        trainer._step_fn = spy
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        try:
+            _, hist = trainer.run(pipe)
+        finally:
+            pipe.close()
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        shapes = [sh for sh, _, _ in per_step]
+        real = torch.stack([r for _, _, r in per_step]).tolist()
+        step_s = hist[-1]["step_time"]         # steps 1-9: their wall over 9
+        real_s = sum(real[1:]) / (step_s * (steps - 1))
+        padded = [b * L for b, L in shapes]
+        share = 1 - sum(real) / sum(padded)
+        losses = [h["loss"] for h in hist]
+        print(f"main path: Trainer.run of {steps} steps, {label}: launches {launches}; shapes "
+              f"{shapes}")
+        print(f"{label} on {card}: step {step_s * 1e3:.1f} ms (steps 1-{steps - 1}, one host "
+              f"transfer), {real_s:.0f} real tokens/s, {sum(padded[1:]) / (step_s * (steps - 1)):.0f} "
+              f"padded tokens/s, padded share {share:.3f} ({sum(real)} real of {sum(padded)}), "
+              f"{len(set(shapes))} distinct (B, L); losses step 0 {losses[0]:.4f}, step "
+              f"{steps - 1} {losses[-1]:.4f}")
+        expect(len(hist) == 2 and all(np.isfinite(losses)), f"{label}: non-finite loss")
+        expect(losses[-1] < losses[0], f"{label}: the loss did not fall")
+        expect(trainer.skipped_total == 0, f"{label}: {trainer.skipped_total} skipped steps")
+        expect(all(p <= budget for p in padded), f"{label}: a batch over budget")
+        expect(all(n == one_step for _, n, _ in per_step), f"{label}: launches of a step")
+        expect(launches == {k: v * steps for k, v in one_step.items()}, f"{label}: launch counts")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches, shapes, real_s, share
+
+    base = ClusterSampler(greedy_length_clusters(lengths, 64), seed=0)
+    sa_launches, shapes, sa_real, sa_share = run(
+        SizeAwareSampler(lengths, budget, base=base), "size-aware (sharded store, 8192-token "
+        "budget, ClusterSampler base, producer depth 4)")
+    expect(len(set(shapes)) <= 10, "more than ten (B, L) shapes")
+    cl_launches, cl_shapes, cl_real, cl_share = run(
+        ClusterSampler(greedy_length_clusters(lengths, 64), seed=0),
+        "ClusterSampler 8x1024 (sharded store, producer depth 4)")
+    print(f"size-aware vs ClusterSampler on {card}: real tokens/s {sa_real:.0f} vs {cl_real:.0f} "
+          f"({sa_real / cl_real:.3f}x), padded share {sa_share:.3f} vs {cl_share:.3f}")
+    tmp.cleanup()
+    check(not failed, "data-plane phase: " + "; ".join(failed))
+    return sa_launches, cl_launches, set(shapes) | set(cl_shapes)
+
+
+def resume_phase(torch, counters, card):
+    """A bit-exact resume on the card through the launcher's data plane:
+    ESM-2 650M at full width, 2 of its 33 layers, ``make_batches`` (sharded
+    store, 8 192-token size-aware batches, producer depth 2), ``Trainer``
+    with a checkpoint every 3 of 6 steps; a second run resumed from
+    ``step_3`` must end with the first run's params and moments bit for
+    bit.  Returns the launch counts of the uninterrupted run and the (B, L)
+    shapes of both runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.core.module import tree_leaves
+    from repro_torch.launch.train import make_batches
+    from repro_torch.models.model import build_model
+    from repro_torch.training.loop import Trainer
+
+    cfg = dataclasses.replace(get_config("esm2-650m"), num_layers=2)
+    model = build_model(cfg, device="cuda", seed=0)
+    tmp = tempfile.TemporaryDirectory()
+    tc = TrainConfig(global_batch=8, seq_len=1024, learning_rate=1e-4, warmup_steps=2,
+                     decay_steps=3, total_steps=6, log_every=2, ckpt_dir=f"{tmp.name}/ck",
+                     ckpt_every=3)
+    shapes = []
+
+    def run(**kw):
+        batches = make_batches(cfg, tc, f"{tmp.name}/data", sharded=True, max_tokens=8192,
+                               producer_depth=2)
+        trainer = Trainer(model, tc, verbose=False)
+        step_fn = trainer._step_fn
+        trainer._step_fn = lambda st, b: (shapes.append(tuple(b["tokens"].shape)),
+                                          step_fn(st, b))[1]
+        try:
+            state, hist = trainer.run(batches, **kw)
+        finally:
+            batches.close()
+        return state.clone(), hist
+
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    s1, h1 = run()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    s2, h2 = run(resume_from=f"{tmp.name}/ck/step_3")
+    torch.cuda.synchronize()
+    x = tree_leaves(s1.params) + tree_leaves(s1.opt.mu) + tree_leaves(s1.opt.nu)
+    y = tree_leaves(s2.params) + tree_leaves(s2.opt.mu) + tree_leaves(s2.opt.nu)
+    differ = sum(not torch.equal(a.detach(), b.detach()) for a, b in zip(x, y))
+    want = {k: v * 6 for k, v in step_launches(cfg.num_layers).items()}
+    print(f"main path: resume on {card}: ESM-2 650M width, 2 of 33 layers, 6 steps with "
+          f"checkpoints {sorted(os.listdir(f'{tmp.name}/ck'))}, then steps 4-6 resumed from "
+          f"step_3 ({time.perf_counter() - t0:.1f} s): shapes {shapes[:6]} then {shapes[6:]}; "
+          f"launches {launches} (want {want}); {differ} of {len(x)} final param and moment "
+          f"leaves differ; losses {h1[-1]['loss']:.6f} vs {h2[-1]['loss']:.6f}")
+    check(shapes[6:] == shapes[3:6], "the resumed run drew other batches")
+    check(differ == 0 and int(s1.opt.step) == int(s2.opt.step) == 6,
+          "the resumed run differs from the uninterrupted run")
+    check(launches == want, "resume launch counts")
+    del model, s1, s2, x, y
+    tmp.cleanup()
+    return launches, set(shapes)
+
+
+def launcher_phase(torch, counters, card):
+    """``repro_torch.launch.train.main`` on the card: ESM-2 650M at full
+    width and depth, 4 steps of 8 192-token size-aware batches from the
+    sharded store behind a producer, with ``--profile``: it must reach its
+    final line, print the step timer and leave a trace.  Returns the launch
+    counts of its run and the (B, L) shapes its trainer stepped on."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+
+    shapes = []
+
+    class Recording(launch_train.Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            step_fn = self._step_fn
+            self._step_fn = lambda st, b: (shapes.append(tuple(b["tokens"].shape)),
+                                           step_fn(st, b))[1]
+
+    tmp = tempfile.TemporaryDirectory()
+    argv = ["--arch", "esm2-650m", "--steps", "4", "--seq", "1024", "--sharded-data",
+            "--max-tokens-per-batch", "8192", "--producer", "2", "--mesh", "none",
+            "--profile", f"{tmp.name}/prof", "--data-dir", f"{tmp.name}/data"]
+    for fn in counters.values():
+        fn.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    trainer_cls, launch_train.Trainer = launch_train.Trainer, Recording
+    try:
+        with contextlib.redirect_stdout(out):
+            launch_train.main(argv)
+    finally:
+        launch_train.Trainer = trainer_cls
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    text = out.getvalue()
+    traces = [f for f in os.listdir(f"{tmp.name}/prof") if f.endswith(".pt.trace.json")]
+    mb = sum(os.path.getsize(f"{tmp.name}/prof/{f}") for f in traces) / 1e6
+    want = {k: v * 4 for k, v in step_launches(get_config("esm2-650m").num_layers).items()}
+    keep = [ln for ln in text.splitlines() if ln.startswith(("arch=", "step ", "  train_step",
+                                                             "final loss"))]
+    print(f"main path: launch.train.main {' '.join(argv[:-4])} ({time.perf_counter() - t0:.1f} s, "
+          f"trace {traces} {mb:.1f} MB): shapes {shapes}; launches {launches} (want {want})")
+    print("launcher: " + " | ".join(keep))
+    check("step timer:" in text and "train_step: n=4" in text, "the launcher printed no step timer")
+    check(text.rstrip().splitlines()[-1].startswith("final loss"), "the launcher did not finish")
+    check(len(traces) == 1 and mb > 0, "the launcher left no trace")
+    check(launches == want, "launcher launch counts")
+    tmp.cleanup()
+    return launches, set(shapes)
 
 
 def check_rmsnorm(torch, F, ref, rmsnorm, randn, card):
@@ -3462,10 +3946,33 @@ def main() -> int:
     counters = {"flash_attention_fwd": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
                 "layernorm": layernorm, "cross_entropy_fwd": cross_entropy_fwd,
                 "cross_entropy_bwd": cross_entropy_bwd}
-    train_launches = train_phase(torch, model, counters, card)
+    train_launches, full_step = train_phase(torch, model, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 6b. slice 3: LoRA fine-tuning of the model just trained (its
+    # trainer and moments dropped), then the training data plane, a resume
+    # through it and the launcher
+    phase_launches = {"train": train_launches}
+    phase_launches["lora"] = lora_phase(torch, model, counters, card, full_step)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    phase_launches["data_plane"], phase_launches["data_plane_cluster"], dp_shapes = \
+        data_plane_phase(torch, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_launches["resume"], resume_shapes = resume_phase(torch, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_launches["launcher"], launcher_shapes = launcher_phase(torch, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the kernels at every (B, L) those three phases trained on
+    bucket_shapes = dp_shapes | resume_shapes | launcher_shapes
+    print(f"bucket shapes to check: {len(bucket_shapes)} (data plane {len(dp_shapes)}, resume "
+          f"{len(resume_shapes)}, launcher {len(launcher_shapes)})")
+    check_bucket_kernels(torch, ref, counters, bucket_shapes, randn, get_config("esm2-650m"))
 
     # ---- 7. slice 4a: Qwen2-7B generation through LLM.generate; from here
     # on no path runs the one Triton kernel (LayerNorm)
@@ -3522,6 +4029,7 @@ def main() -> int:
     ]
     for rec in kernels:
         rec["launches"] = train_launches[rec["name"]]
+        rec["launches_by_phase"] = {ph: n[rec["name"]] for ph, n in phase_launches.items()}
     for rec in gen_recs:
         rec["launches"] = gen_launches[rec["name"]]
     for rec in paged_recs:

@@ -20,10 +20,10 @@ from repro_torch.core.module import tree_map
 
 
 def _to_torch(a: Any) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.array(a, order="C")   # a C-ordered copy that keeps a 0-d leaf 0-d
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def from_jax_params(tree: Dict[str, Any]) -> Dict[str, Any]:

@@ -7,7 +7,8 @@ random access to any sequence without loading the corpus.
 ``synthetic_protein_sequences`` draws structured random sequences (motif
 repetition, so small models have learnable signal) from numpy's
 ``default_rng`` in the reference's order, so one seed gives the same corpus
-in both packages.
+in both packages; ``build_synthetic_protein_store`` writes the same
+sequences into a sharded store (``data/store.py``).
 """
 from __future__ import annotations
 
@@ -86,3 +87,17 @@ def build_synthetic_protein_memmap(
     seqs = synthetic_protein_sequences(n, min_len=min_len, max_len=max_len, seed=seed)
     enc = [np.asarray(tok.encode(s), np.int32) for s in seqs]
     return MemmapTokenDataset.write(prefix, enc), tok
+
+
+def build_synthetic_protein_store(
+    root: str, n: int = 2000, seed: int = 0, shard_tokens: int = 1 << 16, *,
+    min_len: int = 40, max_len: int = 200,
+):
+    """Sharded-store twin of :func:`build_synthetic_protein_memmap`: the
+    same sequences for a given (n, seed), stored across shards."""
+    from repro_torch.data.store import ShardedTokenStore
+
+    tok = ProteinTokenizer()
+    seqs = synthetic_protein_sequences(n, min_len=min_len, max_len=max_len, seed=seed)
+    enc = [np.asarray(tok.encode(s), np.int32) for s in seqs]
+    return ShardedTokenStore.write(root, enc, shard_tokens=shard_tokens), tok

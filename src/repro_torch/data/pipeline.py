@@ -4,8 +4,9 @@ recipe and the packed causal-LM stream of a causal model.
 
 Pure numpy on the host; each batch is a dict of int32 / float32 arrays
 matching ``Model.loss_fn``'s contract, which the trainer copies to the
-device.  ``CLMBatches``' bucketed mode is duck-typed on a sampler with
-``sample_batch``, as in the reference; the port has no such sampler yet.
+device.  Both streams take a batch sampler duck-typed on
+``sample_batch() -> (indices, padded_len)`` (``SizeAwareSampler``), as in
+the reference: variable rows, bucketed lengths, a token budget.
 """
 from __future__ import annotations
 
@@ -48,8 +49,13 @@ def mlm_corrupt(
 
 
 class MLMBatches:
-    """ESM-2-style stream: cluster-sample -> pad to ``seq_len`` -> corrupt.
-    Without a sampler, indices are drawn uniformly from the dataset."""
+    """ESM-2-style stream: cluster-sample -> pad -> corrupt.
+
+    ``sampler`` may be an index sampler (``ClusterSampler``: fixed
+    ``(batch, seq_len)`` shapes) or a batch sampler with ``sample_batch()
+    -> (indices, padded_len)`` (``SizeAwareSampler``: variable rows,
+    bucketed lengths at most ``seq_len``, the token budget kept).  Without
+    a sampler, indices are drawn uniformly from the dataset."""
 
     def __init__(
         self,
@@ -87,6 +93,11 @@ class MLMBatches:
         return toks
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        if self.sampler is not None and hasattr(self.sampler, "sample_batch"):
+            while True:   # bucketed: the sampler owns the rows and the length
+                idx, L = self.sampler.sample_batch()
+                toks = self._pad(idx, min(int(L), self.seq_len))
+                yield mlm_corrupt(toks, self.tok, self.rng, self.mask_prob)
         while True:
             if self.sampler is not None:
                 idx = self.sampler.sample(self.batch)

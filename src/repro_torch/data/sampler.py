@@ -8,7 +8,7 @@ membership table.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
 
@@ -38,6 +38,10 @@ class ClusterSampler:
         # scalar draws would, as in the reference
         k = self.rng.integers(0, self._sizes[cl])
         return self._flat[self._off[cl] + k]
+
+    def __iter__(self) -> Iterator[int]:
+        while True:
+            yield int(self.sample(1)[0])
 
 
 def greedy_length_clusters(lengths: Sequence[int], n_clusters: int) -> List[List[int]]:

@@ -1,0 +1,183 @@
+"""End-to-end training launcher (the port's copy of the reference's
+``launch/train.py``, for one card).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch esm2-650m \\
+        --steps 200 --batch 8 --seq 1024 [--smoke] [--accum 4] \\
+        [--sharded-data] [--max-tokens-per-batch 8192] [--producer 4] \\
+        [--resume auto|<ckpt_dir>] [--device cpu]
+
+The model runs on the GPU unless ``--device`` names another device
+(``--device cpu`` with ``--smoke``, the reduced config, is the practical
+mode on a CPU).  ``--mesh`` takes ``none``, or ``auto`` while one device
+is visible: the multi-GPU paths are not ported yet.
+
+The data plane: ``--sharded-data`` feeds from the multi-shard memmap store
+(``data/store.py``) instead of the single-file dataset;
+``--max-tokens-per-batch`` switches to size-aware (token-budget) batches,
+variable rows padded per length bucket; ``--producer N`` builds the
+batches on a background thread N batches ahead.
+
+Telemetry: ``--metrics-dir DIR`` feeds the ``obs`` registry and rewrites
+a Prometheus exposition and a JSON snapshot there at every log flush;
+``--profile DIR`` writes a ``torch.profiler`` trace of the run into DIR
+and prints the host-side step timer.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import tempfile
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.config import TrainConfig
+from repro_torch.data.dataset import build_synthetic_protein_memmap, build_synthetic_protein_store
+from repro_torch.data.pipeline import CLMBatches, MLMBatches
+from repro_torch.data.producer import BackgroundProducer
+from repro_torch.data.sampler import ClusterSampler, greedy_length_clusters
+from repro_torch.data.size_aware import SizeAwareSampler
+from repro_torch.models.model import build_model, resolve_device
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.profile import trace_ctx
+from repro_torch.training.loop import Trainer
+
+
+def make_batches(cfg, tc: TrainConfig, data_dir: str, seed: int = 0, *,
+                 sharded: bool = False, max_tokens: int = 0,
+                 producer_depth: int = 0):
+    """The batch pipeline object (not an iterator), so that the Trainer can
+    checkpoint and restore its cursor.
+
+    ``sharded`` feeds from the sharded store instead of the single-file
+    dataset; ``max_tokens`` > 0 switches to size-aware batches, each under
+    that many padded tokens; ``producer_depth`` > 0 wraps the pipeline in a
+    background producer."""
+    if sharded:
+        ds, tok = build_synthetic_protein_store(f"{data_dir}/protein_store", n=2000, seed=seed)
+    else:
+        ds, tok = build_synthetic_protein_memmap(f"{data_dir}/protein", n=2000, seed=seed)
+    lengths = ds.lengths()
+    base = ClusterSampler(greedy_length_clusters(lengths, 64), seed=seed)
+    size_aware = (SizeAwareSampler(np.minimum(lengths, tc.seq_len), max_tokens, base=base)
+                  if max_tokens else None)
+    if cfg.objective == "mlm":
+        pipe = MLMBatches(ds, tok, base if size_aware is None else size_aware,
+                          tc.global_batch, tc.seq_len, cfg.mlm_mask_prob, seed)
+    elif cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder batches are not ported yet (ROADMAP: slice 7)")
+    else:
+        pipe = CLMBatches(ds, tc.global_batch, tc.seq_len, seed, eos_id=tok.eos_id,
+                          sampler=size_aware)
+    if producer_depth:
+        pipe = BackgroundProducer(pipe, depth=producer_depth)
+    return pipe
+
+
+def check_mesh(spec: str) -> None:
+    """``none``, or ``auto`` while at most one device is visible: the port
+    trains on one card."""
+    if spec == "none" or (spec == "auto" and torch.cuda.device_count() <= 1):
+        return
+    raise NotImplementedError(
+        f"--mesh {spec}: multi-GPU training is not ported yet (ROADMAP: slice 8); "
+        "use --mesh none")
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", default="esm2-650m")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=128)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--warmup", type=int, default=0, help="warmup steps (0 = steps//10)")
+    p.add_argument("--accum", type=int, default=1,
+                   help="gradient-accumulation microbatches per step")
+    p.add_argument("--mesh", default="auto",
+                   help="none | auto (one visible device); other meshes need slice 8")
+    p.add_argument("--device", default=None,
+                   help="device to train on (default: the GPU; 'cpu' runs on the CPU)")
+    p.add_argument("--smoke", action="store_true", help="reduced config")
+    p.add_argument("--data-dir", default=os.path.join(tempfile.gettempdir(), "repro_torch_data"))
+    p.add_argument("--sharded-data", action="store_true",
+                   help="feed from the multi-shard memmap store instead of the "
+                        "single-file dataset")
+    p.add_argument("--max-tokens-per-batch", type=int, default=0,
+                   help="size-aware (token-budget) batching: variable-row batches padded "
+                        "per length bucket, each under this many padded tokens "
+                        "(0 = fixed --batch x --seq shapes)")
+    p.add_argument("--producer", type=int, default=0,
+                   help="background-producer prefetch depth (0 = build batches inline)")
+    p.add_argument("--ckpt-dir", default="")
+    p.add_argument("--ckpt-every", type=int, default=0,
+                   help="checkpoint period in steps (0 = final-only when --ckpt-dir is set)")
+    p.add_argument("--resume", default="",
+                   help="checkpoint dir to resume from, or 'auto' = latest step_* under "
+                        "--ckpt-dir")
+    p.add_argument("--history-out", default="")
+    p.add_argument("--metrics-dir", default="",
+                   help="write a Prometheus exposition and JSON metric snapshots here "
+                        "(refreshed at every log flush)")
+    p.add_argument("--profile", default="",
+                   help="write a torch.profiler trace of the run into this directory and "
+                        "print the step timer")
+    a = p.parse_args(argv)
+
+    check_mesh(a.mesh)
+    device = resolve_device(a.device)
+    cfg = get_smoke_config(a.arch) if a.smoke else get_config(a.arch)
+    tc = TrainConfig(
+        global_batch=a.batch, seq_len=a.seq, learning_rate=a.lr, accum_steps=a.accum,
+        total_steps=a.steps, warmup_steps=a.warmup or max(a.steps // 10, 1),
+        decay_steps=max(a.steps // 10, 1), ckpt_dir=a.ckpt_dir,
+        ckpt_every=a.ckpt_every or (a.steps if a.ckpt_dir else 0),
+    )
+    print("resolved TrainConfig:")
+    print(json.dumps(dataclasses.asdict(tc), indent=1))
+    model = build_model(cfg, device=device)
+    print(f"arch={cfg.name} params(analytic)={cfg.param_count():,} mesh=None device={device}")
+    batches = make_batches(cfg, tc, a.data_dir, sharded=a.sharded_data,
+                           max_tokens=a.max_tokens_per_batch, producer_depth=a.producer)
+    resume = a.resume
+    if resume == "auto":
+        resume = ckpt.latest_step(a.ckpt_dir) or ""
+        print(f"resume: {resume or '(no checkpoint found — cold start)'}")
+    reg = MetricsRegistry() if a.metrics_dir else None
+    hooks = []
+    if reg is not None:
+        os.makedirs(a.metrics_dir, exist_ok=True)
+
+        def _dump(step, m, _reg=reg, _dir=a.metrics_dir):
+            _reg.write_prometheus(os.path.join(_dir, "train.prom"))
+            _reg.dump_json(os.path.join(_dir, "train_metrics.json"))
+
+        hooks.append(_dump)
+    trainer = Trainer(model, tc, hooks=hooks, metrics=reg, profile=bool(a.profile))
+    try:
+        with trace_ctx(a.profile):
+            _, history = trainer.run(batches, resume_from=resume or None)
+    finally:
+        if hasattr(batches, "close"):
+            batches.close()
+    if a.profile:
+        print("step timer:")
+        for line in trainer.step_timer.report().splitlines():
+            print(f"  {line}")
+    if a.history_out:
+        with open(a.history_out, "w") as f:
+            json.dump(history, f, indent=1)
+    if history:
+        print(f"final loss {history[-1]['loss']:.4f} (from {history[0]['loss']:.4f})  "
+              f"{history[-1]['tokens_per_sec']:.0f} tok/s  "
+              f"tokens_seen={history[-1]['tokens_seen']:.0f}")
+
+
+if __name__ == "__main__":
+    main()

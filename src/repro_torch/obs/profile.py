@@ -1,8 +1,15 @@
-"""Profiling hooks: a named profiler scope and a host step timer.
+"""Profiling hooks: a trace of a run, a named profiler scope and a host
+step timer.
 
-The port's copy of the reference's ``repro.obs.profile`` (its
-``annotate`` and ``StepTimer``), both default-off and free when off:
+The port's copy of the reference's ``repro.obs.profile``, all default-off
+and free when off:
 
+  * :func:`trace_ctx` — a context manager around ``torch.profiler``: the
+    run inside it lands in a trace file (Chrome / TensorBoard format,
+    ``*.pt.trace.json``) under the given directory, the card's kernels
+    included when there is one.  A falsy directory, or a profiler that is
+    already running, makes it a no-op, so launchers pass the flag through
+    unconditionally.
   * :class:`annotate` — a named ``torch.profiler.record_function`` scope
     marking a host-side region (the engine's decode dispatch, a prefill),
     so it is attributable in a ``torch.profiler`` trace.  Constructed with
@@ -18,10 +25,26 @@ The port's copy of the reference's ``repro.obs.profile`` (its
 from __future__ import annotations
 
 import contextlib
+import os
 import time
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import torch
+
+
+@contextlib.contextmanager
+def trace_ctx(log_dir: Optional[str]) -> Iterator[None]:
+    """``with trace_ctx(dir):`` profiles the enclosed run into ``dir``."""
+    if not log_dir or getattr(torch.autograd.profiler, "_is_profiler_enabled", False):
+        yield
+        return
+    os.makedirs(log_dir, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts,
+                                on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
+        yield
 
 
 class annotate:

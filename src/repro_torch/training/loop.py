@@ -19,7 +19,16 @@
   registry from the values it already fetched;
 * checkpoints — the full TrainState (params + AdamW moments + step) plus
   the data cursor and counters; ``run(resume_from=…)`` continues the
-  interrupted run exactly.
+  interrupted run exactly;
+* profiling — ``profile=True`` wraps each step's dispatch in the
+  ``train/step`` profiler range and times it on the host into
+  ``Trainer.step_timer`` (span ``train_step``).
+
+Batches may change their (B, L) from step to step (size-aware batching):
+the prefetch, the MFU count and the checkpointed cursor follow each
+batch's own shape.  The reference compiles its step once a shape; the
+port runs eagerly and caches nothing per shape.  A pipeline with
+``close()`` (``BackgroundProducer``) is closed by its caller.
 
 The trainer trains the model in place: its TrainState's params are the
 model's own parameters (``init_train_state``).
@@ -27,6 +36,7 @@ model's own parameters (``init_train_state``).
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import time
 from typing import Callable, Dict, Iterator, List, Optional
@@ -39,6 +49,7 @@ from repro_torch.core.config import ParallelConfig, TrainConfig
 from repro_torch.core.module import tree_leaves
 from repro_torch.models.model import Model
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.profile import StepTimer, annotate
 from repro_torch.training import train_step as TS
 from repro_torch.training.train_step import TrainState
 
@@ -128,6 +139,7 @@ class Trainer:
         verbose: bool = True,
         peak_flops: Optional[float] = None,
         metrics: Optional[MetricsRegistry] = None,
+        profile: bool = False,
     ):
         self.model, self.tc, self.pc = model, tc, pc or ParallelConfig()
         self.hooks = list(hooks or [])
@@ -145,6 +157,7 @@ class Trainer:
         self._it: Optional[_DevicePrefetch] = None
         self._t0 = self._t_log = 0.0
         self.metrics = metrics
+        self.step_timer = StepTimer() if profile else None
         if metrics is not None:
             self._c_steps = metrics.counter("train_steps_total", "optimizer steps completed")
             self._c_tokens = metrics.counter("train_tokens_total", "non-pad tokens consumed")
@@ -187,7 +200,10 @@ class Trainer:
         """One optimizer step on the next prefetched batch; logs and
         checkpoints on schedule."""
         batch = next(self._it)
-        self.state, metrics = self._step_fn(self.state, batch)
+        timed = self.step_timer is not None
+        with (self.step_timer.span("train_step") if timed else contextlib.nullcontext()), \
+                annotate("train/step", enabled=timed):
+            self.state, metrics = self._step_fn(self.state, batch)
         toks = batch["tokens"]
         self._pending_flops += 6.0 * self.model.cfg.active_param_count() * toks.numel()
         s = self.step_idx

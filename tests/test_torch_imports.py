@@ -1,5 +1,6 @@
 """The port stands alone: no file of ``repro_torch``, nor ``chip_smoke.py``
-and the chip scripts beside it, imports JAX or the reference package, the port
+and the chip scripts beside it, nor the port's example, imports JAX or the
+reference package, the port
 calls no library attention, norm, cross-entropy, optimizer or grouped GEMM,
 the kernel wrappers have no fallback, entry points refuse to run on the CPU
 unless asked, and CPU runs launch no kernel."""
@@ -28,6 +29,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.rmsnorm import layernorm, rmsnorm  # noqa: E402
 from repro_torch.kernels.sampling import fused_sample  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.serving.api import LLM  # noqa: E402
 from repro_torch.training.loop import Trainer  # noqa: E402
@@ -55,7 +57,7 @@ def _imported_modules(path):
                          PORT_FILES + [ROOT / name for name in (
                              "chip_smoke.py", "ssd_route_faults.py", "attention_variants.py",
                              "gmm_variants.py", "moe_route_faults.py", "decode_variants.py",
-                             "prefill_variants.py")],
+                             "prefill_variants.py", "examples/finetune_lora_torch.py")],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):
@@ -163,6 +165,16 @@ def test_trainer_needs_a_gpu_unless_the_model_is_on_the_cpu(monkeypatch):
         Trainer(model_mod.build_model(cfg), TrainConfig())
     tr = Trainer(model_mod.build_model(cfg, device="cpu"), TrainConfig(), verbose=False)
     assert tr.model.device.type == "cpu"
+
+
+def test_launcher_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--arch", "esm2-650m", "--smoke", "--steps", "1", "--seq", "32", "--batch", "2",
+            "--mesh", "none", "--data-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(args)
+    launch_train.main(args + ["--device", "cpu"])
+    assert all(k.launches == 0 for k in KERNELS)
 
 
 def test_cpu_runs_launch_no_kernel():
