@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from the sources in this checkout and holds each
-of the fourteen kernels against its plain PyTorch version on the card.
-Then drives the seven paths ported so far: embedding serving through
+of the fourteen kernels, and the SSD scan's backward (the port's own),
+against its plain PyTorch version on the card.  Then drives the eight
+paths ported so far: embedding serving through
 ``LLM.embed`` and MLM pre-training through ``Trainer.run`` (about 10
 optimizer steps) at the full width and depth of ESM-2 650M; generation
 through ``LLM.generate`` at the full width and depth of Qwen2-7B (bf16
@@ -24,8 +25,12 @@ trained (rank 8 on wq/wv, 10 steps); ESM-2 650M training through the data
 plane (a sharded store, size-aware batches behind a background producer,
 10 ``Trainer.run`` steps beside the ``ClusterSampler`` run), a bit-exact
 resume through it (2 of 33 layers) and the training launcher
-``launch.train.main`` with a profiler trace; all with seeded random
-weights, checking what comes out of each.  Prints per-kernel times beside their bounds, the
+``launch.train.main`` with a profiler trace; and SSM training through
+``Trainer.run`` at the full width and depth of Mamba2-2.7B (fp32 master
+weights and AdamW moments, 6 steps of 2 x 1024 packed tokens in
+micro-batches of 1 x 1024), reduced Jamba's hybrid unit and
+``launch.train.main --arch mamba2-2.7b`` on size-aware batches; all with
+seeded random weights, checking what comes out of each.  Prints per-kernel times beside their bounds, the
 embedding throughput, the training step time, tokens/s, MFU and peak
 memory, the generation tokens/s, TTFT, decode-step time and idle share, the
 router's drops, a profile of each path, then one JSON line of kernel
@@ -153,6 +158,16 @@ def row_rel_err(got, want, dims: int = 1) -> float:
     return ((g - w).abs().amax(1) / w.abs().amax(1).clamp_min(1e-30)).max().item()
 
 
+def bf16_steps(torch, got, want, dims):
+    """max |got − want| in bf16 steps of each row's max |want| (rows: the
+    first ``dims`` axes)."""
+    g = got.float().flatten(0, dims - 1).flatten(1)
+    w = want.float().flatten(0, dims - 1).flatten(1)
+    top = w.abs().amax(1, keepdim=True).clamp_min(1e-30)
+    step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return ((g - w).abs() / step).max().item()
+
+
 def kernel_groups(prof, DeviceType):
     """Device time by group from a torch.profiler run: (busy ms, {group: ms},
     [(name, ms, count)]).  CPU ops report their kernels' time too, so only
@@ -165,8 +180,8 @@ def kernel_groups(prof, DeviceType):
     groups = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0, "cross_entropy_fwd": 0.0,
               "cross_entropy_bwd": 0.0, "layernorm": 0.0, "rmsnorm": 0.0, "flash_decode": 0.0,
               "fused_sample": 0.0, "paged_decode": 0.0, "paged_prefill": 0.0,
-              "paged_kv_write": 0.0, "gmm": 0.0, "gmm_dw": 0.0, "ssd_scan": 0.0, "matmul": 0.0,
-              "other": 0.0}
+              "paged_kv_write": 0.0, "gmm": 0.0, "gmm_dw": 0.0, "ssd_scan": 0.0, "ssd_scan_bwd": 0.0,
+              "matmul": 0.0, "other": 0.0}
     for name, t, _ in kern:
         low = name.lower()
         paged = [g for g in ("paged_decode", "paged_prefill", "paged_kv_write") if g in low]
@@ -192,6 +207,8 @@ def kernel_groups(prof, DeviceType):
             groups["gmm"] += t
         elif "ssd_scan_kernel" in low:
             groups["ssd_scan"] += t
+        elif "ssd_bwd" in low:
+            groups["ssd_scan_bwd"] += t
         elif "fused_sample" in low:
             groups["fused_sample"] += t
         elif any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
@@ -619,7 +636,6 @@ def train_phase(torch, model, counters, card):
 
     from repro_torch.core.config import TrainConfig
     from repro_torch.core.module import tree_leaves
-    from repro_torch.core.precision import compute_view
     from repro_torch.data.dataset import build_synthetic_protein_memmap
     from repro_torch.data.pipeline import MLMBatches
     from repro_torch.data.sampler import ClusterSampler, greedy_length_clusters
@@ -752,13 +768,8 @@ def train_phase(torch, model, counters, card):
     small = {k: v[:2, :512].contiguous() for k, v in mb.items()}
     plain_model = Model(dataclasses.replace(cfg, kernel_impl="torch"), params)
 
-    def loss_grads(m):
-        p = m.params.tree()
-        loss, _ = m.loss_fn(compute_view(m.policy, p), small)
-        return loss.item(), torch.autograd.grad(loss, tree_leaves(p))
-
-    k_loss, k_grads = loss_grads(model)
-    p_loss, p_grads = loss_grads(plain_model)
+    k_loss, k_grads = loss_grads(torch, model, small)
+    p_loss, p_grads = loss_grads(torch, plain_model, small)
     cos = [cosine(torch, a, b) for a, b in zip(k_grads, p_grads)]
     names = leaf_paths(params)
     worst = min(range(len(cos)), key=lambda i: cos[i])
@@ -2322,9 +2333,7 @@ def check_ssd_scan(torch, ref, ssd_scan, card):
         y, state = ssd_scan(*args)
         torch.cuda.synchronize()
         want_y, want_state = ref.ssd_scan_ref(*args, chunk=128)
-        top = want_y.float().abs().amax(-1, keepdim=True)
-        step = torch.exp2(torch.floor(torch.log2(top.clamp_min(1e-30))) - 7)
-        y_steps = ((y.float() - want_y.float()).abs() / step).max().item()
+        y_steps = bf16_steps(torch, y, want_y, 3)
         s_err = row_rel_err(state, want_state, dims=2)
         finite = bool(y.isfinite().all() and state.isfinite().all())
         print(f"ssd_scan {label} (B={B}, S={S}, H={H}, P={P}, G={G}, N={N}): y within "
@@ -2367,6 +2376,126 @@ def check_ssd_scan(torch, ref, ssd_scan, card):
             "bound_by": bound_by, "library_ms": None, "fp32_recurrence_ms": fp32_ms,
             "device_ms_by_S": {str(k): v[0] for k, v in by_s.items()},
             "bound_ms_by_S": {str(k): v[1] for k, v in by_s.items()}}
+
+
+def ssd_bwd_flops(B, S, H, P, G, N, L=64):
+    """FLOPs of the chunked backward's products at L rows, for this S: per
+    chunk of r rows C·Bᵀ once a group (its causal half), and per head dy·xᵀ
+    and M·dy (causal halves over P), dS·C and dS·B (over N), and the four
+    (r, P, N) products: dh_out·B (dx), dh_outᵀ·x (dB), h_inᵀ·dy (dC) and
+    the carried state's exp(cum)·dy·Cᵀ; two FLOPs a product."""
+    total = 0
+    for c0 in range(0, S, L):
+        r = min(L, S - c0)
+        tri = r * (r + 1) // 2
+        total += 2 * (G * tri * N + H * (2 * tri * P + 2 * tri * N + 4 * r * P * N))
+    return B * total
+
+
+def ssd_bwd_bound(B, S, H, P, G, N, dstate=False):
+    """(least time in ms, what bounds it, the fp32-rate figure, bytes) of
+    the backward: each input read once (x, dt, B, C, dy, the chunk states,
+    dstate when given, A, D) and each output written once (dx, ddt, dB, dC,
+    dA, dD), over the memory rate, against the products at the bf16
+    tensor-core rate (x, B, C and dy are bf16); beside it the products at
+    fp32's rate, the rate of the kernel's FMA."""
+    nc = -(-S // 64)
+    io = 2 * (2 * B * S * H * P + B * S * H * 4 + 2 * B * S * G * N * 2 + 2 * H * 4)
+    nbytes = io + B * S * H * P * 2 + B * nc * H * P * N * 4 + (B * H * P * N * 4 if dstate else 0)
+    flops = ssd_bwd_flops(B, S, H, P, G, N)
+    ms, by = bound(flops, nbytes)
+    return ms, by, bound(flops, nbytes, PEAK_FP32_FLOPS)[0], nbytes
+
+
+def check_ssd_scan_bwd(torch, ref, ssd_scan, ssd_scan_bwd, card):
+    """The SSD backward (the port's own kernel) against ``ssd_scan_bwd_ref``
+    in fp32 on the same bf16 inputs (x, B and C strided views of one
+    activation, as ``ssm_apply`` makes them), each given its own forward's
+    chunk states, at Mamba2-2.7B's training shape (1 x 1024), a tail (S =
+    1000), a short sequence (S = 45), batch 2 with G = 2, reduced Jamba's
+    (P 32, N 16) and large steps (no NaN), with and without the final
+    state's gradient: dx, dB and dC within 2 bf16 steps of each row's
+    max|plain|; ddt, dA and dD within 1e-3 of their max|plain|; the chunk
+    states within 1e-4 of each head's.  The forward's y and final state
+    are the same bits with and without the chunk states' store, and a
+    repeated backward is bit-identical.  Times the Mamba2 shape.  Returns
+    its record."""
+    from repro_torch.kernels.ssd_scan import _scan
+
+    g = torch.Generator(device="cuda").manual_seed(27)
+    cases = [
+        ("mamba2-2.7b training S=1024", (1, 1024, 80, 64, 1, 128), -4.0, False),
+        ("mamba2-2.7b, tail S=1000, final-state gradient", (1, 1000, 80, 64, 1, 128), -4.0, True),
+        ("S=45 < chunk, final-state gradient", (1, 45, 80, 64, 1, 128), -4.0, True),
+        ("batch 2, G=2", (2, 200, 8, 64, 2, 128), -4.0, False),
+        ("jamba reduced shape", (2, 77, 16, 32, 1, 16), -4.0, True),
+        ("large steps", (1, 256, 8, 64, 1, 128), 1.5, True),
+    ]
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+    keep = {}
+    for label, (B, S, H, P, G, N), shift, with_ds in cases:
+        args = _ssd_case(torch, g, B, S, H, P, G, N, shift)
+        dy = torch.randn(B, S, H, P, generator=g, device="cuda").to(torch.bfloat16)
+        ds = torch.randn(B, H, P, N, generator=g, device="cuda") if with_ds else None
+        y0, h0 = _scan(*args, 64, states=False)
+        y, h, states = _scan(*args, 64, states=True)
+        got = ssd_scan_bwd(*args, states, dy, ds)
+        torch.cuda.synchronize()
+        same_fwd = torch.equal(y, y0) and torch.equal(h, h0)
+        f32 = [a.float() for a in args]
+        _, _, want_states = ref.ssd_scan_ref(*f32, chunk=64, states=True)
+        want = ref.ssd_scan_bwd_ref(*f32, want_states, dy.float(), ds, chunk=64)
+        st_err = row_rel_err(states, want_states, dims=3)
+        steps = {n: bf16_steps(torch, got[i], want[i], 3) for i, n in ((0, "dx"), (3, "dB"),
+                                                                        (4, "dC"))}
+        errs = {n: rel_err(got[i], want[i]) for i, n in ((1, "ddt"), (2, "dA"), (5, "dD"))}
+        finite = all(bool(t.float().isfinite().all()) for t in got)
+        print(f"ssd_scan_bwd {label} (B={B}, S={S}, H={H}, P={P}, G={G}, N={N}): dx, dB, dC "
+              f"within {', '.join(f'{v:.3g}' for v in steps.values())} bf16 steps of each row's "
+              f"max|plain| (tol 2); ddt, dA, dD rel err "
+              f"{', '.join(f'{v:.3g}' for v in errs.values())} (tol 1e-3 of max|plain|); chunk "
+              f"states {st_err:.3g} (tol 1e-4 of each head's max); forward bits with the states' "
+              f"store unchanged {same_fwd}; finite {finite}")
+        check(max(steps.values()) <= 2 and max(errs.values()) <= 1e-3 and st_err <= 1e-4
+              and finite and same_fwd, f"ssd_scan_bwd {label}")
+        keep[label] = (args, states, dy, ds, max((got[i].float() - want[i]).abs().max().item()
+                                                 for i in range(6)))
+    args, states, dy, ds, max_err = keep["mamba2-2.7b training S=1024"]
+    first = ssd_scan_bwd(*args, states, dy, ds)
+    again = ssd_scan_bwd(*args, states, dy, ds)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    print(f"ssd_scan_bwd repeated at S=1024: bit-identical {same}")
+    check(same, "a repeated ssd_scan_bwd differs")
+    x, dt, A, Bm, Cm, D = args
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    ms = time_ms(torch, lambda: ssd_scan_bwd(*args, states, dy, ds), trials=10)
+    plain_ms = time_ms(torch, lambda: ref.ssd_scan_bwd_ref(*args, states, dy, ds, chunk=64),
+                       trials=3, per_trial=2, warmup=1)
+    bound_ms, bound_by, fp32_ms, nbytes = ssd_bwd_bound(B, S, H, P, G, N)
+    by_kernel = device_ms_by_kernel(torch, lambda: ssd_scan_bwd(*args, states, dy, ds),
+                                    ("ssd_bwd_state", "ssd_bwd_chunk", "ssd_bwd_group",
+                                     "ssd_bwd_head"), n=10)
+    dev_ms = sum(by_kernel.values()) or None
+    fwd_ms = device_ms(torch, lambda: _scan(*args, 64, states=False), "ssd_scan_kernel", n=10)
+    fwd_st_ms = device_ms(torch, lambda: _scan(*args, 64, states=True), "ssd_scan_kernel", n=10)
+    flops = ssd_bwd_flops(B, S, H, P, G, N)
+    print(f"ssd_scan_bwd mamba2-2.7b training (B={B}, S={S}, H={H}, P={P}, N={N}) on {card}: "
+          f"{ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (" + ", ".join(
+              f"{k} {v:.4f}" for k, v in by_kernel.items()) + f"; bound {bound_ms:.4f} ms by "
+          f"{bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP of the chunked backward's "
+          f"products at the bf16 rate, {fp32_ms:.4f} ms at fp32's), plain {plain_ms:.4f} ms, "
+          f"library: none (no single PyTorch call computes the scan's gradient); the forward "
+          f"device {fmt_ms(fwd_ms)} ms, with the chunk states' store {fmt_ms(fwd_st_ms)} ms")
+    return {"name": "ssd_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu", "replaces": None,
+            "own": "the port's own kernel: the reference's TPU kernel has no backward and its "
+                   "gradient is XLA autodiff of _ssd_chunked_xla (src/repro/kernels/ops.py:697)",
+            "launches": 0, "max_abs_err": max_err, "ms": ms, "device_ms": dev_ms,
+            "device_ms_by_kernel": by_kernel, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "fp32_rate_ms": fp32_ms,
+            "forward_device_ms": fwd_ms, "forward_with_states_device_ms": fwd_st_ms}
 
 
 def generation_load(np, vocab: int, n: int, max_new: int, seed: int = 0):
@@ -3596,8 +3725,6 @@ def moe_train_phase(torch, counters, card):
 
     from repro_torch.configs import get_config
     from repro_torch.core.config import ParallelConfig, TrainConfig
-    from repro_torch.core.module import tree_leaves
-    from repro_torch.core.precision import compute_view
     from repro_torch.data.dataset import build_synthetic_protein_memmap
     from repro_torch.data.pipeline import CLMBatches
     from repro_torch.models import moe
@@ -3640,21 +3767,16 @@ def moe_train_phase(torch, counters, card):
     plain = Model(dataclasses.replace(cfg, kernel_impl="torch"), model.params.tree())
     names = leaf_paths(model.params.tree())
 
-    def loss_grads(m):
-        p = m.params.tree()
-        loss, _ = m.loss_fn(compute_view(m.policy, p), batch)
-        return loss.item(), torch.autograd.grad(loss, tree_leaves(p))
-
     with RouteLog(moe) as k_log:
-        k_loss, k_grads = loss_grads(model)
-    again_loss, again = loss_grads(model)
+        k_loss, k_grads = loss_grads(torch, model, batch)
+    again_loss, again = loss_grads(torch, model, batch)
     differ = [names[i] for i, (a, b) in enumerate(zip(k_grads, again)) if not torch.equal(a, b)]
     print(f"kernel route twice on one micro-batch: loss {k_loss!r} vs {again_loss!r}; "
           f"{len(differ)} of {len(names)} grad leaves differ {differ[:6]}")
     expect(k_loss == again_loss and not differ, "a repeated loss and backward is not bit-identical")
     del again
     with RouteLog(moe, replay=k_log.calls) as p_log:
-        p_loss, p_grads = loss_grads(plain)
+        p_loss, p_grads = loss_grads(torch, plain, batch)
     cos = [cosine(torch, a, b) for a, b in zip(k_grads, p_grads)]
     own = p_log.calls[0][1][:, 0]            # the plain router's own choice
     flips = int((own != k_log.calls[0][1][:, 0]).sum())
@@ -3741,6 +3863,332 @@ def moe_train_phase(torch, counters, card):
     return launches
 
 
+SSM_ROUTE_DEPTH = 8   # the Mamba2 gradient route check's depth (of 64 layers)
+
+
+def ssm_train_launches(cfg):
+    """The launches of one SSM or hybrid micro-batch's forward and
+    backward: the SSD forward and backward a SSD layer, the attention
+    forward and backward an attention layer, an RMSNorm before each mixer,
+    one before each FFN (none where d_ff is 0, as in Mamba2) and the final
+    one, gmm 6 (3 forward, 3 transposed for dx) and gmm_dw 3 an MoE layer,
+    one cross-entropy forward and backward."""
+    from repro_torch.models import transformer as T
+
+    n_ssm = sum(not cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    n_attn, n_moe = cfg.num_layers - n_ssm, T.num_moe_layers(cfg)
+    return {"ssd_scan": n_ssm, "ssd_scan_bwd": n_ssm, "flash_attention_fwd": n_attn,
+            "flash_attention_bwd": n_attn,
+            "rmsnorm": (2 if cfg.d_ff > 0 else 1) * cfg.num_layers + 1,
+            "cross_entropy_fwd": 1, "cross_entropy_bwd": 1, "gmm": 6 * n_moe,
+            "gmm dx": 3 * n_moe, "gmm_dw": 3 * n_moe}
+
+
+def read_launches(counters):
+    out = {name: fn.launches for name, fn in counters.items()}
+    out["gmm dx"] = counters["gmm"].dx_launches      # gmm's transposed mode, of its count
+    return out
+
+
+def zero_launches(counters):
+    for fn in counters.values():
+        fn.launches = 0
+    counters["gmm"].dx_launches = 0
+
+
+def loss_grads(torch, m, batch):
+    """(loss, gradient of every leaf) of one ``loss_fn`` and backward."""
+    from repro_torch.core.module import tree_leaves
+    from repro_torch.core.precision import compute_view
+
+    p = m.params.tree()
+    loss, _ = m.loss_fn(compute_view(m.policy, p), batch)
+    return loss.item(), torch.autograd.grad(loss, tree_leaves(p))
+
+
+def report_route(torch, kernel, plain, fp32, names, label, expect):
+    """Hold the kernel route's (loss, gradients) to the plain route's: the
+    loss within 2e-2 and every leaf's cosine >= 0.999.  A leaf below that
+    floor passes only where bf16 rounding alone moves it past it -- the
+    plain route's own cosine to the fp32-compute route ``fp32`` is below
+    0.999 -- and then the kernel route must be about as close to the fp32
+    route as the plain route is (its 1 - cosine at most twice the plain
+    route's), the idea of ``anchored_compare`` for Mamba2's logits.  At
+    random weights the SSM leaves D and A sum tens of thousands of terms
+    that cancel: two sound bf16 routes part there by a random factor of
+    their distance to fp32, and a gross fault moves the leaf by far more.
+    Those leaves' kernel is held to 1e-3 of the plain version by
+    ``check_ssd_scan_bwd``."""
+    (k_loss, k_grads), (p_loss, p_grads), (f_loss, f_grads) = kernel, plain, fp32
+    cos = [cosine(torch, a, b) for a, b in zip(k_grads, p_grads)]
+    anchored, bad = [], []
+    for i, c in enumerate(cos):
+        if c >= 0.999:
+            continue
+        kf, pf = cosine(torch, k_grads[i], f_grads[i]), cosine(torch, p_grads[i], f_grads[i])
+        anchored.append(f"{names[i]} {c:.6f} (to fp32: kernel {kf:.6f}, plain {pf:.6f})")
+        if pf >= 0.999 or 1 - kf > 2 * (1 - pf):
+            bad.append(names[i])
+    worst = min(range(len(cos)), key=lambda i: cos[i])
+    print(f"{label}: loss {k_loss:.6f} vs {p_loss:.6f} (|diff| {abs(k_loss - p_loss):.3g}, tol "
+          f"2e-2; fp32 route {f_loss:.6f}); grad cosine min {cos[worst]:.6f} ({names[worst]}, of "
+          f"{len(cos)} leaves; floor 0.999), mean {statistics.mean(cos):.6f}")
+    print("lowest grad cosines: " + ", ".join(
+        f"{names[i]} {cos[i]:.6f}" for i in sorted(range(len(cos)), key=lambda i: cos[i])[:5]))
+    print(f"leaves below 0.999 held to the fp32 route: {len(anchored)} {anchored[:8]}; failing: "
+          f"{bad}")
+    expect(abs(k_loss - p_loss) <= 2e-2, f"{label}: the loss disagrees")
+    expect(not bad, f"{label}: the gradients disagree")
+
+
+def ssm_train_phase(torch, counters, card):
+    """The SSM training path: Mamba2-2.7B through ``Trainer.run`` at full
+    width and all 64 layers (fp32 master weights, fp32 AdamW moments, WSD),
+    6 steps of packed synthetic protein tokens, 2 x 1024 a step as two
+    micro-batches of 1 x 1024.  Before it, the gradient route check at full
+    width and ``SSM_ROUTE_DEPTH`` layers: one micro-batch's loss and
+    gradients twice on the kernel route (bit-identical) and once on the
+    plain route (loss within 2e-2, every leaf's cosine >= 0.999); at 64
+    random layers two sound routes part on rounding alone.  Returns the
+    launch counts of the trainer's run and the peak memory in GB."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.data.dataset import build_synthetic_protein_memmap
+    from repro_torch.data.pipeline import CLMBatches
+    from repro_torch.models.model import Model, build_model
+    from repro_torch.training.loop import Trainer
+    from repro_torch.training.train_step import make_train_step
+
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    t_phase = time.perf_counter()
+    cfg = get_config("mamba2-2.7b")
+    tmp = tempfile.TemporaryDirectory()
+    ds, tok = build_synthetic_protein_memmap(f"{tmp.name}/prot", n=1024, seed=0)
+    micro, seq, accum, steps = 1, 1024, 2, 6
+
+    # ---- the gradient route check at a cut depth, on one micro-batch
+    cut = dataclasses.replace(cfg, num_layers=SSM_ROUTE_DEPTH)
+    model = build_model(cut, seed=0)
+    plain = Model(dataclasses.replace(cut, kernel_impl="torch"), model.params.tree())
+    batch = {k: torch.from_numpy(v).to(model.device)
+             for k, v in next(iter(CLMBatches(ds, micro, seq, seed=1, eos_id=tok.eos_id))).items()}
+    fp32 = Model(dataclasses.replace(cut, kernel_impl="torch", dtype="float32"),
+                 model.params.tree())
+    names = leaf_paths(model.params.tree())
+    k_route = loss_grads(torch, model, batch)
+    again = loss_grads(torch, model, batch)
+    differ = [names[i] for i, (a, b) in enumerate(zip(k_route[1], again[1]))
+              if not torch.equal(a, b)]
+    print(f"Mamba2-2.7B at full width, {SSM_ROUTE_DEPTH} of 64 layers, kernel route twice on one "
+          f"{micro}x{seq} micro-batch: loss {k_route[0]!r} vs {again[0]!r}; {len(differ)} of "
+          f"{len(names)} grad leaves differ {differ[:6]}")
+    expect(k_route[0] == again[0] and not differ, "a repeated Mamba2 loss and backward differs")
+    del again
+    report_route(torch, k_route, loss_grads(torch, plain, batch), loss_grads(torch, fp32, batch),
+                 names, f"Mamba2 kernel route vs plain route ({SSM_ROUTE_DEPTH} layers, loss_fn + "
+                 f"backward, {micro}x{seq})", expect)
+    del model, plain, fp32, k_route
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the main path: Trainer.run at full depth
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"built {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.ssm_nheads} SSD "
+          f"heads of {cfg.d_inner // cfg.ssm_nheads}, state {cfg.ssm_state}, vocab "
+          f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.3f}B params, fp32 master weights) in "
+          f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    tc = TrainConfig(global_batch=micro * accum, seq_len=seq, accum_steps=accum,
+                     learning_rate=3e-4, min_lr=3e-5, warmup_steps=2, decay_steps=2,
+                     total_steps=steps, schedule="wsd", weight_decay=0.01, grad_clip=1.0,
+                     log_every=steps)
+    print(f"training data: {len(ds)} synthetic sequences of 40-199 residues, packed with <eos> "
+          f"into {micro}x{seq} micro-batches, accum {accum} ({micro * accum * seq} tokens a "
+          f"step), AdamW with fp32 moments + WSD, peak lr {tc.learning_rate}, {steps} steps")
+    pipe = CLMBatches(ds, micro * accum, seq, seed=0, eos_id=tok.eos_id)
+    zero_launches(counters)
+    torch.cuda.synchronize()
+    trainer = Trainer(model, tc, peak_flops=PEAK_BF16_FLOPS)
+    state, hist = trainer.run(pipe)
+    torch.cuda.synchronize()
+    launches = read_launches(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = dict.fromkeys(launches, 0)
+    want.update({k: v * steps * accum for k, v in ssm_train_launches(cfg).items()})
+    print(f"main path: Trainer.run of {steps} steps x {accum} micro-batches: launches {launches} "
+          f"(want {want})")
+    losses = [h["loss"] for h in hist]
+    print(f"losses: step 0 {losses[0]:.4f}, step {steps - 1} {losses[-1]:.4f}")
+    expect(len(hist) == 2 and all(x == x and abs(x) < 1e30 for x in losses), "non-finite loss")
+    expect(trainer.skipped_total == 0, f"{trainer.skipped_total} skipped steps")
+    expect(losses[-1] < losses[0], "the loss did not fall")
+    expect(launches == want, "Mamba2 training launch counts")
+    step_s = hist[-1]["step_time"]
+    tokens = micro * accum * seq
+    mfu = 6 * cfg.active_param_count() * tokens / step_s / PEAK_BF16_FLOPS
+    print(f"Mamba2-2.7B (64 layers) training on {card}: step {step_s * 1e3:.1f} ms (wall of steps "
+          f"1-{steps - 1} over {steps - 1}, one host transfer; step 0 with its transfer "
+          f"{hist[0]['step_time'] * 1e3:.1f} ms), {tokens / step_s:.0f} tokens/s, MFU {mfu:.4f} "
+          f"(6 x {cfg.active_param_count() / 1e9:.3f}B params x tokens / 989 TFLOP/s), peak "
+          f"memory {peak_gb:.2f} GB")
+
+    # where the time goes: one more optimizer step under the profiler
+    batch = {k: torch.from_numpy(v).to(model.device) for k, v in next(iter(pipe)).items()}
+    step_fn = make_train_step(model, tc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, groups, kern = kernel_groups(prof, DeviceType)
+    if busy_ms == 0:
+        print("profile: the profiler saw no device time")
+    else:
+        print(f"profile of one Mamba2 train step on {card}: wall {wall_ms:.1f} ms (under the "
+              f"profiler), device busy {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
+              f"the SSD backward {groups['ssd_scan_bwd']:.1f} ms "
+              f"({groups['ssd_scan_bwd'] / busy_ms:.1%}), the forward {groups['ssd_scan']:.1f} ms")
+        print("profile by group (other = glue with clip and AdamW): " + ", ".join(
+            f"{k} {v:.1f} ms ({v / busy_ms:.1%})" for k, v in groups.items() if v))
+        for name, t, cnt in sorted(kern, key=lambda r: -r[1])[:14]:
+            print(f"  {t:9.2f} ms {cnt:6d}x  {name[:110]}")
+    del trainer, state, model, step_fn, prof, batch
+    tmp.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"Mamba2 training phase: {time.perf_counter() - t_phase:.1f} s")
+    check(not failed, "Mamba2 training phase: " + "; ".join(failed))
+    return launches, peak_gb
+
+
+def hybrid_train_phase(torch, counters, card):
+    """The hybrid unit trains on the card: ``reduced()`` Jamba-1.5-Large
+    (one unit of 8 layers: 7 SSD + 1 attention, MoE top-2 on every other
+    layer) in bf16 with fp32 master weights through ``Trainer.run``, every
+    kernel family counted; then one micro-batch's loss and gradients on the
+    kernel route against the plain route on the kernel route's experts
+    (loss within 2e-2, every leaf's cosine >= 0.999).  Returns the launch
+    counts of the trainer's run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import TrainConfig, reduced
+    from repro_torch.data.dataset import build_synthetic_protein_memmap
+    from repro_torch.data.pipeline import CLMBatches
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, build_model
+    from repro_torch.training.loop import Trainer
+
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    t_phase = time.perf_counter()
+    cfg = reduced(get_config("jamba-1.5-large-398b"), dtype="bfloat16")
+    model = build_model(cfg, seed=0)
+    B, seq, steps = 4, 256, 4
+    tmp = tempfile.TemporaryDirectory()
+    ds, tok = build_synthetic_protein_memmap(f"{tmp.name}/prot", n=256, seed=0)
+    batch = {k: torch.from_numpy(v).to(model.device)
+             for k, v in next(iter(CLMBatches(ds, B, seq, seed=1, eos_id=tok.eos_id))).items()}
+    plain = Model(dataclasses.replace(cfg, kernel_impl="torch"), model.params.tree())
+    fp32 = Model(dataclasses.replace(cfg, kernel_impl="torch", dtype="float32"),
+                 model.params.tree())
+    with RouteLog(moe) as k_log:
+        k_route = loss_grads(torch, model, batch)
+    with RouteLog(moe, replay=k_log.calls):
+        p_route = loss_grads(torch, plain, batch)
+    with RouteLog(moe, replay=k_log.calls):
+        f_route = loss_grads(torch, fp32, batch)
+    report_route(torch, k_route, p_route, f_route, leaf_paths(model.params.tree()),
+                 f"reduced Jamba kernel route vs plain route on the kernel route's experts "
+                 f"(loss_fn + backward, {B}x{seq})", expect)
+    del plain, fp32, k_route, p_route, f_route, k_log
+    tc = TrainConfig(global_batch=B, seq_len=seq, learning_rate=1e-3, min_lr=1e-4, warmup_steps=1,
+                     decay_steps=1, total_steps=steps, schedule="wsd", weight_decay=0.01,
+                     grad_clip=1.0, log_every=steps)
+    zero_launches(counters)
+    trainer = Trainer(model, tc, peak_flops=PEAK_BF16_FLOPS)
+    _, hist = trainer.run(CLMBatches(ds, B, seq, seed=0, eos_id=tok.eos_id))
+    torch.cuda.synchronize()
+    launches = read_launches(counters)
+    want = dict.fromkeys(launches, 0)
+    want.update({k: v * steps for k, v in ssm_train_launches(cfg).items()})
+    losses = [h["loss"] for h in hist]
+    print(f"reduced {cfg.name} (bf16, fp32 master weights, {cfg.num_layers} layers) Trainer.run of "
+          f"{steps} steps of {B}x{seq}: losses {losses[0]:.4f} -> {losses[-1]:.4f}, launches "
+          f"{launches} (want {want}), {time.perf_counter() - t_phase:.1f} s")
+    expect(launches == want, "reduced Jamba training launch counts")
+    expect(trainer.skipped_total == 0 and all(x == x for x in losses), "a skipped step")
+    expect(losses[-1] < losses[0], "the reduced Jamba loss did not fall")
+    del trainer, model
+    tmp.cleanup()
+    check(not failed, "hybrid training phase: " + "; ".join(failed))
+    return launches
+
+
+def ssm_launcher_phase(torch, counters, card):
+    """``launch.train.main --arch mamba2-2.7b`` on the card at full width and
+    depth: 3 steps of size-aware batches under 1 024 tokens from the sharded
+    store, so the SSD kernels see a new (B, S) at each step.  (``--smoke``'s
+    reduced config is fp32, and the SSD kernels take bf16 only.)  Returns
+    the launch counts of its run and the (B, S) shapes its trainer stepped
+    on."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+
+    shapes = []
+
+    class Recording(launch_train.Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            step_fn = self._step_fn
+            self._step_fn = lambda st, b: (shapes.append(tuple(b["tokens"].shape)),
+                                           step_fn(st, b))[1]
+
+    tmp = tempfile.TemporaryDirectory()
+    argv = ["--arch", "mamba2-2.7b", "--steps", "3", "--batch", "1", "--seq", "1024", "--lr",
+            "3e-4", "--sharded-data", "--max-tokens-per-batch", "1024", "--mesh", "none",
+            "--data-dir", f"{tmp.name}/data"]
+    zero_launches(counters)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    trainer_cls, launch_train.Trainer = launch_train.Trainer, Recording
+    try:
+        with contextlib.redirect_stdout(out):
+            launch_train.main(argv)
+    finally:
+        launch_train.Trainer = trainer_cls
+    torch.cuda.synchronize()
+    launches = read_launches(counters)
+    text = out.getvalue()
+    want = dict.fromkeys(launches, 0)
+    want.update({k: v * 3 for k, v in ssm_train_launches(get_config("mamba2-2.7b")).items()})
+    keep = [ln for ln in text.splitlines() if ln.startswith(("arch=", "step ", "final loss"))]
+    print(f"main path: launch.train.main {' '.join(argv[:-2])} ({time.perf_counter() - t0:.1f} s): "
+          f"shapes {shapes}; launches {launches} (want {want})")
+    print("launcher: " + " | ".join(keep))
+    check(text.rstrip().splitlines()[-1].startswith("final loss"), "the launcher did not finish")
+    check(launches == want, "Mamba2 launcher launch counts")
+    check(len(set(shapes)) > 1, "the size-aware batches kept one shape")
+    tmp.cleanup()
+    return launches, set(shapes)
+
+
 def main() -> int:
     import torch
 
@@ -3761,7 +4209,7 @@ def main() -> int:
     from repro_torch.kernels.paged_attention import paged_decode, paged_kv_write, paged_prefill
     from repro_torch.kernels.rmsnorm import layernorm, rmsnorm
     from repro_torch.kernels.sampling import fused_sample
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     from repro_torch.models.model import Model, build_model
     from repro_torch.obs.trace import TraceRecorder
     from repro_torch.serving.api import LLM
@@ -3783,7 +4231,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.finish_builds(_build.start_builds(
         ["flash_attention_fwd", "flash_attention_bwd", "cross_entropy", "flash_decode", "sampling",
-         "paged_attention", "grouped_matmul", "ssd_scan", "rmsnorm"]))
+         "paged_attention", "grouped_matmul", "ssd_scan", "ssd_scan_bwd", "rmsnorm"]))
     t_nvcc = time.perf_counter() - t0
     for name, log in logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill stores" in ln
@@ -3856,6 +4304,7 @@ def main() -> int:
     gmm_rec = check_gmm(torch, ref, gmm, card)
     gmm_dw_rec, gmm_dx_rec = check_gmm_dw(torch, ref, gmm, gmm_dw, card)
     ssd_rec = check_ssd_scan(torch, ref, ssd_scan, card)
+    ssd_bwd_rec = check_ssd_scan_bwd(torch, ref, ssd_scan, ssd_scan_bwd, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4010,6 +4459,19 @@ def main() -> int:
     moe_train_launches = moe_train_phase(torch, counters, card)
     print(f"Triton launches on the generation and MoE training paths: {layernorm.launches} (want 0)")
     check(layernorm.launches == 0, "a Triton kernel launched on a generation or MoE path")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 12. the SSM training path: Mamba2-2.7B at full width and depth,
+    # reduced Jamba, and the launcher on Mamba2
+    counters.update(ssd_scan_bwd=ssd_scan_bwd)
+    ssm_train, ssm_peak_gb = ssm_train_phase(torch, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_train = hybrid_train_phase(torch, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_launcher, _ = ssm_launcher_phase(torch, counters, card)
 
     # launches: each kernel's count in the run of its path — the training
     # run for rows 1-5 (the embed and generation runs' counts of the
@@ -4045,7 +4507,17 @@ def main() -> int:
     for rec in ce_recs:       # Scout's numbers with the Scout training run's count
         rec["scout"]["launches"] = moe_train_launches[rec["name"]]
     ssd_rec["launches"] = ssm_launches["ssd_scan"]
-    kernels += gen_recs + paged_recs + [gmm_rec, gmm_dw_rec, ssd_rec]
+    # the SSD pair's counts on the training path (row 14's forward and the
+    # port's own backward, whose main path is Mamba2's training run)
+    ssd_phases = {"mamba2_train": ssm_train, "jamba_train": hybrid_train,
+                  "mamba2_launcher": ssm_launcher}
+    ssd_rec["launches_train"] = ssm_train["ssd_scan"]
+    ssd_rec["launches_by_phase"] = {"mamba2_generate": ssm_launches["ssd_scan"],
+                                    **{ph: n["ssd_scan"] for ph, n in ssd_phases.items()}}
+    ssd_bwd_rec["launches"] = ssm_train["ssd_scan_bwd"]
+    ssd_bwd_rec["launches_by_phase"] = {ph: n["ssd_scan_bwd"] for ph, n in ssd_phases.items()}
+    ssd_bwd_rec["train_peak_gb"] = ssm_peak_gb
+    kernels += gen_recs + paged_recs + [gmm_rec, gmm_dw_rec, ssd_rec, ssd_bwd_rec]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -31,4 +31,8 @@
   wrapped by ``grouped_matmul.py``; replaces ``grouped_matmul.py::gmm``.
 * Mamba-2 SSD chunked scan: ``csrc/ssd_scan.cu`` (CUDA C++ for sm_90a),
   wrapped by ``ssd_scan.py``; replaces ``ssd_scan.py::ssd_scan``.
+* its backward: ``csrc/ssd_scan_bwd.cu`` (CUDA C++ for sm_90a), wrapped by
+  ``ssd_scan.py`` (``ssd_scan_bwd``, the ``SSDScan`` autograd Function);
+  the port's own, as the reference's TPU kernel has no backward (it
+  differentiates its jnp scan).
 """

@@ -60,6 +60,16 @@
 // att x, C h^T and the update) are 3.0 GFLOP, 0.0031 ms at the bf16 rate.
 // (The sequential recurrence at fp32's 67 TFLOP/s is 0.0503 ms: the
 // bound while the products ran on fp32 FMA, still printed beside it.)
+//
+// Training. The backward (ssd_scan_bwd.cu) needs the state entering each
+// chunk. The entry ssd_scan_states has the warps that hold the state store
+// it at each chunk's start, before the chunk's update: one (P x N) fp32
+// store a chunk and head into hin (B, nc, H, P, N), the first chunk's
+// zero. That is the state the kernel carries anyway, so nothing is
+// recomputed; at Mamba2's training shape (1 x 1024) it is 42 MB a layer,
+// 2.7 GB over 64 layers, which a recomputing backward would save at the
+// cost of a second pass of the forward's update products. y and the final
+// state keep their bits: the arithmetic is the same, with or without hin.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,6 +94,7 @@ struct Params {
   const float* D;      // (H,)
   uint16_t* y;         // (B, S, H, P) contiguous
   float* hout;         // (B, H, P, N) contiguous
+  float* hin;          // (B, nc, H, P, N) contiguous: the state entering each chunk, or null
   long long xs_b, xs_s, xs_h;  // element strides of x
   long long bs_b, bs_s, bs_g;  // of Bm and Cm
   long long ds_b, ds_s;        // of dt
@@ -251,6 +262,21 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const Params p) {
   float hs[kNT][4];
 #pragma unroll
   for (int j = 0; j < kNT; ++j) hs[j][0] = hs[j][1] = hs[j][2] = hs[j][3] = 0.f;
+  // this warp's part of the state slice into a (P, N) fp32 matrix at dst
+  auto store_state = [&](float* dst) {
+    float* hb = dst + (long long)p0 * p.N;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const int col = n0 + 8 * j + 2 * tq;
+      if (col >= p.N) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 16 * pb + g + 8 * r;
+        *reinterpret_cast<float2*>(hb + (long long)row * p.N + col) =
+            make_float2(hs[j][2 * r], hs[j][2 * r + 1]);
+      }
+    }
+  };
 
   const int n_chunks = (p.S + kL - 1) / kL;
   load_chunk(0, 0);
@@ -376,6 +402,8 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const Params p) {
     }
 
     if (owns_state) {  // the state: h exp(seg) + (x o w)^T B
+      if (p.hin)
+        store_state(p.hin + (((long long)b * n_chunks + c) * p.H + h) * p.P * p.N);
       const float es = ex2(seg);
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
@@ -428,20 +456,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const Params p) {
     }
   }
 
-  if (owns_state) {
-    float* hb = p.hout + (((long long)b * p.H + h) * p.P + p0) * p.N;
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int col = n0 + 8 * j + 2 * tq;
-      if (col >= p.N) continue;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = 16 * pb + g + 8 * r;
-        *reinterpret_cast<float2*>(hb + (long long)row * p.N + col) =
-            make_float2(hs[j][2 * r], hs[j][2 * r + 1]);
-      }
-    }
-  }
+  if (owns_state) store_state(p.hout + ((long long)b * p.H + h) * p.P * p.N);
 }
 
 template <int kPT, int NP>
@@ -462,17 +477,10 @@ cudaError_t launch_n(const Params& p, int B, cudaStream_t stream) {
   return launch<kPT, 128>(p, B, stream);
 }
 
-}  // namespace
-
-// x, B and C bf16 with the last dim contiguous (strides in elements), dt
-// fp32 with h contiguous, A and D fp32 (H,), y and hout contiguous; H a
-// multiple of G, P of 32, N of 4 and at most 128. Returns the cudaError_t
-// of the launch (0 = launched).
-extern "C" int ssd_scan(const void* x, const float* dt, const float* A, const void* Bm,
-                        const void* Cm, const float* D, void* y, float* hout, long long xs_b,
-                        long long xs_s, long long xs_h, long long bs_b, long long bs_s,
-                        long long bs_g, long long ds_b, long long ds_s, int B, int S, int H,
-                        int P, int G, int N, void* stream) {
+int run(const void* x, const float* dt, const float* A, const void* Bm, const void* Cm,
+        const float* D, void* y, float* hout, float* hin, long long xs_b, long long xs_s,
+        long long xs_h, long long bs_b, long long bs_s, long long bs_g, long long ds_b,
+        long long ds_s, int B, int S, int H, int P, int G, int N, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G || P <= 0 || P % 32 || N <= 0 || N % 4 ||
       N > kMaxN)
     return cudaErrorInvalidValue;
@@ -485,6 +493,7 @@ extern "C" int ssd_scan(const void* x, const float* dt, const float* A, const vo
   p.D = D;
   p.y = static_cast<uint16_t*>(y);
   p.hout = hout;
+  p.hin = hin;
   p.xs_b = xs_b;
   p.xs_s = xs_s;
   p.xs_h = xs_h;
@@ -504,4 +513,30 @@ extern "C" int ssd_scan(const void* x, const float* dt, const float* A, const vo
   const int pt = P % 64 == 0 ? 64 : 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return pt == 64 ? launch_n<64>(p, B, s) : launch_n<32>(p, B, s);
+}
+
+}  // namespace
+
+// x, B and C bf16 with the last dim contiguous (strides in elements), dt
+// fp32 with h contiguous, A and D fp32 (H,), y and hout contiguous; H a
+// multiple of G, P of 32, N of 4 and at most 128. Returns the cudaError_t
+// of the launch (0 = launched).
+extern "C" int ssd_scan(const void* x, const float* dt, const float* A, const void* Bm,
+                        const void* Cm, const float* D, void* y, float* hout, long long xs_b,
+                        long long xs_s, long long xs_h, long long bs_b, long long bs_s,
+                        long long bs_g, long long ds_b, long long ds_s, int B, int S, int H,
+                        int P, int G, int N, void* stream) {
+  return run(x, dt, A, Bm, Cm, D, y, hout, nullptr, xs_b, xs_s, xs_h, bs_b, bs_s, bs_g, ds_b,
+             ds_s, B, S, H, P, G, N, stream);
+}
+
+// The same, and the state entering each chunk of 64 rows into hin (B,
+// ceil(S / 64), H, P, N) fp32 contiguous, for the backward.
+extern "C" int ssd_scan_states(const void* x, const float* dt, const float* A, const void* Bm,
+                               const void* Cm, const float* D, void* y, float* hout, float* hin,
+                               long long xs_b, long long xs_s, long long xs_h, long long bs_b,
+                               long long bs_s, long long bs_g, long long ds_b, long long ds_s,
+                               int B, int S, int H, int P, int G, int N, void* stream) {
+  return run(x, dt, A, Bm, Cm, D, y, hout, hin, xs_b, xs_s, xs_h, bs_b, bs_s, bs_g, ds_b, ds_s,
+             B, S, H, P, G, N, stream);
 }

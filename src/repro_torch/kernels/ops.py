@@ -10,11 +10,12 @@ implementations: attention and cross-entropy pair their forward and
 backward kernels (or plain versions) in a ``torch.autograd.Function``, as
 the reference's custom VJPs do, and so does the MoE's ragged grouped
 matmul (its forward kernel, the same kernel on the transposed weights for
-dx, and the weight-gradient kernel); LayerNorm and RMSNorm pair their
-forward kernels with the reference's hand-written backward formulas.  The
-serving-only ops — decode attention, the paged-KV ops, sampling and the
-Mamba-2 SSD scan — are forward-only: the SSD kernel raises when asked for
-a gradient (its plain version stays differentiable).  The paged-KV writes
+dx, and the weight-gradient kernel), and the Mamba-2 SSD scan (its
+forward kernel, which then keeps each chunk's entering state, and the
+port's own backward kernel); LayerNorm and RMSNorm pair their forward
+kernels with the reference's hand-written backward formulas.  The
+serving-only ops — decode attention, the paged-KV ops and sampling — are
+forward-only.  The paged-KV writes
 and the SSD decode step update the cache in place (the reference donates
 its buffers and returns new ones).
 """
@@ -279,8 +280,14 @@ def ssd(
     """The Mamba-2 SSD scan over a whole sequence from a zero state ->
     (y (B, S, H, P) in x.dtype, final state (B, H, P, N) fp32), in the
     chunked dual form with fp32 products; any S.  ``chunk`` sets the plain
-    version's chunk only: the kernel ignores it and always chunks at 64
-    rows (the function does not depend on it beyond fp32 rounding)."""
+    version's chunk only: the kernels ignore it and always chunk at 64
+    rows (the function does not depend on it beyond fp32 rounding).
+    Differentiable on every device: ``auto`` goes through
+    ``ssd_scan.SSDScan``, whose forward keeps the state entering each chunk
+    and whose backward is the SSD backward kernel on a CUDA tensor (the
+    port's own; the reference differentiates its jnp scan) and the explicit
+    chunked backward ``ssd_scan_bwd_ref`` on a CPU one; ``torch`` runs the
+    plain forward under autograd."""
     if _plain(impl):
         return _ref.ssd_scan_ref(x, dt, A, Bm, Cm, D, chunk)
     return _ss.ssd_scan(x, dt, A, Bm, Cm, D, chunk)

@@ -585,9 +585,12 @@ def ssd_scan_ref(
     Cm: torch.Tensor,     # (B, S, G, N)
     D: torch.Tensor,      # (H,)
     chunk: int = 64,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    states: bool = False,
+):
     """The SSD kernel's math: the chunked dual form in fp32 -> (y (B, S, H,
-    P) in x.dtype, final state (B, H, P, N) fp32).  Per chunk of L rows,
+    P) in x.dtype, final state (B, H, P, N) fp32), and with ``states`` also
+    the state entering each chunk, (B, nc, H, P, N) fp32 (the first is
+    zero), which ``ssd_scan_bwd_ref`` takes.  Per chunk of L rows,
     with ``cum`` the inclusive prefix sum of dt·A:
 
         att   = (C Bᵀ) ∘ exp(cum_t − cum_s)[s ≤ t] ∘ dt_s
@@ -612,8 +615,9 @@ def ssd_scan_ref(
     xf, dtf, Bf, Cf = padded(xf), padded(dtf), padded(Bf), padded(Cf)
     causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()[None, :, :, None]
     h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    ys = []
+    ys, h_in = [], []
     for c0 in range(0, S + pad, L):
+        h_in.append(h)
         xc, dtc, bc, cc = (t[:, c0:c0 + L] for t in (xf, dtf, Bf, Cf))
         cum = torch.cumsum(dtc * Af, dim=1)                       # (B, L, H)
         seg = cum[:, -1]                                           # (B, H)
@@ -626,7 +630,108 @@ def ssd_scan_ref(
         h = h * torch.exp(seg)[..., None, None] + torch.einsum("blhp,blhn->bhpn", xw, bc)
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :S] + xf[:, :S] * D.float()[None, None, :, None]
+    if states:
+        return y.to(x.dtype), h, torch.stack(h_in, dim=1)
     return y.to(x.dtype), h
+
+
+def ssd_scan_bwd_ref(
+    x: torch.Tensor,       # (B, S, H, P)
+    dt: torch.Tensor,      # (B, S, H)
+    A: torch.Tensor,       # (H,)
+    Bm: torch.Tensor,      # (B, S, G, N)
+    Cm: torch.Tensor,      # (B, S, G, N)
+    D: torch.Tensor,       # (H,)
+    states: torch.Tensor,  # (B, nc, H, P, N) fp32: the state entering each chunk
+    dy: torch.Tensor,      # (B, S, H, P)
+    dstate: Optional[torch.Tensor] = None,   # (B, H, P, N): the final state's gradient
+    chunk: int = 64,
+) -> Tuple[torch.Tensor, ...]:
+    """The SSD scan's backward in its chunked form, in fp32 -> (dx in
+    x.dtype, ddt fp32, dA in A.dtype, dB and dC in Bm.dtype, dD in D.dtype),
+    the decomposition the backward kernel computes.  ``states`` are
+    ``ssd_scan_ref(..., states=True)``'s at the same ``chunk``.
+
+    A reverse pass over the chunks carries the state's gradient dh: the
+    last chunk's dh_out is ``dstate`` (or 0), and dh_in = exp(seg) dh_out +
+    Σ_t exp(cum_t) dy_t C_tᵀ.  Given each chunk's h_in and dh_out the
+    chunks are independent.  Per chunk, head and batch row, with rows t ≥ s,
+    G = C Bᵀ, E_ts = exp(cum_t − cum_s), M = G ∘ E ∘ dt_s, w_s = dt_s
+    exp(seg − cum_s) and dM = dy xᵀ:
+
+        dx_s  = Σ_t M_ts dy_t + w_s (dh_out B_s) + D dy_s
+        dB_s  = Σ_t dM_ts E_ts dt_s C_t + w_s (dh_outᵀ x_s)
+        dC_t  = Σ_s dM_ts E_ts dt_s B_s + exp(cum_t) (h_inᵀ dy_t)
+        ddt_s = Σ_t dM_ts G_ts E_ts + dw_s exp(seg − cum_s) + A rc_s
+        dA    = Σ dt_r rc_r,   dD = Σ dy·x
+
+    where dw_s = x_sᵀ dh_out B_s, rc_r = Σ_{t≥r} dcum_t, and with Q = dM ∘
+    M: dcum_t = Σ_s Q_ts − Σ_t' Q_t't + exp(cum_t) dy_t·(h_in C_t) − dw_t
+    w_t, the last row adding Σ_s dw_s w_s + exp(seg) ⟨dh_out, h_in⟩.  dB
+    and dC sum over the heads of a group.  The causal decay is selected
+    before the exponent, as in the forward.  The padded tail (x = 0, dt = 0,
+    dy = 0) adds nothing."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    xf, dtf, Af, Bf, Cf = _ssd_inputs(x, dt, A, Bm, Cm)
+    L = min(chunk, S)
+    pad = -S % L
+    nc = (S + pad) // L
+    if states.shape != (Bsz, nc, H, P, N):
+        raise ValueError(f"ssd_scan_bwd_ref: states must be {(Bsz, nc, H, P, N)} for chunk "
+                         f"{chunk}; got {tuple(states.shape)}")
+
+    def chunked(t):   # (B, S, H, ...) -> (B, nc, L, H, ...), the tail zero-padded
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(Bsz, nc, L, *t.shape[2:])
+
+    xc, dtc, bc, cc, dyc = (chunked(t) for t in (xf, dtf, Bf, Cf, dy.float()))
+    h_in = states.float()
+    cum = torch.cumsum(dtc * Af, dim=2)                                  # (B, nc, L, H)
+    seg = cum[:, :, -1]                                                  # (B, nc, H)
+    ecum = torch.exp(cum)
+    # the reverse pass: each chunk's dh_out
+    U = torch.einsum("bclhp,bclhn->bchpn", ecum[..., None] * dyc, cc)
+    dh_out = torch.empty_like(h_in)
+    carry = (torch.zeros_like(h_in[:, 0]) if dstate is None else dstate.float())
+    for c in range(nc - 1, -1, -1):
+        dh_out[:, c] = carry
+        carry = torch.exp(seg[:, c])[..., None, None] * carry + U[:, c]
+    # the chunks' own gradients, all chunks at once; index order (t, s)
+    causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()[:, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]                 # (B, nc, L, L, H)
+    E = torch.exp(diff.masked_fill(~causal, -math.inf))
+    dts = dtc[:, :, None]                                                # dt_s
+    Gm = torch.einsum("bcthn,bcshn->bctsh", cc, bc)
+    dM = torch.einsum("bcthp,bcshp->bctsh", dyc, xc)
+    M = Gm * E * dts
+    dS = dM * E * dts
+    R = dM * Gm * E
+    w = dtc * torch.exp(seg[:, :, None] - cum)                           # (B, nc, L, H)
+    dhB = torch.einsum("bchpn,bcshn->bcshp", dh_out, bc)
+    dx = torch.einsum("bctsh,bcthp->bcshp", M, dyc) + w[..., None] * dhB
+    V = torch.einsum("bchpn,bcshp->bcshn", dh_out, xc)                   # dh_outᵀ x_s
+    dBh = torch.einsum("bctsh,bcthn->bcshn", dS, cc) + w[..., None] * V
+    Z = torch.einsum("bchpn,bcthp->bcthn", h_in, dyc)                    # h_inᵀ dy_t
+    dCh = torch.einsum("bctsh,bcshn->bcthn", dS, bc) + ecum[..., None] * Z
+    dw = (bc * V).sum(-1)                                                # (B, nc, L, H)
+    Q = R * dts
+    dcum = Q.sum(3) - Q.sum(2) + ecum * (cc * Z).sum(-1) - dw * w
+    dcum[:, :, -1] += (dw * w).sum(2) + torch.exp(seg) * (dh_out * h_in).sum((-2, -1))
+    rc = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])        # Σ_{t ≥ r} dcum_t
+    ddt = R.sum(2) + dw * torch.exp(seg[:, :, None] - cum) + Af * rc
+    dA = (dtc * rc).sum((0, 1, 2))
+
+    def unchunked(t):
+        return t.reshape(Bsz, nc * L, *t.shape[3:])[:, :S]
+
+    dx = unchunked(dx) + dy.float() * D.float()[None, None, :, None]
+    dD = (dy.float() * xf).sum((0, 1, 3))
+    rep = H // G
+    dB = unchunked(dBh).reshape(Bsz, S, G, rep, N).sum(3)
+    dC = unchunked(dCh).reshape(Bsz, S, G, rep, N).sum(3)
+    return (dx.to(x.dtype), unchunked(ddt).to(dt.dtype), dA.to(A.dtype), dB.to(Bm.dtype), dC.to(Cm.dtype),
+            dD.to(D.dtype))
 
 
 def ssd_ref(

@@ -96,14 +96,8 @@ class Model(nn.Module):
         layers) to the loss, and reports ``aux_loss`` (lb),
         ``router_entropy`` (the mean over layers), ``router_drop_frac`` and
         ``router_load`` (the per-expert kept-load fractions, (E,)), as the
-        reference does.  An SSM model trains on the CPU through autograd of
-        the plain SSD scan and raises on the card, where the SSD kernel is
-        forward-only."""
+        reference does."""
         cfg = self.cfg
-        if cfg.family in ("ssm", "hybrid") and batch["tokens"].is_cuda:
-            raise NotImplementedError(
-                f"{cfg.name}: training an SSM model on the card needs the SSD scan's backward, "
-                "not ported yet (ROADMAP: SSM training path)")
         x, _, aux = self._backbone(params, self._decoder_input(params, batch["tokens"]))
         B, S, D = x.shape
         if cfg.objective == "mlm":

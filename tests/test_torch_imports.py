@@ -28,7 +28,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 )
 from repro_torch.kernels.rmsnorm import layernorm, rmsnorm  # noqa: E402
 from repro_torch.kernels.sampling import fused_sample  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.serving.api import LLM  # noqa: E402
@@ -36,7 +36,7 @@ from repro_torch.training.loop import Trainer  # noqa: E402
 
 KERNELS = (flash_attention_fwd, flash_attention_bwd, cross_entropy_fwd, cross_entropy_bwd, layernorm,
            rmsnorm, flash_decode, fused_sample, paged_decode, paged_prefill, paged_kv_write, gmm,
-           gmm_dw, ssd_scan)
+           gmm_dw, ssd_scan, ssd_scan_bwd)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -194,6 +194,8 @@ def test_cpu_runs_launch_no_kernel():
     loss.backward()
     jamba = model_mod.build_model(get_smoke_config("jamba-1.5-large-398b"), device="cpu")
     LLM(jamba, slots=2, max_len=48).generate([[1, 5, 6], [7, 8, 9, 10]])
+    loss, _ = jamba.loss_fn(jamba.params.tree(), {"tokens": toks})
+    loss.backward()
     assert all(k.launches == 0 for k in KERNELS), [k.launches for k in KERNELS]
 
 

@@ -1,6 +1,7 @@
 """The port's training launcher (``repro_torch.launch.train``) and its
 trace: ``main`` end to end on the CPU with the data plane, a resume and
-the history file; ``make_batches`` against the reference launcher's; the
+the history file, and on reduced Mamba2's size-aware causal batches;
+``make_batches`` against the reference launcher's; the
 meshes it refuses; ``trace_ctx``; and the GPU it needs unless asked for
 the CPU."""
 import json
@@ -40,6 +41,32 @@ def test_main_runs_resumes_and_writes_history(tmp_path, capsys):
     assert sorted(os.listdir(tmp_path / "ck")) == ["step_2", "step_4"]
     assert sorted(os.listdir(tmp_path / "m")) == ["train.prom", "train_metrics.json"]
     assert any(f.endswith(".pt.trace.json") for f in os.listdir(tmp_path / "prof"))
+
+
+def test_main_trains_mamba2_on_size_aware_batches(tmp_path, monkeypatch):
+    """``--arch mamba2-2.7b`` (reduced, on the CPU): causal batches from the
+    sharded store under a token budget, so the SSD scan and its backward
+    see a new (B, S) at each step; the history file holds the last step's
+    finite loss."""
+    shapes = []
+
+    class Recording(train.Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            step_fn = self._step_fn
+            self._step_fn = lambda st, b: (shapes.append(tuple(b["tokens"].shape)),
+                                           step_fn(st, b))[1]
+
+    monkeypatch.setattr(train, "Trainer", Recording)
+    out = tmp_path / "hist.json"
+    train.main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu", "--steps", "3",
+                "--batch", "2", "--seq", "128", "--sharded-data", "--max-tokens-per-batch",
+                "512", "--mesh", "none", "--data-dir", str(tmp_path / "data"), "--history-out",
+                str(out)])
+    hist = json.loads(out.read_text())
+    assert [h["step"] for h in hist] == [0, 2] and all(np.isfinite(h["loss"]) for h in hist)
+    assert len(shapes) == 3 and len(set(shapes)) > 1
+    assert all(b * s <= 512 for b, s in shapes)
 
 
 @pytest.mark.parametrize("kind", ["mlm_size_aware", "mlm_cluster", "clm_size_aware", "clm_packed"])

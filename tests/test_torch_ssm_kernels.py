@@ -5,8 +5,11 @@ sequential oracle ``ssd_ref`` at tail lengths, the recurrent decode step
 against ``ops.ssd_decode_step``, a decode chain against the scan, the
 CUDA kernel's arithmetic (bf16 tensor-core products with the fp32
 operands split into high and low halves) emulated in torch against the
-reference's Pallas kernel, and the kernel wrapper's CPU route and
-argument checks."""
+reference's Pallas kernel, the kernel wrapper's CPU route and argument
+checks, the explicit chunked backward ``ssd_scan_bwd_ref`` (the backward
+kernel's decomposition) against ``jax.grad`` of the reference's scan, and
+``SSDScan``'s wiring on its plain halves against autograd of the plain
+scan."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -242,3 +245,119 @@ def test_kernel_arithmetic_matches_the_pallas_kernel_at_the_chip_gates(case):
     assert _state_err(h, want_h) <= 1e-4
     _, h_bf16 = _kernel_scan(*args, split_update=False)
     assert _state_err(h_bf16, want_h) > 1e-4
+
+
+# ------------------------------------------------------------ the backward
+# (B, S, H, P, G, N, chunk, dt shift, with the final state's gradient)
+BWD_CASES = {
+    "G1_S_multiple_of_chunk": (2, 48, 4, 8, 1, 8, 16, 0.0, True),
+    "G2_S45_tail": (2, 45, 4, 8, 2, 8, 16, 0.0, False),
+    "G2_S7_below_chunk": (1, 7, 4, 8, 2, 8, 16, 0.0, True),
+    "S1": (1, 1, 2, 8, 1, 4, 16, 0.0, True),
+    "large_steps": (1, 40, 2, 8, 1, 8, 16, 3.0, True),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_scan_bwd_ref_matches_jax_grad_of_the_reference_scan(case):
+    """Every gradient of ``ssd_scan_bwd_ref`` (given ``ssd_scan_ref``'s chunk
+    states) against ``jax.grad`` of the reference's chunked scan
+    ``_ssd_chunked_xla`` with cotangents on y and on the final state.  The
+    large-step case (dt·|A| of tens a row) goes against the sequential
+    oracle ``ssd_ref`` instead: the reference's scan takes exp before its
+    causal select, so its own gradient of dt and A is NaN there, where the
+    port's selects first and stays finite.  fp32 both: the same products
+    summed in another order, held to 1e-5 of each gradient's largest
+    magnitude, or of 1 where that is smaller (measured: at most 4e-6 of
+    it; the large-step dA, ~2e-6 in all, within 6e-6)."""
+    B, S, H, P, G, N, chunk, shift, with_ds = BWD_CASES[case]
+    inp = _inputs(B, S, H, P, G, N, seed=S + G, dt_shift=shift)
+    if shift:
+        inp["A"] = np.full(H, -16.0, np.float32)
+    rng = np.random.default_rng(S)
+    dy = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    ds = rng.standard_normal((B, H, P, N)).astype(np.float32) if with_ds else None
+
+    def loss(*a):
+        y, h = (jax_ref.ssd_ref(*a) if shift else jax_ops._ssd_chunked_xla(*a, chunk=chunk))
+        return jnp.sum(y * dy) + (jnp.sum(h * ds) if with_ds else 0.0)
+
+    want = jax.grad(loss, argnums=tuple(range(6)))(*_args(inp, _jax))
+    args = _args(inp, _torch)
+    _, _, states = ref.ssd_scan_ref(*args, chunk=chunk, states=True)
+    assert states.shape == (B, -(-S // min(chunk, S)), H, P, N) and not states[:, 0].any()
+    got = ref.ssd_scan_bwd_ref(*args, states, torch.from_numpy(dy),
+                               None if ds is None else torch.from_numpy(ds), chunk=chunk)
+    for name, g, w in zip(("x", "dt", "A", "Bm", "Cm", "D"), got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert np.isfinite(g.numpy()).all(), name
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5 * max(np.abs(w).max(), 1.0), rtol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("outputs", ["y_and_state", "y_only", "state_only"])
+def test_ssd_scan_function_on_its_plain_halves_matches_autograd(outputs):
+    """``ssd_scan`` with an input that needs a gradient goes through
+    ``SSDScan``: on CPU tensors its forward is ``ssd_scan_ref(...,
+    states=True)`` and its backward ``ssd_scan_bwd_ref``.  Through x, B and
+    C sliced out of one activation (strided views, as the SSM block makes
+    them), with the gradient of y, of the final state or of both (the other
+    ``None``), every gradient matches autograd of the plain scan: fp32, the
+    same products in another order (measured within 1.2e-6 of each
+    gradient's largest)."""
+    B, S, H, P, G, N = 2, 45, 4, 32, 2, 16
+    rng = np.random.default_rng(21)
+    conv0 = torch.from_numpy(rng.standard_normal((B, S, H * P + 2 * G * N)).astype(np.float32))
+    dt0 = torch.from_numpy(np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32))
+    A0 = torch.from_numpy(-(0.5 + rng.random(H)).astype(np.float32))
+    D0 = torch.from_numpy(rng.standard_normal(H).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((B, S, H, P)).astype(np.float32))
+    ds = torch.from_numpy(rng.standard_normal((B, H, P, N)).astype(np.float32))
+
+    def grads(scan):
+        leaves = [t.clone().requires_grad_() for t in (conv0, dt0, A0, D0)]
+        conv, dt, A, D = leaves
+        x = conv[..., :H * P].unflatten(-1, (H, P))
+        Bm = conv[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+        Cm = conv[..., H * P + G * N:].unflatten(-1, (G, N))
+        y, h = scan(x, dt, A, Bm, Cm, D, chunk=16)
+        loss = ((y * dy).sum() if outputs != "state_only" else 0.0) \
+            + ((h * ds).sum() if outputs != "y_only" else 0.0)
+        return torch.autograd.grad(loss, leaves, allow_unused=True), (y, h)
+
+    before = ss.ssd_scan.launches, ss.ssd_scan_bwd.launches
+    got, (y, h) = grads(ss.ssd_scan)
+    want, (wy, wh) = grads(ref.ssd_scan_ref)
+    assert torch.equal(y, wy) and torch.equal(h, wh)
+    assert y.grad_fn is not None and type(y.grad_fn).__name__ == "SSDScanBackward"
+    for name, g, w in zip(("conv", "dt", "A", "D"), got, want):
+        w = torch.zeros_like(g) if w is None else w    # D does not reach the final state
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5 * max(w.abs().max(), 1.0),
+                                   rtol=0, err_msg=name)
+    assert (ss.ssd_scan.launches, ss.ssd_scan_bwd.launches) == before
+
+
+def test_scan_bwd_keeps_the_input_dtypes_and_checks_its_arguments():
+    """bf16 x, B and C: dx, dB and dC come back in bf16, ddt in fp32, dA
+    and dD in the dtype A and D came in; the backward's argument checks
+    (the kernel's) refuse a wrong dy, chunk states or final-state
+    gradient."""
+    inp = _inputs(1, 70, 2, 32, 1, 16, seed=9)
+    args = _args(inp, _torch, "bfloat16")
+    args[2], args[5] = args[2].to(torch.bfloat16), args[5].to(torch.bfloat16)
+    _, _, states = ref.ssd_scan_ref(*args, chunk=64, states=True)
+    dy = torch.ones(1, 70, 2, 32, dtype=torch.bfloat16)
+    got = ss.ssd_scan_bwd(*args, states, dy, None)
+    assert [g.dtype for g in got] == [torch.bfloat16, torch.float32, torch.bfloat16,
+                                      torch.bfloat16, torch.bfloat16, torch.bfloat16]
+    ss.check_bwd_args(args[0], states, dy, torch.zeros(1, 2, 32, 16), 16)
+    bad = {
+        "states must be": (states[:, :1].contiguous(), dy, None),
+        "dy must be": (states, dy.float(), None),
+        "dstate must be": (states, dy, torch.zeros(1, 2, 32, 8)),
+        "contiguous": (states, dy.transpose(2, 3).contiguous().transpose(2, 3), None),
+    }
+    for match, (st, d, dstate) in bad.items():
+        with pytest.raises(ValueError, match=match):
+            ss.check_bwd_args(args[0], st, d, dstate, 16)
