@@ -2378,6 +2378,11 @@ def check_ssd_scan(torch, ref, ssd_scan, card):
             "bound_ms_by_S": {str(k): v[1] for k, v in by_s.items()}}
 
 
+# the backward's kernels, by the substrings of their names (each holds
+# "ssd_bwd", which ``kernel_groups`` reads as the SSD backward)
+SSD_BWD_KERNELS = ("ssd_bwd_state", "ssd_bwd_chunk", "ssd_bwd_sum")
+
+
 def ssd_bwd_flops(B, S, H, P, G, N, L=64):
     """FLOPs of the chunked backward's products at L rows, for this S: per
     chunk of r rows C·Bᵀ once a group (its causal half), and per head dy·xᵀ
@@ -2413,16 +2418,20 @@ def check_ssd_scan_bwd(torch, ref, ssd_scan, ssd_scan_bwd, card):
     activation, as ``ssm_apply`` makes them), each given its own forward's
     chunk states, at Mamba2-2.7B's training shape (1 x 1024), a tail (S =
     1000), a short sequence (S = 45), batch 2 with G = 2, reduced Jamba's
-    (P 32, N 16) and large steps (no NaN), with and without the final
-    state's gradient: dx, dB and dC within 2 bf16 steps of each row's
-    max|plain|; ddt, dA and dD within 1e-3 of their max|plain|; the chunk
-    states within 1e-4 of each head's.  The forward's y and final state
-    are the same bits with and without the chunk states' store, and a
-    repeated backward is bit-identical.  Times the Mamba2 shape.  Returns
-    its record."""
-    from repro_torch.kernels.ssd_scan import _scan
+    (P 32, N 16), large steps (no NaN), N = 20 (B's and C's rows off a
+    16-byte boundary: element copies, N padded to 32), a prime number of
+    heads a group (H 7, G 1, at a size where the kernel's run takes all
+    seven) and P = 96 (slices of 32 rows of P, dx's second pass), with and
+    without the final state's gradient: dx, dB and dC within 2 bf16 steps
+    of each row's max|plain|; ddt, dA and dD within 1e-3 of their
+    max|plain|; the chunk states within 1e-4 of each head's.  The
+    forward's y and final state are the same bits with and without the
+    chunk states' store, and a repeated backward is bit-identical.  Times
+    the Mamba2 shape.  Returns its record."""
+    from repro_torch.kernels.ssd_scan import _scan, heads_a_run
 
     g = torch.Generator(device="cuda").manual_seed(27)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [
         ("mamba2-2.7b training S=1024", (1, 1024, 80, 64, 1, 128), -4.0, False),
         ("mamba2-2.7b, tail S=1000, final-state gradient", (1, 1000, 80, 64, 1, 128), -4.0, True),
@@ -2430,6 +2439,9 @@ def check_ssd_scan_bwd(torch, ref, ssd_scan, ssd_scan_bwd, card):
         ("batch 2, G=2", (2, 200, 8, 64, 2, 128), -4.0, False),
         ("jamba reduced shape", (2, 77, 16, 32, 1, 16), -4.0, True),
         ("large steps", (1, 256, 8, 64, 1, 128), 1.5, True),
+        ("N=20: B's and C's rows not 16-byte aligned", (1, 300, 8, 64, 1, 20), -4.0, True),
+        ("H=7, G=1: a prime number of heads a group", (2, 32 * sms, 7, 64, 1, 128), -4.0, True),
+        ("P=96: slices of 32 rows of P", (1, 200, 4, 96, 1, 64), -4.0, True),
     ]
     names = ("dx", "ddt", "dA", "dB", "dC", "dD")
     keep = {}
@@ -2450,7 +2462,9 @@ def check_ssd_scan_bwd(torch, ref, ssd_scan, ssd_scan_bwd, card):
                                                                         (4, "dC"))}
         errs = {n: rel_err(got[i], want[i]) for i, n in ((1, "ddt"), (2, "dA"), (5, "dD"))}
         finite = all(bool(t.float().isfinite().all()) for t in got)
-        print(f"ssd_scan_bwd {label} (B={B}, S={S}, H={H}, P={P}, G={G}, N={N}): dx, dB, dC "
+        K = heads_a_run(B, -(-S // 64), H, G, sms)
+        print(f"ssd_scan_bwd {label} (B={B}, S={S}, H={H}, P={P}, G={G}, N={N}; runs of {K} "
+              f"heads): dx, dB, dC "
               f"within {', '.join(f'{v:.3g}' for v in steps.values())} bf16 steps of each row's "
               f"max|plain| (tol 2); ddt, dA, dD rel err "
               f"{', '.join(f'{v:.3g}' for v in errs.values())} (tol 1e-3 of max|plain|); chunk "
@@ -2475,13 +2489,13 @@ def check_ssd_scan_bwd(torch, ref, ssd_scan, ssd_scan_bwd, card):
                        trials=3, per_trial=2, warmup=1)
     bound_ms, bound_by, fp32_ms, nbytes = ssd_bwd_bound(B, S, H, P, G, N)
     by_kernel = device_ms_by_kernel(torch, lambda: ssd_scan_bwd(*args, states, dy, ds),
-                                    ("ssd_bwd_state", "ssd_bwd_chunk", "ssd_bwd_group",
-                                     "ssd_bwd_head"), n=10)
+                                    SSD_BWD_KERNELS, n=10)
     dev_ms = sum(by_kernel.values()) or None
     fwd_ms = device_ms(torch, lambda: _scan(*args, 64, states=False), "ssd_scan_kernel", n=10)
     fwd_st_ms = device_ms(torch, lambda: _scan(*args, 64, states=True), "ssd_scan_kernel", n=10)
     flops = ssd_bwd_flops(B, S, H, P, G, N)
-    print(f"ssd_scan_bwd mamba2-2.7b training (B={B}, S={S}, H={H}, P={P}, N={N}) on {card}: "
+    print(f"ssd_scan_bwd mamba2-2.7b training (B={B}, S={S}, H={H}, P={P}, N={N}; runs of "
+          f"{heads_a_run(B, -(-S // 64), H, G, sms)} heads) on {card}: "
           f"{ms:.4f} ms back to back, device {fmt_ms(dev_ms)} ms (" + ", ".join(
               f"{k} {v:.4f}" for k, v in by_kernel.items()) + f"; bound {bound_ms:.4f} ms by "
           f"{bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP of the chunked backward's "

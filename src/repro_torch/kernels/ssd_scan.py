@@ -20,7 +20,13 @@ dA, dB, dC and dD in its backward, ``ssd_scan_bwd``.  On the card its
 halves are the forward kernel, which then also stores the chunk states
 (the ``ssd_scan_states`` entry), and the backward kernel
 ``csrc/ssd_scan_bwd.cu``, the port's own (the reference's TPU kernel has
-no backward: it trains through XLA's autodiff of ``_ssd_chunked_xla``).
+no backward: it trains through XLA's autodiff of ``_ssd_chunked_xla``):
+three launches -- a reverse pass that stores each chunk's dh_out as bf16
+high and low halves, one block per (batch row, chunk, run of K heads of a
+group) that forms C·Bᵀ once for the run and sums dB and dC over its heads,
+and the ordered sums of the runs' and chunks' partials -- every product on
+the tensor cores with the fp32 operands split into bf16 high and low
+halves, no atomics.  ``heads_a_run`` picks K from the shape.
 On the CPU they are the plain ``ssd_scan_ref(..., states=True)`` and
 ``ssd_scan_bwd_ref``.  A CPU tensor goes to the plain versions; a CUDA
 tensor launches the kernels or raises.  The kernels chunk at their own 64
@@ -28,7 +34,7 @@ rows, whatever ``chunk`` says: the function does not depend on the chunk
 beyond fp32 rounding, and ``chunk`` reaches only the plain versions.  x,
 B and C may be strided views (the SSM block slices them out of one
 activation) as long as their last dim is contiguous.  ``ssd_scan.launches``
-counts forward launches and ``ssd_scan_bwd.launches`` backward ones (four
+counts forward launches and ``ssd_scan_bwd.launches`` backward ones (three
 kernels a launch).
 """
 from __future__ import annotations
@@ -44,6 +50,7 @@ from repro_torch.kernels.ref import ssd_scan_bwd_ref, ssd_scan_ref
 _P_TILE = 32     # rows of the state per block
 _MAX_N = 128     # the block's shared-memory tiles are sized for N <= 128
 _L = 64          # the kernels' chunk
+_MAX_GRID = 65535  # the backward's grid: chunks and batch rows on its y and z axes
 
 
 def check_args(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
@@ -93,6 +100,28 @@ def check_bwd_args(x: torch.Tensor, states: torch.Tensor, dy: torch.Tensor,
     if not (states.is_contiguous() and dy.is_contiguous()
             and (dstate is None or dstate.is_contiguous())):
         raise ValueError("ssd_scan_bwd: states, dy and dstate must be contiguous")
+    if nc > _MAX_GRID or Bsz > _MAX_GRID:
+        raise ValueError(f"ssd_scan_bwd takes at most {_MAX_GRID} chunks of {_L} and "
+                         f"{_MAX_GRID} batch rows; got {nc} chunks, {Bsz} rows")
+
+
+def heads_a_run(Bsz: int, nc: int, H: int, G: int, sms: int) -> int:
+    """K, the heads a block of the backward's chunk kernel takes: the
+    divisor of H / G for which the B·nc·H / K blocks, one an SM, take the
+    fewest waves times K (the time of the longest SM's queue of heads);
+    ties go to the larger K, which forms C·Bᵀ and writes dB and dC
+    partials fewer times."""
+    rep, best = H // G, (None, 1)
+    for k in range(1, rep + 1):
+        cost = -(-Bsz * nc * (H // k) // sms) * k
+        if rep % k == 0 and (best[0] is None or cost <= best[0]):
+            best = (cost, k)
+    return best[1]
+
+
+def _padded_n(N: int) -> int:
+    """N rounded up to the backward's tile widths (16, 32, 64, 128)."""
+    return next(n for n in (16, 32, 64, 128) if N <= n)
 
 
 def _lib(name: str = "ssd_scan"):
@@ -104,7 +133,7 @@ def _lib(name: str = "ssd_scan"):
         lib.ssd_scan_states.argtypes = [p] * 9 + [ll] * 8 + [i] * 6 + [p]
         lib.ssd_scan_states.restype = i
     if name == "ssd_scan_bwd" and lib.ssd_scan_bwd.argtypes is None:
-        lib.ssd_scan_bwd.argtypes = [p] * 20 + [ll] * 8 + [i] * 6 + [p]
+        lib.ssd_scan_bwd.argtypes = [p] * 20 + [ll] * 8 + [i] * 7 + [p]
         lib.ssd_scan_bwd.restype = i
     return lib
 
@@ -154,10 +183,11 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
     check_bwd_args(x, states, dy, dstate, N)
     Bsz, S, H, P = x.shape
     G, nc = Bm.shape[2], states.shape[1]
+    K = heads_a_run(Bsz, nc, H, G, torch.cuda.get_device_properties(x.device).multi_processor_count)
     f32 = dict(dtype=torch.float32, device=x.device)
     A32, D32 = A.float().contiguous(), D.float().contiguous()
-    dh = torch.empty_like(states)
-    dBp, dCp = torch.empty((2, Bsz, S, H, N), **f32)
+    dh = torch.empty((Bsz, nc, H, 2, P, _padded_n(N)), dtype=torch.bfloat16, device=x.device)
+    dBp, dCp = torch.empty((2, Bsz, S, H // K, N), **f32)
     dAp, dDp = torch.empty((2, Bsz, nc, H), **f32)
     dx = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     ddt = torch.empty((Bsz, S, H), **f32)
@@ -170,7 +200,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
         ddt.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(), dDp.data_ptr(),
         dB.data_ptr(), dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), x.stride(0), x.stride(1),
         x.stride(2), Bm.stride(0), Bm.stride(1), Bm.stride(2), dt.stride(0), dt.stride(1), Bsz, S,
-        H, P, G, N, torch.cuda.current_stream(x.device).cuda_stream)
+        H, P, G, N, K, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed: cudaError {err}")
     ssd_scan_bwd.launches += 1

@@ -7,9 +7,12 @@ CUDA kernel's arithmetic (bf16 tensor-core products with the fp32
 operands split into high and low halves) emulated in torch against the
 reference's Pallas kernel, the kernel wrapper's CPU route and argument
 checks, the explicit chunked backward ``ssd_scan_bwd_ref`` (the backward
-kernel's decomposition) against ``jax.grad`` of the reference's scan, and
-``SSDScan``'s wiring on its plain halves against autograd of the plain
-scan."""
+kernel's decomposition) against ``jax.grad`` of the reference's scan, the
+backward kernel's arithmetic emulated in torch against ``jax.grad`` of the
+reference's scans, and ``SSDScan``'s wiring on its plain halves against
+autograd of the plain scan."""
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -361,3 +364,145 @@ def test_scan_bwd_keeps_the_input_dtypes_and_checks_its_arguments():
     for match, (st, d, dstate) in bad.items():
         with pytest.raises(ValueError, match=match):
             ss.check_bwd_args(args[0], st, d, dstate, 16)
+    # the kernel's grid: chunks and batch rows each at most 65535 (shapes
+    # only: tensors on the meta device hold no data)
+    for Bsz, S in ((1, 65536 * 64), (65536, 1)):
+        x = torch.empty(Bsz, S, 1, 32, dtype=torch.bfloat16, device="meta")
+        st = torch.empty(Bsz, -(-S // 64), 1, 32, 16, device="meta")
+        with pytest.raises(ValueError, match="at most 65535"):
+            ss.check_bwd_args(x, st, torch.empty_like(x), None, 16)
+    ss.check_bwd_args(x[:65535], st[:65535], torch.empty_like(x[:65535]), None, 16)
+
+
+def _op(v, low=True):
+    """v as a split operand: its bf16 high half plus, unless dropped, the
+    bf16 of what is left (two products on the card, one sum here)."""
+    hi, lo = _split(v)
+    return hi + lo if low else hi
+
+
+def _kernel_scan_bwd(x, dt, A, Bm, Cm, D, states, dy, dstate, *, K, drop=()):
+    """csrc/ssd_scan_bwd.cu's arithmetic in torch: chunks of 64 rows, decays
+    as 2^x of a base-2 prefix sum; the state pass carries dh in fp32 with
+    exp(cum)∘dy split and stores dh_out as its bf16 high and low halves; G
+    = C·Bᵀ and dM = dy·xᵀ of the bf16 inputs in fp32; M and dS split where
+    they are operands, h_in split in Z = dy·h_in; dB and dC summed over
+    each run of K heads in head order, then over a group's runs in order,
+    and rounded to bf16 with dx.  ``drop`` names operands whose low half is
+    left out: "M" (in Mᵀ·dy) and "dS" (in dSᵀ·C and dS·B)."""
+    L = 64
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    xf, dyf = x.float(), dy.float()
+    pad = -S % L
+    nc = (S + pad) // L
+
+    def chunked(t):
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(Bsz, nc, L, *t.shape[2:])
+
+    xc, dtc, dyc = chunked(xf), chunked(dt.float()), chunked(dyf)
+    bc, cc = (chunked(t.float().repeat_interleave(rep, dim=2)) for t in (Bm, Cm))
+    cum2 = torch.cumsum(dtc * (A.float() * math.log2(math.e)), dim=2)     # (B, nc, L, H)
+    seg2 = cum2[:, :, -1]
+    ecum = torch.exp2(cum2)
+    U = torch.einsum("bclhp,bclhn->bchpn", _op(ecum[..., None] * dyc), cc)
+    h_in = states.float()
+    dh = torch.empty_like(h_in)
+    carry = torch.zeros_like(h_in[:, 0]) if dstate is None else dstate.float()
+    for c in range(nc - 1, -1, -1):
+        dh[:, c] = carry
+        carry = torch.exp2(seg2[:, c])[..., None, None] * carry + U[:, c]
+    dh_both = _op(dh)
+    causal = torch.ones(L, L, dtype=torch.bool).tril()[:, :, None]
+    E = torch.exp2((cum2[:, :, :, None] - cum2[:, :, None]).masked_fill(~causal, -math.inf))
+    dts = dtc[:, :, None]                                                  # index order (t, s)
+    Gm = torch.einsum("bcthn,bcshn->bctsh", cc, bc)
+    dM = torch.einsum("bcthp,bcshp->bctsh", dyc, xc)
+    M, dS, R = Gm * E * dts, dM * E * dts, dM * Gm * E
+    w = dtc * torch.exp2(seg2[:, :, None] - cum2)
+    dx = (torch.einsum("bctsh,bcthp->bcshp", _op(M, "M" not in drop), dyc)
+          + w[..., None] * torch.einsum("bchpn,bcshn->bcshp", dh_both, bc))
+    V = torch.einsum("bchpn,bcshp->bcshn", dh_both, xc)
+    dSo = _op(dS, "dS" not in drop)
+    dBh = torch.einsum("bctsh,bcthn->bcshn", dSo, cc) + w[..., None] * V
+    Z = torch.einsum("bchpn,bcthp->bcthn", _op(h_in), dyc)
+    dCh = torch.einsum("bctsh,bcshn->bcthn", dSo, bc) + ecum[..., None] * Z
+    dw = (bc * V).sum(-1)
+    Q = R * dts
+    dcum = Q.sum(3) - Q.sum(2) + ecum * (cc * Z).sum(-1) - dw * w
+    dcum[:, :, -1] += (dw * w).sum(2) + torch.exp2(seg2) * (dh_both * h_in).sum((-2, -1))
+    rc = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = R.sum(2) + dw * torch.exp2(seg2[:, :, None] - cum2) + A.float() * rc
+
+    def unchunked(t):
+        return t.reshape(Bsz, nc * L, *t.shape[3:])[:, :S]
+
+    def group_sum(t):   # (B, S, H, N): in head order within a run, then in run order
+        runs = unchunked(t).reshape(Bsz, S, H // K, K, N)
+        acc = runs[:, :, :, 0]
+        for k in range(1, K):
+            acc = acc + runs[:, :, :, k]
+        per = acc.reshape(Bsz, S, G, rep // K, N)
+        out = per[:, :, :, 0]
+        for k in range(1, rep // K):
+            out = out + per[:, :, :, k]
+        return out
+
+    dx = unchunked(dx) + dyf * D.float()[None, None, :, None]
+    return (dx.to(x.dtype), unchunked(ddt), (dtc * rc).sum((0, 1, 2)),
+            group_sum(dBh).to(Bm.dtype), group_sum(dCh).to(Cm.dtype), (dyf * xf).sum((0, 1, 3)))
+
+
+# the operands whose low half csrc/ssd_scan_bwd.cu leaves out
+KERNEL_BWD_DROPS = ()
+
+
+@pytest.mark.parametrize("case", ["mamba2_head", "large_steps"])
+def test_bwd_kernel_arithmetic_holds_the_chip_gates(case, capsys):
+    """The backward kernel's arithmetic (``_kernel_scan_bwd``, with the low
+    halves the kernel drops left out) against ``jax.grad`` of the
+    reference's ``_ssd_chunked_xla`` -- of the sequential ``ssd_ref`` at
+    large steps (dt·|A| up to ~50 a row), where the reference scan's own
+    gradient is NaN -- on the same bf16 x, B, C and dy, at Mamba2-2.7B's
+    head shape (P 64, N 128; S 256, four heads in runs of two): dx, dB and
+    dC within 2 bf16 steps of each row's max, ddt, dA and dD within 1e-3 of
+    their max (``check_ssd_scan_bwd``'s gates).  Each gate's margin is
+    printed.  Without M's low half dx misses its gate, and at large steps
+    without dS's low half dB does: those splits are needed."""
+    large = case == "large_steps"
+    inp = _inputs(1, 256, 4, 64, 1, 128, seed=31, dt_shift=1.5 if large else -2.0)
+    if large:
+        inp["A"] = -(1 + 15 * np.random.default_rng(32).random(4)).astype(np.float32)
+    rng = np.random.default_rng(33)
+    args = _args(inp, _torch, "bfloat16")
+    f32 = [a.float() for a in args]
+    dy = torch.from_numpy(rng.standard_normal((1, 256, 4, 64)).astype(np.float32)).bfloat16()
+    ds = torch.from_numpy(rng.standard_normal((1, 4, 64, 128)).astype(np.float32))
+    _, _, states = ref.ssd_scan_ref(*f32, chunk=64, states=True)
+    dy_np, ds_np = dy.float().numpy(), ds.numpy()
+
+    def loss(*a):
+        y, h = jax_ref.ssd_ref(*a) if large else jax_ops._ssd_chunked_xla(*a, chunk=64)
+        return jnp.sum(y * dy_np) + jnp.sum(h * ds_np)
+
+    want = [torch.from_numpy(np.array(w)) for w in
+            jax.grad(loss, argnums=tuple(range(6)))(*[jnp.asarray(a.numpy()) for a in f32])]
+
+    def gates(drop):
+        got = _kernel_scan_bwd(*args, states, dy, ds, K=2, drop=drop)
+        assert all(torch.isfinite(t.float()).all() for t in got)
+        out = {n: _bf16_steps(got[i], want[i]) for i, n in ((0, "dx"), (3, "dB"), (4, "dC"))}
+        out.update({n: ((got[i] - want[i]).abs().max() / want[i].abs().max()).item()
+                    for i, n in ((1, "ddt"), (2, "dA"), (5, "dD"))})
+        return out
+
+    held = gates(KERNEL_BWD_DROPS)
+    with capsys.disabled():
+        print(f"\n{case}: " + ", ".join(
+            f"{n} {v:.3g} of {2 if n in ('dx', 'dB', 'dC') else 1e-3:g}" for n, v in held.items()))
+    assert max(held[n] for n in ("dx", "dB", "dC")) <= 2
+    assert max(held[n] for n in ("ddt", "dA", "dD")) <= 1e-3
+    needed, name = ("dS", "dB") if large else ("M", "dx")
+    assert gates(KERNEL_BWD_DROPS + (needed,))[name] > 2
