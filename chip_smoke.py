@@ -29,7 +29,12 @@ resume through it (2 of 33 layers) and the training launcher
 ``Trainer.run`` at the full width and depth of Mamba2-2.7B (fp32 master
 weights and AdamW moments, 6 steps of 2 x 1024 packed tokens in
 micro-batches of 1 x 1024), reduced Jamba's hybrid unit and
-``launch.train.main --arch mamba2-2.7b`` on size-aware batches; all with
+``launch.train.main --arch mamba2-2.7b`` on size-aware batches; and the
+rest of the zoo: Geneformer-106M embedding 96 rank-value-encoded cells
+through ``LLM.embed`` and training 10 steps of 2 x 8 x 2048 through
+``Trainer.run`` at full size, then Command-R-35B (8 of 40 layers, dense and
+paged cache), Qwen1.5-32B (8 of 64) and Llama-3-405B (2 of 126) generating
+through ``LLM.generate`` at full width; all with
 seeded random weights, checking what comes out of each.  Prints per-kernel times beside their bounds, the
 embedding throughput, the training step time, tokens/s, MFU and peak
 memory, the generation tokens/s, TTFT, decode-step time and idle share, the
@@ -275,6 +280,10 @@ ATTN_SHAPES = {
                                          dict(causal=True)),
     "llama4-scout training": (dict(B=2, S=1024, T=1024, H=40, Hkv=8, D=128),
                               dict(causal=True, window=8192)),
+    "geneformer-106m training": (dict(B=8, S=2048, T=2048, H=12, Hkv=12, D=64),
+                                 dict(causal=False)),
+    "llama3-405b prefill, largest bucket": (dict(B=1, S=1024, T=1024, H=128, Hkv=8, D=128),
+                                            dict(causal=True)),
 }
 
 
@@ -380,6 +389,68 @@ ATTN_EDGE_CASES = [
 ]
 
 
+def check_layernorm(torch, F, ref, layernorm, randn, card):
+    """Row 5 against ``layernorm_ref`` in bf16 and fp32, with and without a
+    bias: at ESM-2's serving shape (32 768, 1280), Command-R's decode and
+    prefill shapes without a bias ((32, 8192), (2048, 8192)) and Geneformer's
+    training shape (16 384, 768); times each beside ``F.layer_norm`` and its
+    bound.  Returns its kernel record: the serving shape's numbers, the
+    others under their shape (launches filled in later)."""
+    cases = [(32 * 1024, 1280, bias) for bias in (True, False)] + [
+        (32, 8192, False), (2048, 8192, False), (16384, 768, True)]
+    serving_err = 0.0
+    for rows, d, bias in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            x = randn(rows, d, dtype=dt, scale=3.0, shift=1.0)
+            w = randn(d, dtype=torch.float32)
+            b = randn(d, dtype=torch.float32) if bias else None
+            y = layernorm(x, w, b)
+            torch.cuda.synchronize()
+            r = ref.layernorm_ref(x, w, b)
+            err = (y.float() - r.float()).abs()
+            # bf16: at most one output rounding step (2^-8 relative, at most
+            # 2^-7 of |y|); fp32: moments summed in another order
+            if dt == torch.bfloat16:
+                ok = bool((err <= 1e-2 + 2**-7 * r.float().abs()).all())
+                tol = "1e-2 + 2^-7*|y|"
+            else:
+                ok = err.max().item() <= 1e-4
+                tol = "1e-4"
+            print(f"layernorm ({rows}, {d}) {str(dt)[6:]} bias={bias}: err {err.max().item():.3g} "
+                  f"(tol {tol})")
+            check(ok, f"layernorm ({rows}, {d}) {dt} bias={bias}")
+            if dt == torch.bfloat16 and bias and rows == 32 * 1024:
+                serving_err = err.max().item()
+    rec = {"name": "layernorm", "route": "triton", "source": "src/repro_torch/kernels/rmsnorm.py",
+           "replaces": "src/repro/kernels/rmsnorm.py:83", "launches": 0,
+           "max_abs_err": serving_err}
+    for rows, d, bias in ((32 * 1024, 1280, True), (32, 8192, False), (2048, 8192, False),
+                          (16384, 768, True)):
+        x = randn(rows, d)
+        w = randn(d, dtype=torch.float32)
+        b = randn(d, dtype=torch.float32) if bias else None
+        wl = w.to(torch.bfloat16)
+        bl = None if b is None else b.to(torch.bfloat16)
+        nbytes = 2 * rows * d * 2 + (2 if bias else 1) * d * 4
+        bound_ms, bound_by = bound(8 * rows * d, nbytes, PEAK_FP32_FLOPS)
+        reading = {"ms": time_ms(torch, lambda: layernorm(x, w, b)),
+                   "device_ms": device_ms(torch, lambda: layernorm(x, w, b), "layernorm",
+                                          floor=bound_ms),
+                   "plain_ms": time_ms(torch, lambda: ref.layernorm_ref(x, w, b)),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": time_ms(torch, lambda: F.layer_norm(x, (d,), wl, bl, 1e-5))}
+        print(f"layernorm ({rows}, {d}) bf16 bias={bias} on {card}: {reading['ms']:.4f} ms (device "
+              f"{fmt_ms(reading['device_ms'])} ms; bound {bound_ms:.4f} ms by {bound_by}, "
+              f"{nbytes / reading['ms'] / 1e6:.0f} GB/s), plain {reading['plain_ms']:.4f} ms, "
+              f"F.layer_norm {reading['library_ms']:.4f} ms")
+        if rows == 32 * 1024:
+            rec.update(reading)
+        else:
+            rec[f"({rows}, {d}){'' if bias else ' no bias'}"] = reading
+        del x
+    return rec
+
+
 def check_attention_bwd(torch, F, ref, flash_attention_fwd, flash_attention_bwd, randn, card):
     """Row 2 against ``attention_bwd_ref`` in bf16 and fp16, with
     bit-identical repeats, then timed at every shape a path launches it at.
@@ -390,7 +461,7 @@ def check_attention_bwd(torch, F, ref, flash_attention_fwd, flash_attention_bwd,
     # most 2^-9 relative per element in bf16, 2^-12 in fp16) where the
     # plain version keeps fp32; the gradients are rounded once in both
     tol = {torch.bfloat16: 2e-2, torch.float16: 4e-3}
-    train = ("esm2-650m training", "llama4-scout training")
+    train = ("esm2-650m training", "llama4-scout training", "geneformer-106m training")
     repeat = train + ("non-multiple S/T, D=128, gqa",)
     cases = [(name, *ATTN_SHAPES[name]) for name in train] + [
         ("causal", dict(B=2, S=128, T=128, H=4, Hkv=4, D=64), dict(causal=True)),
@@ -459,10 +530,11 @@ CE_BWD_KERNELS = ("ce_bwd_dlogits_kernel", "ce_bwd_dh_kernel", "ce_bwd_dw_kernel
 
 
 def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, randn, g, card):
-    """Rows 3 and 4 against their plain versions, at ESM-2's and
-    Llama-4-Scout's training shapes and at the edges of the kernels'
-    schedule, with a bit-identical repeat; times both training shapes.
-    Returns their kernel records: ESM-2's numbers, Scout's under "scout"."""
+    """Rows 3 and 4 against their plain versions, at ESM-2's, Llama-4-Scout's
+    and Geneformer's training shapes and at the edges of the kernels'
+    schedule, with a bit-identical repeat; times the three training shapes.
+    Returns their kernel records: ESM-2's numbers, Scout's under "scout",
+    Geneformer's under "geneformer"."""
     dev = torch.device("cuda")
     # loss/lse: fp32 logits of the same products summed in another order;
     # dh/dw: the kernel rounds dlogits to bf16 before the two products
@@ -471,6 +543,7 @@ def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, ran
     cases = [
         ("esm2-650m tied head", dict(T=8192, D=1280, Vp=256, vocab=33, tied=True)),
         ("llama4-scout untied head", dict(T=2048, D=5120, Vp=202240, vocab=202048, tied=False)),
+        ("geneformer-106m tied head", dict(T=16384, D=768, Vp=25600, vocab=25426, tied=True)),
         ("T not a multiple of the 128-token tile, untied head",
          dict(T=1000, D=1280, Vp=256, vocab=33, tied=False)),
         ("Vpad 32768, 250 live tiles, tied head", dict(T=2048, D=1280, Vp=32768, vocab=32000, tied=True)),
@@ -517,7 +590,7 @@ def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, ran
             errs0 = {"fwd": e_loss, "bwd": max((dh.float() - r_dh.float()).abs().max().item(),
                                                (dw.float() - r_dw.float()).abs().max().item())}
         del r_dh, r_dw, r_loss, r_lse
-        if c["T"] in (8192, 2048) and c["Vp"] in (256, 202240):   # the two training shapes
+        if label.split()[0] in ("esm2-650m", "llama4-scout", "geneformer-106m"):  # training
             loss2, lse2 = cross_entropy_fwd(h, w, tgt, vocab=vocab)
             dh2, dw2 = cross_entropy_bwd(h, w, tgt, lse2, gl, gs, vocab=vocab)
             same = all(torch.equal(a, b) for a, b in ((loss, loss2), (lse, lse2), (dh, dh2), (dw, dw2)))
@@ -582,6 +655,7 @@ def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, ran
 
     esm = timed(8192, 1280, 256, 33, True, (20, 10, 3))
     scout = timed(2048, 5120, 202240, 202048, False, (3, 2, 1))
+    gene = timed(16384, 768, 25600, 25426, True, (5, 5, 2))
     rec = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/cross_entropy.cu", "launches": 0}
 
     def fields(t, d):
@@ -591,9 +665,11 @@ def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, ran
 
     return [
         dict(rec, name="cross_entropy_fwd", replaces="src/repro/kernels/cross_entropy.py:120",
-             max_abs_err=errs0["fwd"], **fields(esm, "fwd"), scout=fields(scout, "fwd")),
+             max_abs_err=errs0["fwd"], **fields(esm, "fwd"), scout=fields(scout, "fwd"),
+             geneformer=fields(gene, "fwd")),
         dict(rec, name="cross_entropy_bwd", replaces="src/repro/kernels/cross_entropy.py:266",
-             max_abs_err=errs0["bwd"], **fields(esm, "bwd"), scout=fields(scout, "bwd")),
+             max_abs_err=errs0["bwd"], **fields(esm, "bwd"), scout=fields(scout, "bwd"),
+             geneformer=fields(gene, "bwd")),
     ]
 
 
@@ -1230,15 +1306,16 @@ def launcher_phase(torch, counters, card):
 
 def check_rmsnorm(torch, F, ref, rmsnorm, randn, card):
     """Row 6 against ``rmsnorm_ref`` at the served widths (Mamba2's 2560,
-    Qwen2-7B's 3584, Scout's 5120) at the decode and prefill row counts, in
-    bf16 and fp32, and with weights in another dtype than x; times Qwen2's
-    decode and prefill shapes and Scout's decode shape, and reads the
-    prefill shape's device time over inputs rotated past the 50 MB L2.
+    Qwen2-7B's 3584, Scout's 5120, Llama-3-405B's 16384, the kernel's
+    widest row) at the decode and prefill row counts, in bf16 and fp32, and
+    with weights in another dtype than x; times Qwen2's decode and prefill
+    shapes, Scout's decode shape and Llama-3's two, and reads each shape's
+    device time over inputs rotated past the 50 MB L2.
     Returns its kernel record, timed at the decode shape the main path runs
     most (launches filled in later)."""
     import itertools
 
-    cases = [(rows, d, dt, dt) for d in (2560, 3584, 5120) for rows in (32, 2048)
+    cases = [(rows, d, dt, dt) for d in (2560, 3584, 5120, 16384) for rows in (32, 2048)
              for dt in (torch.bfloat16, torch.float32)]
     cases += [(32, 3584, torch.bfloat16, torch.float32), (32, 3584, torch.float32, torch.bfloat16),
               (32, 3584, torch.float16, torch.float16), (7, 256, torch.bfloat16, torch.bfloat16)]
@@ -1257,7 +1334,7 @@ def check_rmsnorm(torch, F, ref, rmsnorm, randn, card):
               f"{err.max().item():.3g} (tol 1e-5 + {rtol:.3g}*|y|)")
         check(ok, f"rmsnorm ({rows}, {d}) {dt} w {wdt}")
     rec = None
-    for rows, d in ((32, 3584), (2048, 3584), (32, 5120)):
+    for rows, d in ((32, 3584), (2048, 3584), (32, 5120), (32, 16384), (2048, 16384)):
         x = randn(rows, d, scale=3.0, shift=0.5)
         w = randn(d)
         # the kernel and F.rms_norm in turns (kernel, library, library,
@@ -1460,19 +1537,23 @@ def sample_inputs(torch, randn, B, V, rows, ties=False):
 
 def check_sampling(torch, ref, fused_sample, randn, card):
     """Row 7 against ``sample_ref``: at Qwen2-7B's decode shape (32, 152064)
-    with the mix of rows, then at Mamba2's 50 432 and Scout's padded 202 240
-    columns, a small odd V (1 000), one row, and a V past what a cluster
+    with the mix of rows, then at Mamba2's 50 432, Scout's padded 202 240
+    and Command-R's 256 000 columns (the mix and the edges), a small odd V
+    (1 000), one row, and a V past what a cluster
     holds in shared memory, each over the edges (top-k 1 and >= V, a tiny
     top-p, ties at the top, temperatures 0.3-2): identical tokens, logp
     within 1e-4, greedy rows = first-index argmax, no masked column drawn,
     a repeat bit-identical, and each row alone equal (token and logp bits)
     to its row in the batch.  Times the mix, all-greedy and all-sampled
-    rows at the main shape.  Returns its kernel record."""
+    rows at the main shape, and the mix at Command-R's.  Returns its kernel
+    record."""
     from repro_torch.kernels import _build
 
     cases = [("qwen2-7b decode shape, the mix", 32, 152064, SAMPLE_MIX, False),
              ("mamba2 vocab 50432, edges", 32, 50432, SAMPLE_EDGES, True),
              ("scout padded vocab 202240, edges", 32, 202240, SAMPLE_EDGES, True),
+             ("command-r vocab 256000, the mix", 32, 256000, SAMPLE_MIX, False),
+             ("command-r vocab 256000, edges", 32, 256000, SAMPLE_EDGES, True),
              ("V 1000, edges", 16, 1000, SAMPLE_EDGES, True),
              ("one row", 1, 152064, SAMPLE_EDGES[3:4], False),
              ("V 600000, past shared memory", 4, 600000, SAMPLE_EDGES, True)]
@@ -1522,11 +1603,23 @@ def check_sampling(torch, ref, fused_sample, randn, card):
           f"{bound_ms:.5f} ms by "
           f"{bound_by}), all greedy {greedy_ms:.4f} ms, all sampled {sampled_ms:.4f} ms; plain "
           f"{plain_ms:.4f} ms; no single PyTorch call samples with this hash (library: none)")
+    # Command-R's 256 000 columns: past what a cluster's shared memory holds,
+    # so each pass re-reads the slice's tail from memory
+    wide = sample_inputs(torch, randn, 32, 256000, SAMPLE_MIX)
+    w_bound_ms, w_bound_by = bound(0, 32 * 256000 * 2 + 32 * 28)
+    wide_rec = {"ms": time_ms(torch, lambda: fused_sample(*wide)),
+                "device_ms": device_ms(torch, lambda: fused_sample(*wide), "fused_sample",
+                                       floor=w_bound_ms),
+                "plain_ms": time_ms(torch, lambda: ref.sample_ref(*wide), trials=5, per_trial=2),
+                "bound_ms": w_bound_ms, "bound_by": w_bound_by, "library_ms": None}
+    print(f"fused_sample (32, 256000) bf16 on {card}: the mix {wide_rec['ms']:.4f} ms (device "
+          f"{fmt_ms(wide_rec['device_ms'])} ms; bound {w_bound_ms:.5f} ms by {w_bound_by}), plain "
+          f"{wide_rec['plain_ms']:.4f} ms")
     return {"name": "fused_sample", "route": "cuda", "source": "src/repro_torch/kernels/csrc/sampling.cu",
             "replaces": "src/repro/kernels/sampling.py:217", "launches": 0, "max_abs_err": err,
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "greedy_ms": greedy_ms,
-            "sampled_ms": sampled_ms}
+            "sampled_ms": sampled_ms, "(32, 256000)": wide_rec}
 
 
 def _paged_layout(torch, np, rng, lens, page, n_tables, num_pages, dev):
@@ -4203,6 +4296,436 @@ def ssm_launcher_phase(torch, counters, card):
     return launches, set(shapes)
 
 
+GENEFORMER_MASK_ID = 4           # <mask>; gene ids follow the five special tokens
+
+
+def rank_value_cells(np, n, vocab, lengths=None, seed=0):
+    """``n`` synthetic cells rank-value encoded as Geneformer's input (the
+    encoding of ``examples/embed_cells_torch.py``) over the ``vocab - 5``
+    genes of a vocabulary: Poisson expression profiles around three
+    gamma-distributed cell types, each cell's genes ordered by expression,
+    ids past the special tokens; cell i keeps its ``lengths[i]`` top genes
+    (2 048 where no lengths are given)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.gamma(2.0, 1.0, size=(3, vocab - 5))
+    types = rng.integers(0, 3, size=n)
+    expr = rng.poisson(centers[types] * 5).astype(np.float32)
+    order = np.argsort(-expr, axis=1, kind="stable")[:, :2048].astype(np.int32) + 5
+    lengths = np.full(n, 2048) if lengths is None else lengths
+    return [order[i, : int(lengths[i])] for i in range(n)]
+
+
+def geneformer_phase(torch, counters, card):
+    """Geneformer-106M at full size: embedding serving through ``LLM.embed``
+    of 96 rank-value-encoded cells of 256-2 048 genes, then MLM pre-training
+    through ``Trainer.run`` (10 steps of 2 micro-batches of 8 x 2 048, the
+    reference's ``mlm_2k`` length, 15% masking; fp32 master weights and
+    AdamW moments, WSD).  Returns the launch counts of its two main paths,
+    {"embed": ..., "train": ...}."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.models.layers import _Lookup
+    from repro_torch.models.model import Model, build_model
+    from repro_torch.obs.trace import TraceRecorder
+    from repro_torch.serving.api import LLM
+    from repro_torch.training.loop import Trainer
+    from repro_torch.training.train_step import make_train_step
+
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    cfg = get_config("geneformer-106m")
+    L = cfg.num_layers
+    names = ("flash_attention_fwd", "flash_attention_bwd", "layernorm", "cross_entropy_fwd",
+             "cross_entropy_bwd")
+    zero_launches(counters)
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"built {cfg.name} ({L} layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, "
+          f"learned positions up to {cfg.max_pos}, {n_params / 1e6:.1f}M params, fp32) on cuda, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    # ---- embedding serving: 96 cells of 256-2048 genes on 32 slots
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(256, 2049, size=96)
+    cells = [c.tolist() for c in rank_value_cells(np, 96, cfg.vocab_size, lengths, seed=0)]
+    trace = TraceRecorder()
+    llm = LLM(model, slots=32, max_len=2048, trace=trace)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(counters)
+    t0 = time.perf_counter()
+    vecs = llm.embed(cells)
+    t_first = time.perf_counter() - t0
+    embed_launches = {k: counters[k].launches for k in names}
+    buckets = [e["bucket"] for e in trace.events() if e["event"] == "prefill"]
+    want = {"flash_attention_fwd": L * len(buckets), "flash_attention_bwd": 0,
+            "layernorm": (2 * L + 1) * len(buckets), "cross_entropy_fwd": 0,
+            "cross_entropy_bwd": 0}
+    print(f"Geneformer main path: LLM.embed of {len(cells)} cells ({int(lengths.sum())} genes), "
+          f"{len(buckets)} dispatches over buckets {sorted(set(buckets))}: launches "
+          f"{embed_launches} (want {want})")
+    expect(embed_launches == want, "Geneformer embed launch counts")
+    expect(vecs.shape == (96, cfg.d_model) and bool(np.isfinite(vecs).all()),
+           f"Geneformer embeddings {vecs.shape}, finite {bool(np.isfinite(vecs).all())}")
+    t0 = time.perf_counter()
+    again = llm.embed(cells)
+    t_steady = time.perf_counter() - t0
+    expect(np.array_equal(vecs, again), "a second Geneformer embed call differs")
+    plain = Model(dataclasses.replace(cfg, kernel_impl="torch"), model.params.tree())
+    p_vecs = LLM(plain, slots=32, max_len=2048).embed(cells)
+    cos = (vecs * p_vecs).sum(1) / (np.linalg.norm(vecs, axis=1) * np.linalg.norm(p_vecs, axis=1))
+    print(f"Geneformer embed, kernel route vs plain route: min cosine {cos.min():.7f} (tol >= "
+          f"0.9999); second call bit-identical {np.array_equal(vecs, again)}")
+    expect(bool((cos >= 0.9999).all()), "Geneformer embeddings disagree with the plain route")
+    del plain, p_vecs
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        llm.embed(cells)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, groups, _ = kernel_groups(prof, DeviceType)
+    print(f"Geneformer-106M LLM.embed on {card}: {len(cells) / t_steady:.1f} cells/s, "
+          f"{int(lengths.sum()) / t_steady:.0f} genes/s (second call {t_steady:.3f} s, first "
+          f"{t_first:.3f} s), peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"profiled call: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; by group " + ", ".join(
+              f"{k} {v:.1f} ms" for k, v in groups.items() if v))
+    del llm, prof
+
+    # ---- MLM pre-training at the reference's mlm_2k length
+    micro, seq, accum, steps = 8, 2048, 2, 10
+    tc = TrainConfig(global_batch=micro * accum, seq_len=seq, accum_steps=accum,
+                     learning_rate=1e-4, min_lr=1e-5, warmup_steps=2, decay_steps=3,
+                     total_steps=steps, schedule="wsd", weight_decay=0.01, beta2=0.98,
+                     grad_clip=1.0, log_every=steps)
+    pool = np.stack(rank_value_cells(np, 256, cfg.vocab_size, seed=1))    # (256, 2048) ids
+    drng = np.random.default_rng(2)
+
+    def batches():
+        while True:
+            t = pool[drng.integers(0, len(pool), size=tc.global_batch)]
+            pick = drng.random(t.shape) < 0.15
+            corrupted = np.where(pick, GENEFORMER_MASK_ID, t).astype(np.int32)
+            yield {"tokens": corrupted, "targets": t, "loss_mask": pick.astype(np.float32)}
+
+    zero_launches(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(model, tc, peak_flops=PEAK_BF16_FLOPS)
+    fetches = []
+    fetch = trainer._fetch
+    trainer._fetch = lambda: (fetches.append(1), fetch())[1]
+    state, hist = trainer.run(batches())
+    torch.cuda.synchronize()
+    train_launches = {k: counters[k].launches for k in names}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: v * steps * accum for k, v in step_launches(L).items()}
+    losses = [h["loss"] for h in hist]
+    print(f"Geneformer main path: Trainer.run of {steps} steps x {accum} micro-batches of "
+          f"{micro}x{seq}: launches {train_launches} (want {want}); losses step 0 {losses[0]:.4f}, "
+          f"step {steps - 1} {losses[-1]:.4f}; host transfers {len(fetches)} (step 0, then one "
+          f"for steps 1-{steps - 1})")
+    expect(train_launches == want, "Geneformer training launch counts")
+    expect(all(x == x and abs(x) < 1e30 for x in losses) and trainer.skipped_total == 0,
+           "Geneformer: a non-finite loss or a skipped step")
+    expect(losses[-1] < losses[0], "Geneformer: the loss did not fall")
+    expect(len(fetches) == 2, "Geneformer: more than one host transfer over steps 1-9")
+    step_s = hist[-1]["step_time"]
+    tokens = micro * accum * seq
+    mfu = 6 * cfg.active_param_count() * tokens / step_s / PEAK_BF16_FLOPS
+    # QK^T and PV over every (query, key) pair, forward and backward (3x)
+    attn_flops = 12 * cfg.num_heads * cfg.head_dim * seq * seq * L * micro * accum
+    print(f"Geneformer-106M MLM training on {card}: step {step_s * 1e3:.1f} ms (wall of steps 1-"
+          f"{steps - 1} over {steps - 1}), {tokens / step_s:.0f} tokens/s, MFU {mfu:.4f} (6 x "
+          f"{cfg.active_param_count() / 1e6:.1f}M params x tokens / 989 TFLOP/s; with the "
+          f"attention's {attn_flops / 1e12:.2f} TFLOP a step "
+          f"{(6 * cfg.active_param_count() * tokens + attn_flops) / step_s / PEAK_BF16_FLOPS:.4f}), "
+          f"peak memory {peak_gb:.2f} GB")
+
+    # where a step's time goes, and the one-hot lookup's share of it
+    batch = {k: torch.from_numpy(v).to(model.device) for k, v in next(batches()).items()}
+    step_fn = make_train_step(model, tc)
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, groups, kern = kernel_groups(prof, DeviceType)
+    table = model.params.tree()["embed"]["tok"].detach().to(torch.bfloat16).requires_grad_(True)
+    ids = batch["tokens"][:micro].long()
+    dy = torch.randn(*ids.shape, cfg.d_model, device=model.device, dtype=torch.bfloat16)
+    looked = _Lookup.apply(table, ids)
+    lookup_ms = time_ms(torch, lambda: torch.autograd.grad(looked, table, dy, retain_graph=True),
+                        trials=5, per_trial=5)
+    if busy_ms == 0:
+        print("profile: the profiler saw no device time")
+    else:
+        print(f"profile of one Geneformer train step ({accum} micro-batches) on {card}: wall "
+              f"{wall_ms:.1f} ms (under the profiler), device busy {busy_ms:.1f} ms, idle share "
+              f"{1 - busy_ms / wall_ms:.3f}")
+        print("profile by group: " + ", ".join(
+            f"{k} {v:.1f} ms ({v / busy_ms:.1%})" for k, v in groups.items() if v))
+        for name, t, cnt in sorted(kern, key=lambda r: -r[1])[:10]:
+            print(f"  {t:9.2f} ms {cnt:6d}x  {name[:110]}")
+        print(f"the embedding lookup's one-hot backward ({ids.numel()} ids x {cfg.padded_vocab} "
+              f"rows x {cfg.d_model}, {2 * ids.numel() * cfg.padded_vocab * cfg.d_model / 1e12:.2f} "
+              f"TFLOP) on {card}: {lookup_ms:.3f} ms a micro-batch, {accum * lookup_ms:.2f} ms "
+              f"({accum * lookup_ms / busy_ms:.1%}) of the step's device time")
+    del prof, table, looked, dy
+
+    # the kernel route against the plain route: loss and every gradient leaf
+    # on a 2 x 2048 batch; a leaf below 0.999 is held to the fp32-compute
+    # route (``report_route``): without RoPE the key bias's exact gradient
+    # is 0, so both routes hold only rounding noise there
+    small = {k: v[:2].contiguous() for k, v in batch.items()}
+    plain = Model(dataclasses.replace(cfg, kernel_impl="torch"), model.params.tree())
+    fp32 = Model(dataclasses.replace(cfg, kernel_impl="torch", dtype="float32"),
+                 model.params.tree())
+    report_route(torch, loss_grads(torch, model, small), loss_grads(torch, plain, small),
+                 loss_grads(torch, fp32, small), leaf_paths(model.params.tree()),
+                 "Geneformer kernel route vs plain route (loss_fn + backward, 2x2048)", expect)
+    del trainer, state, model, plain, fp32, step_fn, batch, small
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not failed, "Geneformer phase: " + "; ".join(failed))
+    return {"embed": embed_launches, "train": train_launches}
+
+
+# the zoo's decoders on one card: (name, layers kept of the config's)
+ZOO_DECODERS = (("command-r-35b", 8), ("qwen1.5-32b", 8), ("llama3-405b", 2))
+ZOO_KERNELS = ("flash_attention_fwd", "flash_decode", "rmsnorm", "layernorm", "fused_sample",
+               "paged_decode", "paged_prefill", "paged_kv_write")
+
+
+def zoo_generate(torch, counters, card, model, label, engine_kw, load, expect):
+    """One generation path of a zoo decoder through ``LLM.generate``: the
+    main call (32 prompts on 32 slots; every count set to 0 just before,
+    read just after, held to its want), then the steady decode loop at full
+    slots (one step's launches, 8 steps with one host transfer each and no
+    other sync, 16 timed, 8 profiled).  Returns (launches, completions)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.api import LLM
+    from repro_torch.serving.engine import Request, to_host
+
+    cfg = model.cfg
+    L = cfg.num_layers
+    norm = "layernorm" if cfg.norm_type.startswith("layernorm") else "rmsnorm"
+    norms = (1 if cfg.parallel_residual else 2) * L + 1       # a forward's norms
+    paged = engine_kw.get("cache_layout") == "paged"
+    prompts, params = load
+    n = len(prompts)
+    llm = LLM(model, **engine_kw)
+    eng = llm.engine
+
+    def zero():
+        for k in ZOO_KERNELS:
+            counters[k].launches = 0
+        counters["paged_decode"].appends = 0
+
+    def read():
+        got = {k: counters[k].launches for k in ZOO_KERNELS}
+        got["paged_decode.appends"] = counters["paged_decode"].appends
+        return got
+
+    def want_for(admissions, chunks, steps):
+        w = dict.fromkeys(ZOO_KERNELS, 0)
+        w[norm] = norms * ((chunks if paged else admissions) + steps)
+        w["fused_sample"] = admissions + steps
+        if paged:
+            w.update(paged_prefill=L * chunks, paged_decode=L * steps)
+        else:
+            w.update(flash_attention_fwd=L * admissions, flash_decode=L * steps)
+        w["paged_decode.appends"] = L * steps if paged else 0
+        return w
+
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    dec0, ch0 = eng.decode_steps, eng.prefill_chunks
+    t0 = time.perf_counter()
+    first = llm.generate(prompts, params)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = read()
+    n_dec, n_chunk = eng.decode_steps - dec0, eng.prefill_chunks - ch0
+    want = want_for(n, n_chunk, n_dec)
+    toks = sum(len(c.tokens) for c in first)
+    ttft = sorted(c.ttft_s for c in first)
+    stats = dict(eng.alloc.stats) if paged else {}
+    print(f"{label} main path: LLM.generate of {n} prompts ({sum(len(p) for p in prompts)} prompt "
+          f"tokens) on {engine_kw['slots']} slots: {n_chunk} prefill chunks, {n_dec} decode steps, "
+          f"{toks / t_first:.1f} generated tokens/s ({toks} in {t_first:.2f} s, set-up included), "
+          f"TTFT p50 {1e3 * ttft[n // 2]:.1f} ms, p95 {1e3 * ttft[int(0.95 * (n - 1))]:.1f} ms"
+          f"{f', prefix cache {stats}' if paged else ''}; launches {launches} (want {want})")
+    expect(launches == want, f"{label}: launch counts")
+    expect(all(c.finish_reason == "length" and len(c.tokens) == params[i].max_new
+               for i, c in enumerate(first)), f"{label}: finish reasons / lengths")
+    expect(all(np.isfinite(c.logprobs).all() for c in first if c.logprobs),
+           f"{label}: non-finite logprobs")
+    if paged:
+        expect(stats.get("hit_tokens", 0) > 0, f"{label}: no prefix-cache hit")
+
+    # the steady decode loop at full slots
+    slots = engine_kw["slots"]
+    for i in range(slots):
+        eng.submit(Request(uid=30_000 + i, prompt=np.asarray(prompts[i], np.int32),
+                           params=dataclasses.replace(params[i], max_new=48)))
+    eng.step()
+    while eng._prefilling or eng.queue:
+        eng.step()
+    zero()
+    eng.step()
+    per_step = read()
+    print(f"{label}: one steady decode step's launches {per_step}")
+    expect(per_step == want_for(0, 0, 1), f"{label}: launches per decode step")
+    transfers = to_host.transfers
+    for _ in range(8):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    transfers = to_host.transfers - transfers
+    expect(transfers == 8, f"{label}: a steady step made another transfer")
+    t0 = time.perf_counter()
+    for _ in range(16):
+        eng.step()
+    step_ms = (time.perf_counter() - t0) / 16 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            eng.step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, groups, kern = kernel_groups(prof, DeviceType)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{label} decode step of {slots} slots on {card}: {step_ms:.2f} ms "
+          f"({slots / step_ms * 1e3:.0f} tokens/s at full slots), peak memory {peak_gb:.2f} GB; "
+          f"8 steps under set_sync_debug_mode('error'): {transfers} host transfers")
+    if busy_ms == 0:
+        print("profile: the profiler saw no device time")
+    else:
+        print(f"profile of 8 {label} decode steps on {card}: wall {wall_ms:.1f} ms, device busy "
+              f"{busy_ms:.1f} ms ({busy_ms / 8:.3f} ms a step), idle share "
+              f"{1 - busy_ms / wall_ms:.3f}")
+        print("profile by group, per step: " + ", ".join(
+            f"{k} {v / 8:.3f} ms ({v / busy_ms:.1%})" for k, v in groups.items() if v))
+        for name, t, cnt in sorted(kern, key=lambda r: -r[1])[:8]:
+            print(f"  {t:9.2f} ms {cnt:6d}x  {name[:110]}")
+    del prof
+    for r in list(eng.slot_req):
+        if r is not None:
+            eng.cancel(r)
+    eng.run()
+    if paged:
+        eng.alloc.check_invariants()
+        print(f"{label}: free pages after the run {eng.alloc.free_pages} of "
+              f"{eng.alloc.num_pages - 1}")
+        expect(eng.alloc.free_pages == eng.alloc.num_pages - 1, f"{label}: pages leaked")
+    return launches, first
+
+
+def zoo_decoder_phase(torch, counters, card, name, depth):
+    """A zoo decoder generating at full width with ``depth`` of its layers
+    (bf16, seeded random weights) through ``LLM.generate`` on 32 slots over
+    a 2 048-token dense cache: 32 prompts of 64-1 024 tokens, 64 new, half
+    greedy; Command-R also over the paged cache (prefix cache, 512-token
+    chunks, 64 prompts, half of them behind a shared 512-token preamble).  Each
+    path's kernel route is held to the plain route on forced prompts.
+    Returns each path's launch counts, {"dense": ..., "paged": ...}."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, build_model
+
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    full = get_config(name)
+    cfg = dataclasses.replace(full, num_layers=depth, param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"built {name} cut to {depth} of {full.num_layers} layers at full width (d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.norm_type}"
+          f"{', parallel residual' if cfg.parallel_residual else ''}, "
+          f"{cfg.param_count() / 1e9:.2f}B params, bf16) in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    slots, max_len, n, max_new = 32, 2048, 32, 64
+    lengths, prompts, params = generation_load(np, cfg.vocab_size, n, max_new, seed=3)
+    dense_kw = dict(slots=slots, max_len=max_len)
+    label = f"{name} ({depth} layers)"
+    out = {}
+    out["dense"], first = zoo_generate(torch, counters, card, model, f"{label} dense", dense_kw,
+                                       (prompts, params), expect)
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = Model(dataclasses.replace(cfg, kernel_impl="torch"), model.params.tree())
+    picks = [int(i) for i in np.argsort(lengths)[:: n // 4]]     # 4 prompts, short to long
+    n_forced = 16
+    forced = torch.zeros((n_forced, slots), dtype=torch.int32, device=model.device)
+    for slot, i in enumerate(picks):
+        forced[:, slot] = torch.tensor(first[i].tokens[:n_forced], dtype=torch.int32)
+    route = [prompts[i] for i in picks]
+    k_lg, _ = engine_logits(torch, np, model, dense_kw, route, forced)
+    p_lg, _ = engine_logits(torch, np, plain, dense_kw, route, forced)
+    compare_logits(torch, k_lg, p_lg, f"{label} kernel route vs plain route, dense cache (4 slots "
+                   f"of {slots}, prompts of {sorted(int(lengths[i]) for i in picks)} tokens, "
+                   f"{n_forced} forced decode steps)", expect)
+    del k_lg, p_lg
+    if cfg.parallel_residual:
+        # the paged layout: a shared preamble in front of half the prompts
+        # 64 prompts on 32 slots, as paged_phase, so that the second wave's
+        # admissions find the first wave's preamble blocks
+        plengths, pprompts, pparams = generation_load(np, cfg.vocab_size, 2 * n, max_new, seed=4)
+        preamble = np.random.default_rng(4).integers(0, cfg.vocab_size, size=512).tolist()
+        pp = [preamble + p if i % 2 else list(p) for i, p in enumerate(pprompts)]
+        paged_kw = dict(slots=slots, max_len=max_len, cache_layout="paged", page_size=16,
+                        prefix_cache=True, prefill_chunk=512)
+        out["paged"], pfirst = zoo_generate(torch, counters, card, model, f"{label} paged",
+                                            paged_kw, (pp, pparams), expect)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a preamble prompt first, so that it registers its blocks before the
+        # others are admitted; the preamble alone last (a whole-prompt hit)
+        odd = sorted(range(1, 2 * n, 2), key=lambda i: plengths[i])
+        even = sorted(range(0, 2 * n, 2), key=lambda i: plengths[i])
+        ppicks = [odd[0], even[0], odd[-1], even[-1]]
+        route = [pp[i] for i in ppicks] + [list(preamble)]
+        pforced = torch.zeros((n_forced, slots), dtype=torch.int32, device=model.device)
+        for slot, i in enumerate(ppicks + [ppicks[0]]):
+            pforced[:, slot] = torch.tensor(pfirst[i].tokens[:n_forced], dtype=torch.int32)
+        k_lg, k_stats = engine_logits(torch, np, model, paged_kw, route, pforced, warm=1)
+        p_lg, _ = engine_logits(torch, np, plain, paged_kw, route, pforced, warm=1)
+        print(f"{label} paged route: prompts of {[len(p) for p in route]} tokens, prefix cache "
+              f"{k_stats}")
+        expect(k_stats.get("hit_tokens", 0) > 0, f"{label}: the paged route had no prefix hit")
+        compare_logits(torch, k_lg, p_lg, f"{label} kernel route vs plain route, paged cache",
+                       expect)
+        del k_lg, p_lg
+    del plain, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not failed, f"{name} generation phase: " + "; ".join(failed))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4267,42 +4790,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    rows, d = 32 * 1024, 1280
-    ln_serving_err = 0.0
-    for dt in (torch.bfloat16, torch.float32):
-        for bias in (True, False):
-            x = randn(rows, d, dtype=dt, scale=3.0, shift=1.0)
-            w = randn(d, dtype=torch.float32)
-            b = randn(d, dtype=torch.float32) if bias else None
-            y = layernorm(x, w, b)
-            torch.cuda.synchronize()
-            r = ref.layernorm_ref(x, w, b)
-            err = (y.float() - r.float()).abs()
-            # bf16: at most one output rounding step (2^-8 relative, at most
-            # 2^-7 of |y|); fp32: moments summed in another order
-            if dt == torch.bfloat16:
-                ok = bool((err <= 1e-2 + 2**-7 * r.float().abs()).all())
-                tol = "1e-2 + 2^-7*|y|"
-            else:
-                ok = err.max().item() <= 1e-4
-                tol = "1e-4"
-            print(f"layernorm ({rows}, {d}) {str(dt)[6:]} bias={bias}: err {err.max().item():.3g} (tol {tol})")
-            check(ok, f"layernorm {dt} bias={bias}")
-            if dt == torch.bfloat16 and bias:
-                ln_serving_err = err.max().item()
-    x = randn(rows, d)
-    w, b = randn(d, dtype=torch.float32), randn(d, dtype=torch.float32)
-    wl, bl = w.to(torch.bfloat16), b.to(torch.bfloat16)
-    ln_ms = time_ms(torch, lambda: layernorm(x, w, b))
-    ln_plain_ms = time_ms(torch, lambda: ref.layernorm_ref(x, w, b))
-    ln_lib_ms = time_ms(torch, lambda: F.layer_norm(x, (d,), wl, bl, 1e-5))
-    ln_bound_ms, ln_bound_by = bound(8 * rows * d, 2 * rows * d * 2 + 2 * d * 4, PEAK_FP32_FLOPS)
-    ln_dev_ms = device_ms(torch, lambda: layernorm(x, w, b), "layernorm", floor=ln_bound_ms)
-    print(f"layernorm ({rows}, {d}) bf16 on {card}: {ln_ms:.4f} ms (device {fmt_ms(ln_dev_ms)} ms; "
-          f"bound {ln_bound_ms:.4f} ms by {ln_bound_by}, "
-          f"{(2 * rows * d * 2 + 2 * d * 4) / ln_ms / 1e6:.0f} GB/s), plain {ln_plain_ms:.4f} ms, "
-          f"F.layer_norm {ln_lib_ms:.4f} ms")
-    del x
+    ln_rec = check_layernorm(torch, F, ref, layernorm, randn, card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     fa_bwd_rec = check_attention_bwd(torch, F, ref, flash_attention_fwd, flash_attention_bwd,
                                      randn, card)
@@ -4486,6 +4976,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ssm_launcher, _ = ssm_launcher_phase(torch, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 13. the rest of the zoo: Geneformer-106M embedded and trained at
+    # full size, then Command-R-35B (dense and paged), Qwen1.5-32B and
+    # Llama-3-405B generating at full width with their depth cut
+    gene = geneformer_phase(torch, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo = {}
+    for name, depth in ZOO_DECODERS:
+        zoo[name] = zoo_decoder_phase(torch, counters, card, name, depth)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # launches: each kernel's count in the run of its path — the training
     # run for rows 1-5 (the embed and generation runs' counts of the
@@ -4496,12 +5000,7 @@ def main() -> int:
         fa_rec,
         fa_bwd_rec,
         *ce_recs,
-        {"name": "layernorm", "route": "triton",
-         "source": "src/repro_torch/kernels/rmsnorm.py",
-         "replaces": "src/repro/kernels/rmsnorm.py:83",
-         "launches": 0, "max_abs_err": ln_serving_err,
-         "ms": ln_ms, "device_ms": ln_dev_ms, "plain_ms": ln_plain_ms, "bound_ms": ln_bound_ms,
-         "bound_by": ln_bound_by, "library_ms": ln_lib_ms},
+        ln_rec,
     ]
     for rec in kernels:
         rec["launches"] = train_launches[rec["name"]]
@@ -4531,6 +5030,14 @@ def main() -> int:
     ssd_bwd_rec["launches"] = ssm_train["ssd_scan_bwd"]
     ssd_bwd_rec["launches_by_phase"] = {ph: n["ssd_scan_bwd"] for ph, n in ssd_phases.items()}
     ssd_bwd_rec["train_peak_gb"] = ssm_peak_gb
+    # rows 1-11 on the zoo's paths: each kernel's count in each run
+    zoo_runs = {"geneformer_embed": gene["embed"], "geneformer_train": gene["train"],
+                **{f"{name}_{layout}": n for name, runs in zoo.items()
+                   for layout, n in runs.items()}}
+    for rec in kernels + gen_recs + paged_recs:
+        key = "paged_decode.appends" if rec is ins else rec["name"]
+        rec.setdefault("launches_by_phase", {}).update(
+            {ph: n[key] for ph, n in zoo_runs.items() if n.get(key)})
     kernels += gen_recs + paged_recs + [gmm_rec, gmm_dw_rec, ssd_rec, ssd_bwd_rec]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,15 @@
 """Model-zoo registry of the port: one module per architecture.
 
-Registered so far: the architectures the port's kernels and layers cover —
-the ESM-2 protein LMs (bidirectional dense stack, LayerNorm, GELU MLP) and
-Qwen2-7B (causal GQA stack, RMSNorm, SwiGLU MLP), and the Llama-4 MoE
-models Scout (an MoE FFN on every layer) and Maverick (dense and MoE
-layers alternating), all with RoPE.  ``get_config(name)`` returns the full config,
+Registered: every decoder and encoder architecture of the reference's zoo
+— the ESM-2 protein LMs (bidirectional dense stack, LayerNorm, GELU MLP,
+RoPE) and Geneformer-106M (the same stack over gene tokens, with learned
+positions in place of RoPE); the causal dense stacks Qwen2-7B, Qwen1.5-32B
+and Llama-3-405B (RMSNorm, SwiGLU) and Command-R-35B (parallel attention +
+FFN residual, bias-free LayerNorm); the Llama-4 MoE models Scout (an MoE
+FFN on every layer) and Maverick (dense and MoE layers alternating); and
+Mamba2-2.7B and Jamba-1.5-Large (SSD layers, Jamba's hybrid with attention
+and MoE).  The encoder-decoder and frontend models (MolMIM, Whisper,
+InternVL2) are not ported yet.  ``get_config(name)`` returns the full config,
 ``get_smoke_config(name)`` the reduced same-family variant the CPU tests
 use.
 """
@@ -17,7 +22,8 @@ from repro_torch.core.config import ModelConfig, reduced
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
-_MODULES = ["esm2_650m", "esm2_3b", "qwen2_7b", "llama4_scout_17b_a16e",
+_MODULES = ["esm2_650m", "esm2_3b", "geneformer_106m", "qwen2_7b", "qwen1p5_32b",
+            "command_r_35b", "llama3_405b", "llama4_scout_17b_a16e",
             "llama4_maverick_400b_a17b", "mamba2_2p7b", "jamba_1p5_large_398b"]
 
 

@@ -7,7 +7,7 @@ enters a matmul.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -130,13 +130,26 @@ def embed_apply(
     cfg: ModelConfig,
     params: Dict[str, Any],
     tokens: torch.Tensor,            # (B, S) integer
+    positions: Optional[torch.Tensor] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """Table lookup in the stored dtype, then a cast to the compute dtype;
-    learned positions (``pos``) are added for positions 0..S-1."""
+    """Table lookup in the stored dtype, then a cast to the compute dtype.
+    A model with learned positions (``pos``: ``use_rope=False`` and
+    ``max_pos``) adds the table's rows at ``positions``: 0..S-1 when None,
+    else an (S,) vector shared by the batch or (B, S) rows, as the
+    reference's ``embed_apply`` takes them.  A position past the table (a
+    bucket's pad row) reads its last row, where the reference's ``take``
+    fills NaN; neither reaches a real row.  Other models ignore
+    ``positions``."""
     x = _Lookup.apply(params["tok"], tokens.long()).to(compute_dtype)
     if "pos" in params:
-        x = x + params["pos"][: tokens.shape[1]].to(compute_dtype)[None]
+        table = params["pos"]
+        if positions is None:
+            pe = table[: tokens.shape[1]][None]
+        else:
+            pe = table[positions.long().clamp(0, table.shape[0] - 1)]
+            pe = pe if pe.dim() == 3 else pe[None]
+        x = x + pe.to(compute_dtype)
     return x
 
 

@@ -54,8 +54,12 @@ class Model(nn.Module):
         return self.params.embed.tok.device
 
     # ------------------------------------------------------------ backbone
-    def _decoder_input(self, params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
-        return L.embed_apply(self.cfg, params["embed"], tokens, compute_dtype=self.policy.cdt)
+    def _decoder_input(self, params: Dict[str, Any], tokens: torch.Tensor,
+                       positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The embedded tokens; ``positions`` reach a learned position table
+        only (``L.embed_apply``)."""
+        return L.embed_apply(self.cfg, params["embed"], tokens, positions,
+                             compute_dtype=self.policy.cdt)
 
     def _backbone(self, params: Dict[str, Any], x: torch.Tensor, **kw):
         """The stack (train mode unless ``kw`` says otherwise), then the
@@ -187,8 +191,8 @@ class Model(nn.Module):
         layers).  Sound only for causal attention-only stacks; the engine
         gates it."""
         C = tokens.shape[1]
-        x = self._decoder_input(params, tokens)
-        positions = start + torch.arange(C, device=x.device)
+        positions = start + torch.arange(C, device=tokens.device)
+        x = self._decoder_input(params, tokens, positions)
         page = _page_size(layers)
         paged = A.paged_chunk_addressing(block_row, int(start), C, int(n_valid), page)
         x, layers, _ = self._backbone(params, x, mode="chunk", positions=positions, caches=layers,
@@ -209,8 +213,9 @@ class Model(nn.Module):
         if block_table is not None:     # the paging arithmetic, once for all layers
             page = _page_size(cache["layers"])
             paged = A.paged_decode_addressing(block_table, pos, page)
-        x = self._decoder_input(params, tokens)
-        rope_pos = None if torch.is_tensor(pos) else torch.full((1,), int(pos), device=x.device)
+        per_slot = torch.is_tensor(pos)
+        rope_pos = None if per_slot else torch.full((1,), int(pos), device=tokens.device)
+        x = self._decoder_input(params, tokens, pos[:, None] if per_slot else rope_pos)
         x, layers, _ = self._backbone(params, x, mode="decode", positions=rope_pos,
                                    caches=cache["layers"], cache_pos=pos, paged=paged)
         new = {"layers": layers, "pos": pos + 1}

@@ -10,8 +10,9 @@ one entry per layer of the unit, each leaf stacked over the units
 (leading dim ``num_units``).  The stack runs as a plain loop over the
 units and, inside one, over its layers; each stacked leaf is unbound into
 per-unit views once per call (no copy).  The same loop runs under
-autograd for training.  Encoder-decoder stacks, frontends and
-parallel-residual blocks raise.
+autograd for training.  A parallel-residual block (Command-R) feeds
+norm1's output to both the mixer and the FFN and adds both to the
+residual, in every mode.  Encoder-decoder stacks and frontends raise.
 """
 from __future__ import annotations
 
@@ -34,14 +35,10 @@ from repro_torch.models.ssm import init_ssm_cache, ssm_apply, ssm_defs
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the architectures the port does not run yet."""
-    unported = [
-        (cfg.is_encoder_decoder or bool(cfg.frontend),
-         "encoder-decoder and frontend models (ROADMAP: enc-dec/frontend slice)"),
-        (cfg.parallel_residual, "parallel_residual blocks (ROADMAP: port queue, dense stack)"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(f"{cfg.name}: {what} are not ported yet")
+    if cfg.is_encoder_decoder or cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder and frontend models (ROADMAP: enc-dec/frontend slice) "
+            "are not ported yet")
 
 
 # --------------------------------------------------------------------- #
@@ -79,7 +76,8 @@ def _sublayer_defs(cfg: ModelConfig, li: int) -> Dict[str, Any]:
     else:
         defs["ssm"] = ssm_defs(cfg)
     if cfg.d_ff > 0:
-        defs["norm2"] = L.norm_defs(cfg, d)
+        if not cfg.parallel_residual:       # a parallel block's FFN reads norm1's output
+            defs["norm2"] = L.norm_defs(cfg, d)
         defs["ffn"] = moe.moe_defs(cfg) if cfg.is_moe_layer(li) else L.mlp_defs(cfg, d, cfg.d_ff)
     return defs
 
@@ -107,16 +105,22 @@ def _apply_sublayer(cfg, li, params, x, *, mode, positions, causal, cache, cache
         mix, c = ssm_apply(cfg, params["ssm"], h, mode=mode, cache=cache["ssm"] if cache else None)
         kind = "ssm"
     cache = {kind: c} if c is not None else None
+    if "ffn" not in params:
+        return x + mix, cache, None
+    if cfg.parallel_residual:       # the reference's order of additions: (x + mix) + ff
+        ff, aux = _ffn_apply(cfg, li, params["ffn"], h)
+        return x + mix + ff, cache, aux
     x = x + mix
-    aux = None
-    if "ffn" in params:
-        h2 = L.norm_apply(cfg, params["norm2"], x)
-        if cfg.is_moe_layer(li):
-            ff, aux = moe.moe_apply(cfg, params["ffn"], h2)
-        else:
-            ff = L.mlp_apply(cfg, params["ffn"], h2)
-        x = x + ff
-    return x, cache, aux
+    ff, aux = _ffn_apply(cfg, li, params["ffn"], L.norm_apply(cfg, params["norm2"], x))
+    return x + ff, cache, aux
+
+
+def _ffn_apply(cfg, li, params, h):
+    """(out, aux) of layer ``li``'s FFN: the MoE layer's router vector, or
+    None for a dense MLP."""
+    if cfg.is_moe_layer(li):
+        return moe.moe_apply(cfg, params, h)
+    return L.mlp_apply(cfg, params, h), None
 
 
 def decoder_stack(

@@ -1,5 +1,5 @@
 """The port stands alone: no file of ``repro_torch``, nor ``chip_smoke.py``
-and the chip scripts beside it, nor the port's example, imports JAX or the
+and the chip scripts beside it, nor the port's examples, imports JAX or the
 reference package, the port
 calls no library attention, norm, cross-entropy, optimizer or grouped GEMM,
 the kernel wrappers have no fallback, entry points refuse to run on the CPU
@@ -57,7 +57,8 @@ def _imported_modules(path):
                          PORT_FILES + [ROOT / name for name in (
                              "chip_smoke.py", "ssd_route_faults.py", "attention_variants.py",
                              "gmm_variants.py", "moe_route_faults.py", "decode_variants.py",
-                             "prefill_variants.py", "examples/finetune_lora_torch.py")],
+                             "prefill_variants.py", "examples/finetune_lora_torch.py",
+                             "examples/embed_cells_torch.py")],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):

@@ -1,7 +1,8 @@
 """The port's training launcher (``repro_torch.launch.train``) and its
 trace: ``main`` end to end on the CPU with the data plane, a resume and
 the history file, and on reduced Mamba2's size-aware causal batches;
-``make_batches`` against the reference launcher's; the
+``make_batches`` against the reference launcher's (Geneformer's
+``--smoke`` MLM batches among them); the
 meshes it refuses; ``trace_ctx``; and the GPU it needs unless asked for
 the CPU."""
 import json
@@ -69,9 +70,11 @@ def test_main_trains_mamba2_on_size_aware_batches(tmp_path, monkeypatch):
     assert all(b * s <= 512 for b, s in shapes)
 
 
-@pytest.mark.parametrize("kind", ["mlm_size_aware", "mlm_cluster", "clm_size_aware", "clm_packed"])
+@pytest.mark.parametrize("kind", ["mlm_size_aware", "mlm_cluster", "clm_size_aware", "clm_packed",
+                                  "geneformer_cluster"])
 def test_make_batches_equals_the_reference_launchers(tmp_path, kind):
-    arch = "esm2-650m" if kind.startswith("mlm") else "qwen2-7b"
+    arch = {"mlm": "esm2-650m", "clm": "qwen2-7b", "geneformer": "geneformer-106m"}[
+        kind.split("_")[0]]
     max_tokens = 1024 if kind.endswith("size_aware") else 0
     cfg, jcfg = get_smoke_config(arch), jax_configs.get_smoke_config(arch)
     tc, jtc = TrainConfig(global_batch=4, seq_len=128), JaxTrainConfig(global_batch=4, seq_len=128)
