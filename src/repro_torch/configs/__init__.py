@@ -8,8 +8,10 @@ and Llama-3-405B (RMSNorm, SwiGLU) and Command-R-35B (parallel attention +
 FFN residual, bias-free LayerNorm); the Llama-4 MoE models Scout (an MoE
 FFN on every layer) and Maverick (dense and MoE layers alternating); and
 Mamba2-2.7B and Jamba-1.5-Large (SSD layers, Jamba's hybrid with attention
-and MoE).  The encoder-decoder and frontend models (MolMIM, Whisper,
-InternVL2) are not ported yet.  ``get_config(name)`` returns the full config,
+and MoE); the encoder-decoder models MolMIM-65M (SMILES seq2seq) and
+Whisper-medium (an audio stub: precomputed frame embeddings), and
+InternVL2-26B (a vision stub: patch embeddings projected in front of the
+text).  ``get_config(name)`` returns the full config,
 ``get_smoke_config(name)`` the reduced same-family variant the CPU tests
 use.
 """
@@ -24,7 +26,8 @@ _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
 _MODULES = ["esm2_650m", "esm2_3b", "geneformer_106m", "qwen2_7b", "qwen1p5_32b",
             "command_r_35b", "llama3_405b", "llama4_scout_17b_a16e",
-            "llama4_maverick_400b_a17b", "mamba2_2p7b", "jamba_1p5_large_398b"]
+            "llama4_maverick_400b_a17b", "mamba2_2p7b", "jamba_1p5_large_398b",
+            "molmim_65m", "whisper_medium", "internvl2_26b"]
 
 
 def register(fn: Callable[[], ModelConfig]) -> Callable[[], ModelConfig]:

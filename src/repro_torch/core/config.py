@@ -131,7 +131,9 @@ class ModelConfig:
         counted as the reference counts it: embedding included once, twice
         when untied; MoE counts every expert, the shared ones and the
         router; an SSM block its projections and A, D, dt_bias (not its
-        conv or its gated norm)."""
+        conv or its gated norm).  An encoder-decoder adds its encoder
+        layers and each decoder layer's cross-attention and its norm (not
+        the encoder's final norm, position table or a projector)."""
         d, hd = self.d_model, self.resolved_head_dim
         att = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
         di, nh = self.d_inner, self.ssm_nheads
@@ -145,6 +147,9 @@ class ModelConfig:
             elif self.d_ff > 0:
                 total += self._mlp_params()
         total += self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        if self.is_encoder_decoder:
+            total += self.encoder_layers * (att + self._mlp_params() + 2 * d)
+            total += self.num_layers * (att + d)
         return total
 
     def active_param_count(self) -> int:

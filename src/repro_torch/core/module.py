@@ -119,7 +119,9 @@ def materialize(defs: Dict[str, Any], seed: int, param_dtype: torch.dtype,
             u = torch.rand(tree.shape, generator=g, dtype=torch.float32, device=device)
             return _SSM_INITS[tree.init](u).to(dt)
         x = torch.randn(tree.shape, generator=g, dtype=torch.float32, device=device)
-        return (x * tree.std()).to(dt)
+        # scaled in place: the same bits as ``x * std``, with one fp32
+        # temporary of the leaf alive instead of two
+        return x.mul_(tree.std()).to(dt)
 
     return build(defs)
 

@@ -5,9 +5,10 @@ copy of the reference's ``data/dataset.py``; same file format, same draws).
 a flat ``.bin`` of int32 token ids plus an ``.idx`` of int64 offsets —
 random access to any sequence without loading the corpus.
 ``synthetic_protein_sequences`` draws structured random sequences (motif
-repetition, so small models have learnable signal) from numpy's
-``default_rng`` in the reference's order, so one seed gives the same corpus
-in both packages; ``build_synthetic_protein_store`` writes the same
+repetition, so small models have learnable signal) and
+``synthetic_smiles_sequences`` SMILES strings from a few fragments, each
+from numpy's ``default_rng`` in the reference's order, so one seed gives
+the same corpus in both packages; ``build_synthetic_protein_store`` writes the same
 sequences into a sharded store (``data/store.py``).
 """
 from __future__ import annotations
@@ -75,6 +76,17 @@ def synthetic_protein_sequences(
             parts.append(motifs[int(rng.integers(n_motifs))])
         seqs.append("".join(parts)[:L])
     return seqs
+
+
+def synthetic_smiles_sequences(n: int, seed: int = 0) -> List[str]:
+    """``n`` SMILES strings, each 2-7 fragments drawn from a fixed list."""
+    rng = np.random.default_rng(seed)
+    frags = ["C", "CC", "C(=O)O", "c1ccccc1", "N", "O", "CN", "C(N)=O", "S", "F"]
+    out = []
+    for _ in range(n):
+        k = int(rng.integers(2, 8))
+        out.append("".join(rng.choice(frags) for _ in range(k)))
+    return out
 
 
 def build_synthetic_protein_memmap(

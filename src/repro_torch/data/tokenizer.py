@@ -1,8 +1,9 @@
-"""ESM-2 protein tokenizer (the port's own copy of the reference's).
+"""Character-level tokenizers (the port's own copy of the reference's).
 
-Character-level over 5 specials + 25 amino-acid codes; ids are the same as
-the reference's ``ProteinTokenizer``, so prompts encode identically in
-both packages.
+Five specials, then the alphabet: ESM-2's 25 amino-acid codes
+(``ProteinTokenizer``), MolMIM's SMILES characters (``SmilesTokenizer``)
+or printable ASCII (``ByteTokenizer``).  Ids are the same as the
+reference's, so prompts encode identically in both packages.
 """
 from __future__ import annotations
 
@@ -51,3 +52,19 @@ class ProteinTokenizer(_CharTokenizer):
 
     def __init__(self):
         super().__init__(self.AAS)
+
+
+class SmilesTokenizer(_CharTokenizer):
+    """SMILES characters (MolMIM)."""
+
+    ALPHABET = list("CNOPSFIHBcnops()[]=#+-\\/@.123456789%lr")
+
+    def __init__(self):
+        super().__init__(self.ALPHABET)
+
+
+class ByteTokenizer(_CharTokenizer):
+    """Printable ASCII, 32-126."""
+
+    def __init__(self):
+        super().__init__([chr(i) for i in range(32, 127)])

@@ -48,6 +48,27 @@ from repro_torch.obs.profile import trace_ctx
 from repro_torch.training.loop import Trainer
 
 
+class Seq2SeqBatches:
+    """CLM packing with a ``src_tokens`` mirror of ``tokens`` (an
+    encoder-decoder's batches), the cursor delegated to the packing
+    pipeline."""
+
+    def __init__(self, base: CLMBatches):
+        self.base = base
+
+    def state_dict(self):
+        return self.base.state_dict()
+
+    def load_state_dict(self, st):
+        self.base.load_state_dict(st)
+
+    def __iter__(self):
+        for b in self.base:
+            b = dict(b)
+            b["src_tokens"] = b["tokens"]
+            yield b
+
+
 def make_batches(cfg, tc: TrainConfig, data_dir: str, seed: int = 0, *,
                  sharded: bool = False, max_tokens: int = 0,
                  producer_depth: int = 0):
@@ -57,7 +78,9 @@ def make_batches(cfg, tc: TrainConfig, data_dir: str, seed: int = 0, *,
     ``sharded`` feeds from the sharded store instead of the single-file
     dataset; ``max_tokens`` > 0 switches to size-aware batches, each under
     that many padded tokens; ``producer_depth`` > 0 wraps the pipeline in a
-    background producer."""
+    background producer.  An encoder-decoder takes ``Seq2SeqBatches`` of
+    fixed shape (size-aware batching does not apply to it, as in the
+    reference)."""
     if sharded:
         ds, tok = build_synthetic_protein_store(f"{data_dir}/protein_store", n=2000, seed=seed)
     else:
@@ -70,8 +93,8 @@ def make_batches(cfg, tc: TrainConfig, data_dir: str, seed: int = 0, *,
         pipe = MLMBatches(ds, tok, base if size_aware is None else size_aware,
                           tc.global_batch, tc.seq_len, cfg.mlm_mask_prob, seed)
     elif cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder batches are not ported yet (ROADMAP: slice 7)")
+        pipe = Seq2SeqBatches(CLMBatches(ds, tc.global_batch, tc.seq_len, seed,
+                                         eos_id=tok.eos_id))
     else:
         pipe = CLMBatches(ds, tc.global_batch, tc.seq_len, seed, eos_id=tok.eos_id,
                           sampler=size_aware)

@@ -17,8 +17,13 @@ pages_per_seq) block table of physical page ids (``init_paged_cache``;
 the allocator is ``serving/paged_cache.py``).  The writes are in place,
 where the reference donates the pools and returns new ones.
 
-Cross-attention (a ``"len"`` cache) comes with a later slice (ROADMAP);
-it raises here.
+Cross-attention (an encoder-decoder's decoder layers): ``cross_kv``, the
+encoder output (B, T_enc, d_model), gives K and V; it is never causal and
+takes no RoPE.  In prefill mode it returns the write-once cross cache
+{"k", "v": (B, T_enc, Hkv, D), "len": (B,) int32 T_enc}, the reference's
+``xattn`` entry (the reference projects K/V a second time to build it; the
+values are the same).  A decode step over that cache (a ``"len"`` cache)
+projects only q and attends over each row's first ``len`` rows.
 """
 from __future__ import annotations
 
@@ -32,7 +37,9 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import rope
 
 
-def attention_defs(cfg: ModelConfig) -> Dict[str, P]:
+def attention_defs(cfg: ModelConfig, cross: bool = False) -> Dict[str, P]:
+    """The projections; a cross-attention block (``cross``) has the same
+    ones, as in the reference, which leaves ``cross_attn_heads`` unread."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
@@ -51,21 +58,29 @@ def attention_defs(cfg: ModelConfig) -> Dict[str, P]:
     return defs
 
 
-def _project_qkv(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor):
-    """Returns q (B,S,H,D), k, v (B,S,Hkv,D)."""
-    cdt = x.dtype
-    B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q = x @ params["wq"].to(cdt)
-    k = x @ params["wk"].to(cdt)
-    v = x @ params["wv"].to(cdt)
+def _project_q(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """q (B,S,H,D)."""
+    q = x @ params["wq"].to(x.dtype)
     if "bq" in params:
-        q = q + params["bq"].to(cdt)
+        q = q + params["bq"].to(x.dtype)
+    return q.reshape(*x.shape[:2], cfg.num_heads, cfg.resolved_head_dim)
+
+
+def _project_qkv(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor,
+                 kv_src: Optional[torch.Tensor] = None):
+    """Returns q (B,S,H,D), k, v (B,T,Hkv,D); K/V from ``kv_src`` (the
+    encoder output, T rows) when given, else from x (T = S)."""
+    cdt = x.dtype
+    src = x if kv_src is None else kv_src
+    B, T = src.shape[:2]
+    hd = cfg.resolved_head_dim
+    k = src @ params["wk"].to(cdt)
+    v = src @ params["wv"].to(cdt)
+    if "bk" in params:
         k = k + params["bk"].to(cdt)
         v = v + params["bv"].to(cdt)
-    return (q.reshape(B, S, cfg.num_heads, hd),
-            k.reshape(B, S, cfg.num_kv_heads, hd),
-            v.reshape(B, S, cfg.num_kv_heads, hd))
+    return (_project_q(cfg, params, x), k.reshape(B, T, cfg.num_kv_heads, hd),
+            v.reshape(B, T, cfg.num_kv_heads, hd))
 
 
 def _out_proj(cfg: ModelConfig, params: Dict[str, Any], o: torch.Tensor) -> torch.Tensor:
@@ -88,10 +103,14 @@ def attention_apply(
     causal: Optional[bool] = None,
     window: Optional[int] = None,
     paged: Optional[Dict[str, torch.Tensor]] = None,   # paged layout's addressing
+    cross_kv: Optional[torch.Tensor] = None,           # encoder output (B, T_enc, d_model)
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Returns (out (B,S,d_model), cache): {"k", "v"} of this call's rows in
-    prefill mode, the updated cache in decode and chunk modes, None in
-    train mode.
+    prefill mode ({"k", "v", "len"} for cross-attention), the updated cache
+    in decode and chunk modes, None in train mode.
+
+    Cross-attention: ``cross_kv`` in train and prefill mode; in decode mode
+    a ``"len"`` cache (what prefill returned) and no ``cross_kv``.
 
     Decode: ``cache_pos`` is the write position — an int for lockstep rows
     (every row at the same position) or a (B,) tensor for per-slot
@@ -103,14 +122,26 @@ def attention_apply(
     + [0, S)``, and ``paged`` is ``paged_chunk_addressing`` of the chunk;
     rows past its valid count are bucket padding, whose K/V goes to the
     null page and whose outputs the caller discards."""
-    if mode not in ("train", "prefill", "decode", "chunk") or (
-            cache is not None and "len" in cache):
-        raise NotImplementedError(
-            f"attention mode {mode!r} with this cache is not ported yet "
-            f"(ROADMAP: the cross-attention slice)"
-        )
-    causal = cfg.causal if causal is None else causal
+    if mode not in ("train", "prefill", "decode", "chunk"):
+        raise ValueError(f"unknown attention mode {mode!r}")
     window = cfg.sliding_window if window is None else window
+    if mode == "decode" and cache is not None and "len" in cache:
+        # cross-attention: K/V were projected once, at prefill
+        o = ops.decode_attention(_project_q(cfg, params, x), cache["k"], cache["v"],
+                                 cache["len"], softcap=cfg.attn_logit_softcap,
+                                 impl=cfg.kernel_impl)
+        return _out_proj(cfg, params, o), cache
+    if cross_kv is not None:
+        if mode not in ("train", "prefill"):
+            raise ValueError(f"cross-attention over an encoder output runs in train or prefill "
+                             f"mode, not {mode!r}; a decode step reads the cross cache")
+        q, k, v = _project_qkv(cfg, params, x, cross_kv)
+        o = ops.attention(q, k, v, causal=False, window=window,
+                          softcap=cfg.attn_logit_softcap, impl=cfg.kernel_impl)
+        lengths = torch.full((x.shape[0],), k.shape[1], dtype=torch.int32, device=x.device)
+        return _out_proj(cfg, params, o), ({"k": k, "v": v, "len": lengths}
+                                           if mode == "prefill" else None)
+    causal = cfg.causal if causal is None else causal
     q, k, v = _project_qkv(cfg, params, x)
     per_slot = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
     if cfg.use_rope:

@@ -1,7 +1,16 @@
 """Top-level model: the param tree as an ``nn.Module`` plus the entry points
-ported so far — embedding extraction, the training loss, and generation
-over a dense or a paged KV cache (``prefill``, ``prefill_chunk``,
-``decode_step``, ``init_cache``), for attention, SSM and hybrid stacks.
+— embedding extraction, the training loss, and generation over a dense or
+a paged KV cache (``prefill``, ``prefill_chunk``, ``decode_step``,
+``init_cache``), for attention, SSM and hybrid stacks, encoder-decoders and
+the two frontend stubs.
+
+An encoder-decoder (MolMIM, Whisper) runs its encoder (``_encode``) over
+``src_tokens`` through the shared embedding or over precomputed frame
+embeddings ``enc_embeds`` plus the encoder's position table, then the
+decoder with cross-attention to the encoder output; prefill stores each
+layer's cross K/V once (``init_cache(cross_len=…)`` preallocates it).  A
+vision model (InternVL2) projects ``img_embeds`` into the stream in front
+of the text; its loss leaves those rows out.
 
 ``build_model(cfg)`` materializes seeded random weights on the GPU; pass
 ``device="cpu"`` to run on the CPU (the tests do).  Weights from the
@@ -16,6 +25,7 @@ the fp32 master copy in every decode step.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -23,7 +33,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.config import ModelConfig
-from repro_torch.core.module import ParamTree, materialize, tree_map
+from repro_torch.core.module import P, ParamTree, materialize, tree_map
 from repro_torch.core.precision import policy_for
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
@@ -31,14 +41,35 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The encoder stack's config: a dense bidirectional stack of
+    ``encoder_layers`` layers, the reference's ``_enc_cfg``."""
+    return dataclasses.replace(cfg, family="dense", num_layers=cfg.encoder_layers, num_experts=0,
+                               causal=False, is_encoder_decoder=False)
+
+
 def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The reference's param tree for the stacks the port runs."""
-    return {
+    """The reference's param tree: the decoder stack (with cross-attention
+    for an encoder-decoder), and an encoder-decoder's ``encoder`` stack,
+    final norm and, with the audio stub, its ``pos`` table of ``max_pos``
+    rows; the vision stub's ``projector``."""
+    defs: Dict[str, Any] = {
         "embed": L.embedding_defs(cfg),
-        "layers": T.stack_defs(cfg),
+        "layers": T.stack_defs(cfg, cross=cfg.is_encoder_decoder),
         "final_norm": L.norm_defs(cfg, cfg.d_model),
         "head": L.lm_head_defs(cfg),
     }
+    if cfg.is_encoder_decoder:
+        enc = encoder_config(cfg)
+        defs["encoder"] = {"layers": T.stack_defs(enc),
+                           "final_norm": L.norm_defs(enc, cfg.d_model)}
+        if cfg.frontend == "audio_stub" and cfg.max_pos:
+            defs["encoder"]["pos"] = P((cfg.max_pos, cfg.d_model), (None, "fsdp"), init="normal",
+                                       scale=0.02)
+    if cfg.frontend == "vision_stub":
+        defs["projector"] = {"w": P((cfg.d_model, cfg.d_model), ("fsdp", "tp"), fan_in=cfg.d_model),
+                             "b": P((cfg.d_model,), (None,), init="zeros")}
+    return defs
 
 
 class Model(nn.Module):
@@ -53,13 +84,40 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.params.embed.tok.device
 
+    # ------------------------------------------------------------ encoder
+    def _encode(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """An encoder-decoder's encoder output (B, T_enc, d_model): over
+        ``enc_embeds`` (the audio stub's frames) plus the first T_enc rows of
+        the encoder's position table, or over ``src_tokens`` through the
+        shared embedding; the stack is bidirectional, then its final norm."""
+        cdt = self.policy.cdt
+        enc = params["encoder"]
+        if "enc_embeds" in batch:
+            x = batch["enc_embeds"].to(cdt)
+            if "pos" in enc:
+                x = x + enc["pos"][: x.shape[1]].to(cdt)[None]
+        else:
+            x = L.embed_apply(self.cfg, params["embed"], batch["src_tokens"], compute_dtype=cdt)
+        x, _, _ = T.decoder_stack(encoder_config(self.cfg), enc["layers"], x, causal=False)
+        return L.norm_apply(self.cfg, enc["final_norm"], x)
+
+    def _cross_kv(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        return self._encode(params, batch) if self.cfg.is_encoder_decoder else None
+
     # ------------------------------------------------------------ backbone
     def _decoder_input(self, params: Dict[str, Any], tokens: torch.Tensor,
-                       positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       positions: Optional[torch.Tensor] = None,
+                       img: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The embedded tokens; ``positions`` reach a learned position table
-        only (``L.embed_apply``)."""
-        return L.embed_apply(self.cfg, params["embed"], tokens, positions,
-                             compute_dtype=self.policy.cdt)
+        only (``L.embed_apply``).  A vision model given ``img`` (B, n_front,
+        d_model) projects it and puts those rows in front of the text."""
+        cdt = self.policy.cdt
+        x = L.embed_apply(self.cfg, params["embed"], tokens, positions, compute_dtype=cdt)
+        if img is not None and self.cfg.frontend == "vision_stub":
+            proj = params["projector"]
+            img = img.to(cdt) @ proj["w"].to(cdt) + proj["b"].to(cdt)
+            x = torch.cat([img, x], dim=1)
+        return x
 
     def _backbone(self, params: Dict[str, Any], x: torch.Tensor, **kw):
         """The stack (train mode unless ``kw`` says otherwise), then the
@@ -100,16 +158,24 @@ class Model(nn.Module):
         layers) to the loss, and reports ``aux_loss`` (lb),
         ``router_entropy`` (the mean over layers), ``router_drop_frac`` and
         ``router_load`` (the per-expert kept-load fractions, (E,)), as the
-        reference does."""
+        reference does.
+
+        ``seq2seq`` (an encoder-decoder) is the ``clm`` loss of the decoder
+        over the encoder output of ``src_tokens`` or ``enc_embeds``.  A
+        vision model's stream is [image rows; text], and its loss is the
+        text's: the first ``num_frontend_tokens`` rows are dropped, whether
+        or not the batch has ``img_embeds``, as in the reference."""
         cfg = self.cfg
-        x, _, aux = self._backbone(params, self._decoder_input(params, batch["tokens"]))
+        x = self._decoder_input(params, batch["tokens"], img=batch.get("img_embeds"))
+        x, _, aux = self._backbone(params, x, cross_kv=self._cross_kv(params, batch))
         B, S, D = x.shape
         if cfg.objective == "mlm":
             hidden = x.reshape(B * S, D)
             targets = batch["targets"].reshape(-1)
             mask = batch["loss_mask"].reshape(-1).float()
-        else:  # clm: next-token over the sequence
-            hidden = x[:, :-1, :].reshape(-1, D)
+        else:  # clm / seq2seq / vlm: next-token over the text
+            n_front = cfg.num_frontend_tokens if cfg.frontend == "vision_stub" else 0
+            hidden = x[:, n_front:][:, :-1, :].reshape(-1, D)
             targets = batch["tokens"][:, 1:].reshape(-1)
             mask = batch.get("loss_mask")
             mask = (mask[:, 1:].reshape(-1).float() if mask is not None
@@ -163,10 +229,16 @@ class Model(nn.Module):
         ``length``.  Right padding is sound only for causal attention (pad
         rows lie in every real row's future); the engine gates it.  The
         cache is ``{"layers": stacked K/V placed in max_len (or rolling
-        window) buffers, "pos": int}``."""
-        x = self._decoder_input(params, batch["tokens"])
+        window) buffers, "pos": int}``.
+
+        An encoder-decoder's batch carries ``src_tokens`` or ``enc_embeds``
+        too, and each layer's cache its ``xattn`` K/V over the encoder
+        output.  A vision model's ``img_embeds`` rows go in front of the
+        text: ``length`` then counts them, as the cache position does."""
+        x = self._decoder_input(params, batch["tokens"], img=batch.get("img_embeds"))
         S = x.shape[1]
-        x, caches, _ = self._backbone(params, x, mode="prefill")
+        x, caches, _ = self._backbone(params, x, mode="prefill",
+                                      cross_kv=self._cross_kv(params, batch))
         pos = S if length is None else int(length)
         lg = self.logits(params, x[:, pos - 1 : pos, :])
         return lg, {"layers": self._pad_caches(caches, S, max_len), "pos": pos}
@@ -224,26 +296,27 @@ class Model(nn.Module):
         return self.logits(params, x), new
 
     @torch.no_grad()
-    def init_cache(self, batch: int, max_len: int, *, layout: str = "dense", page_size: int = 0,
-                   num_pages: int = 0) -> Dict[str, Any]:
+    def init_cache(self, batch: int, max_len: int, cross_len: int = 0, *, layout: str = "dense",
+                   page_size: int = 0, num_pages: int = 0) -> Dict[str, Any]:
         """A zeroed decode cache in the compute dtype.  Dense: K/V buffers,
         position 0.  ``layout="paged"``: page pools shared by the slots, a
         top-level (batch, pages_per_seq) ``block_table`` of the null page 0
         that the engine's allocator maintains, and a per-slot (batch,)
-        ``pos``."""
+        ``pos``.  An encoder-decoder with ``cross_len`` > 0 also gets each
+        layer's dense per-slot cross cache (``T.init_stack_cache``)."""
         if layout == "paged":
             if page_size <= 0 or num_pages <= 1:
                 raise ValueError("paged layout needs page_size>0, num_pages>1")
             pages_per_seq = -(-max_len // page_size)
             dev = self.device
             return {"layers": T.init_stack_cache(self.cfg, batch, max_len, self.policy.cdt, dev,
-                                                 layout="paged", page_size=page_size,
-                                                 num_pages=num_pages),
+                                                 cross_len=cross_len, layout="paged",
+                                                 page_size=page_size, num_pages=num_pages),
                     "block_table": torch.zeros((batch, pages_per_seq), dtype=torch.int32,
                                                device=dev),
                     "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
         return {"layers": T.init_stack_cache(self.cfg, batch, max_len, self.policy.cdt,
-                                             self.device),
+                                             self.device, cross_len=cross_len),
                 "pos": 0}
 
     def _pad_caches(self, caches: Dict[str, Any], S: int, max_len: int) -> Dict[str, Any]:
@@ -251,7 +324,8 @@ class Model(nn.Module):
         rows (the window, if smaller): zero-padded when S <= W, else rolling
         — slot j holds token S - W + ((j - S) mod W), so the next write at
         S mod W overwrites the oldest.  An SSM layer's ``conv``/``state``
-        have no sequence dim and pass through as they are."""
+        have no sequence dim and a cross layer's ``xattn`` K/V keep their
+        T_enc rows: both pass through as they are."""
         cfg = self.cfg
         W = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
 

@@ -12,7 +12,15 @@ units and, inside one, over its layers; each stacked leaf is unbound into
 per-unit views once per call (no copy).  The same loop runs under
 autograd for training.  A parallel-residual block (Command-R) feeds
 norm1's output to both the mixer and the FFN and adds both to the
-residual, in every mode.  Encoder-decoder stacks and frontends raise.
+residual, in every mode.
+
+An encoder-decoder's decoder layers (``cross``) add a cross-attention
+sublayer after the mixer: ``norm_x``, then attention over the encoder
+output (``cross_kv``) added to the residual.  In prefill mode it returns
+the layer's write-once cross cache ``{"xattn": {"k", "v", "len"}}`` beside
+its K/V; a decode step reads it.  The encoder is this same stack over the
+encoder's config (``model.encoder_config``), run in train mode without a
+causal mask.
 """
 from __future__ import annotations
 
@@ -33,12 +41,16 @@ from repro_torch.models.attention import (
 from repro_torch.models.ssm import init_ssm_cache, ssm_apply, ssm_defs
 
 
+FRONTENDS = ("", "audio_stub", "vision_stub")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the architectures the port does not run yet."""
-    if cfg.is_encoder_decoder or cfg.frontend:
+    """Raise for a frontend the reference does not know (the port runs
+    every other architecture of the zoo)."""
+    if cfg.frontend not in FRONTENDS:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and frontend models (ROADMAP: enc-dec/frontend slice) "
-            "are not ported yet")
+            f"{cfg.name}: frontend {cfg.frontend!r} is not ported yet (the reference knows "
+            f"{FRONTENDS[1:]})")
 
 
 # --------------------------------------------------------------------- #
@@ -67,14 +79,18 @@ def num_moe_layers(cfg: ModelConfig) -> int:
     return sum(1 for i in range(unit_size(cfg)) if cfg.is_moe_layer(i)) * num_units(cfg)
 
 
-def _sublayer_defs(cfg: ModelConfig, li: int) -> Dict[str, Any]:
-    """Param defs of layer ``li`` of a unit."""
+def _sublayer_defs(cfg: ModelConfig, li: int, cross: bool) -> Dict[str, Any]:
+    """Param defs of layer ``li`` of a unit; ``cross`` adds the
+    cross-attention sublayer."""
     d = cfg.d_model
     defs: Dict[str, Any] = {"norm1": L.norm_defs(cfg, d)}
     if cfg.is_attn_layer(li):
         defs["attn"] = attention_defs(cfg)
     else:
         defs["ssm"] = ssm_defs(cfg)
+    if cross:
+        defs["norm_x"] = L.norm_defs(cfg, d)
+        defs["xattn"] = attention_defs(cfg, cross=True)
     if cfg.d_ff > 0:
         if not cfg.parallel_residual:       # a parallel block's FFN reads norm1's output
             defs["norm2"] = L.norm_defs(cfg, d)
@@ -82,16 +98,18 @@ def _sublayer_defs(cfg: ModelConfig, li: int) -> Dict[str, Any]:
     return defs
 
 
-def stack_defs(cfg: ModelConfig) -> Dict[str, Any]:
+def stack_defs(cfg: ModelConfig, cross: bool = False) -> Dict[str, Any]:
     check_supported(cfg)
-    return stack_tree({f"sub{i}": _sublayer_defs(cfg, i) for i in range(unit_size(cfg))},
+    return stack_tree({f"sub{i}": _sublayer_defs(cfg, i, cross) for i in range(unit_size(cfg))},
                       num_units(cfg))
 
 
-def _apply_sublayer(cfg, li, params, x, *, mode, positions, causal, cache, cache_pos, paged):
+def _apply_sublayer(cfg, li, params, x, *, mode, positions, causal, cache, cache_pos, paged,
+                    cross_kv):
     """Returns (x, cache, aux): cache is the layer's ``{"attn": …}`` or
-    ``{"ssm": …}`` (None in train mode); aux is the MoE layer's router
-    vector (``moe.aux_shape``), None for a dense layer."""
+    ``{"ssm": …}``, with ``"xattn"`` beside it in a cross layer's prefill
+    (None in train mode); aux is the MoE layer's router vector
+    (``moe.aux_shape``), None for a dense layer."""
     h = L.norm_apply(cfg, params["norm1"], x)
     if "attn" in params:
         mix, c = attention_apply(cfg, params["attn"], h, positions=positions, mode=mode,
@@ -104,13 +122,20 @@ def _apply_sublayer(cfg, li, params, x, *, mode, positions, causal, cache, cache
                              "state cannot advance per chunk over bucket padding")
         mix, c = ssm_apply(cfg, params["ssm"], h, mode=mode, cache=cache["ssm"] if cache else None)
         kind = "ssm"
-    cache = {kind: c} if c is not None else None
-    if "ffn" not in params:
-        return x + mix, cache, None
-    if cfg.parallel_residual:       # the reference's order of additions: (x + mix) + ff
+    cache_in, cache = cache, ({kind: c} if c is not None else None)
+    if cfg.parallel_residual and "ffn" in params:   # the reference's order: (x + mix) + ff
         ff, aux = _ffn_apply(cfg, li, params["ffn"], h)
         return x + mix + ff, cache, aux
     x = x + mix
+    if cross_kv is not None or (cache_in and "xattn" in cache_in):
+        xmix, xc = attention_apply(cfg, params["xattn"], L.norm_apply(cfg, params["norm_x"], x),
+                                   mode=mode, cross_kv=cross_kv,
+                                   cache=cache_in["xattn"] if cache_in else None)
+        x = x + xmix
+        if xc is not None and mode == "prefill":
+            cache["xattn"] = xc
+    if "ffn" not in params:
+        return x, cache, None
     ff, aux = _ffn_apply(cfg, li, params["ffn"], L.norm_apply(cfg, params["norm2"], x))
     return x + ff, cache, aux
 
@@ -134,6 +159,7 @@ def decoder_stack(
     cache_pos: Union[None, int, torch.Tensor] = None,
     causal: Optional[bool] = None,
     paged: Optional[Dict[str, torch.Tensor]] = None,
+    cross_kv: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
     """Runs every layer.  Returns (x, caches, aux_sum).  Caches are in the
     reference's stacked tree ``{"sub<i>": {"attn": {...}}}`` or
@@ -146,7 +172,11 @@ def decoder_stack(
     (each layer writes through its view of the stacked buffers); None in
     train mode.
     ``paged``, the paged layout's addresses of this step or chunk
-    (``attention.paged_*_addressing``), reaches every layer.  ``aux_sum``
+    (``attention.paged_*_addressing``), reaches every layer.  ``cross_kv``,
+    the encoder output, reaches every cross layer in train and prefill
+    mode; prefill then returns each layer's ``xattn`` cache too (leaves
+    ``k``/``v`` (num_units, B, T_enc, Hkv, D), ``len`` (num_units, B)),
+    which decode mode reads from ``caches``.  ``aux_sum``
     is the MoE layers' router vectors summed (``moe.aux_shape``; a zero
     scalar for a dense model)."""
     check_supported(cfg)
@@ -166,7 +196,7 @@ def decoder_stack(
             cache = tree_map(lambda cs: cs[j], per_cache[s]) if per_cache else None
             x, cache, aux = _apply_sublayer(cfg, i, layer, x, mode=mode, positions=positions,
                                             causal=causal, cache=cache, cache_pos=cache_pos,
-                                            paged=paged)
+                                            paged=paged, cross_kv=cross_kv)
             if aux is not None:
                 aux_sum = aux_sum + aux
             new[s].append(cache)
@@ -180,16 +210,19 @@ def decoder_stack(
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
-                     device: torch.device, *, layout: str = "dense", page_size: int = 0,
-                     num_pages: int = 0) -> Dict[str, Any]:
+                     device: torch.device, *, cross_len: int = 0, layout: str = "dense",
+                     page_size: int = 0, num_pages: int = 0) -> Dict[str, Any]:
     """The decode cache, one entry per layer of the unit, each stacked over
     the units and zeroed (the reference builds one unit's cache and
     broadcasts it).  An attention layer's, dense: leaves ``k``/``v``
     (num_units, batch, T, Hkv, D); paged: leaves ``k_pool``/``v_pool``
     (num_units, num_pages, page_size, Hkv, D), shared by every slot.  An
     SSM layer's: ``conv`` and ``state`` per slot (``ssm.init_ssm_cache``);
-    the engine refuses the paged layout for a stack that has one.  Each
-    layer works on a contiguous view."""
+    the engine refuses the paged layout for a stack that has one.  An
+    encoder-decoder with ``cross_len`` > 0 adds each layer's dense
+    ``xattn`` cache per slot in either layout: ``k``/``v`` (num_units,
+    batch, cross_len, Hkv, D) and ``len`` (num_units, batch) int32 at
+    cross_len.  Each layer works on a contiguous view."""
     n = num_units(cfg)
 
     def attn():
@@ -198,6 +231,16 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dt
         shape = (n, *cache_shape(cfg, batch, max_len))
         return {name: torch.zeros(shape, dtype=dtype, device=device) for name in ("k", "v")}
 
-    return {f"sub{i}": ({"attn": attn()} if cfg.is_attn_layer(i) else
-                        {"ssm": init_ssm_cache(cfg, batch, dtype, device, stack=(n,))})
-            for i in range(unit_size(cfg))}
+    def xattn():
+        shape = (n, batch, cross_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "len": torch.full((n, batch), cross_len, dtype=torch.int32, device=device)}
+
+    units = {f"sub{i}": ({"attn": attn()} if cfg.is_attn_layer(i) else
+                         {"ssm": init_ssm_cache(cfg, batch, dtype, device, stack=(n,))})
+             for i in range(unit_size(cfg))}
+    if cfg.is_encoder_decoder and cross_len:
+        for sub in units.values():
+            sub["xattn"] = xattn()
+    return units

@@ -12,6 +12,10 @@
     esm = LLM(build_model(get_config("esm2-650m")), slots=32, max_len=1024)
     vecs = esm.embed([tok.encode(seq) for seq in sequences])   # (n, 1280) fp32
 
+    # a frontend: every request shares one audio (or image), re-encoded at
+    # each admission
+    asr = LLM(whisper, slots=32, max_len=448, extra_batch={"enc_embeds": frames})
+
 The port's copy of the reference's ``repro.serving.api``, for the dense
 and the paged cache layouts:
 
@@ -32,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Iterator, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -93,6 +97,7 @@ class LLM:
     """
 
     def __init__(self, model, *, slots: int = 4, max_len: int = 512,
+                 extra_batch: Optional[Dict[str, Any]] = None,
                  cache_layout: str = "dense", page_size: int = 16, num_pages: int = 0,
                  prefix_cache: bool = False, prefill_chunk: int = 0, max_queue: int = 0,
                  preempt: bool = False, faults: Optional[Any] = None,
@@ -101,7 +106,8 @@ class LLM:
                  metrics: Optional[Any] = None, trace: Optional[Any] = None,
                  profile: bool = False):
         self.engine = Engine(
-            model, slots=slots, max_len=max_len, cache_layout=cache_layout,
+            model, slots=slots, max_len=max_len, extra_batch=extra_batch,
+            cache_layout=cache_layout,
             page_size=page_size, num_pages=num_pages, prefix_cache=prefix_cache,
             prefill_chunk=prefill_chunk, max_queue=max_queue, preempt=preempt, faults=faults,
             clock=clock, metrics=metrics, trace=trace, profile=profile,
@@ -115,8 +121,9 @@ class LLM:
         """Build from a ``ServeConfig``: its layout and scheduling fields map
         onto the engine, its sampling knobs (temperature, top_k, top_p, seed,
         deadline_ms) become the default ``SamplingParams``; extra keyword
-        args (``num_pages``, ``clock``, ``metrics``, ``trace``, ``faults``,
-        ``profile``) pass through to the constructor."""
+        args (``extra_batch``, ``num_pages``, ``clock``, ``metrics``,
+        ``trace``, ``faults``, ``profile``) pass through to the
+        constructor."""
         return cls(
             model,
             slots=slots if slots is not None else sc.batch_size,

@@ -47,9 +47,23 @@ Two cache layouts:
       generation index keys the same sampling noise, so it resumes token
       for token.
 
-    Prefix caching and chunked prefill need a causal attention-only stack
-    (the condition of prompt bucketing); they are rejected otherwise.  A
-    model with SSM layers serves over the dense layout only.
+    Prefix caching and chunked prefill need a causal attention-only
+    decoder with no encoder and no frontend rows (prompt bucketing needs
+    the first half of that); they are rejected otherwise.  A model with SSM
+    layers serves over the dense layout only.
+
+Frontends and encoders (``extra_batch``): one batch of extra inputs that
+every admission's prefill takes beside its tokens, as in the reference —
+``enc_embeds`` (1, T_enc, d_model) for Whisper, ``img_embeds`` (1, n_front,
+d_model) for InternVL2 — so every request of an engine shares one audio or
+image, and each admission runs the encoder again.  An encoder-decoder
+engine holds a dense per-slot cross cache of ``num_frontend_tokens`` rows
+in either layout, which each admission's prefill fills.  A vision model's
+image rows sit in front of each prompt and count toward its budget; served
+without ``img_embeds``, it has none.  An encoder-decoder whose cross length
+is 0 (MolMIM: its encoder length is its source's) is refused: serve it
+with ``repro_torch.launch.serve.generate``, the static batch over
+``Model.prefill`` and ``Model.decode_step``.
 
 Token-in/token-out: selection runs on the device (``ops.sample_tokens``:
 the fused per-slot sampler, greedy rows degrade to argmax), the sampled
@@ -219,6 +233,7 @@ to_host.transfers = 0
 
 class Engine:
     def __init__(self, model: Model, *, slots: int, max_len: int,
+                 extra_batch: Optional[Dict[str, Any]] = None,
                  cache_layout: str = "dense", page_size: int = 16, num_pages: int = 0,
                  prefix_cache: bool = False, prefill_chunk: int = 0, max_queue: int = 0,
                  preempt: bool = False, faults: Optional[Any] = None,
@@ -232,6 +247,21 @@ class Engine:
         self.max_len = max_len
         self.layout = cache_layout
         cfg = model.cfg
+        self.extra = {k: torch.as_tensor(v, device=model.device)
+                      for k, v in (extra_batch or {}).items()}
+        # image rows go in front of each prompt only when the batch carries
+        # img_embeds; a vision model served text-only has none
+        self.n_front = (cfg.num_frontend_tokens
+                        if cfg.frontend == "vision_stub" and "img_embeds" in self.extra else 0)
+        self.cross_len = cfg.num_frontend_tokens if cfg.is_encoder_decoder else 0
+        if cfg.is_encoder_decoder and not self.cross_len:
+            # the reference's engine allocates no cross cache here: its dense
+            # slot write raises, its paged one drops the cross K/V
+            raise ValueError(
+                f"{cfg.name}: an encoder-decoder with no frontend rows has no fixed cross "
+                "length for the engine's per-slot cross cache; serve it with "
+                "repro_torch.launch.serve.generate (a static batch over Model.prefill and "
+                "Model.decode_step)")
         # right-padding (prompt buckets, chunk buckets, prefix skips) is sound
         # only when pad rows stay in every real row's future: causal
         # attention, no SSM state carry, no rolling cache
@@ -249,9 +279,9 @@ class Engine:
         if self._incremental:
             if cache_layout != "paged":
                 raise ValueError("prefix_cache / prefill_chunk require cache_layout='paged'")
-            if not paddable:
+            if not paddable or cfg.is_encoder_decoder or self.n_front:
                 raise ValueError("prefix_cache / prefill_chunk require a causal "
-                                 "attention-only decoder")
+                                 "attention-only decoder with no frontend rows")
         self.max_queue = int(max_queue)
         self.preempt = bool(preempt)
         if self.preempt and cache_layout != "paged":
@@ -377,11 +407,11 @@ class Engine:
             return
         B, dev = self.slots, self.model.device
         if self.alloc is not None:
-            cache = self.model.init_cache(B, self.max_len, layout="paged",
+            cache = self.model.init_cache(B, self.max_len, self.cross_len, layout="paged",
                                           page_size=self.alloc.page_size,
                                           num_pages=self.alloc.num_pages)
         else:
-            cache = self.model.init_cache(B, self.max_len)
+            cache = self.model.init_cache(B, self.max_len, self.cross_len)
         cache["pos"] = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.cache = cache
         self._samp = {
@@ -403,12 +433,12 @@ class Engine:
             req.deadline_ms = req.params.deadline_ms
         if req.max_new < 1:
             raise ValueError(f"request {req.uid}: max_new must be >= 1 (got {req.max_new})")
-        if len(req.prompt) == 0:
+        if len(req.prompt) == 0 and self.n_front == 0:
             raise ValueError(
                 f"request {req.uid}: empty prompt — a causal LM has no "
                 f"token to condition the first logits on"
             )
-        need = len(req.prompt) + req.max_new
+        need = len(req.prompt) + self.n_front + req.max_new
         if need > self.max_len:
             raise ValueError(
                 f"request {req.uid}: prompt+max_new = {need} tokens "
@@ -449,8 +479,14 @@ class Engine:
         dispatch stays on the device; the (n, d) result comes back in one
         device-to-host copy at the end.  Each prompt counts submitted and
         completed; each dispatch emits a ``prefill`` event and the call one
-        ``finish``.  No decode cache is allocated."""
+        ``finish``.  No decode cache is allocated.  Encoder-decoder and
+        vision-frontend engines refuse: they have no single token-aligned
+        hidden sequence to pool."""
         cfg = self.model.cfg
+        if cfg.is_encoder_decoder or self.n_front:
+            raise ValueError(
+                "embed() supports decoder-only text stacks — encoder-decoder and "
+                "vision-frontend models have no single token-aligned hidden sequence to pool")
         prompts = [np.asarray(p, np.int32) for p in prompts]
         n = len(prompts)
         if n == 0:
@@ -496,18 +532,19 @@ class Engine:
     # ------------------------------------------------------------ admission
     def _bucket(self, n: int) -> int:
         """Pad a prompt length to a power-of-2 bucket (min 8, capped at
-        max_len, never below n) so prefill runs at few distinct shapes."""
+        the longest prompt max_len admits after the frontend rows, never
+        below n) so prefill runs at few distinct shapes."""
         if not self.bucket_prompts:
             return n
         b = 8
         while b < n:
             b *= 2
-        return max(n, min(b, max(self.max_len, 1)))
+        return max(n, min(b, max(self.max_len - self.n_front, 1)))
 
     def _write_slot(self, slot: int, one_cache: Dict[str, Any], pos: int) -> None:
         """Copy a batch-1 prefilled cache into slot `slot` (dense), in every
         layer of the unit: an attention layer's K/V, an SSM layer's conv
-        buffer and state."""
+        buffer and state, a cross layer's ``xattn`` K/V and length."""
         for sub, dst in self.cache["layers"].items():
             for kind, leaves in dst.items():
                 src = one_cache["layers"][sub][kind]
@@ -532,7 +569,7 @@ class Engine:
         ids = np.full((n_tiles,), NULL_PAGE, np.int32)
         ids[: min(n_tiles, len(pages))] = pages[:n_tiles]
         write_slot_paged(self.cache["layers"], one_cache["layers"],
-                         torch.tensor(ids, device=self.model.device))
+                         torch.tensor(ids, device=self.model.device), slot)
         self._push_table()
         self.cache["pos"][slot].fill_(pos)
 
@@ -708,9 +745,9 @@ class Engine:
             req = self.queue[0]
             pp = self._replay_prompt(req)
             L = len(pp)
-            # the budget is invariant under replay: prompt + max_new
-            # (generated tokens move from the budget to the prompt)
-            need = len(req.prompt) + req.max_new
+            # the budget is invariant under replay: prompt + frontend rows
+            # + max_new (generated tokens move from the budget to the prompt)
+            need = len(req.prompt) + self.n_front + req.max_new
             if self._incremental:
                 plan = self.alloc.plan(need, pp)
                 if not self.alloc.can_admit(need, plan):
@@ -742,16 +779,17 @@ class Engine:
             Sb = self._bucket(L)
             prompt = np.zeros((Sb,), np.int32)
             prompt[:L] = pp
-            tokens = torch.as_tensor(prompt[None, :], device=dev)
-            n_tiles = pages_for(Sb, self.alloc.page_size) if self.alloc is not None else 0
+            batch = {"tokens": torch.as_tensor(prompt[None, :], device=dev), **self.extra}
+            Lx = L + self.n_front          # valid decoder-input rows
+            n_tiles = (pages_for(Sb + self.n_front, self.alloc.page_size)
+                       if self.alloc is not None else 0)
             # the paged layout takes the prefill's K/V in whole page tiles
             buf_len = n_tiles * self.alloc.page_size if self.alloc is not None else self.max_len
             with annotate("engine/prefill", enabled=self.profile):
-                logits, one_cache = self.model.prefill(params, {"tokens": tokens}, buf_len,
-                                                       length=L)
+                logits, one_cache = self.model.prefill(params, batch, buf_len, length=Lx)
             if self.alloc is not None:
                 pages = self.alloc.alloc(slot, need)
-                self._write_slot_paged(slot, one_cache, L, pages, n_tiles)
+                self._write_slot_paged(slot, one_cache, Lx, pages, n_tiles)
             else:
                 self._write_slot(slot, one_cache, one_cache["pos"])
             del one_cache

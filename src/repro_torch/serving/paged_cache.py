@@ -434,16 +434,22 @@ def pad_dim(x: torch.Tensor, axis: int, target: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def write_slot_paged(cache_layers: Dict, one_layers: Dict, page_ids: torch.Tensor) -> Dict:
-    """Insert a batch-1 prefilled cache into the paged pools, in place.
+def write_slot_paged(cache_layers: Dict, one_layers: Dict, page_ids: torch.Tensor,
+                     slot: int) -> Dict:
+    """Insert a batch-1 prefilled cache into the paged cache, in place.
 
     The attention ``k``/``v`` leaves of each layer of the unit (``(units, 1,
     W, Hkv, D)``) are cut into page tiles and written to that layer's
     ``k_pool``/``v_pool`` (``(units, P, page, Hkv, D)``) at `page_ids`.
     `page_ids` may be padded with the null page — those tiles land on page
-    0 and are never read.  The port's stacks are attention-only, so there
-    are no other leaves to place (the reference's also writes SSM state and
-    cross-attention K/V into the slot's batch row)."""
+    0 and are never read.  Every other leaf (a cross layer's ``xattn`` K/V
+    and lengths) is dense per slot: it is written into row ``slot``, as
+    the dense layout writes it."""
+    for sub, dst in cache_layers.items():
+        for kind, leaves in dst.items():
+            if kind != "attn":
+                for name, buf in leaves.items():
+                    buf[:, slot].copy_(one_layers[sub][kind][name][:, 0])
     n_pages = page_ids.shape[0]
     leaves = [sub["attn"][n] for sub in (one_layers[s] for s in cache_layers)
               for n in ("k", "v")]

@@ -200,6 +200,34 @@ def test_cpu_runs_launch_no_kernel():
     assert all(k.launches == 0 for k in KERNELS), [k.launches for k in KERNELS]
 
 
+def test_encoder_decoder_and_frontend_cpu_runs_launch_no_kernel(monkeypatch):
+    """Reduced MolMIM trains and generates through ``launch.serve.generate``,
+    Whisper and InternVL2 serve through ``LLM.generate``, all on the CPU
+    without a kernel launch; ``generate`` runs where the model is, and the
+    model needs a GPU unless asked for the CPU."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.serving.sampling import SamplingParams
+
+    molmim = model_mod.build_model(get_smoke_config("molmim-65m"), device="cpu")
+    toks = torch.tensor([[1, 5, 6, 7, 8, 2, 0, 0]] * 2, dtype=torch.int32)
+    loss, _ = molmim.loss_fn(molmim.params.tree(), {"tokens": toks, "src_tokens": toks})
+    loss.backward()
+    out, _ = generate(molmim, None, {"tokens": toks[:, :3].numpy(), "src_tokens": toks.numpy()},
+                      max_len=16, steps=4)
+    assert out.device.type == "cpu" and out.shape == (2, 4)
+    whisper = model_mod.build_model(get_smoke_config("whisper-medium"), device="cpu")
+    LLM(whisper, slots=2, max_len=24, extra_batch={"enc_embeds": torch.zeros(1, 16, 256)}) \
+        .generate([[1, 5, 6], [7, 8, 9, 10]], SamplingParams(max_new=4))
+    vlm = model_mod.build_model(get_smoke_config("internvl2-26b"), device="cpu")
+    LLM(vlm, slots=2, max_len=32, cache_layout="paged", page_size=8,
+        extra_batch={"img_embeds": torch.zeros(1, 16, 256)}).generate([[1, 5, 6], [7, 8]],
+                                                                     SamplingParams(max_new=4))
+    assert all(k.launches == 0 for k in KERNELS), [k.launches for k in KERNELS]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model_mod.build_model(get_smoke_config("molmim-65m"))
+
+
 def test_cuda_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

@@ -1,6 +1,7 @@
 """The port's training launcher (``repro_torch.launch.train``) and its
 trace: ``main`` end to end on the CPU with the data plane, a resume and
-the history file, and on reduced Mamba2's size-aware causal batches;
+the history file, on reduced Mamba2's size-aware causal batches and on
+reduced MolMIM's seq2seq batches;
 ``make_batches`` against the reference launcher's (Geneformer's
 ``--smoke`` MLM batches among them); the
 meshes it refuses; ``trace_ctx``; and the GPU it needs unless asked for
@@ -90,11 +91,35 @@ def test_make_batches_equals_the_reference_launchers(tmp_path, kind):
 
 
 def test_encoder_decoder_batches_name_their_slice(tmp_path):
-    import dataclasses
+    """MolMIM's batches (``Seq2SeqBatches``): the reference launcher's CLM
+    packing with ``src_tokens`` mirroring ``tokens``, batch for batch, and
+    the same cursor, which a restored pipeline resumes from."""
+    cfg, jcfg = get_smoke_config("molmim-65m"), jax_configs.get_smoke_config("molmim-65m")
+    tc, jtc = TrainConfig(global_batch=4, seq_len=64), JaxTrainConfig(global_batch=4, seq_len=64)
+    a = train.make_batches(cfg, tc, str(tmp_path / "p"), seed=5, max_tokens=512)
+    b = jax_train.make_batches(jcfg, jtc, str(tmp_path / "r"), seed=5, max_tokens=512)
+    assert isinstance(a, train.Seq2SeqBatches)
+    ia, ib = iter(a), iter(b)
+    for _ in range(3):
+        x, y = next(ia), next(ib)
+        assert sorted(x) == sorted(y) == ["src_tokens", "tokens"]
+        assert x["tokens"].shape == (4, 64) and np.array_equal(x["src_tokens"], x["tokens"])
+        assert all(np.array_equal(x[k], y[k]) for k in x)
+    assert json.dumps(a.state_dict()) == json.dumps(b.state_dict())     # the same cursor
+    c = train.make_batches(cfg, tc, str(tmp_path / "p"), seed=5)
+    c.load_state_dict(a.state_dict())
+    assert all(np.array_equal(u, v) for u, v in zip(next(iter(c)).values(), next(ia).values()))
 
-    cfg = dataclasses.replace(get_smoke_config("qwen2-7b"), is_encoder_decoder=True)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        train.make_batches(cfg, TrainConfig(global_batch=2, seq_len=32), str(tmp_path))
+
+def test_main_trains_molmim_on_seq2seq_batches(tmp_path):
+    """``--arch molmim-65m`` (reduced, on the CPU): ``Seq2SeqBatches``
+    through ``Trainer.run``; the history holds finite losses."""
+    out = tmp_path / "hist.json"
+    train.main(["--arch", "molmim-65m", "--smoke", "--device", "cpu", "--steps", "3",
+                "--batch", "4", "--seq", "32", "--mesh", "none", "--data-dir",
+                str(tmp_path / "data"), "--history-out", str(out)])
+    hist = json.loads(out.read_text())
+    assert [h["step"] for h in hist] == [0, 2] and all(np.isfinite(h["loss"]) for h in hist)
 
 
 @pytest.mark.parametrize("mesh", ["2x1", "4x2", "auto-on-two-cards"])

@@ -109,6 +109,27 @@ def test_bridge_round_trips_port_params_bit_exactly(param_dtype):
     assert not torch.equal(other["layers"]["sub0"]["attn"]["wq"], tree["layers"]["sub0"]["attn"]["wq"])
 
 
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_materialize_scales_in_place_with_the_out_of_place_bits(param_dtype):
+    """``materialize`` scales each fp32 draw in place (one temporary of the
+    leaf, not two): the same bits as ``(x * std).to(dtype)`` on fan-in,
+    normal and stacked leaves."""
+    from repro_torch.core.module import P, _leaf_seed, materialize, stacked
+
+    defs = {"w": P((48, 40), ("fsdp", "tp"), fan_in=48),
+            "pos": P((30, 16), (None, "fsdp"), init="normal", scale=0.02),
+            "layers": {"wo": stacked(P((3, 24, 40), (None, "tp", "fsdp")), 2)}}
+    dt = TDT[param_dtype]
+    got = materialize(defs, 7, dt, torch.device("cpu"))
+    for path, p in (("w", defs["w"]), ("pos", defs["pos"]), ("layers/wo", defs["layers"]["wo"])):
+        g = torch.Generator().manual_seed(_leaf_seed(7, tuple(path.split("/"))))
+        want = (torch.randn(p.shape, generator=g, dtype=torch.float32) * p.std()).to(dt)
+        leaf = got
+        for k in path.split("/"):
+            leaf = leaf[k]
+        assert leaf.dtype == dt and torch.equal(leaf, want), path
+
+
 def test_param_tree_paths_and_shapes_match_the_reference():
     jcfg, cfg = _configs("float32")
     want = jax.eval_shape(jax_build_model(jcfg).init, jax.random.PRNGKey(0))
@@ -186,7 +207,17 @@ def test_embed_pool_matches_reference(dtype, impl_env):
 
 
 def test_unported_architectures_raise():
+    """Slice 7's configs build at reduced() size with the reference's param
+    tree (encoder, its position table, cross-attention, the projector);
+    only a frontend the reference does not know is refused."""
+    for name in ("molmim-65m", "whisper-medium", "internvl2-26b"):
+        jcfg = jax_configs.get_smoke_config(name)
+        model = build_model(ModelConfig(**dataclasses.asdict(jcfg)), device="cpu")
+        want = jax.eval_shape(jax_build_model(jcfg).init, jax.random.PRNGKey(0))
+        got = tree_map(lambda p: jax.ShapeDtypeStruct(tuple(p.shape), jnp.float32),
+                       model.params.tree())
+        assert jax.tree.structure(got) == jax.tree.structure(want), name
+        assert [g.shape for g in jax.tree.leaves(got)] == [w.shape for w in jax.tree.leaves(want)]
     _, cfg = _configs("float32")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(dataclasses.replace(cfg, is_encoder_decoder=True, encoder_layers=2),
-                    device="cpu")
+        build_model(dataclasses.replace(cfg, frontend="video_stub"), device="cpu")
