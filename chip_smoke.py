@@ -134,6 +134,22 @@ def device_ms(torch, fn, *names: str, n: int = 20, floor: float = 0.0):
     return sum(device_ms_by_kernel(torch, fn, names, n, floor).values()) or None
 
 
+def busy_ms(torch, fn, n: int = 20):
+    """Device time of one call of ``fn`` over every kernel it launches,
+    from a profiler window of ``n`` back-to-back calls, or None: not
+    measured (a library call whose kernels' names are not known)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return kernel_groups(prof, DeviceType)[0] / n or None
+
+
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
@@ -146,6 +162,11 @@ def per_device_ms(amount: float, ms, unit: str, scale: float) -> str:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def mark(t_start: float, what: str) -> None:
+    """The script's seconds so far, before a step (it has 1 200 in all)."""
+    print(f"[chip_smoke +{time.perf_counter() - t_start:.1f} s] {what}", flush=True)
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -190,7 +211,8 @@ def kernel_groups(prof, DeviceType):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
             and "Command Buffer Full" not in e.key and not e.key.startswith("engine/")]
     groups = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0, "cross_entropy_fwd": 0.0,
-              "cross_entropy_bwd": 0.0, "layernorm": 0.0, "rmsnorm": 0.0, "flash_decode": 0.0,
+              "cross_entropy_bwd": 0.0, "layernorm": 0.0, "layernorm_bwd": 0.0, "rmsnorm": 0.0,
+              "flash_decode": 0.0,
               "fused_sample": 0.0, "paged_decode": 0.0, "paged_prefill": 0.0,
               "paged_kv_write": 0.0, "gmm": 0.0, "gmm_dw": 0.0, "ssd_scan": 0.0, "ssd_scan_bwd": 0.0,
               "matmul": 0.0, "other": 0.0}
@@ -207,6 +229,8 @@ def kernel_groups(prof, DeviceType):
             groups["cross_entropy_fwd"] += t
         elif any(w in low for w in CE_BWD_KERNELS):
             groups["cross_entropy_bwd"] += t
+        elif "layernorm_bwd" in low:
+            groups["layernorm_bwd"] += t
         elif "layernorm" in low:
             groups["layernorm"] += t
         elif "rmsnorm" in low:
@@ -424,43 +448,93 @@ ATTN_EDGE_CASES = [
 SLICE7_LAYERNORM = [(64, 512, True), (16384, 512, True), (32, 1024, True), (1500, 1024, True)]
 
 
+# the eight LayerNorm shapes the paths run, timed in check_layernorm:
+# (rows, d, bias)
+LAYERNORM_TIMED = [(32 * 1024, 1280, True), (32, 8192, False), (2048, 8192, False),
+                   (16384, 768, True), *SLICE7_LAYERNORM]
+
+
+def layernorm_tol(torch, dt):
+    """(tolerance of |kernel - plain| elementwise, its label): 16-bit
+    output: at most one output rounding step (2^-8 relative in bf16, 2^-11
+    in fp16, at most twice that of |y|) beside the fp32 moments' noise;
+    fp32: the moments summed in another order."""
+    if dt == torch.bfloat16:
+        return (lambda r: 1e-2 + 2**-7 * r.abs()), "1e-2 + 2^-7*|y|"
+    if dt == torch.float16:
+        return (lambda r: 1e-3 + 2**-10 * r.abs()), "1e-3 + 2^-10*|y|"
+    return (lambda r: 1e-4), "1e-4"
+
+
 def check_layernorm(torch, F, ref, layernorm, randn, card):
-    """Row 5 against ``layernorm_ref`` in bf16 and fp32, with and without a
-    bias: at ESM-2's serving shape (32 768, 1280), Command-R's decode and
+    """Row 5 against ``layernorm_ref`` in bf16, fp16 and fp32, with and
+    without a bias, with w and b in x's dtype or another: at ESM-2's serving
+    shape (32 768, 1280), ESM-2 3B's width 2560, Command-R's decode and
     prefill shapes without a bias ((32, 8192), (2048, 8192)), Geneformer's
-    training shape (16 384, 768) and slice 7's (``SLICE7_LAYERNORM``); times
-    each beside ``F.layer_norm`` and its bound.  Returns its kernel record: the serving shape's numbers, the
-    others under their shape (launches filled in later)."""
-    cases = [(32 * 1024, 1280, bias) for bias in (True, False)] + [
-        (32, 8192, False), (2048, 8192, False), (16384, 768, True)] + SLICE7_LAYERNORM
+    training shape (16 384, 768), slice 7's (``SLICE7_LAYERNORM``) and the
+    widest row (16 384), and over a strided view of rows; at each case a
+    repeat is bit-identical and a row alone equals its row in the batch bit
+    for bit.  Times the eight shapes the paths run (``LAYERNORM_TIMED``)
+    beside ``F.layer_norm`` (in turns: kernel, library, library, kernel),
+    the plain version and the bound, and reads each shape's device time
+    over inputs rotated past the 50 MB L2.  Returns its kernel record: the
+    serving shape's numbers, the others under their shape (launches filled
+    in later)."""
+    import itertools
+
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    # (rows, d, bias, x dtype, w dtype, b dtype)
+    cases = [(rows, d, bias, dt, f32, f32) for rows, d, bias in (
+        [(32 * 1024, 1280, bias) for bias in (True, False)]
+        + [(32, 8192, False), (2048, 8192, False), (16384, 768, True), (8192, 2560, True),
+           (32, 2560, True), (7, 16384, True)] + SLICE7_LAYERNORM) for dt in (bf16, f32)]
+    cases += [(2048, 1024, True, f16, f16, f16), (32, 2560, True, f16, f16, f16),
+              (16384, 512, True, bf16, bf16, f32), (1500, 1024, True, f32, bf16, f16),
+              (2048, 8192, False, bf16, bf16, bf16), (64, 768, True, bf16, f16, bf16),
+              (32, 1280, True, f16, f32, bf16)]
     serving_err = 0.0
-    for rows, d, bias in cases:
-        for dt in (torch.bfloat16, torch.float32):
-            x = randn(rows, d, dtype=dt, scale=3.0, shift=1.0)
-            w = randn(d, dtype=torch.float32)
-            b = randn(d, dtype=torch.float32) if bias else None
-            y = layernorm(x, w, b)
-            torch.cuda.synchronize()
-            r = ref.layernorm_ref(x, w, b)
-            err = (y.float() - r.float()).abs()
-            # bf16: at most one output rounding step (2^-8 relative, at most
-            # 2^-7 of |y|); fp32: moments summed in another order
-            if dt == torch.bfloat16:
-                ok = bool((err <= 1e-2 + 2**-7 * r.float().abs()).all())
-                tol = "1e-2 + 2^-7*|y|"
-            else:
-                ok = err.max().item() <= 1e-4
-                tol = "1e-4"
-            print(f"layernorm ({rows}, {d}) {str(dt)[6:]} bias={bias}: err {err.max().item():.3g} "
-                  f"(tol {tol})")
-            check(ok, f"layernorm ({rows}, {d}) {dt} bias={bias}")
-            if dt == torch.bfloat16 and bias and rows == 32 * 1024:
-                serving_err = err.max().item()
-    rec = {"name": "layernorm", "route": "triton", "source": "src/repro_torch/kernels/rmsnorm.py",
+    for rows, d, bias, dt, wdt, bdt in cases:
+        x = randn(rows, d, dtype=dt, scale=3.0, shift=1.0)
+        w = randn(d, dtype=wdt)
+        b = randn(d, dtype=bdt) if bias else None
+        y = layernorm(x, w, b)
+        again = layernorm(x, w, b)
+        torch.cuda.synchronize()
+        r = ref.layernorm_ref(x, w, b)
+        err = (y.float() - r.float()).abs()
+        tol, label = layernorm_tol(torch, dt)
+        ok = bool((err <= tol(r.float())).all()) and y.dtype == dt
+        alone = all(torch.equal(layernorm(x[i:i + 1], w, b), y[i:i + 1])
+                    for i in sorted({0, rows // 2, rows - 1}))
+        print(f"layernorm ({rows}, {d}) x {str(dt)[6:]}, w {str(wdt)[6:]}, b "
+              f"{str(bdt)[6:] if bias else None}: err {err.max().item():.3g} (tol {label}); a "
+              f"repeat bit-identical {torch.equal(y, again)}, rows alone bit-equal {alone}")
+        check(ok, f"layernorm ({rows}, {d}) {dt} w {wdt} bias={bias}")
+        check(torch.equal(y, again), f"layernorm ({rows}, {d}) {dt}: a repeat differs")
+        check(alone, f"layernorm ({rows}, {d}) {dt}: a row alone differs from its row in the batch")
+        if dt == bf16 and bias and rows == 32 * 1024:
+            serving_err = err.max().item()
+        del x, y, again, r, err
+    # rows of a strided view (every other row of a stacked pair, and a
+    # column slice): the row stride is not d
+    for dt in (bf16, f32):
+        base = randn(4096, 2, 1280 + 64, dtype=dt, scale=3.0, shift=1.0)
+        x = base[:, 1, 32:32 + 1280]
+        w, b = randn(1280, dtype=f32), randn(1280, dtype=f32)
+        y = layernorm(x, w, b)
+        r = ref.layernorm_ref(x.contiguous(), w, b)
+        tol, label = layernorm_tol(torch, dt)
+        err = (y.float() - r.float()).abs()
+        same = torch.equal(y, layernorm(x.contiguous(), w, b))
+        print(f"layernorm strided rows (4096, 1280), row stride {x.stride(0)}, {str(dt)[6:]}: err "
+              f"{err.max().item():.3g} (tol {label}); bit-equal to the contiguous copy's {same}")
+        check(bool((err <= tol(r.float())).all()) and same, f"layernorm strided rows {dt}")
+        del base, x, y, r, err
+
+    rec = {"name": "layernorm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/layernorm.cu",
            "replaces": "src/repro/kernels/rmsnorm.py:83", "launches": 0,
            "max_abs_err": serving_err}
-    for rows, d, bias in ((32 * 1024, 1280, True), (32, 8192, False), (2048, 8192, False),
-                          (16384, 768, True), *SLICE7_LAYERNORM):
+    for rows, d, bias in LAYERNORM_TIMED:
         x = randn(rows, d)
         w = randn(d, dtype=torch.float32)
         b = randn(d, dtype=torch.float32) if bias else None
@@ -468,21 +542,196 @@ def check_layernorm(torch, F, ref, layernorm, randn, card):
         bl = None if b is None else b.to(torch.bfloat16)
         nbytes = 2 * rows * d * 2 + (2 if bias else 1) * d * 4
         bound_ms, bound_by = bound(8 * rows * d, nbytes, PEAK_FP32_FLOPS)
-        reading = {"ms": time_ms(torch, lambda: layernorm(x, w, b)),
-                   "device_ms": device_ms(torch, lambda: layernorm(x, w, b), "layernorm",
-                                          floor=bound_ms),
+        # the kernel and F.layer_norm in turns (kernel, library, library,
+        # kernel): at the small shapes both are bound by the host's launch
+        # path, and the host's speed drifts within a run
+        turns = {"kernel": [], "library": []}
+        for who in ("kernel", "library", "library", "kernel"):
+            turns[who].append(time_ms(torch, (lambda: layernorm(x, w, b)) if who == "kernel"
+                                      else (lambda: F.layer_norm(x, (d,), wl, bl, 1e-5))))
+        ms, lib_ms = (statistics.mean(turns[who]) for who in ("kernel", "library"))
+        dev_ms = device_ms(torch, lambda: layernorm(x, w, b), "layernorm", floor=bound_ms)
+        lib_dev = busy_ms(torch, lambda: F.layer_norm(x, (d,), wl, bl, 1e-5))
+        # the same shape over enough inputs that each call reads x from
+        # DRAM, as a layer's norm does: its reading against the byte bound
+        copies = -(-3 * 50 * 2**20 // (rows * d * 2))
+        xs = itertools.cycle([randn(rows, d) for _ in range(copies)])
+        dram_ms = device_ms(torch, lambda: layernorm(next(xs), w, b), "layernorm", floor=bound_ms)
+        del xs
+        reading = {"ms": ms, "device_ms": dev_ms, "device_ms_dram": dram_ms,
                    "plain_ms": time_ms(torch, lambda: ref.layernorm_ref(x, w, b)),
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": time_ms(torch, lambda: F.layer_norm(x, (d,), wl, bl, 1e-5))}
-        print(f"layernorm ({rows}, {d}) bf16 bias={bias} on {card}: {reading['ms']:.4f} ms (device "
-              f"{fmt_ms(reading['device_ms'])} ms; bound {bound_ms:.4f} ms by {bound_by}, "
-              f"{nbytes / reading['ms'] / 1e6:.0f} GB/s), plain {reading['plain_ms']:.4f} ms, "
-              f"F.layer_norm {reading['library_ms']:.4f} ms")
+                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                   "library_device_ms": lib_dev}
+        print(f"layernorm ({rows}, {d}) bf16 bias={bias} on {card}: {ms:.4f} ms back to back, "
+              f"device {fmt_ms(dev_ms)} ms, over {copies} inputs rotated past L2 {fmt_ms(dram_ms)} "
+              f"ms (bound {bound_ms:.5f} ms by {bound_by}, "
+              f"{per_device_ms(nbytes, dram_ms, 'GB/s', 1e6)}), plain {reading['plain_ms']:.4f} ms, "
+              f"F.layer_norm {lib_ms:.4f} ms (device {fmt_ms(lib_dev)} ms)")
         if rows == 32 * 1024:
             rec.update(reading)
         else:
             rec[f"({rows}, {d}){'' if bias else ' no bias'}"] = reading
         del x
+    return rec
+
+
+# the training shapes of the LayerNorm backward: ESM-2 650M's micro-batch
+# (8 x 1024 rows of 1280) and Geneformer's (8 x 2048 of 768) with bf16
+# weights under the compute view, MolMIM's (128 x 128 of 512) with its fp32
+# norm leaves; (rows, d, bias, w dtype name)
+LAYERNORM_BWD_TIMED = [(8192, 1280, True, "bfloat16"), (16384, 768, True, "bfloat16"),
+                       (16384, 512, True, "float32")]
+
+
+def layernorm_bwd_grads_ok(torch, got, want, xdt):
+    """(ok, worst error of dx, of dw and db, each over its tolerance): dx
+    within one rounding step of x's dtype of each element (2^-7 of |dx| in
+    bf16, 2^-10 in fp16, 1e-5 in fp32) plus 1e-4 of the row's max |dx|; dw
+    and db, fp32 sums over the rows in another order rounded once to w's
+    dtype, within that dtype's step (2^-7, 2^-10, 1e-5 of |g|) plus 2e-5
+    of max |g|."""
+    step = {torch.bfloat16: 2**-7, torch.float16: 2**-10, torch.float32: 1e-5}
+    worst = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            continue
+        gf, wf = g.float(), w.float()
+        if i == 0:
+            scale = wf.reshape(-1, wf.shape[-1]).abs().amax(1).reshape(wf.shape[:-1] + (1,))
+            tol = 1e-4 * scale + step[xdt] * wf.abs()
+        else:
+            tol = 2e-5 * wf.abs().max() + step[w.dtype] * wf.abs()
+        worst.append(((gf - wf).abs() / tol.clamp_min(1e-30)).max().item())
+    return all(e <= 1 for e in worst), worst
+
+
+def check_layernorm_bwd(torch, F, ref, layernorm_bwd, randn, card):
+    """The port's own LayerNorm backward (``layernorm_bwd``, with row 5)
+    against ``layernorm_bwd_ref`` and against the plain function that
+    follows its schedule (``layernorm_bwd_sched_ref``), at the three
+    training shapes (``LAYERNORM_BWD_TIMED``) with bf16 and fp32 weights
+    and the schedule's edges: no bias, fp32 and fp16 x, a row count with a
+    short last block, one row, ESM-2 3B's width 2560, the widest row
+    (8192), a strided view of x's rows, an expanded dy and a dy that starts
+    inside a 16-byte vector.  At each case a
+    repeat is bit-identical and dx of a row alone equals its row in the
+    batch.  Checks the schedule's grid against the kernel's.  Times
+    the training shapes beside the plain version and ``F.layer_norm``'s
+    backward (``torch.autograd.grad``).  Returns its record (ESM-2's shape;
+    the others under their shape; launches filled in later)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    dts = {"float32": f32, "bfloat16": bf16}
+    lib = _build.load("layernorm")
+    # (rows, d, bias, x dtype, w and b dtype)
+    cases = [(rows, d, bias, bf16, wdt) for rows, d, bias, _ in LAYERNORM_BWD_TIMED
+             for wdt in (bf16, f32)]
+    cases += [(8192, 1280, False, bf16, bf16), (16384, 768, True, f32, f32),
+              (2048, 1024, True, f16, f16), (1000, 1280, True, bf16, bf16),
+              (1, 512, True, bf16, f32), (4096, 2560, True, bf16, bf16),
+              (512, 8192, False, bf16, bf16), (300, 96, True, f16, bf16)]
+    first_err = None
+    for rows, d, bias, dt, wdt in cases:
+        x = randn(rows, d, dtype=dt, scale=3.0, shift=1.0)
+        dy = randn(rows, d, dtype=dt)
+        w = randn(d, dtype=wdt)
+        b = randn(d, dtype=wdt) if bias else None
+        got = layernorm_bwd(x, w, b, dy)
+        again = layernorm_bwd(x, w, b, dy)
+        torch.cuda.synchronize()
+        want = ref.layernorm_bwd_ref(x, w, b, dy)
+        sched = ref.layernorm_bwd_sched_ref(x, w, b, dy)
+        ok, errs = layernorm_bwd_grads_ok(torch, got, want, dt)
+        ok_s, errs_s = layernorm_bwd_grads_ok(torch, got, sched, dt)
+        same = all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+        rows_alone = sorted({0, rows // 2, rows - 1})
+        alone = all(torch.equal(layernorm_bwd(x[i:i + 1], w, b, dy[i:i + 1])[0], got[0][i:i + 1])
+                    for i in rows_alone)
+        r = ctypes.c_int()
+        G = lib.layernorm_bwd_grid(rows, d, ctypes.byref(r))
+        grid_ok = (G, r.value) == ref.layernorm_bwd_blocks(rows, d)
+        print(f"layernorm_bwd ({rows}, {d}) x {str(dt)[6:]}, w {str(wdt)[6:]}, bias={bias}: "
+              f"err / tol vs plain dx, dw, db {', '.join(f'{e:.3g}' for e in errs)}, vs the "
+              f"schedule's {', '.join(f'{e:.3g}' for e in errs_s)} (<= 1); repeat bit-identical "
+              f"{same}; dx of rows {rows_alone} alone bit-equal {alone}; {G} blocks of {r.value} "
+              f"rows (the schedule's {ref.layernorm_bwd_blocks(rows, d)})")
+        check(ok and ok_s and all(g.dtype == w_.dtype for g, w_ in zip(got, want) if w_ is not None),
+              f"layernorm_bwd ({rows}, {d}) {dt} w {wdt} bias={bias}")
+        check(same, f"layernorm_bwd ({rows}, {d}) {dt}: a repeat differs")
+        check(alone, f"layernorm_bwd ({rows}, {d}) {dt}: dx of a row alone differs")
+        check(grid_ok, f"layernorm_bwd ({rows}, {d}): the schedule's grid is not the kernel's")
+        if first_err is None:
+            first_err = max((g.float() - w_.float()).abs().max().item()
+                            for g, w_ in zip(got, want) if w_ is not None)
+        del x, dy, got, again, want, sched
+    # rows of a strided view, and an expanded dy (the gradient of a sum)
+    x = randn(2048, 2, 1280 + 64, dtype=bf16, scale=3.0, shift=1.0)[:, 1, 32:32 + 1280]
+    w, b = randn(1280, dtype=bf16), randn(1280, dtype=bf16)
+    for label, dy in (("strided x", randn(2048, 1280)),
+                      ("expanded dy", randn(1, 1280).expand(2048, 1280)),
+                      ("dy starting inside a vector", randn(2048 * 1280 + 1)[1:].view(2048, 1280))):
+        got = layernorm_bwd(x, w, b, dy)
+        want = layernorm_bwd(x.contiguous(), w, b, dy.contiguous())
+        ok, errs = layernorm_bwd_grads_ok(torch, got, ref.layernorm_bwd_ref(x, w, b, dy), bf16)
+        same = all(torch.equal(a, c) for a, c in zip(got, want))
+        print(f"layernorm_bwd {label} (2048, 1280), x row stride {x.stride(0)}, dy strides "
+              f"{dy.stride()}: err / tol {', '.join(f'{e:.3g}' for e in errs)}; bit-equal to the "
+              f"contiguous copies' {same}")
+        check(ok and same, f"layernorm_bwd {label}")
+
+    rec = {"name": "layernorm_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/layernorm.cu",
+           "replaces": None,     # the port's own: the reference's backward is XLA, not a kernel
+           "reference": "src/repro/kernels/ops.py:518 (_ln_bwd, beside the Pallas forward)",
+           "launches": 0, "max_abs_err": first_err}
+    for rows, d, bias, wname in LAYERNORM_BWD_TIMED:
+        wdt = dts[wname]
+        x, dy = randn(rows, d, scale=3.0, shift=1.0), randn(rows, d)
+        w, b = randn(d, dtype=wdt), randn(d, dtype=wdt)
+        G = ref.layernorm_bwd_blocks(rows, d)[0]
+        es = w.element_size()
+        rows_bytes = 3 * rows * d * 2 + 4 * d * es
+        part_bytes = 2 * (2 * G * d * 4)      # the partials, written and read back
+        # the function's bytes: the kernel's partials are its design's
+        # workspace, not work that the gradient needs (beside it, under
+        # bound_ms_with_partials)
+        bound_ms, bound_by = bound(16 * rows * d, rows_bytes, PEAK_FP32_FLOPS)
+        bound_ws = bound(16 * rows * d, rows_bytes + part_bytes, PEAK_FP32_FLOPS)[0]
+        xl = x.detach().requires_grad_(True)
+        wl, bl = (t.to(bf16).requires_grad_(True) for t in (w, b))
+        yl = F.layer_norm(xl, (d,), wl, bl, 1e-5)
+        lib = lambda: torch.autograd.grad(yl, (xl, wl, bl), dy, retain_graph=True)  # noqa: E731
+        turns = {"kernel": [], "library": []}
+        for who in ("kernel", "library", "library", "kernel"):
+            turns[who].append(time_ms(torch, (lambda: layernorm_bwd(x, w, b, dy)) if who == "kernel"
+                                      else lib))
+        ms, lib_ms = (statistics.mean(turns[who]) for who in ("kernel", "library"))
+        parts = device_ms_by_kernel(torch, lambda: layernorm_bwd(x, w, b, dy),
+                                    ("layernorm_bwd_kernel", "layernorm_bwd_sum_kernel"),
+                                    floor=bound(0, rows_bytes)[0])
+        dev_ms = sum(parts.values()) or None
+        lib_dev = busy_ms(torch, lib)
+        plain_ms = time_ms(torch, lambda: ref.layernorm_bwd_ref(x, w, b, dy), trials=5)
+        print(f"layernorm_bwd ({rows}, {d}) bf16 x, {wname} w and b, on {card}: {ms:.4f} ms back "
+              f"to back, device {fmt_ms(dev_ms)} ms (" + ", ".join(
+                  f"{k} {v:.4f}" for k, v in parts.items()) + f"); bound {bound_ms:.5f} ms by "
+              f"{bound_by} ({rows_bytes / 1e6:.1f} MB of rows and weights; {bound_ws:.5f} ms "
+              f"with the kernel's {part_bytes / 1e6:.1f} MB of partials), "
+              f"{per_device_ms(rows_bytes, dev_ms, 'GB/s', 1e6)}; plain "
+              f"{plain_ms:.4f} ms, F.layer_norm backward {lib_ms:.4f} ms (device {fmt_ms(lib_dev)} "
+              f"ms)")
+        reading = {"ms": ms, "device_ms": dev_ms, "device_ms_by_kernel": parts,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_ms_with_partials": bound_ws, "library_ms": lib_ms,
+                   "library_device_ms": lib_dev}
+        if rows == 8192:
+            rec.update(reading)
+        else:
+            rec[f"({rows}, {d}) {wname} w"] = reading
+        del x, dy, xl, wl, bl, yl
     return rec
 
 
@@ -715,9 +964,11 @@ def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, ran
 def step_launches(num_layers: int):
     """The launches of one ESM-2 micro-batch's forward and backward: one
     attention forward and backward a layer, two LayerNorms a layer and the
-    final one, one cross-entropy forward and backward."""
+    final one, each with its backward, one cross-entropy forward and
+    backward."""
     return {"flash_attention_fwd": num_layers, "flash_attention_bwd": num_layers,
-            "layernorm": 2 * num_layers + 1, "cross_entropy_fwd": 1, "cross_entropy_bwd": 1}
+            "layernorm": 2 * num_layers + 1, "layernorm_bwd": 2 * num_layers + 1,
+            "cross_entropy_fwd": 1, "cross_entropy_bwd": 1}
 
 
 def step_cost(torch, fn):
@@ -1001,6 +1252,9 @@ def lora_phase(torch, model, counters, card, full):
     wall_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     want = {k: v * steps for k, v in step_launches(cfg.num_layers).items()}
+    # the first layer's first LayerNorm takes no gradient: its input (the
+    # frozen embedding) and its weights need none
+    want["layernorm_bwd"] -= steps
     losses = torch.stack(losses).tolist()
     print(f"main path: {steps} LoRA steps: launches {launches} (want {want}); "
           f"{wall_s / steps * 1e3:.1f} ms a step (wall, host included)")
@@ -1073,9 +1327,11 @@ def check_bucket_kernels(torch, ref, kernels, shapes, randn, cfg):
     """The training kernels against their plain versions at each (B, L)
     that the data-plane, resume and launcher phases trained on, with the
     tolerances of the kernels' own checks: the attention forward and backward at (B, L, heads, head dim),
-    the cross-entropy forward and backward and the LayerNorm at B·L rows."""
+    the cross-entropy forward and backward and the LayerNorm forward and
+    backward at B·L rows."""
     fwd, bwd = kernels["flash_attention_fwd"], kernels["flash_attention_bwd"]
     ce_fwd, ce_bwd, ln = kernels["cross_entropy_fwd"], kernels["cross_entropy_bwd"], kernels["layernorm"]
+    ln_bwd = kernels["layernorm_bwd"]
     H, D, d = cfg.num_heads, cfg.d_model // cfg.num_heads, cfg.d_model
     for B, L in sorted(shapes):
         q, k, v, do = (randn(B, L, H, D) for _ in range(4))
@@ -1105,14 +1361,19 @@ def check_bucket_kernels(torch, ref, kernels, shapes, randn, cfg):
         lw, lb = randn(d, dtype=torch.float32), randn(d, dtype=torch.float32)
         y, r = ln(x, lw, lb).float(), ref.layernorm_ref(x, lw, lb).float()
         ln_ok = bool(((y - r).abs() <= 1e-2 + 2**-7 * r.abs()).all())
+        lw, lb, dy = lw.to(torch.bfloat16), lb.to(torch.bfloat16), randn(T, d)
+        ln_bwd_ok, ln_bwd_errs = layernorm_bwd_grads_ok(
+            torch, ln_bwd(x, lw, lb, dy), ref.layernorm_bwd_ref(x, lw, lb, dy), torch.bfloat16)
         print(f"kernels at bucket shape ({B}, {L}): attention out {e_out:.3g} (tol 3e-2), lse "
               f"{e_lse:.3g} (1e-4), backward {e_bwd:.3g} (2e-2 of max|ref|); cross-entropy "
               f"loss/lse {e_ce:.3g} (2e-4), backward {e_ce_bwd:.3g} (2e-2); layernorm within "
-              f"1e-2 + 2^-7|y|: {ln_ok}")
+              f"1e-2 + 2^-7|y|: {ln_ok}; its backward's err / tol "
+              f"{', '.join(f'{e:.3g}' for e in ln_bwd_errs)} (<= 1)")
         check(e_out <= 3e-2 and e_lse <= 1e-4 and e_bwd <= 2e-2, f"attention at bucket ({B}, {L})")
         check(e_ce <= 2e-4 and e_ce_bwd <= 2e-2, f"cross-entropy at bucket ({B}, {L})")
         check(ln_ok, f"layernorm at bucket ({B}, {L})")
-        del h, w, dh, dw, r_dh, r_dw, x, y, r
+        check(ln_bwd_ok, f"layernorm_bwd at bucket ({B}, {L})")
+        del h, w, dh, dw, r_dh, r_dw, x, y, r, dy
         torch.cuda.empty_cache()
 
 
@@ -4452,8 +4713,8 @@ def geneformer_phase(torch, counters, card):
 
     cfg = get_config("geneformer-106m")
     L = cfg.num_layers
-    names = ("flash_attention_fwd", "flash_attention_bwd", "layernorm", "cross_entropy_fwd",
-             "cross_entropy_bwd")
+    names = ("flash_attention_fwd", "flash_attention_bwd", "layernorm", "layernorm_bwd",
+             "cross_entropy_fwd", "cross_entropy_bwd")
     zero_launches(counters)
     model = build_model(cfg, seed=0)
     torch.cuda.synchronize()
@@ -4477,7 +4738,7 @@ def geneformer_phase(torch, counters, card):
     embed_launches = {k: counters[k].launches for k in names}
     buckets = [e["bucket"] for e in trace.events() if e["event"] == "prefill"]
     want = {"flash_attention_fwd": L * len(buckets), "flash_attention_bwd": 0,
-            "layernorm": (2 * L + 1) * len(buckets), "cross_entropy_fwd": 0,
+            "layernorm": (2 * L + 1) * len(buckets), "layernorm_bwd": 0, "cross_entropy_fwd": 0,
             "cross_entropy_bwd": 0}
     print(f"Geneformer main path: LLM.embed of {len(cells)} cells ({int(lengths.sum())} genes), "
           f"{len(buckets)} dispatches over buckets {sorted(set(buckets))}: launches "
@@ -4958,8 +5219,8 @@ def molmim_phase(torch, counters, card):
 
     cfg = get_config("molmim-65m")
     L, E = cfg.num_layers, cfg.encoder_layers
-    names = ("flash_attention_fwd", "flash_attention_bwd", "layernorm", "cross_entropy_fwd",
-             "cross_entropy_bwd")
+    names = ("flash_attention_fwd", "flash_attention_bwd", "layernorm", "layernorm_bwd",
+             "cross_entropy_fwd", "cross_entropy_bwd")
     model = build_model(cfg, seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
@@ -4979,10 +5240,11 @@ def molmim_phase(torch, counters, card):
     expect(isinstance(batches, Seq2SeqBatches), "make_batches gave no Seq2SeqBatches")
     # a micro-batch: the encoder's attention and two LayerNorms a layer and
     # its final norm, the decoder's self- and cross-attention and three
-    # LayerNorms a layer and its final norm, each attention's backward, one
-    # cross-entropy forward and backward
+    # LayerNorms a layer and its final norm, each attention's and each
+    # LayerNorm's backward, one cross-entropy forward and backward
     per_micro = {"flash_attention_fwd": E + 2 * L, "flash_attention_bwd": E + 2 * L,
-                 "layernorm": 2 * E + 1 + 3 * L + 1, "cross_entropy_fwd": 1, "cross_entropy_bwd": 1}
+                 "layernorm": 2 * E + 1 + 3 * L + 1, "layernorm_bwd": 2 * E + 1 + 3 * L + 1,
+                 "cross_entropy_fwd": 1, "cross_entropy_bwd": 1}
     zero_launches(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5287,6 +5549,7 @@ def internvl2_phase(torch, counters, card, depth):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -5304,7 +5567,7 @@ def main() -> int:
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.grouped_matmul import gmm, gmm_dw
     from repro_torch.kernels.paged_attention import paged_decode, paged_kv_write, paged_prefill
-    from repro_torch.kernels.rmsnorm import layernorm, rmsnorm
+    from repro_torch.kernels.rmsnorm import layernorm, layernorm_bwd, rmsnorm
     from repro_torch.kernels.sampling import fused_sample
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     from repro_torch.models.model import Model, build_model
@@ -5324,22 +5587,18 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     # ---- 2. build every kernel: one nvcc per CUDA source, all started
-    # together; the Triton norm compiles at its first launch
+    # together
     t0 = time.perf_counter()
     logs = _build.finish_builds(_build.start_builds(
         ["flash_attention_fwd", "flash_attention_bwd", "cross_entropy", "flash_decode", "sampling",
-         "paged_attention", "grouped_matmul", "ssd_scan", "ssd_scan_bwd", "rmsnorm"]))
+         "paged_attention", "grouped_matmul", "ssd_scan", "ssd_scan_bwd", "rmsnorm", "layernorm"]))
     t_nvcc = time.perf_counter() - t0
     for name, log in logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill stores" in ln
                 and not ln.strip().startswith("0 bytes")]
         print(f"built {name} in {t_nvcc:.1f} s: " + " | ".join(regs))
-    t0 = time.perf_counter()
-    xw = torch.ones(8, 1280, device=dev, dtype=torch.bfloat16)
-    layernorm(xw, torch.ones(1280, device=dev), torch.zeros(1280, device=dev))
-    torch.cuda.synchronize()
-    print(f"compiled layernorm (Triton) in {time.perf_counter() - t0:.1f} s")
 
+    mark(t_start, "step 3")
     # ---- 3. each kernel against its plain version, on the card
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -5351,6 +5610,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     ln_rec = check_layernorm(torch, F, ref, layernorm, randn, card)
+    ln_bwd_rec = check_layernorm_bwd(torch, F, ref, layernorm_bwd, randn, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5372,6 +5632,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark(t_start, "step 4")
     # ---- 4. slice 1: ESM-2 650M embedding serving through LLM.embed
     cfg = get_config("esm2-650m")
     t0 = time.perf_counter()
@@ -5388,7 +5649,7 @@ def main() -> int:
     llm = LLM(model, slots=32, max_len=1024, trace=trace)
 
     flash_attention_fwd.launches = 0
-    layernorm.launches = 0
+    layernorm.launches = layernorm_bwd.launches = 0
     trace.clear()
     t0 = time.perf_counter()
     vecs = llm.embed(prompts)
@@ -5403,6 +5664,7 @@ def main() -> int:
     check(bool(np.isfinite(vecs).all()), "non-finite embeddings")
     check(launches["flash_attention_fwd"] == 33 * dispatches, "attention launches")
     check(launches["layernorm"] == 67 * dispatches, "layernorm launches")
+    check(layernorm_bwd.launches == 0, "a LayerNorm backward launched on the embedding path")
 
     t0 = time.perf_counter()
     again = llm.embed(prompts)
@@ -5434,6 +5696,7 @@ def main() -> int:
           f"{real_tokens / t_steady:.0f} tokens/s ({padded_tokens / t_steady:.0f} padded tokens/s; "
           f"{n} sequences, {real_tokens} tokens, {t_steady:.3f} s; first call {t_first:.3f} s)")
 
+    mark(t_start, "step 5")
     # ---- 5. where the embed time goes: one more call under the profiler
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -5455,14 +5718,17 @@ def main() -> int:
             print(f"  {t:9.2f} ms {cnt:6d}x  {name[:110]}")
     del llm, prof
 
+    mark(t_start, "step 6")
     # ---- 6. slice 2: ESM-2 650M MLM pre-training through Trainer.run
     counters = {"flash_attention_fwd": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
-                "layernorm": layernorm, "cross_entropy_fwd": cross_entropy_fwd,
+                "layernorm": layernorm, "layernorm_bwd": layernorm_bwd,
+                "cross_entropy_fwd": cross_entropy_fwd,
                 "cross_entropy_bwd": cross_entropy_bwd}
     train_launches, full_step = train_phase(torch, model, counters, card)
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark(t_start, "step 6b")
     # ---- 6b. slice 3: LoRA fine-tuning of the model just trained (its
     # trainer and moments dropped), then the training data plane, a resume
     # through it and the launcher
@@ -5487,14 +5753,16 @@ def main() -> int:
           f"{len(resume_shapes)}, launcher {len(launcher_shapes)})")
     check_bucket_kernels(torch, ref, counters, bucket_shapes, randn, get_config("esm2-650m"))
 
-    # ---- 7. slice 4a: Qwen2-7B generation through LLM.generate; from here
-    # on no path runs the one Triton kernel (LayerNorm)
-    layernorm.launches = 0
+    mark(t_start, "step 7")
+    # ---- 7. slice 4a: Qwen2-7B generation through LLM.generate; the
+    # paths from here to the MoE training phase run RMSNorm, no LayerNorm
+    layernorm.launches = layernorm_bwd.launches = 0
     counters.update(rmsnorm=rmsnorm, flash_decode=flash_decode, fused_sample=fused_sample)
     gen_launches, model, load = generate_phase(torch, counters, card)
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark(t_start, "step 8")
     # ---- 8. slice 4b: the same model and load through the paged KV cache
     counters.update(paged_decode=paged_decode, paged_prefill=paged_prefill,
                     paged_kv_write=paged_kv_write)
@@ -5503,12 +5771,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark(t_start, "step 9")
     # ---- 9. slice 5: Llama-4-Scout (8 of 48 layers) MoE generation
     counters.update(gmm=gmm)
     moe_launches = moe_phase(torch, counters, card)
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark(t_start, "step 10")
     # ---- 10. slice 6: Mamba2-2.7B generation, then the hybrid unit (reduced Jamba)
     counters.update(ssd_scan=ssd_scan)
     ssm_launches = ssm_phase(torch, counters, card)
@@ -5518,14 +5788,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark(t_start, "step 11")
     # ---- 11. slice 5b: Llama-4-Scout (1 of 48 layers) MoE training
     counters.update(gmm_dw=gmm_dw)
     moe_train_launches = moe_train_phase(torch, counters, card)
-    print(f"Triton launches on the generation and MoE training paths: {layernorm.launches} (want 0)")
-    check(layernorm.launches == 0, "a Triton kernel launched on a generation or MoE path")
+    print(f"LayerNorm launches on the RMSNorm paths (Qwen2, Scout, Mamba2, reduced Jamba "
+          f"generation, Scout training): forward {layernorm.launches}, backward "
+          f"{layernorm_bwd.launches} (want 0)")
+    check(layernorm.launches == layernorm_bwd.launches == 0,
+          "a LayerNorm launched on an RMSNorm path")
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark(t_start, "step 12")
     # ---- 12. the SSM training path: Mamba2-2.7B at full width and depth,
     # reduced Jamba, and the launcher on Mamba2
     counters.update(ssd_scan_bwd=ssd_scan_bwd)
@@ -5539,6 +5814,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark(t_start, "step 13")
     # ---- 13. the rest of the zoo: Geneformer-106M embedded and trained at
     # full size, then Command-R-35B (dense and paged), Qwen1.5-32B and
     # Llama-3-405B generating at full width with their depth cut
@@ -5551,6 +5827,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    mark(t_start, "step 14")
     # ---- 14. slice 7: MolMIM-65M trained and generating through
     # launch.serve.generate, Whisper-medium served with one audio for every
     # request and with an audio a row, InternVL2-26B at full width with an
@@ -5566,8 +5843,9 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # launches: each kernel's count in the run of its path — the training
-    # run for rows 1-5 (the embed and generation runs' counts of the
-    # attention forward were checked in phases 4 and 7), the dense
+    # run for rows 1-5 and LayerNorm's backward (the embed and generation
+    # runs' counts of the attention forward were checked in phases 4 and
+    # 7), the dense
     # generation run for rows 6-8, the paged one for rows 9-11, the MoE one
     # for row 12, the MoE training one for row 13, the Mamba2 one for row 14
     kernels = [
@@ -5575,6 +5853,7 @@ def main() -> int:
         fa_bwd_rec,
         *ce_recs,
         ln_rec,
+        ln_bwd_rec,
     ]
     for rec in kernels:
         rec["launches"] = train_launches[rec["name"]]
@@ -5613,6 +5892,7 @@ def main() -> int:
         rec.setdefault("launches_by_phase", {}).update(
             {ph: n[key] for ph, n in zoo_runs.items() if n.get(key)})
     kernels += gen_recs + paged_recs + [gmm_rec, gmm_dw_rec, ssd_rec, ssd_bwd_rec]
+    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

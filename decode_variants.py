@@ -494,7 +494,7 @@ def main() -> int:
            stream]
     pfn = pa._decode_fns_c()[0]
     out = torch.empty((32, 1, 28, 128), dtype=torch.bfloat16, device=dev)
-    part = pa._partials(0, 32 * 28 * 8 * 130)
+    part = _build.scratch(0, 32 * 28 * 8 * 130)
     praw = [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), part.data_ptr(), part.data_ptr() + 4 * 7168,
             part.data_ptr() + 8 * 7168, 32, 28, 4, 128, 16, 128, q.stride(0), q.stride(2),

@@ -10,11 +10,14 @@
   ``csrc/ce_gemm.cuh``), wrapped by ``cross_entropy.py``; replace the
   reference's ``cross_entropy.py::fused_cross_entropy`` /
   ``fused_cross_entropy_bwd``.
-* LayerNorm: Triton, in ``rmsnorm.py``; replaces the reference's TPU
-  kernel ``rmsnorm.py::layernorm``.
-* RMSNorm: ``csrc/rmsnorm.cu`` (CUDA C++ for sm_90a: Triton's launcher
-  cost ~40× the norm's device time at the decode shape), wrapped by
-  ``rmsnorm.py``; replaces ``rmsnorm.py::rmsnorm``.
+* LayerNorm: ``csrc/layernorm.cu`` (CUDA C++ for sm_90a: Triton's
+  launcher cost 20-40× the norm's device time at the decode shapes),
+  wrapped by ``rmsnorm.py``; replaces the reference's TPU kernel
+  ``rmsnorm.py::layernorm``.  Its backward (``layernorm_bwd``, same
+  source) is the port's own: the reference pairs its Pallas forward with
+  an XLA backward.
+* RMSNorm: ``csrc/rmsnorm.cu`` (CUDA C++ for sm_90a, for the same reason),
+  wrapped by ``rmsnorm.py``; replaces ``rmsnorm.py::rmsnorm``.
 * flash-decoding: ``csrc/flash_decode.cu`` (CUDA C++ for sm_90a: cp.async
   rings of 16-key K/V stages, mma.sync products, an online softmax in one
   pass, in ``csrc/decode_split.cuh``), wrapped by ``flash_decode.py``;

@@ -6,7 +6,8 @@ beside this file (listed in ``.gitignore``), under a name keyed by the
 hash of the source, the shared headers (``csrc/*.cuh``) and the flags: an
 edited source or header is rebuilt, an unchanged one is loaded as it is.  ``start_builds`` launches one nvcc per
 source, all at once, and ``finish_builds`` waits for them, so a caller can
-build every kernel in parallel.
+build every kernel in parallel.  ``scratch`` keeps the one fp32 buffer a
+card in which a kernel's partial sums pass to the launch that sums them.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_scratch: Dict[int, "torch.Tensor"] = {}
 
 
 def nvcc() -> str:
@@ -91,3 +93,18 @@ def load(name: str) -> ctypes.CDLL:
         finish_builds(start_builds([name]))
         _loaded[name] = ctypes.CDLL(str(lib_path(name)))
     return _loaded[name]
+
+
+def scratch(dev: int, n: int):
+    """fp32 scratch of at least n elements on card ``dev``: one buffer a
+    card, grown to the largest n asked for and kept.  Every kernel that uses
+    it (a split's partials and the launch that sums them) runs in stream
+    order on the current stream and writes the partials it reads, so the
+    callers share it."""
+    import torch
+
+    w = _scratch.get(dev)
+    if w is None or w.numel() < n:
+        w = _scratch[dev] = torch.empty((n,), dtype=torch.float32,
+                                        device=torch.device("cuda", dev))
+    return w

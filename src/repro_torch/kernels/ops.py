@@ -12,12 +12,13 @@ the reference's custom VJPs do, and so does the MoE's ragged grouped
 matmul (its forward kernel, the same kernel on the transposed weights for
 dx, and the weight-gradient kernel), and the Mamba-2 SSD scan (its
 forward kernel, which then keeps each chunk's entering state, and the
-port's own backward kernel); LayerNorm and RMSNorm pair their forward
-kernels with the reference's hand-written backward formulas.  The
-serving-only ops — decode attention, the paged-KV ops and sampling — are
-forward-only.  The paged-KV writes
-and the SSD decode step update the cache in place (the reference donates
-its buffers and returns new ones).
+port's own backward kernel), and LayerNorm (its forward kernel and the
+port's own backward kernel); RMSNorm pairs its forward kernel with the
+reference's hand-written backward formulas.  Both norms call their forward
+directly when no gradient is wanted.  The serving-only ops — decode
+attention, the paged-KV ops and sampling — are forward-only.  The paged-KV
+writes and the SSD decode step update the cache in place (the reference
+donates its buffers and returns new ones).
 """
 from __future__ import annotations
 
@@ -72,7 +73,15 @@ def layernorm(
     *,
     impl: str = "auto",
 ) -> torch.Tensor:
-    return _ln.layernorm_ad(x, w, b, eps, plain=_plain(impl))
+    """LayerNorm over the last dim, fp32 math, output in x.dtype;
+    differentiable.  Without a gradient to take (serving, or
+    ``torch.no_grad``) the forward is called directly: no autograd node,
+    the same output."""
+    plain = _plain(impl)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                    or (b is not None and b.requires_grad)):
+        return _ln.layernorm_ad(x, w, b, eps, plain=plain)
+    return (_ref.layernorm_ref if plain else _ln.layernorm)(x, w, b, eps)
 
 
 def cross_entropy(

@@ -200,7 +200,6 @@ def _stream(t: torch.Tensor) -> int:
 _CHUNK = 256          # csrc/decode_split.cuh: keys a split
 _SUB = 16             # csrc/decode_split.cuh: keys a ring stage
 _decode_fns = None
-_workspace = {}       # (device index, elements) -> the decode's fp32 partials
 
 
 def append_sites(length: int, capacity: int) -> List[Tuple[int, int]]:
@@ -234,17 +233,6 @@ def _decode_fns_c():
             raise RuntimeError(f"the paged decode kernel's splits are not {_CHUNK} keys")
         _decode_fns = (lib.paged_flash_decode, lib.paged_decode_append)
     return _decode_fns
-
-
-def _partials(dev: int, n: int) -> torch.Tensor:
-    """fp32 scratch of n elements on card ``dev``, made once and kept: the
-    kernels that use it run in stream order on the current stream, and each
-    launch writes the partials it reads."""
-    w = _workspace.get((dev, n))
-    if w is None:
-        w = _workspace[(dev, n)] = torch.empty((n,), dtype=torch.float32,
-                                               device=torch.device("cuda", dev))
-    return w
 
 
 def _lean_append_ok(q, k_pool, k_new, v_new, page_idx, row, dev) -> bool:
@@ -287,7 +275,8 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
 
     On the card the common case costs attribute reads, one allocation and
     the launch: the full checks run only to name what the kernel does not
-    take, and the fp32 partials are kept per (device, size)."""
+    take, and the fp32 partials go to the card's scratch buffer
+    (``_build.scratch``)."""
     append = k_new is not None
     if append != (v_new is not None) or append != (page_idx is not None) \
             or append != (row is not None):
@@ -329,7 +318,7 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     n_tables = bs[1]
     out = q.new_empty((B, 1, H, D))
     n = B * H * ((n_tables * page + _CHUNK - 1) // _CHUNK)
-    base = _partials(dev, n * (D + 2)).data_ptr()     # m (n), l (n), acc (n, D)
+    base = _build.scratch(dev, n * (D + 2)).data_ptr()     # m (n), l (n), acc (n, D)
     stream = torch._C._cuda_getCurrentRawStream(dev)
     if append:
         err = append_fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),

@@ -202,6 +202,79 @@ def layernorm_bwd_ref(
     return dx, dw, db
 
 
+# csrc/layernorm.cu's backward schedule, mirrored for the tests and the
+# card's checks (the wrapper takes nothing from here): threads a block, an
+# H100's SMs, threads an SM holds at one vector a thread, and the segments
+# of the partials' sum
+LN_BWD_MAX_THREADS = 512
+LN_BWD_SMS = 132
+LN_BWD_RESIDENT = 1024
+LN_BWD_SUM_SEGS = 128
+
+
+def layernorm_bwd_blocks(rows: int, d: int, sms: int = LN_BWD_SMS) -> Tuple[int, int]:
+    """(G, R) of the LayerNorm backward kernel: G blocks, each over a run of
+    R consecutive rows, the last run shorter; from rows and d alone
+    (``layernorm_bwd_grid`` in ``csrc/layernorm.cu``: as many blocks as
+    ``sms`` SMs hold at once).  A small ``sms`` gives a small input runs of
+    several rows."""
+    threads = min(-(-(d // 8) // 32) * 32, LN_BWD_MAX_THREADS)
+    per_sm = 1 if d // 8 > LN_BWD_MAX_THREADS else LN_BWD_RESIDENT // threads
+    r = -(-rows // (sms * per_sm))
+    return -(-rows // r), r
+
+
+def _sum_in_order(parts: torch.Tensor, n: int, length: int) -> torch.Tensor:
+    """parts (rows, ...) -> (n, ...): group i sums rows [i * length, (i +
+    1) * length) one at a time from 0, rows past the input's end left out
+    (the kernels' loops over a run)."""
+    acc = parts.new_zeros((n,) + parts.shape[1:])
+    idx = torch.arange(n, device=parts.device) * length
+    for j in range(length):
+        live = (idx + j < parts.shape[0]).view((n,) + (1,) * (parts.dim() - 1))
+        acc = torch.where(live, acc + parts[(idx + j).clamp(max=parts.shape[0] - 1)], acc)
+    return acc
+
+
+def layernorm_bwd_sched_ref(
+    x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], dy: torch.Tensor,
+    eps: float = 1e-5, *, sms: int = LN_BWD_SMS,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """``layernorm_bwd_ref`` with dw and db summed as the backward kernel
+    sums them: G blocks of R rows (``layernorm_bwd_blocks``), each column's
+    dy·x̂ and dy added in fp32 in row order within a block, then the G
+    partial rows in 128 segments of ceil(G / 128) blocks, each summed in
+    block order, and the segment sums in segment order.  dx, and dy·w
+    formed in the dtype torch promotes dy and w to, are
+    ``layernorm_bwd_ref``'s."""
+    d = x.shape[-1]
+    xf = x.reshape(-1, d).float()
+    rows = xf.shape[0]
+    mu = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mu
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    dy2 = dy.reshape(-1, d)
+    dyw = (dy2 * w).float()
+    c1 = dyw.mean(dim=-1, keepdim=True)
+    c2 = (dyw * xhat).mean(dim=-1, keepdim=True)
+    dx = ((dyw - c1 - xhat * c2) * rstd).to(x.dtype).reshape(x.shape)
+    dyf = dy2.float()
+    G, R = layernorm_bwd_blocks(rows, d, sms) if rows else (0, 1)
+    seg = -(-G // LN_BWD_SUM_SEGS)
+
+    def total(terms):
+        if not rows:
+            return terms.new_zeros((d,))
+        parts = _sum_in_order(terms, G, R)
+        segs = _sum_in_order(parts, LN_BWD_SUM_SEGS, seg)
+        return _sum_in_order(segs, 1, LN_BWD_SUM_SEGS)[0]
+
+    dw = total(dyf * xhat).to(w.dtype)
+    db = None if b is None else total(dyf).to(b.dtype)
+    return dx, dw, db
+
+
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Row RMSNorm over the last dim: fp32 mean of squares, output in
     x.dtype (the reference's ``ref.rmsnorm_ref``)."""

@@ -26,7 +26,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_kv_write,
     paged_prefill,
 )
-from repro_torch.kernels.rmsnorm import layernorm, rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm import layernorm, layernorm_bwd, rmsnorm  # noqa: E402
 from repro_torch.kernels.sampling import fused_sample  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
@@ -35,8 +35,8 @@ from repro_torch.serving.api import LLM  # noqa: E402
 from repro_torch.training.loop import Trainer  # noqa: E402
 
 KERNELS = (flash_attention_fwd, flash_attention_bwd, cross_entropy_fwd, cross_entropy_bwd, layernorm,
-           rmsnorm, flash_decode, fused_sample, paged_decode, paged_prefill, paged_kv_write, gmm,
-           gmm_dw, ssd_scan, ssd_scan_bwd)
+           layernorm_bwd, rmsnorm, flash_decode, fused_sample, paged_decode, paged_prefill,
+           paged_kv_write, gmm, gmm_dw, ssd_scan, ssd_scan_bwd)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -57,7 +57,8 @@ def _imported_modules(path):
                          PORT_FILES + [ROOT / name for name in (
                              "chip_smoke.py", "ssd_route_faults.py", "attention_variants.py",
                              "gmm_variants.py", "moe_route_faults.py", "decode_variants.py",
-                             "prefill_variants.py", "examples/finetune_lora_torch.py",
+                             "prefill_variants.py", "layernorm_variants.py",
+                             "examples/finetune_lora_torch.py",
                              "examples/embed_cells_torch.py")],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):

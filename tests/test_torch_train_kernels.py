@@ -350,6 +350,174 @@ def test_layernorm_bwd_matches_jax_vjp(bias, dtype, monkeypatch):
         _close(g, w_.astype(jnp.float32), tol)
 
 
+# (rows, d, sms): the backward kernel's block partition on a grid for one
+# SM with a tail (61 rows: 5 blocks of 11, the last of 6) and without (60
+# rows: 6 of 10), and on the kernel's own grid with a tail (8704 rows: 2902
+# blocks of 3, the last of 1) and without (9216 rows: 3072 of 3)
+LN_BWD_PARTITIONS = {"tail": (61, 1280, 1), "even": (60, 1280, 1),
+                     "kernel grid, tail": (8704, 64, ref.LN_BWD_SMS),
+                     "kernel grid, even": (9216, 64, ref.LN_BWD_SMS)}
+
+
+def test_layernorm_bwd_blocks_partition_the_rows():
+    assert ref.layernorm_bwd_blocks(61, 1280, 1) == (6, 11)
+    assert ref.layernorm_bwd_blocks(60, 1280, 1) == (6, 10)
+    assert ref.layernorm_bwd_blocks(8704, 64) == (2902, 3)
+    assert ref.layernorm_bwd_blocks(9216, 64) == (3072, 3)
+    # ESM-2's, Geneformer's and MolMIM's training shapes: the blocks an
+    # H100 holds at once (6, 10 and 16 an SM), ~1 M fp32 partials an array
+    assert ref.layernorm_bwd_blocks(8192, 1280) == (745, 11)
+    assert ref.layernorm_bwd_blocks(16384, 768) == (1261, 13)
+    assert ref.layernorm_bwd_blocks(16384, 512) == (2048, 8)
+    assert ref.layernorm_bwd_blocks(512, 8192) == (128, 4)       # one block an SM
+    for rows, d in ((1, 8), (7, 8192), (100_000, 2560), (513, 4096)):
+        G, R = ref.layernorm_bwd_blocks(rows, d)
+        assert (G - 1) * R < rows <= G * R
+
+
+def test_layernorm_bwd_workspace_holds_every_grid():
+    # the wrapper's one workspace a card (layernorm_bwd_workspace in
+    # csrc/layernorm.cu: two arrays of SMs x resident threads x 8 fp32
+    # partials) holds the partials of every width the backward takes, at
+    # row counts below, at and past the grid's largest
+    ws = 2 * ref.LN_BWD_SMS * ref.LN_BWD_RESIDENT * 8
+    for d in range(8, 8192 + 1, 8):
+        for rows in (1, 7, 1000, 4224, 65_537, 1_000_003):
+            G, _ = ref.layernorm_bwd_blocks(rows, d)
+            assert 2 * G * d <= ws, (rows, d, G)
+    assert 2 * ref.layernorm_bwd_blocks(10**6, 8192)[0] * 8192 == ws
+
+
+LN_BWD_SCHEDULE_CASES = [
+    (bias, dtypes, part) for part in ("tail", "even") for bias in (True, False)
+    for dtypes in ("float32", "bfloat16", "bfloat16 x, float32 w")
+] + [(True, "float32", "kernel grid, tail"), (False, "bfloat16", "kernel grid, tail"),
+     (True, "bfloat16 x, float32 w", "kernel grid, even"), (False, "float32", "kernel grid, even")]
+
+
+@pytest.mark.parametrize("bias,dtypes,part", LN_BWD_SCHEDULE_CASES)
+def test_layernorm_bwd_schedule_matches_jax_vjp(bias, dtypes, part, monkeypatch):
+    """The plain function that follows the backward kernel's schedule
+    (``ref.layernorm_bwd_sched_ref``: blocks of rows with a tail and
+    without, each column's partials in row order, the blocks summed in
+    order by segments, dy·w in the promoted dtype) against ``jax.vjp`` of
+    the reference's ``ops.layernorm`` through its Pallas kernel in
+    interpret mode."""
+    rows, d, sms = LN_BWD_PARTITIONS[part]
+    monkeypatch.setenv("REPRO_FORCE_IMPL", "pallas_interpret")
+    x, w, b, dy = _arrays([(rows, d), (d,), (d,), (rows, d)], 32)
+    x = 3 * x + 1
+    w, b = 1 + 0.1 * w, 0.1 * b
+    xdt = "float32" if dtypes == "float32" else "bfloat16"
+    wdt = "bfloat16" if dtypes == "bfloat16" else "float32"
+    (tx, jx), (tdy, jdy) = _pair(x, xdt), _pair(dy, xdt)
+    (tw, jw), (tb, jb) = _pair(w, wdt), _pair(b, wdt)
+    args = (jx, jw, jb) if bias else (jx, jw)
+    _, vjp = jax.vjp(lambda *a: jax_ops.layernorm(*a), *args)
+    want = vjp(jdy)
+    tb = tb if bias else None
+    dx, dw, db = ref.layernorm_bwd_sched_ref(tx, tw, tb, tdy, sms=sms)
+    assert dx.dtype == tx.dtype and dw.dtype == tw.dtype and (db is None) == (not bias)
+    plain = ref.layernorm_bwd_ref(tx, tw, tb, tdy)
+    assert torch.equal(dx, plain[0])          # the same per-row formulas
+    # dx: one rounding to x's dtype (GRAD_TOL); dw and db: fp32 sums of the
+    # same fp32 terms in another order (up to 6144 rows), rounded once to
+    # w's dtype
+    tol = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": GRAD_TOL["bfloat16"]}
+    _close(dx, want[0].astype(jnp.float32), tol[xdt])
+    for g, w_, p in zip((dw, db) if bias else (dw,), want[1:], plain[1:]):
+        _close(g, w_.astype(jnp.float32), tol[wdt])
+        _close(g, p.float().numpy(), tol[wdt])
+
+
+def test_layernorm_bwd_schedule_sums_in_the_kernels_order():
+    """Each block's partials are the fp32 running sums of its rows, in row
+    order, and the blocks' sums come in segments: the schedule's dw and db
+    are the nested loops', bit for bit."""
+    rows, d, sms = LN_BWD_PARTITIONS["tail"]
+    x, w, dy = (torch.from_numpy(a) for a in _arrays([(rows, d), (d,), (rows, d)], 33))
+    _, dw, db = ref.layernorm_bwd_sched_ref(x, w, w, dy, sms=sms)
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    xhat = (xf - mu) * torch.rsqrt(((xf - mu) ** 2).mean(-1, keepdim=True) + 1e-5)
+    G, R = ref.layernorm_bwd_blocks(rows, d, sms)
+    seg = -(-G // ref.LN_BWD_SUM_SEGS)
+    for got, terms in ((dw, dy * xhat), (db, dy)):
+        parts = []
+        for g in range(G):
+            acc = torch.zeros(d)
+            for r in range(g * R, min(rows, (g + 1) * R)):
+                acc = acc + terms[r]
+            parts.append(acc)
+        total = torch.zeros(d)
+        for s in range(ref.LN_BWD_SUM_SEGS):
+            acc = torch.zeros(d)
+            for g in range(s * seg, min(G, (s + 1) * seg)):
+                acc = acc + parts[g]
+            total = total + acc
+        assert torch.equal(got, total)
+
+
+def test_layernorm_argument_checks():
+    """What the CUDA kernels do not take raises before a launch: dtypes, a
+    strided last dim, the weights' shapes and layouts, widths that are not
+    a multiple of 8 or too wide (16384 forward, 8192 backward), misaligned
+    rows, another device, a dy unlike x."""
+    from repro_torch.kernels.rmsnorm import check_layernorm_args, layernorm_bwd
+
+    x = torch.zeros(4, 64, dtype=torch.bfloat16)
+    w = torch.ones(64, dtype=torch.bfloat16)
+    check_layernorm_args(x, w)
+    check_layernorm_args(x, w.float(), w.half())                   # each its own dtype
+    check_layernorm_args(x.half(), w, None, x.half())              # the backward's
+    check_layernorm_args(torch.zeros(3, 5, 128)[:, 1:3], torch.ones(128))   # strided rows
+    check_layernorm_args(torch.zeros(2, 1 << 14), torch.ones(1 << 14))       # widest forward
+    bad = [
+        ((x.double(), w), TypeError),
+        ((x, w.to(torch.int32)), TypeError),
+        ((x, w, w.double()), TypeError),
+        ((torch.zeros(4, 128, dtype=torch.bfloat16)[:, ::2], w), ValueError),   # last dim strided
+        ((x, torch.ones(32, dtype=torch.bfloat16)), ValueError),                # weight shape
+        ((x, w, torch.ones(32)), ValueError),                                   # bias shape
+        ((x, torch.ones(64, 2, dtype=torch.bfloat16)[:, 0]), ValueError),       # weight strided
+        ((torch.zeros(4, 60, dtype=torch.bfloat16), torch.ones(60)), ValueError),  # not 8k wide
+        ((torch.zeros(2, 1 << 15, dtype=torch.bfloat16), torch.ones(1 << 15)), ValueError),
+        ((torch.zeros(4, 68, dtype=torch.bfloat16)[:, :64], w), ValueError),    # 136-byte rows
+        ((torch.zeros(4 * 64 + 1, dtype=torch.bfloat16)[1:].view(4, 64), w), ValueError),
+        ((x, w.to("meta")), ValueError),
+        ((x, w, w.to("meta")), ValueError),
+        ((x, w, None, x.float()), ValueError),                                  # dy's dtype
+        ((x, w, None, x[:2]), ValueError),                                      # dy's shape
+        ((torch.zeros(2, 1 << 14), torch.ones(1 << 14), None, torch.zeros(2, 1 << 14)),
+         ValueError),                                                           # backward width
+    ]
+    for args, err in bad:
+        with pytest.raises(err):
+            check_layernorm_args(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        layernorm(x.to("meta"), w.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        layernorm_bwd(x.to("meta"), w.to("meta"), None, x.to("meta"))
+
+
+def test_ops_layernorm_without_a_gradient_builds_no_node():
+    """Serving and ``torch.no_grad`` call the forward directly: no autograd
+    node, the same output as through the autograd Function."""
+    x, w, b = (torch.from_numpy(a) for a in _arrays([(3, 5, 64), (64,), (64,)], 34))
+    for impl in ("auto", "torch"):
+        want = ops.layernorm(x, w.requires_grad_(True), b, impl=impl)
+        assert want.grad_fn is not None
+        w.requires_grad_(False)
+        got = ops.layernorm(x, w, b, impl=impl)
+        assert got.grad_fn is None and torch.equal(got, want.detach())
+        with torch.no_grad():
+            got = ops.layernorm(x.requires_grad_(True), w, b, impl=impl)
+        x.requires_grad_(False)
+        assert got.grad_fn is None and torch.equal(got, want.detach())
+        assert ops.layernorm(x, w, b.requires_grad_(True), impl=impl).grad_fn is not None
+        b.requires_grad_(False)
+
+
 def test_layernorm_autograd_and_dispatch():
     x, w, b, dy = (torch.from_numpy(a) for a in _arrays([(4, 8, 64), (64,), (64,), (4, 8, 64)], 31))
     before = layernorm.launches
