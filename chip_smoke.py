@@ -8,11 +8,14 @@ of the fourteen kernels, and the SSD scan's backward (the port's own),
 against its plain PyTorch version on the card.  Then drives the eight
 paths ported so far: embedding serving through
 ``LLM.embed`` and MLM pre-training through ``Trainer.run`` (about 10
-optimizer steps) at the full width and depth of ESM-2 650M; generation
-through ``LLM.generate`` at the full width and depth of Qwen2-7B (bf16
-parameters, 32 slots, 64 prompts of 256 new tokens) over a dense
-2048-token cache, then over the paged cache with prefix caching and
-512-token chunked prefill (half the prompts behind one shared 512-token
+optimizer steps, each unit of the stack under remat's default ``block``)
+at the full width and depth of ESM-2 650M, with one micro-batch's loss and
+gradients under remat ``none``, ``block`` and ``dots`` (the same bits);
+generation through ``LLM.generate`` at the full width and depth of
+Qwen2-7B (bf16 parameters, 32 slots, 64 prompts of 32 new tokens) over a
+dense 2048-token cache, then over the paged cache through the serving
+launcher's ``serve_continuous`` (prefix caching, 512-token chunked
+prefill, 64 requests, the even ones behind one shared 512-token
 preamble); and MoE generation through ``LLM.generate`` with
 Llama-4-Scout at full width, its depth cut to 8 of 48 layers, on the same
 load over the dense cache; and SSM generation through ``LLM.generate``
@@ -27,8 +30,8 @@ plane (a sharded store, size-aware batches behind a background producer,
 resume through it (2 of 33 layers) and the training launcher
 ``launch.train.main`` with a profiler trace; and SSM training through
 ``Trainer.run`` at the full width and depth of Mamba2-2.7B (fp32 master
-weights and AdamW moments, 6 steps of 2 x 1024 packed tokens in
-micro-batches of 1 x 1024), reduced Jamba's hybrid unit and
+weights and AdamW moments, 6 steps of one 2 x 1024 micro-batch of packed
+tokens under remat ``block``), reduced Jamba's hybrid unit and
 ``launch.train.main --arch mamba2-2.7b`` on size-aware batches; and the
 rest of the zoo: Geneformer-106M embedding 96 rank-value-encoded cells
 through ``LLM.embed`` and training 10 steps of 2 x 8 x 2048 through
@@ -45,8 +48,8 @@ serving 32 prompts behind one image of 256 rows (dense and paged), then
 text-only; all with seeded random weights, checking what comes out of each.  Prints per-kernel times beside their bounds, the
 embedding throughput, the training step time, tokens/s, MFU and peak
 memory, the generation tokens/s, TTFT, decode-step time and idle share, the
-router's drops, a profile of each path, then one JSON line of kernel
-records and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero,
+router's drops, a profile of each path, then one JSON line of each step's
+seconds (and the remat figures), one JSON line of kernel records and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when there is no CUDA device or a phase fails.
 Imports nothing of JAX.
 """
@@ -73,7 +76,7 @@ PEAK_BYTES_PER_S = 3.35e12
 AMINO_ACIDS = "ACDEFGHIKLMNPQRSTVWY"
 
 
-def time_ms(torch, fn, trials: int = 20, per_trial: int = 10, warmup: int = 3) -> float:
+def time_ms(torch, fn, trials: int = 10, per_trial: int = 10, warmup: int = 3) -> float:
     """Median over ``trials`` of the mean time of ``per_trial`` back-to-back
     calls of ``fn``, timed with CUDA events.  Back-to-back calls keep the
     host's launch latency off the device's clock."""
@@ -92,7 +95,7 @@ def time_ms(torch, fn, trials: int = 20, per_trial: int = 10, warmup: int = 3) -
     return statistics.median(times)
 
 
-def device_ms_by_kernel(torch, fn, names, n: int = 20, floor: float = 0.0):
+def device_ms_by_kernel(torch, fn, names, n: int = 10, floor: float = 0.0):
     """Device time of one call of ``fn`` for each of ``names``, from a
     torch.profiler window of ``n`` back-to-back calls.  Each kernel whose
     name holds one of ``names`` counts by its recorded instances: its
@@ -128,13 +131,13 @@ def device_ms_by_kernel(torch, fn, names, n: int = 20, floor: float = 0.0):
     return {}
 
 
-def device_ms(torch, fn, *names: str, n: int = 20, floor: float = 0.0):
+def device_ms(torch, fn, *names: str, n: int = 10, floor: float = 0.0):
     """The summed device time of one call of ``fn`` over the kernels named
     (``device_ms_by_kernel``), or None: not measured."""
     return sum(device_ms_by_kernel(torch, fn, names, n, floor).values()) or None
 
 
-def busy_ms(torch, fn, n: int = 20):
+def busy_ms(torch, fn, n: int = 10):
     """Device time of one call of ``fn`` over every kernel it launches,
     from a profiler window of ``n`` back-to-back calls, or None: not
     measured (a library call whose kernels' names are not known)."""
@@ -164,9 +167,26 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def mark(t_start: float, what: str) -> None:
-    """The script's seconds so far, before a step (it has 1 200 in all)."""
-    print(f"[chip_smoke +{time.perf_counter() - t_start:.1f} s] {what}", flush=True)
+class Clock:
+    """The script's own time (it has 1 200 s in all): ``mark(name)`` prints
+    the seconds so far and starts step ``name``; ``phases`` holds each
+    finished step's seconds, in order."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+        self.name = None
+        self.phases = {}
+
+    def mark(self, name=None) -> None:
+        now = time.perf_counter()
+        if self.name is not None:
+            self.phases[self.name] = round(now - self.t, 1)
+        self.name, self.t = name, now
+        if name is not None:
+            print(f"[chip_smoke +{now - self.t0:.1f} s] {name}", flush=True)
+
+    def total(self) -> float:
+        return time.perf_counter() - self.t0
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -961,13 +981,23 @@ def check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, ran
     ]
 
 
-def step_launches(num_layers: int):
-    """The launches of one ESM-2 micro-batch's forward and backward: one
-    attention forward and backward a layer, two LayerNorms a layer and the
-    final one, each with its backward, one cross-entropy forward and
-    backward."""
-    return {"flash_attention_fwd": num_layers, "flash_attention_bwd": num_layers,
-            "layernorm": 2 * num_layers + 1, "layernorm_bwd": 2 * num_layers + 1,
+def fwd_runs(policy: str) -> int:
+    """How often one training micro-batch runs each forward kernel inside
+    the stack under remat ``policy``: twice under ``block`` and ``dots``
+    (the backward runs each unit again; the kernels are not the 2-D
+    matmuls that ``dots`` keeps), once under ``none`` and ``full``."""
+    return 2 if policy in ("block", "dots") else 1
+
+
+def step_launches(num_layers: int, policy: str):
+    """The launches of one ESM-2 micro-batch's forward and backward under
+    remat ``policy``: one attention forward and backward a layer, two
+    LayerNorms a layer and the final one, each with its backward, one
+    cross-entropy forward and backward; each forward inside the stack
+    ``fwd_runs(policy)`` times."""
+    r = fwd_runs(policy)
+    return {"flash_attention_fwd": r * num_layers, "flash_attention_bwd": num_layers,
+            "layernorm": r * 2 * num_layers + 1, "layernorm_bwd": 2 * num_layers + 1,
             "cross_entropy_fwd": 1, "cross_entropy_bwd": 1}
 
 
@@ -1043,9 +1073,10 @@ def train_phase(torch, model, counters, card):
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {k: v * steps * accum for k, v in step_launches(cfg.num_layers).items()}
-    print(f"main path: Trainer.run of {steps} steps x {accum} micro-batches: launches {launches} "
-          f"(want {want})")
+    policy = model.pc.remat_policy
+    want = {k: v * steps * accum for k, v in step_launches(cfg.num_layers, policy).items()}
+    print(f"main path: Trainer.run of {steps} steps x {accum} micro-batches, remat {policy}: "
+          f"launches {launches} (want {want})")
     # log_every = steps: the trainer flushes after step 0 and after the last
     # step, so steps 1 to the last run as one window with one host transfer
     losses = [h["loss"] for h in hist]
@@ -1129,6 +1160,11 @@ def train_phase(torch, model, counters, card):
     print(f"one pre-training step at accum 1 (8x1024, clip + AdamW over every weight) on {card}: "
           f"wall {full[0]:.1f} ms, device busy {fmt_ms(full[1])} ms, peak memory {full[2]:.2f} GB")
 
+    # remat: one 8 x 1024 micro-batch's loss and gradients at none, block
+    # and dots on the trained weights -- the same bits, each policy's
+    # launches, peak memory and device time
+    remat = remat_policies(torch, cfg, params, mb, counters, card, expect)
+
     # the kernel path against the plain path: loss and every grad leaf at
     # full width and depth on a 2 x 512 batch
     small = {k: v[:2, :512].contiguous() for k, v in mb.items()}
@@ -1149,7 +1185,46 @@ def train_phase(torch, model, counters, card):
     expect(min(cos) >= 0.999, "kernel path gradients disagree with the plain path")
     tmp.cleanup()
     check(not failed, "training phase: " + "; ".join(failed))
-    return launches, full
+    return launches, full, remat
+
+
+def remat_policies(torch, cfg, params, batch, counters, card, expect):
+    """One micro-batch's ``loss_fn`` and backward on ``params`` under each
+    of remat's ``none``, ``block`` and ``dots``: the loss and the digest of
+    every gradient leaf must be equal across them, and each run's launches
+    ``step_launches`` of its policy.  Prints each policy's peak memory
+    (above what was allocated before) and device time from ``step_cost``.
+    Returns {policy: (digest, wall ms, device ms, peak GB, peak above the
+    start GB)}."""
+    from repro_torch.core.config import ParallelConfig
+    from repro_torch.models.model import Model
+
+    out = {}
+    for policy in ("none", "block", "dots"):
+        m = Model(cfg, params, ParallelConfig(remat_policy=policy))
+        for fn in counters.values():
+            fn.launches = 0
+        loss, grads = loss_grads(torch, m, batch)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        want = step_launches(cfg.num_layers, policy)
+        digest = tree_digest(torch, {f"{i:04d}": g for i, g in enumerate(grads)})
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        wall, busy, peak = step_cost(torch, lambda: loss_grads(torch, m, batch))
+        out[policy] = (loss, digest, wall, busy, peak, peak - base_gb)
+        shape = "x".join(map(str, batch["tokens"].shape))
+        print(f"remat {policy}: ESM-2 650M loss_fn + backward ({shape}) on {card}: loss {loss!r}, gradient digest {digest}; launches {launches} (want "
+              f"{want}); wall {wall:.1f} ms, device busy {fmt_ms(busy)} ms, peak memory "
+              f"{peak:.2f} GB ({peak - base_gb:.2f} GB above the {base_gb:.2f} GB before it)")
+        expect(launches == want, f"remat {policy} launch counts")
+        del m
+    same = len({(v[0], v[1]) for v in out.values()}) == 1
+    print(f"remat none, block and dots: loss and gradients bit-identical {same}")
+    expect(same, "the remat policies' losses or gradients differ")
+    return out
 
 
 def tree_digest(torch, tree, chunk: int = 1 << 24) -> str:
@@ -1251,7 +1326,8 @@ def lora_phase(torch, model, counters, card, full):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    want = {k: v * steps for k, v in step_launches(cfg.num_layers).items()}
+    want = {k: v * steps for k, v in step_launches(cfg.num_layers,
+                                                   model.pc.remat_policy).items()}
     # the first layer's first LayerNorm takes no gradient: its input (the
     # frozen embedding) and its weights need none
     want["layernorm_bwd"] -= steps
@@ -1394,7 +1470,7 @@ def data_plane_phase(torch, counters, card):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core.config import TrainConfig
+    from repro_torch.core.config import ParallelConfig, TrainConfig
     from repro_torch.data.dataset import build_synthetic_protein_store
     from repro_torch.data.pipeline import MLMBatches
     from repro_torch.data.producer import BackgroundProducer
@@ -1416,7 +1492,8 @@ def data_plane_phase(torch, counters, card):
     tc = TrainConfig(global_batch=8, seq_len=seq, learning_rate=1e-4, min_lr=1e-5, warmup_steps=2,
                      decay_steps=3, total_steps=steps, schedule="wsd", weight_decay=0.01,
                      beta2=0.98, grad_clip=1.0, log_every=steps)
-    one_step = step_launches(cfg.num_layers)
+    # the models below are built with the default ParallelConfig
+    one_step = step_launches(cfg.num_layers, ParallelConfig().remat_policy)
     failed = []
 
     def expect(ok: bool, what: str) -> None:
@@ -1535,7 +1612,7 @@ def resume_phase(torch, counters, card):
     x = tree_leaves(s1.params) + tree_leaves(s1.opt.mu) + tree_leaves(s1.opt.nu)
     y = tree_leaves(s2.params) + tree_leaves(s2.opt.mu) + tree_leaves(s2.opt.nu)
     differ = sum(not torch.equal(a.detach(), b.detach()) for a, b in zip(x, y))
-    want = {k: v * 6 for k, v in step_launches(cfg.num_layers).items()}
+    want = {k: v * 6 for k, v in step_launches(cfg.num_layers, model.pc.remat_policy).items()}
     print(f"main path: resume on {card}: ESM-2 650M width, 2 of 33 layers, 6 steps with "
           f"checkpoints {sorted(os.listdir(f'{tmp.name}/ck'))}, then steps 4-6 resumed from "
           f"step_3 ({time.perf_counter() - t0:.1f} s): shapes {shapes[:6]} then {shapes[6:]}; "
@@ -1560,6 +1637,7 @@ def launcher_phase(torch, counters, card):
     import io
 
     from repro_torch.configs import get_config
+    from repro_torch.core.config import ParallelConfig
     from repro_torch.launch import train as launch_train
 
     shapes = []
@@ -1590,7 +1668,9 @@ def launcher_phase(torch, counters, card):
     text = out.getvalue()
     traces = [f for f in os.listdir(f"{tmp.name}/prof") if f.endswith(".pt.trace.json")]
     mb = sum(os.path.getsize(f"{tmp.name}/prof/{f}") for f in traces) / 1e6
-    want = {k: v * 4 for k, v in step_launches(get_config("esm2-650m").num_layers).items()}
+    # launch.train.main builds its model with the default ParallelConfig
+    want = {k: v * 4 for k, v in step_launches(get_config("esm2-650m").num_layers,
+                                               ParallelConfig().remat_policy).items()}
     keep = [ln for ln in text.splitlines() if ln.startswith(("arch=", "step ", "  train_step",
                                                              "final loss"))]
     print(f"main path: launch.train.main {' '.join(argv[:-4])} ({time.perf_counter() - t0:.1f} s, "
@@ -2866,7 +2946,8 @@ def check_ssd_scan_bwd(torch, ref, ssd_scan, ssd_scan_bwd, card):
     """The SSD backward (the port's own kernel) against ``ssd_scan_bwd_ref``
     in fp32 on the same bf16 inputs (x, B and C strided views of one
     activation, as ``ssm_apply`` makes them), each given its own forward's
-    chunk states, at Mamba2-2.7B's training shape (1 x 1024), a tail (S =
+    chunk states, at Mamba2-2.7B's training shape (2 x 1024) and at 1 x
+    1024, a tail (S =
     1000), a short sequence (S = 45), batch 2 with G = 2, reduced Jamba's
     (P 32, N 16), large steps (no NaN), N = 20 (B's and C's rows off a
     16-byte boundary: element copies, N padded to 32), a prime number of
@@ -2877,13 +2958,14 @@ def check_ssd_scan_bwd(torch, ref, ssd_scan, ssd_scan_bwd, card):
     max|plain|; the chunk states within 1e-4 of each head's.  The
     forward's y and final state are the same bits with and without the
     chunk states' store, and a repeated backward is bit-identical.  Times
-    the Mamba2 shape.  Returns its record."""
+    the Mamba2 training shape (2 x 1024).  Returns its record."""
     from repro_torch.kernels.ssd_scan import _scan, heads_a_run
 
     g = torch.Generator(device="cuda").manual_seed(27)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [
-        ("mamba2-2.7b training S=1024", (1, 1024, 80, 64, 1, 128), -4.0, False),
+        ("mamba2-2.7b training 2x1024", (2, 1024, 80, 64, 1, 128), -4.0, False),
+        ("mamba2-2.7b S=1024", (1, 1024, 80, 64, 1, 128), -4.0, False),
         ("mamba2-2.7b, tail S=1000, final-state gradient", (1, 1000, 80, 64, 1, 128), -4.0, True),
         ("S=45 < chunk, final-state gradient", (1, 45, 80, 64, 1, 128), -4.0, True),
         ("batch 2, G=2", (2, 200, 8, 64, 2, 128), -4.0, False),
@@ -2924,12 +3006,12 @@ def check_ssd_scan_bwd(torch, ref, ssd_scan, ssd_scan_bwd, card):
               and finite and same_fwd, f"ssd_scan_bwd {label}")
         keep[label] = (args, states, dy, ds, max((got[i].float() - want[i]).abs().max().item()
                                                  for i in range(6)))
-    args, states, dy, ds, max_err = keep["mamba2-2.7b training S=1024"]
+    args, states, dy, ds, max_err = keep["mamba2-2.7b training 2x1024"]
     first = ssd_scan_bwd(*args, states, dy, ds)
     again = ssd_scan_bwd(*args, states, dy, ds)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(first, again))
-    print(f"ssd_scan_bwd repeated at S=1024: bit-identical {same}")
+    print(f"ssd_scan_bwd repeated at 2x1024: bit-identical {same}")
     check(same, "a repeated ssd_scan_bwd differs")
     x, dt, A, Bm, Cm, D = args
     B, S, H, P = x.shape
@@ -2982,8 +3064,8 @@ def generation_load(np, vocab: int, n: int, max_new: int, seed: int = 0, lo: int
 def generate_phase(torch, counters, card):
     """Slice 4a: Qwen2-7B generation at full width and depth through
     ``LLM.generate`` over the dense KV cache.  Returns the launch counts of
-    the first generate call (the main path's run), the model, and the load
-    (prompts, their lengths, their sampling params) for the paged phase."""
+    the first generate call (the main path's run) and the model, which the
+    paged phase serves next."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3007,7 +3089,7 @@ def generate_phase(torch, counters, card):
     print(f"built {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads}/"
           f"{cfg.num_kv_heads} heads, {cfg.param_count() / 1e9:.2f}B params, bf16) on cuda in "
           f"{t_build:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    slots, max_len, n, max_new = 32, 2048, 64, 256
+    slots, max_len, n, max_new = 32, 2048, 64, 32
     lengths, prompts, params = generation_load(np, cfg.vocab_size, n, max_new)
     llm = LLM(model, slots=slots, max_len=max_len)
     eng = llm.engine
@@ -3134,7 +3216,7 @@ def generate_phase(torch, counters, card):
                    f"{n_forced} teacher-forced decode steps with per-slot positions)", expect)
     del plain
     check(not failed, "generation phase: " + "; ".join(failed))
-    return launches, model, (prompts, lengths, params)
+    return launches, model
 
 
 def engine_logits(torch, np, m, engine_kw, prompts, forced, warm=0):
@@ -3247,16 +3329,23 @@ def compare_logits(torch, got, want, label, expect, margin=1.0):
     return cos.min().item()
 
 
-def paged_phase(torch, counters, card, model, load):
-    """Slice 4b: Qwen2-7B generation at full width and depth through
-    ``LLM.generate`` over the paged KV cache with prefix caching and
-    512-token chunked prefill, on the dense phase's model and load, half of
-    the prompts behind one shared 512-token preamble.  Returns the launch
-    counts of the first generate call (the main path's run)."""
+def paged_phase(torch, counters, card, model):
+    """Slice 4b: Qwen2-7B generation at full width and depth over the paged
+    KV cache with prefix caching and 512-token chunked prefill, on the
+    dense phase's model.  Its main path is the serving launcher's
+    ``launch.serve.serve_continuous`` (``LLM.generate`` inside it): 64
+    requests of 512-1024 tokens, the even ones behind one shared 512-token
+    preamble, 32 new tokens each, sampled with a seed a request, on 32
+    slots and pages of 16, with its health lines every 64 steps, its
+    metrics directory, its lifecycle trace and its step timer.  The checks
+    after it run on its engine and load.  Returns the launch counts of the
+    ``serve_continuous`` call."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core.config import ServeConfig
+    from repro_torch.launch.serve import serve_continuous
     from repro_torch.models.model import Model
     from repro_torch.serving.api import LLM
     from repro_torch.serving.engine import Request, to_host
@@ -3269,18 +3358,15 @@ def paged_phase(torch, counters, card, model, load):
 
     cfg = model.cfg
     L = cfg.num_layers
-    base_prompts, lengths, params = load
-    n, slots, max_len, chunk, page = len(base_prompts), 32, 2048, 512, 16
-    # one shared preamble in front of half the prompts, as the reference's
-    # serve launcher builds its shared-scaffold load
-    rng = np.random.default_rng(1)
-    preamble = rng.integers(0, cfg.vocab_size, size=512).tolist()
-    prompts = [preamble + p if i % 2 else list(p) for i, p in enumerate(base_prompts)]
-    plens = [len(p) for p in prompts]
+    n, slots, prompt_len, new, chunk, page = 64, 32, 1024, 32, 512, 16
+    # the launcher's ServeConfig for --prefix-cache (prompts up to twice
+    # --prompt-len), seeded sampling
+    sc = ServeConfig(max_seq_len=2 * prompt_len + new + 1, batch_size=slots, temperature=0.8,
+                     top_k=50, top_p=0.95, seed=0, cache_layout="paged", page_size=page,
+                     prefix_cache=True, prefill_chunk=chunk)
+    max_len = sc.max_seq_len
     kw = dict(slots=slots, max_len=max_len, cache_layout="paged", page_size=page,
               prefix_cache=True, prefill_chunk=chunk)
-    llm = LLM(model, profile=True, **kw)
-    eng = llm.engine
     names = ("flash_attention_fwd", "flash_decode", "rmsnorm", "fused_sample", "paged_decode",
              "paged_prefill", "paged_kv_write")
 
@@ -3294,83 +3380,87 @@ def paged_phase(torch, counters, card, model, load):
         got["paged_decode.appends"] = counters["paged_decode"].appends
         return got
 
-    # the main path: every count set to 0 just before, read just after
+    # the main path: every count set to 0 just before, read just after; the
+    # launcher's LLM, load and completions taken by wrapping LLM.generate
+    captured = []
+    generate = LLM.generate
+
+    def spy(self, prompts, params=None, **kw):
+        outs = generate(self, prompts, params, **kw)
+        captured.append((self, prompts, params, outs))
+        return outs
+
+    tmp = tempfile.TemporaryDirectory()
     torch.cuda.reset_peak_memory_stats()
     zero()
-    dec0, ch0 = eng.decode_steps, eng.prefill_chunks
     t0 = time.perf_counter()
-    first = llm.generate(prompts, params)
-    torch.cuda.synchronize()
+    LLM.generate = spy
+    try:
+        serve_continuous(model, None, sc, gen=new, prompt_len=prompt_len, requests=n,
+                         health_every=64, metrics_dir=f"{tmp.name}/metrics",
+                         trace_path=f"{tmp.name}/trace.jsonl", profile=True)
+        torch.cuda.synchronize()
+    finally:
+        LLM.generate = generate
     t_first = time.perf_counter() - t0
     launches = read()
-    n_dec, n_chunk = eng.decode_steps - dec0, eng.prefill_chunks - ch0
+    (llm, prompts, params, first), = captured
+    eng = llm.engine
+    eng.on_step = None      # the launcher's health lines end with its call
+    plens = [len(p) for p in prompts]
+    n_dec, n_chunk = eng.decode_steps, eng.prefill_chunks
     want = {"flash_attention_fwd": 0, "flash_decode": 0, "rmsnorm": (2 * L + 1) * (n_dec + n_chunk),
             "fused_sample": n + n_dec, "paged_decode": L * n_dec, "paged_prefill": L * n_chunk,
             "paged_kv_write": 0, "paged_decode.appends": L * n_dec}
     stats1 = dict(eng.alloc.stats)
-    print(f"paged main path: LLM.generate of {n} prompts ({sum(plens)} prompt tokens, half behind "
-          f"a 512-token preamble) on {slots} slots, pages of {page} ({eng.alloc.num_pages} pages, "
-          f"prefix cache, {chunk}-token chunks): {n_chunk} prefill chunks, {n_dec} decode steps, "
-          f"{t_first:.2f} s (first call, set-up included); prefix cache {stats1}; launches "
-          f"{launches} (want {want})")
+    files = sorted(os.listdir(f"{tmp.name}/metrics"))
+    events = [json.loads(ln) for ln in Path(f"{tmp.name}/trace.jsonl").read_text().splitlines()]
+    finished = sum(e["event"] == "finish" for e in events)
+    print(f"paged main path: serve_continuous of {n} requests ({sum(plens)} prompt tokens, the even "
+          f"ones behind a 512-token preamble) on {slots} slots, pages of {page} "
+          f"({eng.alloc.num_pages} pages, prefix cache, {chunk}-token chunks): {n_chunk} prefill "
+          f"chunks, {n_dec} decode steps, {t_first:.2f} s (first call, set-up included); prefix "
+          f"cache {stats1}; metrics files {files}, {len(events)} trace events ({finished} "
+          f"finishes); launches {launches} (want {want})")
     expect(launches == want, "paged launch counts")
     expect(stats1["hit_tokens"] > 0, "no prefix-cache hit in the main run")
+    expect(files == ["serve.prom", "serve_metrics.json"] and finished == n,
+           "the launcher wrote no metrics files or trace events")
     gen = [len(c.tokens) for c in first]
     max_new = params[0].max_new
     expect(all(c.finish_reason == "length" for c in first) and gen == [max_new] * n,
            "paged finish reasons / lengths")
-    expect(all(np.isfinite(c.logprobs).all() for c in first if c.logprobs),
-           "paged non-finite logprobs")
+    eng.alloc.check_invariants()
+    # the pool frees every page (the prefix cache's pages once it drops them)
+    eng.alloc.drop_cache()
+    expect(eng.alloc.free_pages == eng.alloc.num_pages - 1, "pages leaked after the main run")
+    tmp.cleanup()
 
     # the steady call: the same load from a cold prefix cache (only the
-    # preamble is shared), so it repeats the main call's hits exactly
-    eng.alloc.drop_cache()
+    # preamble is shared), so it repeats the main call's hits exactly; with
+    # log-probabilities, which change no token
     t0 = time.perf_counter()
-    second = llm.generate(prompts, params)
+    second = llm.generate(prompts, [dataclasses.replace(p, logprobs=True) for p in params])
     torch.cuda.synchronize()
     t_steady = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     same = all(a.tokens == b.tokens for a, b in zip(first, second))
     stats2 = {k: v - stats1[k] for k, v in eng.alloc.stats.items()}
-    print(f"second call after alloc.drop_cache(): tokens identical to the first {same}; its "
-          f"prefix cache {stats2}")
+    print(f"second call after alloc.drop_cache(), with log-probabilities: tokens identical to the "
+          f"first {same}; its prefix cache {stats2}")
     expect(same, "a repeat after drop_cache differs")
+    expect(all(np.isfinite(c.logprobs).all() for c in second), "paged non-finite logprobs")
     ttft = sorted(c.ttft_s for c in second)
     toks = sum(len(c.tokens) for c in second)
     print(f"Qwen2-7B paged LLM.generate on {card}: {toks / t_steady:.1f} generated tokens/s "
           f"({toks} tokens in {t_steady:.3f} s, steady call), TTFT p50 {1e3 * ttft[n // 2]:.1f} ms, "
           f"p95 {1e3 * ttft[int(0.95 * (n - 1))]:.1f} ms, peak memory {peak_gb:.2f} GB; first call "
           f"{t_first:.2f} s")
-    # a warm call: every prompt's full blocks are cached by now
-    stats_before = dict(eng.alloc.stats)
-    t0 = time.perf_counter()
-    third = llm.generate(prompts, params)
-    torch.cuda.synchronize()
-    t_warm = time.perf_counter() - t0
-    # not held to the first call's tokens: a warm prompt recomputes only its
-    # tail past the last full cached page (the last token alone on a
-    # whole-prompt hit), and cuBLAS sums a short chunk's products in another
-    # order than the 512-row chunk that first computed them; held instead at
-    # the logits below, and where the tokens first part is printed
-    same3 = sum(a.tokens == b.tokens for a, b in zip(first, third))
-    ttft3 = sorted(c.ttft_s for c in third)
-    stats3 = {k: v - stats_before[k] for k, v in eng.alloc.stats.items()}
-    print(f"warm call (whole prompts cached): {same3} of {n} requests with the first call's "
-          f"tokens, "
-          f"{sum(len(c.tokens) for c in third) / t_warm:.1f} generated tokens/s, TTFT p50 "
-          f"{1e3 * ttft3[n // 2]:.1f} ms, p95 {1e3 * ttft3[int(0.95 * (n - 1))]:.1f} ms; its prefix "
-          f"cache {stats3}")
-    for kind, pick in (("greedy", lambda i: params[i].temperature == 0),
-                       ("sampled", lambda i: params[i].temperature > 0)):
-        part = sorted(next((j for j, (x, y) in enumerate(zip(first[i].tokens, third[i].tokens))
-                            if x != y), max_new) for i in range(n) if pick(i))
-        print(f"warm call, {kind} requests: index of the first token that differs from the first "
-              f"call's (of {max_new}; {max_new} = none): min {part[0]}, median "
-              f"{part[len(part) // 2]}, max {part[-1]}")
     eng.alloc.check_invariants()
-    # the warm call's witness: each prompt's first-token logits with every
-    # full block cached (the tail recomputed from a page-aligned start, a
-    # whole-prompt hit through copy-on-write) against a cold cache's
+    # a warm prefix cache (every prompt's full blocks cached by the calls
+    # above): each prompt's first-token logits from it (the tail recomputed
+    # from a page-aligned start, a whole-prompt hit through copy-on-write)
+    # against a cold cache's
     warm_lg, warm_stats = first_token_logits(torch, np, eng, prompts)
     eng.alloc.drop_cache()
     cold_lg, _ = first_token_logits(torch, np, eng, prompts)
@@ -3467,11 +3557,12 @@ def paged_phase(torch, counters, card, model, load):
     # (four behind the preamble, one the preamble alone: a whole-prompt hit,
     # copy-on-write), chunked prefill, 32 teacher-forced decode steps with
     # per-slot positions and 24 idle slots
-    order = [int(i) for i in np.argsort(lengths)]
-    # short to long; a preamble prompt first, so that it registers its
-    # blocks before the others are admitted
-    picks = [i for i in order if i % 2][::8][:4] + [i for i in order if i % 2 == 0][::11][:3]
-    route_prompts = [prompts[i] for i in picks] + [list(preamble)]
+    order = [int(i) for i in np.argsort(plens)]
+    # short to long; a preamble prompt (an even one) first, so that it
+    # registers its blocks before the others are admitted
+    picks = [i for i in order if i % 2 == 0][::8][:4] + [i for i in order if i % 2][::11][:3]
+    preamble = prompts[0][:prompt_len // 2]
+    route_prompts = [prompts[i] for i in picks] + [preamble]
     n_forced = 32
     forced = torch.zeros((n_forced, slots), dtype=torch.int32, device=model.device)
     for slot, i in enumerate(picks + [picks[-1]]):
@@ -3491,12 +3582,14 @@ def paged_phase(torch, counters, card, model, load):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # preemption at full width: a tight pool, 12 requests
+    # preemption at full width: a tight pool, 8 requests of ~850-1 050
+    # tokens (one runs at a time, so the decode steps cost most: 24 new
+    # tokens each)
     tight = LLM(model, slots=8, max_len=max_len, cache_layout="paged", page_size=page,
                 num_pages=1 + 100, prefix_cache=True, prefill_chunk=chunk, preempt=True)
-    mid = order[20:44:2]
+    mid = order[20:36:2]
     pre_prompts = [prompts[i] for i in mid]
-    pre_params = [dataclasses.replace(params[i], max_new=48) for i in mid]
+    pre_params = [dataclasses.replace(params[i], max_new=24) for i in mid]
     t0 = time.perf_counter()
     outs = tight.generate(pre_prompts, pre_params)
     c = tight.engine.health().counters
@@ -3602,7 +3695,7 @@ def moe_phase(torch, counters, card):
           f"top-{cfg.num_experts_per_tok} + {cfg.n_shared_experts} shared, window "
           f"{cfg.sliding_window}, {cfg.param_count() / 1e9:.2f}B params, bf16) on cuda in "
           f"{t_build:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    slots, max_len, n, max_new = 32, 2048, 64, 256
+    slots, max_len, n, max_new = 32, 2048, 64, 32
     lengths, prompts, params = generation_load(np, cfg.vocab_size, n, max_new)
     llm = LLM(model, slots=slots, max_len=max_len)
     eng = llm.engine
@@ -3875,7 +3968,7 @@ def ssm_phase(torch, counters, card):
     print(f"built {cfg.name} ({cfg.num_layers} SSD layers, d_model {cfg.d_model}, {cfg.ssm_nheads} "
           f"heads of {cfg.ssm_headdim}, state {cfg.ssm_state}, {cfg.param_count() / 1e9:.2f}B "
           f"params, bf16) on cuda in {t_build:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    slots, max_len, n, max_new = 32, 2048, 64, 256
+    slots, max_len, n, max_new = 32, 2048, 64, 32
     lengths, prompts, params = generation_load(np, cfg.vocab_size, n, max_new)
     llm = LLM(model, slots=slots, max_len=max_len)
     eng = llm.engine
@@ -4285,12 +4378,17 @@ def moe_train_phase(torch, counters, card):
     launches["gmm dx"] = counters["gmm"].dx_launches      # gmm's transposed mode, of its count
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_moe = T.num_moe_layers(cfg)
+    # the stack's forward kernels (attention, RMSNorm, the 3 forward gmm an
+    # MoE layer) run fwd_runs times under remat; the final norm once
+    r = fwd_runs(model.pc.remat_policy)
     want = dict.fromkeys(counters, 0)
-    want.update(flash_attention_fwd=steps, flash_attention_bwd=steps,
-                rmsnorm=(2 * cfg.num_layers + 1) * steps, cross_entropy_fwd=steps,
-                cross_entropy_bwd=steps, gmm=6 * n_moe * steps, gmm_dw=3 * n_moe * steps)
+    want.update(flash_attention_fwd=r * steps, flash_attention_bwd=steps,
+                rmsnorm=(r * 2 * cfg.num_layers + 1) * steps, cross_entropy_fwd=steps,
+                cross_entropy_bwd=steps, gmm=(3 * r + 3) * n_moe * steps,
+                gmm_dw=3 * n_moe * steps)
     want["gmm dx"] = 3 * n_moe * steps
-    print(f"main path: Trainer.run of {steps} steps: launches {launches} (want {want})")
+    print(f"main path: Trainer.run of {steps} steps, remat {model.pc.remat_policy}: launches "
+          f"{launches} (want {want})")
     losses = [h["loss"] for h in hist]
     print(f"losses: step 0 {losses[0]:.4f} (ce {hist[0]['ce_loss']:.4f}), step {steps - 1} "
           f"{losses[-1]:.4f} (ce {hist[-1]['ce_loss']:.4f}); router at step {steps - 1}: lb "
@@ -4343,21 +4441,23 @@ def moe_train_phase(torch, counters, card):
 SSM_ROUTE_DEPTH = 8   # the Mamba2 gradient route check's depth (of 64 layers)
 
 
-def ssm_train_launches(cfg):
+def ssm_train_launches(cfg, policy: str):
     """The launches of one SSM or hybrid micro-batch's forward and
-    backward: the SSD forward and backward a SSD layer, the attention
-    forward and backward an attention layer, an RMSNorm before each mixer,
-    one before each FFN (none where d_ff is 0, as in Mamba2) and the final
-    one, gmm 6 (3 forward, 3 transposed for dx) and gmm_dw 3 an MoE layer,
-    one cross-entropy forward and backward."""
+    backward under remat ``policy``: the SSD forward and backward a SSD
+    layer, the attention forward and backward an attention layer, an
+    RMSNorm before each mixer, one before each FFN (none where d_ff is 0,
+    as in Mamba2) and the final one, gmm 6 (3 forward, 3 transposed for dx)
+    and gmm_dw 3 an MoE layer, one cross-entropy forward and backward; each
+    forward inside the stack ``fwd_runs(policy)`` times."""
     from repro_torch.models import transformer as T
 
+    r = fwd_runs(policy)
     n_ssm = sum(not cfg.is_attn_layer(i) for i in range(cfg.num_layers))
     n_attn, n_moe = cfg.num_layers - n_ssm, T.num_moe_layers(cfg)
-    return {"ssd_scan": n_ssm, "ssd_scan_bwd": n_ssm, "flash_attention_fwd": n_attn,
+    return {"ssd_scan": r * n_ssm, "ssd_scan_bwd": n_ssm, "flash_attention_fwd": r * n_attn,
             "flash_attention_bwd": n_attn,
-            "rmsnorm": (2 if cfg.d_ff > 0 else 1) * cfg.num_layers + 1,
-            "cross_entropy_fwd": 1, "cross_entropy_bwd": 1, "gmm": 6 * n_moe,
+            "rmsnorm": r * (2 if cfg.d_ff > 0 else 1) * cfg.num_layers + 1,
+            "cross_entropy_fwd": 1, "cross_entropy_bwd": 1, "gmm": (3 * r + 3) * n_moe,
             "gmm dx": 3 * n_moe, "gmm_dw": 3 * n_moe}
 
 
@@ -4420,9 +4520,9 @@ def report_route(torch, kernel, plain, fp32, names, label, expect):
 
 def ssm_train_phase(torch, counters, card):
     """The SSM training path: Mamba2-2.7B through ``Trainer.run`` at full
-    width and all 64 layers (fp32 master weights, fp32 AdamW moments, WSD),
-    6 steps of packed synthetic protein tokens, 2 x 1024 a step as two
-    micro-batches of 1 x 1024.  Before it, the gradient route check at full
+    width and all 64 layers (fp32 master weights, fp32 AdamW moments, WSD,
+    remat at the default ``block``), 6 steps of packed synthetic protein
+    tokens, one micro-batch of 2 x 1024 a step.  Before it, the gradient route check at full
     width and ``SSM_ROUTE_DEPTH`` layers: one micro-batch's loss and
     gradients twice on the kernel route (bit-identical) and once on the
     plain route (loss within 2e-2, every leaf's cosine >= 0.999); at 64
@@ -4449,14 +4549,14 @@ def ssm_train_phase(torch, counters, card):
     cfg = get_config("mamba2-2.7b")
     tmp = tempfile.TemporaryDirectory()
     ds, tok = build_synthetic_protein_memmap(f"{tmp.name}/prot", n=1024, seed=0)
-    micro, seq, accum, steps = 1, 1024, 2, 6
+    micro, seq, accum, steps = 2, 1024, 1, 6
 
-    # ---- the gradient route check at a cut depth, on one micro-batch
+    # ---- the gradient route check at a cut depth, on one 1 x 1024 micro-batch
     cut = dataclasses.replace(cfg, num_layers=SSM_ROUTE_DEPTH)
     model = build_model(cut, seed=0)
     plain = Model(dataclasses.replace(cut, kernel_impl="torch"), model.params.tree())
     batch = {k: torch.from_numpy(v).to(model.device)
-             for k, v in next(iter(CLMBatches(ds, micro, seq, seed=1, eos_id=tok.eos_id))).items()}
+             for k, v in next(iter(CLMBatches(ds, 1, seq, seed=1, eos_id=tok.eos_id))).items()}
     fp32 = Model(dataclasses.replace(cut, kernel_impl="torch", dtype="float32"),
                  model.params.tree())
     names = leaf_paths(model.params.tree())
@@ -4465,13 +4565,13 @@ def ssm_train_phase(torch, counters, card):
     differ = [names[i] for i, (a, b) in enumerate(zip(k_route[1], again[1]))
               if not torch.equal(a, b)]
     print(f"Mamba2-2.7B at full width, {SSM_ROUTE_DEPTH} of 64 layers, kernel route twice on one "
-          f"{micro}x{seq} micro-batch: loss {k_route[0]!r} vs {again[0]!r}; {len(differ)} of "
+          f"1x{seq} micro-batch: loss {k_route[0]!r} vs {again[0]!r}; {len(differ)} of "
           f"{len(names)} grad leaves differ {differ[:6]}")
     expect(k_route[0] == again[0] and not differ, "a repeated Mamba2 loss and backward differs")
     del again
     report_route(torch, k_route, loss_grads(torch, plain, batch), loss_grads(torch, fp32, batch),
                  names, f"Mamba2 kernel route vs plain route ({SSM_ROUTE_DEPTH} layers, loss_fn + "
-                 f"backward, {micro}x{seq})", expect)
+                 f"backward, 1x{seq})", expect)
     del model, plain, fp32, k_route
     gc.collect()
     torch.cuda.empty_cache()
@@ -4501,9 +4601,10 @@ def ssm_train_phase(torch, counters, card):
     launches = read_launches(counters)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = dict.fromkeys(launches, 0)
-    want.update({k: v * steps * accum for k, v in ssm_train_launches(cfg).items()})
-    print(f"main path: Trainer.run of {steps} steps x {accum} micro-batches: launches {launches} "
-          f"(want {want})")
+    want.update({k: v * steps * accum
+                 for k, v in ssm_train_launches(cfg, model.pc.remat_policy).items()})
+    print(f"main path: Trainer.run of {steps} steps x {accum} micro-batch of {micro}x{seq}, remat "
+          f"{model.pc.remat_policy}: launches {launches} (want {want})")
     losses = [h["loss"] for h in hist]
     print(f"losses: step 0 {losses[0]:.4f}, step {steps - 1} {losses[-1]:.4f}")
     expect(len(hist) == 2 and all(x == x and abs(x) < 1e30 for x in losses), "non-finite loss")
@@ -4601,7 +4702,7 @@ def hybrid_train_phase(torch, counters, card):
     torch.cuda.synchronize()
     launches = read_launches(counters)
     want = dict.fromkeys(launches, 0)
-    want.update({k: v * steps for k, v in ssm_train_launches(cfg).items()})
+    want.update({k: v * steps for k, v in ssm_train_launches(cfg, model.pc.remat_policy).items()})
     losses = [h["loss"] for h in hist]
     print(f"reduced {cfg.name} (bf16, fp32 master weights, {cfg.num_layers} layers) Trainer.run of "
           f"{steps} steps of {B}x{seq}: losses {losses[0]:.4f} -> {losses[-1]:.4f}, launches "
@@ -4626,6 +4727,7 @@ def ssm_launcher_phase(torch, counters, card):
     import io
 
     from repro_torch.configs import get_config
+    from repro_torch.core.config import ParallelConfig
     from repro_torch.launch import train as launch_train
 
     shapes = []
@@ -4654,7 +4756,9 @@ def ssm_launcher_phase(torch, counters, card):
     launches = read_launches(counters)
     text = out.getvalue()
     want = dict.fromkeys(launches, 0)
-    want.update({k: v * 3 for k, v in ssm_train_launches(get_config("mamba2-2.7b")).items()})
+    # launch.train.main builds its model with the default ParallelConfig
+    want.update({k: v * 3 for k, v in ssm_train_launches(get_config("mamba2-2.7b"),
+                                                          ParallelConfig().remat_policy).items()})
     keep = [ln for ln in text.splitlines() if ln.startswith(("arch=", "step ", "final loss"))]
     print(f"main path: launch.train.main {' '.join(argv[:-2])} ({time.perf_counter() - t0:.1f} s): "
           f"shapes {shapes}; launches {launches} (want {want})")
@@ -4797,7 +4901,7 @@ def geneformer_phase(torch, counters, card):
     torch.cuda.synchronize()
     train_launches = {k: counters[k].launches for k in names}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {k: v * steps * accum for k, v in step_launches(L).items()}
+    want = {k: v * steps * accum for k, v in step_launches(L, model.pc.remat_policy).items()}
     losses = [h["loss"] for h in hist]
     print(f"Geneformer main path: Trainer.run of {steps} steps x {accum} micro-batches of "
           f"{micro}x{seq}: launches {train_launches} (want {want}); losses step 0 {losses[0]:.4f}, "
@@ -5241,9 +5345,11 @@ def molmim_phase(torch, counters, card):
     # a micro-batch: the encoder's attention and two LayerNorms a layer and
     # its final norm, the decoder's self- and cross-attention and three
     # LayerNorms a layer and its final norm, each attention's and each
-    # LayerNorm's backward, one cross-entropy forward and backward
-    per_micro = {"flash_attention_fwd": E + 2 * L, "flash_attention_bwd": E + 2 * L,
-                 "layernorm": 2 * E + 1 + 3 * L + 1, "layernorm_bwd": 2 * E + 1 + 3 * L + 1,
+    # LayerNorm's backward, one cross-entropy forward and backward; under
+    # remat both stacks' forward kernels (not the final norms) fwd_runs times
+    r = fwd_runs(model.pc.remat_policy)
+    per_micro = {"flash_attention_fwd": r * (E + 2 * L), "flash_attention_bwd": E + 2 * L,
+                 "layernorm": r * (2 * E + 3 * L) + 2, "layernorm_bwd": 2 * E + 1 + 3 * L + 1,
                  "cross_entropy_fwd": 1, "cross_entropy_bwd": 1}
     zero_launches(counters)
     torch.cuda.synchronize()
@@ -5387,7 +5493,7 @@ def whisper_phase(torch, counters, card):
     precomputed frames of the audio stub): ``LLM.generate`` with one audio
     for every request (``extra_batch``, re-encoded at each admission) on 32
     slots of Whisper's 448-token decoder context, 64 prompts of 4-64
-    tokens, 64 new, half greedy; dense, then paged (pages of 16; the prefix
+    tokens, 32 new, half greedy; dense, then paged (pages of 16; the prefix
     cache and chunked prefill are refused for it), each held to the plain
     route; then ``launch.serve.generate`` with 32 distinct audios, the load
     where each request has its own.  Returns each run's launch counts."""
@@ -5416,7 +5522,7 @@ def whisper_phase(torch, counters, card):
     g = torch.Generator(device=model.device).manual_seed(11)
     T = cfg.num_frontend_tokens
     audio = torch.randn(1, T, cfg.d_model, generator=g, device=model.device)
-    slots, max_len, n, new = 32, 448, 64, 64
+    slots, max_len, n, new = 32, 448, 64, 32
     lengths, prompts, params = generation_load(np, cfg.vocab_size, n, new, seed=5, lo=4, hi=64)
     dense_kw = dict(slots=slots, max_len=max_len, extra_batch={"enc_embeds": audio})
     paged_kw = dict(dense_kw, cache_layout="paged", page_size=16)
@@ -5549,12 +5655,13 @@ def internvl2_phase(torch, counters, card, depth):
 
 
 def main() -> int:
-    t_start = time.perf_counter()
+    clock = Clock()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU", file=sys.stderr)
         return 2
+    clock.mark("1 imports and card")
 
     import numpy as np
     import torch.nn.functional as F
@@ -5588,6 +5695,7 @@ def main() -> int:
 
     # ---- 2. build every kernel: one nvcc per CUDA source, all started
     # together
+    clock.mark("2 build")
     t0 = time.perf_counter()
     logs = _build.finish_builds(_build.start_builds(
         ["flash_attention_fwd", "flash_attention_bwd", "cross_entropy", "flash_decode", "sampling",
@@ -5598,41 +5706,55 @@ def main() -> int:
                 and not ln.strip().startswith("0 bytes")]
         print(f"built {name} in {t_nvcc:.1f} s: " + " | ".join(regs))
 
-    mark(t_start, "step 3")
     # ---- 3. each kernel against its plain version, on the card
     g = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, dtype=torch.bfloat16, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=g, device=dev) * scale + shift).to(dtype)
 
+    clock.mark("3 check_attention_fwd")
     fa_rec = check_attention_fwd(torch, F, ref, flash_attention_fwd, randn, card)
     gc.collect()
     torch.cuda.empty_cache()
 
+    clock.mark("3 check_layernorm")
     ln_rec = check_layernorm(torch, F, ref, layernorm, randn, card)
+    clock.mark("3 check_layernorm_bwd")
     ln_bwd_rec = check_layernorm_bwd(torch, F, ref, layernorm_bwd, randn, card)
     gc.collect()
     torch.cuda.empty_cache()
 
+    clock.mark("3 check_attention_bwd")
     fa_bwd_rec = check_attention_bwd(torch, F, ref, flash_attention_fwd, flash_attention_bwd,
                                      randn, card)
+    clock.mark("3 check_cross_entropy")
     ce_recs = check_cross_entropy(torch, F, ref, cross_entropy_fwd, cross_entropy_bwd, randn, g, card)
-    gen_recs = [check_rmsnorm(torch, F, ref, rmsnorm, randn, card),
-                check_sampling(torch, ref, fused_sample, randn, card),
-                check_flash_decode(torch, F, ref, flash_decode, randn, card)]
-    paged_recs = [check_paged_decode(torch, F, ref, paged_decode, flash_decode, randn, card),
-                  check_paged_prefill(torch, F, ref, paged_prefill, flash_attention_fwd, randn,
-                                      card),
-                  check_paged_kv_write(torch, ref, paged_kv_write, paged_decode, flash_decode,
-                                       randn, card)]
+    clock.mark("3 check_rmsnorm")
+    gen_recs = [check_rmsnorm(torch, F, ref, rmsnorm, randn, card)]
+    clock.mark("3 check_sampling")
+    gen_recs.append(check_sampling(torch, ref, fused_sample, randn, card))
+    clock.mark("3 check_flash_decode")
+    gen_recs.append(check_flash_decode(torch, F, ref, flash_decode, randn, card))
+    clock.mark("3 check_paged_decode")
+    paged_recs = [check_paged_decode(torch, F, ref, paged_decode, flash_decode, randn, card)]
+    clock.mark("3 check_paged_prefill")
+    paged_recs.append(check_paged_prefill(torch, F, ref, paged_prefill, flash_attention_fwd,
+                                          randn, card))
+    clock.mark("3 check_paged_kv_write")
+    paged_recs.append(check_paged_kv_write(torch, ref, paged_kv_write, paged_decode, flash_decode,
+                                           randn, card))
+    clock.mark("3 check_gmm")
     gmm_rec = check_gmm(torch, ref, gmm, card)
+    clock.mark("3 check_gmm_dw")
     gmm_dw_rec, gmm_dx_rec = check_gmm_dw(torch, ref, gmm, gmm_dw, card)
+    clock.mark("3 check_ssd_scan")
     ssd_rec = check_ssd_scan(torch, ref, ssd_scan, card)
+    clock.mark("3 check_ssd_scan_bwd")
     ssd_bwd_rec = check_ssd_scan_bwd(torch, ref, ssd_scan, ssd_scan_bwd, card)
     gc.collect()
     torch.cuda.empty_cache()
 
-    mark(t_start, "step 4")
+    clock.mark("4 esm2 embed")
     # ---- 4. slice 1: ESM-2 650M embedding serving through LLM.embed
     cfg = get_config("esm2-650m")
     t0 = time.perf_counter()
@@ -5696,7 +5818,7 @@ def main() -> int:
           f"{real_tokens / t_steady:.0f} tokens/s ({padded_tokens / t_steady:.0f} padded tokens/s; "
           f"{n} sequences, {real_tokens} tokens, {t_steady:.3f} s; first call {t_first:.3f} s)")
 
-    mark(t_start, "step 5")
+    clock.mark("5 esm2 embed profile")
     # ---- 5. where the embed time goes: one more call under the profiler
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -5718,77 +5840,82 @@ def main() -> int:
             print(f"  {t:9.2f} ms {cnt:6d}x  {name[:110]}")
     del llm, prof
 
-    mark(t_start, "step 6")
+    clock.mark("6 esm2 train")
     # ---- 6. slice 2: ESM-2 650M MLM pre-training through Trainer.run
     counters = {"flash_attention_fwd": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
                 "layernorm": layernorm, "layernorm_bwd": layernorm_bwd,
                 "cross_entropy_fwd": cross_entropy_fwd,
                 "cross_entropy_bwd": cross_entropy_bwd}
-    train_launches, full_step = train_phase(torch, model, counters, card)
+    train_launches, full_step, remat = train_phase(torch, model, counters, card)
     gc.collect()
     torch.cuda.empty_cache()
 
-    mark(t_start, "step 6b")
     # ---- 6b. slice 3: LoRA fine-tuning of the model just trained (its
     # trainer and moments dropped), then the training data plane, a resume
     # through it and the launcher
+    clock.mark("6b lora")
     phase_launches = {"train": train_launches}
     phase_launches["lora"] = lora_phase(torch, model, counters, card, full_step)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    clock.mark("6b data plane")
     phase_launches["data_plane"], phase_launches["data_plane_cluster"], dp_shapes = \
         data_plane_phase(torch, counters, card)
     gc.collect()
     torch.cuda.empty_cache()
+    clock.mark("6b resume")
     phase_launches["resume"], resume_shapes = resume_phase(torch, counters, card)
     gc.collect()
     torch.cuda.empty_cache()
+    clock.mark("6b launcher")
     phase_launches["launcher"], launcher_shapes = launcher_phase(torch, counters, card)
     gc.collect()
     torch.cuda.empty_cache()
+    clock.mark("6b bucket kernels")
     # the kernels at every (B, L) those three phases trained on
     bucket_shapes = dp_shapes | resume_shapes | launcher_shapes
     print(f"bucket shapes to check: {len(bucket_shapes)} (data plane {len(dp_shapes)}, resume "
           f"{len(resume_shapes)}, launcher {len(launcher_shapes)})")
     check_bucket_kernels(torch, ref, counters, bucket_shapes, randn, get_config("esm2-650m"))
 
-    mark(t_start, "step 7")
+    clock.mark("7 qwen2 dense")
     # ---- 7. slice 4a: Qwen2-7B generation through LLM.generate; the
     # paths from here to the MoE training phase run RMSNorm, no LayerNorm
     layernorm.launches = layernorm_bwd.launches = 0
     counters.update(rmsnorm=rmsnorm, flash_decode=flash_decode, fused_sample=fused_sample)
-    gen_launches, model, load = generate_phase(torch, counters, card)
+    gen_launches, model = generate_phase(torch, counters, card)
     gc.collect()
     torch.cuda.empty_cache()
 
-    mark(t_start, "step 8")
+    clock.mark("8 qwen2 paged")
     # ---- 8. slice 4b: the same model and load through the paged KV cache
     counters.update(paged_decode=paged_decode, paged_prefill=paged_prefill,
                     paged_kv_write=paged_kv_write)
-    paged_launches = paged_phase(torch, counters, card, model, load)
+    paged_launches = paged_phase(torch, counters, card, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
 
-    mark(t_start, "step 9")
+    clock.mark("9 scout generate")
     # ---- 9. slice 5: Llama-4-Scout (8 of 48 layers) MoE generation
     counters.update(gmm=gmm)
     moe_launches = moe_phase(torch, counters, card)
     gc.collect()
     torch.cuda.empty_cache()
 
-    mark(t_start, "step 10")
+    clock.mark("10 mamba2 generate")
     # ---- 10. slice 6: Mamba2-2.7B generation, then the hybrid unit (reduced Jamba)
     counters.update(ssd_scan=ssd_scan)
     ssm_launches = ssm_phase(torch, counters, card)
     gc.collect()
     torch.cuda.empty_cache()
+    clock.mark("10 jamba generate")
     hybrid_phase(torch, counters, card)
     gc.collect()
     torch.cuda.empty_cache()
 
-    mark(t_start, "step 11")
+    clock.mark("11 scout train")
     # ---- 11. slice 5b: Llama-4-Scout (1 of 48 layers) MoE training
     counters.update(gmm_dw=gmm_dw)
     moe_train_launches = moe_train_phase(torch, counters, card)
@@ -5800,21 +5927,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    mark(t_start, "step 12")
+    clock.mark("12 mamba2 train")
     # ---- 12. the SSM training path: Mamba2-2.7B at full width and depth,
     # reduced Jamba, and the launcher on Mamba2
     counters.update(ssd_scan_bwd=ssd_scan_bwd)
     ssm_train, ssm_peak_gb = ssm_train_phase(torch, counters, card)
     gc.collect()
     torch.cuda.empty_cache()
+    clock.mark("12 jamba train")
     hybrid_train = hybrid_train_phase(torch, counters, card)
     gc.collect()
     torch.cuda.empty_cache()
+    clock.mark("12 mamba2 launcher")
     ssm_launcher, _ = ssm_launcher_phase(torch, counters, card)
     gc.collect()
     torch.cuda.empty_cache()
 
-    mark(t_start, "step 13")
+    clock.mark("13 geneformer")
     # ---- 13. the rest of the zoo: Geneformer-106M embedded and trained at
     # full size, then Command-R-35B (dense and paged), Qwen1.5-32B and
     # Llama-3-405B generating at full width with their depth cut
@@ -5823,22 +5952,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     zoo = {}
     for name, depth in ZOO_DECODERS:
+        clock.mark(f"13 {name}")
         zoo[name] = zoo_decoder_phase(torch, counters, card, name, depth)
         gc.collect()
         torch.cuda.empty_cache()
 
-    mark(t_start, "step 14")
     # ---- 14. slice 7: MolMIM-65M trained and generating through
     # launch.serve.generate, Whisper-medium served with one audio for every
     # request and with an audio a row, InternVL2-26B at full width with an
     # image and text-only
     slice7 = {}
-    for phase in (molmim_phase, whisper_phase,
-                  lambda *a: internvl2_phase(*a, INTERNVL2_DEPTH)[0]):
-        t0 = time.perf_counter()
-        runs = phase(torch, counters, card)
-        print(f"slice 7 phase {sorted(runs)}: {time.perf_counter() - t0:.1f} s")
-        slice7.update(runs)
+    for name, phase in (("molmim", molmim_phase), ("whisper", whisper_phase),
+                        ("internvl2", lambda *a: internvl2_phase(*a, INTERNVL2_DEPTH)[0])):
+        clock.mark(f"14 {name}")
+        slice7.update(phase(torch, counters, card))
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -5892,7 +6019,13 @@ def main() -> int:
         rec.setdefault("launches_by_phase", {}).update(
             {ph: n[key] for ph, n in zoo_runs.items() if n.get(key)})
     kernels += gen_recs + paged_recs + [gmm_rec, gmm_dw_rec, ssd_rec, ssd_bwd_rec]
-    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s on {card}")
+    clock.mark()
+    print(f"chip_smoke.py took {clock.total():.1f} s on {card}")
+    print(json.dumps({"phases": clock.phases, "total_s": round(clock.total(), 1),
+                      "remat_esm2": {p: dict(zip(("loss", "digest", "wall_ms", "device_ms",
+                                                  "peak_gb", "peak_above_start_gb"), v))
+                                     for p, v in remat.items()},
+                      "mamba2_train_peak_gb": ssm_peak_gb}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

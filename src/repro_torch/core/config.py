@@ -159,12 +159,31 @@ class ModelConfig:
         return self.param_count() - unused * self._mlp_params()
 
 
+REMAT_POLICIES = ("none", "block", "dots", "full")
+
+
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The reference's mesh layout knobs that a single GPU reads: only the
-    optimizer-moment dtype so far (the mesh fields come with multi-GPU)."""
+    """The reference's layout knobs that a single GPU reads (the mesh
+    fields come with multi-GPU).
 
+    remat_policy — what a training step keeps of each unit of the stack
+    for the backward (``models/transformer.py::_remat_wrap``), with the
+    reference's values and default:
+      * "none"  — every activation;
+      * "block" — only the unit's inputs; the unit runs again in the
+                  backward;
+      * "dots"  — the outputs of the 2-D matmuls; the rest runs again;
+      * "full"  — everything, as "none".
+    optimizer_state_dtype — the AdamW moments' dtype."""
+
+    remat_policy: str = "block"              # none | block | dots | full
     optimizer_state_dtype: str = "float32"   # float32 | bfloat16
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.remat_policy!r} is not one of "
+                             f"{REMAT_POLICIES}")
 
 
 @dataclass(frozen=True)

@@ -15,7 +15,10 @@ of the text; its loss leaves those rows out.
 ``build_model(cfg)`` materializes seeded random weights on the GPU; pass
 ``device="cpu"`` to run on the CPU (the tests do).  Weights from the
 reference package cross in through ``checkpoint/bridge.py``:
-``Model(cfg, from_jax_params(tree))``.  ``loss_fn(params, batch)`` takes the
+``Model(cfg, from_jax_params(tree))``.  A model keeps its
+``ParallelConfig`` (``build_model(cfg, pc)``, ``Model(cfg, params, pc)``):
+in training each unit of the stack runs under its ``remat_policy``,
+``block`` by default, as the reference's.  ``loss_fn(params, batch)`` takes the
 param tree explicitly, as the reference's does, so the train step can run
 it on the compute-dtype view of its master copy; the serving entry points
 take it too.  To serve, build the model with bf16 parameters
@@ -32,7 +35,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from repro_torch.core.config import ModelConfig
+from repro_torch.core.config import ModelConfig, ParallelConfig
 from repro_torch.core.module import P, ParamTree, materialize, tree_map
 from repro_torch.core.precision import policy_for
 from repro_torch.kernels import ops
@@ -73,10 +76,17 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
+    """``pc`` (default ``ParallelConfig()``) is kept as the reference keeps
+    it in its model's ``ctx``: its ``remat_policy`` sets what a training
+    step keeps of each unit of the stacks, and a trainer built on the
+    model reads its ``optimizer_state_dtype``."""
+
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
+                 pc: Optional[ParallelConfig] = None):
         super().__init__()
         T.check_supported(cfg)
         self.cfg = cfg
+        self.pc = pc or ParallelConfig()
         self.policy = policy_for(cfg)
         self.params = ParamTree(params)
 
@@ -98,7 +108,8 @@ class Model(nn.Module):
                 x = x + enc["pos"][: x.shape[1]].to(cdt)[None]
         else:
             x = L.embed_apply(self.cfg, params["embed"], batch["src_tokens"], compute_dtype=cdt)
-        x, _, _ = T.decoder_stack(encoder_config(self.cfg), enc["layers"], x, causal=False)
+        x, _, _ = T.decoder_stack(encoder_config(self.cfg), enc["layers"], x, causal=False,
+                                  remat=self.pc.remat_policy)
         return L.norm_apply(self.cfg, enc["final_norm"], x)
 
     def _cross_kv(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
@@ -123,7 +134,8 @@ class Model(nn.Module):
         """The stack (train mode unless ``kw`` says otherwise), then the
         final norm; returns (x, caches, aux_sum) — aux_sum the MoE layers'
         router vectors summed (``moe.aux_shape``)."""
-        x, caches, aux = T.decoder_stack(self.cfg, params["layers"], x, **kw)
+        x, caches, aux = T.decoder_stack(self.cfg, params["layers"], x,
+                                         remat=self.pc.remat_policy, **kw)
         return L.norm_apply(self.cfg, params["final_norm"], x), caches, aux
 
     def head_weight(self, params: Dict[str, Any]) -> torch.Tensor:
@@ -358,8 +370,9 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     return torch.device(device)
 
 
-def build_model(cfg: ModelConfig, *, device: Union[None, str, torch.device] = None,
-                seed: int = 0) -> Model:
-    """A model with seeded random weights on ``device`` (default: cuda)."""
+def build_model(cfg: ModelConfig, pc: Optional[ParallelConfig] = None, *,
+                device: Union[None, str, torch.device] = None, seed: int = 0) -> Model:
+    """A model with seeded random weights on ``device`` (default: cuda),
+    keeping ``pc`` (default ``ParallelConfig()``: remat ``block``)."""
     dev = resolve_device(device)
-    return Model(cfg, materialize(param_defs(cfg), seed, policy_for(cfg).pdt, dev))
+    return Model(cfg, materialize(param_defs(cfg), seed, policy_for(cfg).pdt, dev), pc)

@@ -24,6 +24,7 @@ causal mask.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -148,6 +149,51 @@ def _ffn_apply(cfg, li, params, h):
     return L.mlp_apply(cfg, params, h), None
 
 
+def _unit_apply(x, aux_sum, *, cfg, layers, caches, **kw):
+    """One unit: its layers in order (``layers`` and ``caches`` keyed
+    ``sub<i>``).  Returns (x, aux_sum, caches): aux_sum with each MoE
+    layer's router vector added in layer order, as the reference's carry."""
+    out = {}
+    for i, (s, layer) in enumerate(layers.items()):
+        x, out[s], aux = _apply_sublayer(cfg, i, layer, x, cache=caches[s], **kw)
+        if aux is not None:
+            aux_sum = aux_sum + aux
+    return x, aux_sum, out
+
+
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of the 2-D products, recompute everything else (the kernels
+    reached through ctypes are not aten ops, so they run again, as the
+    reference's ``pallas_call``s are not ``dot_general``s)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, policy: str):
+    """``fn`` (a unit of the stack in train mode) under the reference's
+    remat policies, through ``torch.utils.checkpoint`` (non-reentrant):
+    ``block`` keeps only the unit's inputs and runs it again in the
+    backward; ``dots`` keeps the outputs of ``aten.mm`` / ``aten.addmm``
+    and runs the rest again; ``none`` and ``full`` return ``fn`` itself —
+    the reference's ``everything_saveable`` keeps what no remat keeps, so
+    the port runs such a unit unwrapped.  Every kernel of the stack is
+    deterministic, so each policy gives ``none``'s loss and gradients bit
+    for bit."""
+    if policy in ("none", "full"):
+        return fn
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    if policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False, context_fn=ctx)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)      # "block"
+
+
 def decoder_stack(
     cfg: ModelConfig,
     stacked_params: Dict[str, Any],
@@ -160,6 +206,7 @@ def decoder_stack(
     causal: Optional[bool] = None,
     paged: Optional[Dict[str, torch.Tensor]] = None,
     cross_kv: Optional[torch.Tensor] = None,
+    remat: str = "none",
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
     """Runs every layer.  Returns (x, caches, aux_sum).  Caches are in the
     reference's stacked tree ``{"sub<i>": {"attn": {...}}}`` or
@@ -178,7 +225,9 @@ def decoder_stack(
     ``k``/``v`` (num_units, B, T_enc, Hkv, D), ``len`` (num_units, B)),
     which decode mode reads from ``caches``.  ``aux_sum``
     is the MoE layers' router vectors summed (``moe.aux_shape``; a zero
-    scalar for a dense model)."""
+    scalar for a dense model).  In train mode with autograd on, each unit
+    runs under ``_remat_wrap(·, remat)``; anything else (``no_grad``, the
+    other modes) runs it unwrapped."""
     check_supported(cfg)
     subs = [f"sub{i}" for i in range(unit_size(cfg))]
     # one unbind per stacked leaf: under autograd its backward stacks the
@@ -188,18 +237,21 @@ def decoder_stack(
     in_place = mode in ("decode", "chunk")
     per_cache = ({s: tree_map(lambda c: c.unbind(0), caches[s]) for s in subs}
                  if in_place else None)
+    kw = dict(cfg=cfg, mode=mode, positions=positions, causal=causal, cache_pos=cache_pos,
+              paged=paged, cross_kv=cross_kv)
+    train = mode == "train" and torch.is_grad_enabled()
     aux_sum = torch.zeros(moe.aux_shape(cfg), dtype=torch.float32, device=x.device)
     new = {s: [] for s in subs}
     for j in range(num_units(cfg)):
-        for i, s in enumerate(subs):
-            layer = tree_map(lambda ps: ps[j], per_unit[s])
-            cache = tree_map(lambda cs: cs[j], per_cache[s]) if per_cache else None
-            x, cache, aux = _apply_sublayer(cfg, i, layer, x, mode=mode, positions=positions,
-                                            causal=causal, cache=cache, cache_pos=cache_pos,
-                                            paged=paged, cross_kv=cross_kv)
-            if aux is not None:
-                aux_sum = aux_sum + aux
-            new[s].append(cache)
+        layers = {s: tree_map(lambda ps: ps[j], per_unit[s]) for s in subs}
+        unit_caches = ({s: tree_map(lambda cs: cs[j], per_cache[s]) for s in subs}
+                       if per_cache else dict.fromkeys(subs))
+        # bound with partial, not a closure over the loop: the backward may
+        # run the unit again after the loop has moved on
+        unit = functools.partial(_unit_apply, layers=layers, caches=unit_caches, **kw)
+        x, aux_sum, unit_caches = _remat_wrap(unit, remat if train else "none")(x, aux_sum)
+        for s in subs:
+            new[s].append(unit_caches[s])
     if in_place:
         return x, caches, aux_sum
     if mode == "prefill":

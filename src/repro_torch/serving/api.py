@@ -104,13 +104,13 @@ class LLM:
                  default_params: Optional[SamplingParams] = None,
                  clock: Callable[[], float] = time.time,
                  metrics: Optional[Any] = None, trace: Optional[Any] = None,
-                 profile: bool = False):
+                 profile: bool = False, on_step: Optional[Callable[[Engine], None]] = None):
         self.engine = Engine(
             model, slots=slots, max_len=max_len, extra_batch=extra_batch,
             cache_layout=cache_layout,
             page_size=page_size, num_pages=num_pages, prefix_cache=prefix_cache,
             prefill_chunk=prefill_chunk, max_queue=max_queue, preempt=preempt, faults=faults,
-            clock=clock, metrics=metrics, trace=trace, profile=profile,
+            clock=clock, metrics=metrics, trace=trace, profile=profile, on_step=on_step,
         )
         self.default_params = default_params or SamplingParams()
         self._uid = 0
@@ -122,7 +122,7 @@ class LLM:
         onto the engine, its sampling knobs (temperature, top_k, top_p, seed,
         deadline_ms) become the default ``SamplingParams``; extra keyword
         args (``extra_batch``, ``num_pages``, ``clock``, ``metrics``,
-        ``trace``, ``faults``, ``profile``) pass through to the
+        ``trace``, ``faults``, ``profile``, ``on_step``) pass through to the
         constructor."""
         return cls(
             model,

@@ -88,6 +88,8 @@ stamped by the engine's clock.  Both are host-side appends.
 ``profile=True`` wraps the decode dispatch and the prefills in named
 ``torch.profiler`` scopes and accumulates the ``decode`` and ``host_sync``
 spans of each step in ``Engine.step_timer`` (host clock, no device sync).
+``on_step(engine)``, called at the end of every step, is the launchers'
+hook for periodic health and metrics output.
 """
 from __future__ import annotations
 
@@ -239,7 +241,8 @@ class Engine:
                  preempt: bool = False, faults: Optional[Any] = None,
                  clock: Callable[[], float] = time.time,
                  metrics: Optional[MetricsRegistry] = None,
-                 trace: Optional[TraceRecorder] = None, profile: bool = False):
+                 trace: Optional[TraceRecorder] = None, profile: bool = False,
+                 on_step: Optional[Callable[["Engine"], None]] = None):
         if cache_layout not in ("dense", "paged"):
             raise ValueError(f"unknown cache_layout {cache_layout!r}")
         self.model = model
@@ -338,6 +341,7 @@ class Engine:
         self.trace = trace
         self.profile = bool(profile)
         self.step_timer = StepTimer() if self.profile else None
+        self.on_step = on_step
         self._mc = None
         if metrics is not None:
             fam = metrics.counter(
@@ -1016,6 +1020,8 @@ class Engine:
         if self.metrics is not None:
             self._c_steps.inc()
             self._observe_gauges()
+        if self.on_step is not None:
+            self.on_step(self)
         return len(active)
 
     # -------------------------------------------------------------- health

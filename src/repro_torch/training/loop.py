@@ -127,7 +127,9 @@ class _DevicePrefetch:
 
 class Trainer:
     """Drive it with ``run(batches)`` for a whole schedule, or
-    ``prepare(batches)`` + repeated ``step()`` for finer control."""
+    ``prepare(batches)`` + repeated ``step()`` for finer control.  ``pc``
+    defaults to the model's ``ParallelConfig``, whose ``remat_policy`` the
+    stack reads; a ``pc`` with another policy is refused."""
 
     def __init__(
         self,
@@ -141,7 +143,12 @@ class Trainer:
         metrics: Optional[MetricsRegistry] = None,
         profile: bool = False,
     ):
-        self.model, self.tc, self.pc = model, tc, pc or ParallelConfig()
+        if pc is not None and pc.remat_policy != model.pc.remat_policy:
+            raise ValueError(
+                f"pc.remat_policy {pc.remat_policy!r} differs from the model's "
+                f"{model.pc.remat_policy!r}: the stack reads the model's; build it with this "
+                "ParallelConfig (build_model(cfg, pc))")
+        self.model, self.tc, self.pc = model, tc, pc or model.pc
         self.hooks = list(hooks or [])
         self.verbose = verbose
         self.peak_flops = peak_flops
@@ -328,5 +335,6 @@ def run_training(model: Model, tc: TrainConfig, batches: Iterator[Dict[str, np.n
                  hooks: Optional[List[Callable[[int, Dict[str, float]], None]]] = None,
                  verbose: bool = True):
     """Functional wrapper over :class:`Trainer`; returns ``(state, history)``.
-    ``pc`` sets the optimizer state's dtype (``optimizer_state_dtype``)."""
+    ``pc`` (default: the model's) sets the optimizer state's dtype
+    (``optimizer_state_dtype``)."""
     return Trainer(model, tc, pc=pc, hooks=hooks, verbose=verbose).run(batches, state=state)

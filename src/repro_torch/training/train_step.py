@@ -52,8 +52,9 @@ class TrainState:
 
 def init_train_state(model: Model, pc: Optional[ParallelConfig] = None) -> TrainState:
     """The model's own parameters as the master copy (training updates the
-    model in place) and zero AdamW moments in ``pc.optimizer_state_dtype``."""
-    pc = pc or ParallelConfig()
+    model in place) and zero AdamW moments in ``pc.optimizer_state_dtype``
+    (``pc`` defaults to the model's)."""
+    pc = pc or model.pc
     params = model.params.tree()
     return TrainState(params, adamw.init_state(params, dtype_of(pc.optimizer_state_dtype)))
 
