@@ -28,7 +28,10 @@ trained (rank 8 on wq/wv, 10 steps); ESM-2 650M training through the data
 plane (a sharded store, size-aware batches behind a background producer,
 10 ``Trainer.run`` steps beside the ``ClusterSampler`` run), a bit-exact
 resume through it (2 of 33 layers) and the training launcher
-``launch.train.main`` with a profiler trace; and SSM training through
+``launch.train.main`` with a profiler trace; ESM-2 650M trained 3 steps by
+the sharded ``Trainer`` on a (1, 1) mesh in a world of one process over
+NCCL, bit for bit the mesh-free run, and by ``launch.train`` under
+``torchrun --mesh 1x1``; and SSM training through
 ``Trainer.run`` at the full width and depth of Mamba2-2.7B (fp32 master
 weights and AdamW moments, 6 steps of one 2 x 1024 micro-batch of packed
 tokens under remat ``block``), reduced Jamba's hybrid unit and
@@ -43,8 +46,8 @@ tokens through ``launch.train.make_batches`` and ``Trainer.run``, then
 generating for 64 sources through ``launch.serve.generate``;
 Whisper-medium serving 64 prompts through ``LLM.generate`` with one
 audio of 1 500 frames for all (dense and paged cache), then 32 audios
-through ``launch.serve.generate``; InternVL2-26B at full width and depth
-serving 32 prompts behind one image of 256 rows (dense and paged), then
+through ``launch.serve.generate``; InternVL2-26B at full width, 24 of its
+48 layers, serving 32 prompts behind one image of 256 rows (dense and paged), then
 text-only; all with seeded random weights, checking what comes out of each.  Prints per-kernel times beside their bounds, the
 embedding throughput, the training step time, tokens/s, MFU and peak
 memory, the generation tokens/s, TTFT, decode-step time and idle share, the
@@ -58,6 +61,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -456,6 +460,12 @@ ATTN_EDGE_CASES = [
     ("non-multiple S/T, D=128, causal window", dict(B=2, S=300, T=300, H=4, Hkv=2, D=128),
      dict(causal=True, window=100)),
     ("q_offset", dict(B=2, S=40, T=104, H=4, Hkv=2, D=128), dict(causal=True, q_offset=64)),
+    # a rank of context parallelism over model=2: Qwen2-7B's heads, its
+    # 512 query rows of a 1024-row sequence against all the keys
+    ("qwen2-7b context-parallel rank 0", dict(B=1, S=512, T=1024, H=28, Hkv=4, D=128),
+     dict(causal=True, q_offset=0)),
+    ("qwen2-7b context-parallel rank 1", dict(B=1, S=512, T=1024, H=28, Hkv=4, D=128),
+     dict(causal=True, q_offset=512)),
     ("fully-masked rows", dict(B=1, S=24, T=24, H=2, Hkv=2, D=64), dict(causal=True, q_offset=-8)),
     ("no visible key at all", dict(B=1, S=16, T=130, H=2, Hkv=1, D=128),
      dict(causal=True, q_offset=-200)),
@@ -1682,6 +1692,174 @@ def launcher_phase(torch, counters, card):
     check(launches == want, "launcher launch counts")
     tmp.cleanup()
     return launches, set(shapes)
+
+
+# the launcher's own run in the mesh phase, as a user starts it; at the
+# launcher's default peak lr (1e-3, warmup 1 step) ESM-2 650M's loss rises
+# in its first steps, so the run takes 1e-5
+MESH_LAUNCH = ["--arch", "esm2-650m", "--mesh", "1x1", "--steps", "3", "--batch", "8",
+               "--seq", "1024", "--lr", "1e-5"]
+
+
+def mesh_train_phase(torch, counters, card):
+    """Slice 8's training half on the card, in a world of one process over
+    NCCL (a file store in a temporary directory): ESM-2 650M at full width
+    and depth trains 3 steps of 8 x 1024 (MLM, remat ``block``) through the
+    sharded ``Trainer`` on a (1, 1) mesh, and through the mesh-free
+    ``Trainer`` on the same seeded batches (the ESM-2 training phase's
+    pipeline).  Each step's loss and grad norm, the gradient digest of the
+    first batch, the fp32 params after the third step and the launch counts
+    must be equal.  Prints one more mesh step's device ms, wall ms, idle
+    share, peak memory and the device ms of its collectives.  Then
+    ``launch.train`` under ``torchrun --standalone --nproc_per_node 1`` with
+    ``MESH_LAUNCH`` must finish with a falling loss.  Returns the mesh run's
+    launch counts and its figures."""
+    import re
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import ParallelConfig, TrainConfig
+    from repro_torch.core.module import tree_leaves
+    from repro_torch.data.dataset import build_synthetic_protein_memmap
+    from repro_torch.data.pipeline import MLMBatches
+    from repro_torch.data.sampler import ClusterSampler, greedy_length_clusters
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.training.loop import Trainer
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = get_config("esm2-650m")
+    steps, micro, seq = 3, 8, 1024
+    tc = TrainConfig(global_batch=micro, seq_len=seq, learning_rate=1e-4, min_lr=1e-5,
+                     warmup_steps=1, decay_steps=2, total_steps=steps, schedule="wsd",
+                     weight_decay=0.01, beta2=0.98, grad_clip=1.0, log_every=1)
+    tmp = tempfile.TemporaryDirectory()
+    ds, tok = build_synthetic_protein_memmap(f"{tmp.name}/prot", n=1024, seed=0, min_len=100,
+                                             max_len=1023)
+
+    def pipe():
+        sampler = ClusterSampler(greedy_length_clusters(ds.lengths(), 64), seed=0)
+        return MLMBatches(ds, tok, sampler, micro, seq, mask_prob=cfg.mlm_mask_prob, seed=0)
+
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    def run(model):
+        """(gradient digest of the first batch, [(loss, grad norm)] a step,
+        launches, trainer) of a fresh model."""
+        first = {k: torch.from_numpy(v).to(model.device) for k, v in next(iter(pipe())).items()}
+        params = model.params.tree()
+        loss, _ = model.loss_fn(model.compute_params(params), first)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        digest = tree_digest(torch, {f"{i:04d}": g for i, g in enumerate(grads)})
+        del grads, loss
+        for fn in counters.values():
+            fn.launches = 0
+        trainer = Trainer(model, tc, verbose=False)
+        _, hist = trainer.run(pipe())
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        return digest, [(h["loss"], h["grad_norm"]) for h in hist], launches, trainer
+
+    t0 = time.perf_counter()
+    free = build_model(cfg, device="cuda", seed=0)
+    f_digest, f_hist, f_launches, trainer = run(free)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_free = time.perf_counter() - t0
+    dist.init_process_group("nccl", store=dist.FileStore(f"{tmp.name}/store", 1), rank=0,
+                            world_size=1)
+    try:
+        t0 = time.perf_counter()
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        model = build_model(cfg, ParallelConfig(), mesh, device="cuda", seed=0)
+        digest, hist, launches, trainer = run(model)
+        t_mesh = time.perf_counter() - t0
+        differ = [i for i, (a, b) in enumerate(zip(tree_leaves(model.params.tree()),
+                                                    tree_leaves(free.params.tree())))
+                  if not torch.equal(a, b)]
+        n_leaves = len(tree_leaves(free.params.tree()))
+        del free
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = {k: v * steps for k, v in step_launches(cfg.num_layers, "block").items()}
+        print(f"main path: sharded Trainer.run on a (1, 1) mesh over NCCL ({model.pc}), ESM-2 "
+              f"650M, {steps} steps of {micro}x{seq} ({t_mesh:.1f} s; the mesh-free run "
+              f"{t_free:.1f} s): launches {launches} (mesh-free {f_launches}, want {want})")
+        print(f"mesh vs mesh-free: losses and grad norms {hist} vs {f_hist}; first-batch gradient "
+              f"digest {digest} vs {f_digest}; {len(differ)} of {n_leaves} fp32 param leaves "
+              f"differ after step {steps}")
+        expect(hist == f_hist, "the mesh run's losses or grad norms differ from the mesh-free run")
+        expect(digest == f_digest, "the mesh run's gradients differ from the mesh-free run's")
+        expect(not differ, "the mesh run's params differ from the mesh-free run's")
+        expect(launches == f_launches == want, "mesh training launch counts")
+        expect(all(math.isfinite(x) for h in hist for x in h), "non-finite loss")
+
+        # one more step of the mesh path: its cost, and what its collectives take
+        batch = {k: torch.from_numpy(v).to(model.device) for k, v in next(iter(pipe())).items()}
+        step_fn = make_train_step(model, tc)
+        state = trainer.state
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, groups, kern = kernel_groups(prof, DeviceType)
+        comm = [(n, t, c) for n, t, c in kern if "nccl" in n.lower()]
+        copies = [(n, t, c) for n, t, c in kern if "memcpy" in n.lower()]
+        nccl_ms = sum(t for _, t, _ in comm)
+        print(f"mesh train step (ESM-2 650M, {micro}x{seq}, (1, 1) mesh, NCCL world of one) on "
+              f"{card}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms (under the profiler: "
+              f"wall {prof_wall_ms:.1f} ms, idle share {1 - busy_ms / prof_wall_ms:.3f}), peak "
+              f"memory {peak_gb:.2f} GB; NCCL kernels {nccl_ms:.3f} ms a step ("
+              + ", ".join(f"{n[:60]} {t:.3f} ms {c}x" for n, t, c in comm) + "); device copies "
+              + ", ".join(f"{n[:40]} {t:.3f} ms {c}x" for n, t, c in copies))
+        print("mesh step by group: " + ", ".join(f"{k} {v:.1f} ms" for k, v in groups.items() if v))
+        figures = {"wall_ms": wall_ms, "device_ms": busy_ms,
+                   "idle_share": 1 - busy_ms / prof_wall_ms, "peak_gb": peak_gb,
+                   "nccl_ms": nccl_ms, "nccl_kernels": [[n, t, c] for n, t, c in comm],
+                   "copies": [[n, t, c] for n, t, c in copies]}
+        del model, trainer, state, step_fn, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # the entry point a user runs: the launcher under torchrun
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "repro_torch.launch.train", *MESH_LAUNCH, "--data-dir", f"{tmp.name}/data"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       capture_output=True, text=True, timeout=600)
+    final = [ln for ln in r.stdout.splitlines() if ln.startswith(("arch=", "step ", "final loss"))]
+    print(f"main path: torchrun --standalone --nproc_per_node 1 -m repro_torch.launch.train "
+          f"{' '.join(MESH_LAUNCH)} ({time.perf_counter() - t0:.1f} s): rc {r.returncode}; "
+          + " | ".join(final))
+    m = re.search(r"final loss ([0-9.]+) \(from ([0-9.]+)\)", r.stdout)
+    if r.returncode != 0:
+        print(r.stderr[-3000:])
+    expect(r.returncode == 0 and m is not None, "the launcher under torchrun failed")
+    expect(m is not None and float(m.group(1)) < float(m.group(2)),
+           "the launcher's loss did not fall")
+    figures["launcher_losses"] = [float(m.group(2)), float(m.group(1))] if m else None
+    tmp.cleanup()
+    check(not failed, "mesh training phase: " + "; ".join(failed))
+    return launches, figures
 
 
 def check_rmsnorm(torch, F, ref, rmsnorm, randn, card):
@@ -3620,8 +3798,8 @@ class MoeLog:
     def __enter__(self):
         apply, calls = self.moe.moe_apply, self.calls
 
-        def spy(cfg, params, x):
-            out, aux = apply(cfg, params, x)
+        def spy(cfg, params, x, ctx=None):
+            out, aux = apply(cfg, params, x, ctx)
             calls.append((x.shape[0] * x.shape[1], aux[2:4]))
             return out, aux
 
@@ -3911,9 +4089,9 @@ def moe_layer_check(torch, model, plain_cfg, prompts, expect):
     for prompt in prompts:
         seen = []
 
-        def spy(cfg, params, x):
+        def spy(cfg, params, x, ctx=None):
             with RouteLog(moe) as log:
-                out, aux = apply(cfg, params, x)
+                out, aux = apply(cfg, params, x, ctx)
             seen.append((params, x, out, log.calls))
             return out, aux
 
@@ -5879,6 +6057,13 @@ def main() -> int:
           f"{len(resume_shapes)}, launcher {len(launcher_shapes)})")
     check_bucket_kernels(torch, ref, counters, bucket_shapes, randn, get_config("esm2-650m"))
 
+    clock.mark("6c mesh train")
+    # ---- 6c. slice 8's training half: the sharded Trainer on a (1, 1) mesh
+    # over NCCL against the mesh-free run, then the launcher under torchrun
+    phase_launches["mesh_train"], mesh_figures = mesh_train_phase(torch, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     clock.mark("7 qwen2 dense")
     # ---- 7. slice 4a: Qwen2-7B generation through LLM.generate; the
     # paths from here to the MoE training phase run RMSNorm, no LayerNorm
@@ -6025,7 +6210,7 @@ def main() -> int:
                       "remat_esm2": {p: dict(zip(("loss", "digest", "wall_ms", "device_ms",
                                                   "peak_gb", "peak_above_start_gb"), v))
                                      for p, v in remat.items()},
-                      "mamba2_train_peak_gb": ssm_peak_gb}))
+                      "mamba2_train_peak_gb": ssm_peak_gb, "mesh_train_esm2": mesh_figures}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

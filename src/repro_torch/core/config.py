@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 
 def _round_up(x: int, m: int) -> int:
@@ -162,21 +162,42 @@ class ModelConfig:
 REMAT_POLICIES = ("none", "block", "dots", "full")
 
 
+ATTENTION_PARALLELISM = ("head_tp", "context")
+
+
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The reference's layout knobs that a single GPU reads (the mesh
-    fields come with multi-GPU).
+    """How a model maps onto the mesh (``parallel/sharding.py``), with the
+    reference's fields and defaults.
 
+    attention_parallelism — what the ``model`` axis splits in training:
+      * "head_tp" — the query heads and the MLP's d_ff (Megatron): the K/V
+                    heads too where ``num_kv_heads % tp == 0``, else every
+                    rank holds all K/V heads and uses its query heads' ones;
+                    needs ``num_heads % tp == 0`` (``validate``);
+      * "context" — the sequence: a rank holds its rows of the residual
+                    stream and all-gathers K/V in attention; no head
+                    constraint.
+    fsdp_axes — the mesh axes the master params and the AdamW moments are
+      sharded over (FSDP); each step gathers their compute view over them.
     remat_policy — what a training step keeps of each unit of the stack
-    for the backward (``models/transformer.py::_remat_wrap``), with the
-    reference's values and default:
+      for the backward (``models/transformer.py::_remat_wrap``):
       * "none"  — every activation;
       * "block" — only the unit's inputs; the unit runs again in the
                   backward;
       * "dots"  — the outputs of the 2-D matmuls; the rest runs again;
       * "full"  — everything, as "none".
-    optimizer_state_dtype — the AdamW moments' dtype."""
+    optimizer_state_dtype — the AdamW moments' dtype.
 
+    The reference's ``expert_axis`` and ``shard_cache_seq`` come with the
+    paths that read them (expert parallelism, the sharded serving cache);
+    until then ``axis_rules`` maps "experts" and "cache_seq" to ``model``,
+    their defaults.  Its ``scan_layers`` and ``donate_params`` have no
+    counterpart: the port loops over the units and updates the state in
+    place."""
+
+    attention_parallelism: str = "head_tp"   # head_tp | context
+    fsdp_axes: Tuple[str, ...] = ("data",)   # axes weights are FSDP-sharded over
     remat_policy: str = "block"              # none | block | dots | full
     optimizer_state_dtype: str = "float32"   # float32 | bfloat16
 
@@ -184,6 +205,18 @@ class ParallelConfig:
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {self.remat_policy!r} is not one of "
                              f"{REMAT_POLICIES}")
+        if self.attention_parallelism not in ATTENTION_PARALLELISM:
+            raise ValueError(f"attention_parallelism {self.attention_parallelism!r} is not one "
+                             f"of {ATTENTION_PARALLELISM}")
+        if "model" in self.fsdp_axes:
+            raise ValueError("fsdp_axes take the batch axes (pod, data), not model")
+
+    def validate(self, mc: ModelConfig, tp: int) -> "ParallelConfig":
+        """head_tp -> context when the heads do not divide over ``tp``, the
+        reference's rule."""
+        if self.attention_parallelism == "head_tp" and mc.num_heads % tp != 0:
+            return dataclasses.replace(self, attention_parallelism="context")
+        return self
 
 
 @dataclass(frozen=True)

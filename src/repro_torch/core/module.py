@@ -67,6 +67,13 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_get(tree: Any, path: Tuple[str, ...]) -> Any:
+    """The node of a nested dict at ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def tree_leaves(tree: Any) -> List[Any]:
     """The leaves of a nested dict in sorted-key order (the reference's
     ``jax.tree.leaves`` order)."""
@@ -103,12 +110,21 @@ _SSM_INITS = {"ssm_a": _ssm_a, "ssm_dt_bias": _ssm_dt_bias}
 
 
 def materialize(defs: Dict[str, Any], seed: int, param_dtype: torch.dtype,
-                device: torch.device) -> Dict[str, Any]:
-    """Instantiate a P-tree into a nested dict of tensors on ``device``."""
+                device: torch.device,
+                keep: Optional[Callable[[Tuple[str, ...], torch.Tensor], torch.Tensor]] = None
+                ) -> Dict[str, Any]:
+    """Instantiate a P-tree into a nested dict of tensors on ``device``.
+    ``keep(path, leaf)``, when given, takes each whole leaf as soon as it is
+    drawn and returns what the tree keeps of it (a mesh rank's shard), so
+    one whole leaf at a time is alive."""
 
     def build(tree, path=()):
         if isinstance(tree, dict):
             return {k: build(v, path + (k,)) for k, v in tree.items()}
+        leaf = draw(tree, path)
+        return keep(path, leaf) if keep is not None else leaf
+
+    def draw(tree, path):
         dt = dtype_of(tree.dtype) if tree.dtype else param_dtype
         if tree.init == "zeros":
             return torch.zeros(tree.shape, dtype=dt, device=device)

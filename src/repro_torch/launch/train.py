@@ -1,15 +1,23 @@
 """End-to-end training launcher (the port's copy of the reference's
-``launch/train.py``, for one card).
+``launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch esm2-650m \\
         --steps 200 --batch 8 --seq 1024 [--smoke] [--accum 4] \\
         [--sharded-data] [--max-tokens-per-batch 8192] [--producer 4] \\
         [--resume auto|<ckpt_dir>] [--device cpu]
 
+    PYTHONPATH=src torchrun --nproc_per_node N -m repro_torch.launch.train \\
+        --arch esm2-650m --mesh DxM ...
+
 The model runs on the GPU unless ``--device`` names another device
 (``--device cpu`` with ``--smoke``, the reduced config, is the practical
-mode on a CPU).  ``--mesh`` takes ``none``, or ``auto`` while one device
-is visible: the multi-GPU paths are not ported yet.
+mode on a CPU).  ``--mesh`` (``build_mesh``): ``none`` trains on one
+device; ``auto`` takes a (world, 1) mesh when torchrun started several
+ranks, else none; ``DxM`` a (data, model) mesh, whose D·M must equal
+torchrun's ``WORLD_SIZE``.  The ranks meet over NCCL, each on
+``cuda:LOCAL_RANK``, or over Gloo with ``--device cpu``; without torchrun
+a ``1x1`` mesh is a world of one.  Size-aware batches then round their rows
+to the data ranks, and only rank 0 prints and writes files.
 
 The data plane: ``--sharded-data`` feeds from the multi-shard memmap store
 (``data/store.py``) instead of the single-file dataset;
@@ -33,15 +41,17 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.config import TrainConfig
+from repro_torch.core.config import ParallelConfig, TrainConfig
 from repro_torch.data.dataset import build_synthetic_protein_memmap, build_synthetic_protein_store
 from repro_torch.data.pipeline import CLMBatches, MLMBatches
 from repro_torch.data.producer import BackgroundProducer
 from repro_torch.data.sampler import ClusterSampler, greedy_length_clusters
 from repro_torch.data.size_aware import SizeAwareSampler
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models.model import build_model, resolve_device
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.profile import trace_ctx
@@ -71,23 +81,25 @@ class Seq2SeqBatches:
 
 def make_batches(cfg, tc: TrainConfig, data_dir: str, seed: int = 0, *,
                  sharded: bool = False, max_tokens: int = 0,
-                 producer_depth: int = 0):
+                 producer_depth: int = 0, round_to: int = 1):
     """The batch pipeline object (not an iterator), so that the Trainer can
     checkpoint and restore its cursor.
 
     ``sharded`` feeds from the sharded store instead of the single-file
     dataset; ``max_tokens`` > 0 switches to size-aware batches, each under
     that many padded tokens; ``producer_depth`` > 0 wraps the pipeline in a
-    background producer.  An encoder-decoder takes ``Seq2SeqBatches`` of
-    fixed shape (size-aware batching does not apply to it, as in the
-    reference)."""
+    background producer; ``round_to`` rounds a size-aware batch's rows to
+    a multiple of it (the data ranks).  An encoder-decoder takes
+    ``Seq2SeqBatches`` of fixed shape (size-aware batching does not apply to
+    it, as in the reference)."""
     if sharded:
         ds, tok = build_synthetic_protein_store(f"{data_dir}/protein_store", n=2000, seed=seed)
     else:
         ds, tok = build_synthetic_protein_memmap(f"{data_dir}/protein", n=2000, seed=seed)
     lengths = ds.lengths()
     base = ClusterSampler(greedy_length_clusters(lengths, 64), seed=seed)
-    size_aware = (SizeAwareSampler(np.minimum(lengths, tc.seq_len), max_tokens, base=base)
+    size_aware = (SizeAwareSampler(np.minimum(lengths, tc.seq_len), max_tokens, base=base,
+                                   round_to=round_to)
                   if max_tokens else None)
     if cfg.objective == "mlm":
         pipe = MLMBatches(ds, tok, base if size_aware is None else size_aware,
@@ -103,14 +115,64 @@ def make_batches(cfg, tc: TrainConfig, data_dir: str, seed: int = 0, *,
     return pipe
 
 
-def check_mesh(spec: str) -> None:
-    """``none``, or ``auto`` while at most one device is visible: the port
-    trains on one card."""
-    if spec == "none" or (spec == "auto" and torch.cuda.device_count() <= 1):
-        return
-    raise NotImplementedError(
-        f"--mesh {spec}: multi-GPU training is not ported yet (ROADMAP: slice 8); "
-        "use --mesh none")
+def _world() -> int:
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def rank_device(device: Optional[str]) -> torch.device:
+    """``resolve_device``, on torchrun's ``cuda:LOCAL_RANK`` for a GPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def init_distributed(device: torch.device) -> bool:
+    """Start the process group unless one stands: from torchrun's
+    environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``),
+    else a world of one over a file store.  NCCL for a CUDA device, Gloo for
+    the CPU.  Returns whether it started one."""
+    if dist.is_initialized():
+        return False
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "MASTER_ADDR" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        store = dist.FileStore(os.path.join(tempfile.mkdtemp(), "store"), 1)
+        dist.init_process_group(backend, store=store, rank=0, world_size=1)
+    return True
+
+
+def build_mesh(spec: str, device: torch.device):
+    """``none`` -> no mesh (one process); ``auto`` -> (world, 1) when the
+    world has several ranks, else no mesh; ``DxM`` -> a (data, model) mesh
+    of D·M = ``WORLD_SIZE`` ranks.  A mesh the world cannot hold raises, and
+    so does ``none`` on a world of several ranks (it would train one replica
+    a rank).  Starts the process group a mesh needs (``init_distributed``)."""
+    world = _world()
+    if spec == "none":
+        if world > 1:
+            raise ValueError(f"--mesh none on a world of {world} ranks would train one replica "
+                             "a rank; give --mesh auto or DxM")
+        return None
+    if spec == "auto":
+        if world == 1:
+            return None
+        shape = (world, 1)
+    else:
+        try:
+            shape = tuple(int(x) for x in spec.lower().split("x"))
+        except ValueError:
+            raise ValueError(f"--mesh wants none, auto or DxM (e.g. 2x4), got {spec!r}")
+        if len(shape) != 2 or shape[0] * shape[1] != world:
+            raise ValueError(f"--mesh {spec} needs a world of "
+                             f"{shape[0] * shape[-1]} ranks (torchrun's WORLD_SIZE); it has "
+                             f"{world}")
+    init_distributed(device)
+    return make_test_mesh(shape, ("data", "model"))
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -124,7 +186,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--accum", type=int, default=1,
                    help="gradient-accumulation microbatches per step")
     p.add_argument("--mesh", default="auto",
-                   help="none | auto (one visible device); other meshes need slice 8")
+                   help="none | auto | DxM, e.g. 4x2 = (data=4, model=2); D*M = WORLD_SIZE")
     p.add_argument("--device", default=None,
                    help="device to train on (default: the GPU; 'cpu' runs on the CPU)")
     p.add_argument("--smoke", action="store_true", help="reduced config")
@@ -153,8 +215,19 @@ def main(argv: Optional[List[str]] = None) -> None:
                         "print the step timer")
     a = p.parse_args(argv)
 
-    check_mesh(a.mesh)
-    device = resolve_device(a.device)
+    device = rank_device(a.device)
+    started = not dist.is_initialized()
+    mesh = build_mesh(a.mesh, device)
+    try:
+        _train(a, device, mesh)
+    finally:
+        if mesh is not None and started:
+            dist.destroy_process_group()
+
+
+def _train(a, device: torch.device, mesh) -> None:
+    first = mesh is None or dist.get_rank() == 0
+    say = print if first else (lambda *_, **__: None)
     cfg = get_smoke_config(a.arch) if a.smoke else get_config(a.arch)
     tc = TrainConfig(
         global_batch=a.batch, seq_len=a.seq, learning_rate=a.lr, accum_steps=a.accum,
@@ -162,17 +235,24 @@ def main(argv: Optional[List[str]] = None) -> None:
         decay_steps=max(a.steps // 10, 1), ckpt_dir=a.ckpt_dir,
         ckpt_every=a.ckpt_every or (a.steps if a.ckpt_dir else 0),
     )
-    print("resolved TrainConfig:")
-    print(json.dumps(dataclasses.asdict(tc), indent=1))
-    model = build_model(cfg, device=device)
-    print(f"arch={cfg.name} params(analytic)={cfg.param_count():,} mesh=None device={device}")
-    batches = make_batches(cfg, tc, a.data_dir, sharded=a.sharded_data,
-                           max_tokens=a.max_tokens_per_batch, producer_depth=a.producer)
+    say("resolved TrainConfig:")
+    say(json.dumps(dataclasses.asdict(tc), indent=1))
+    model = build_model(cfg, ParallelConfig(), mesh, device=device)
+    layout = (f"mesh={model.ctx.sizes} {model.pc.attention_parallelism}" if mesh is not None
+              else "mesh=None")
+    say(f"arch={cfg.name} params(analytic)={cfg.param_count():,} {layout} device={device}")
+    # every rank draws the same global batches from its own copy of the
+    # synthetic data (written in parallel, so one directory a rank), and
+    # size-aware batches keep their rows divisible by the data ranks
+    data_dir = a.data_dir if mesh is None else os.path.join(a.data_dir, f"rank{dist.get_rank()}")
+    batches = make_batches(cfg, tc, data_dir, sharded=a.sharded_data,
+                           max_tokens=a.max_tokens_per_batch, producer_depth=a.producer,
+                           round_to=model.ctx.data_ranks)
     resume = a.resume
     if resume == "auto":
         resume = ckpt.latest_step(a.ckpt_dir) or ""
-        print(f"resume: {resume or '(no checkpoint found — cold start)'}")
-    reg = MetricsRegistry() if a.metrics_dir else None
+        say(f"resume: {resume or '(no checkpoint found — cold start)'}")
+    reg = MetricsRegistry() if a.metrics_dir and first else None
     hooks = []
     if reg is not None:
         os.makedirs(a.metrics_dir, exist_ok=True)
@@ -184,20 +264,20 @@ def main(argv: Optional[List[str]] = None) -> None:
         hooks.append(_dump)
     trainer = Trainer(model, tc, hooks=hooks, metrics=reg, profile=bool(a.profile))
     try:
-        with trace_ctx(a.profile):
+        with trace_ctx(a.profile if first else ""):
             _, history = trainer.run(batches, resume_from=resume or None)
     finally:
         if hasattr(batches, "close"):
             batches.close()
     if a.profile:
-        print("step timer:")
+        say("step timer:")
         for line in trainer.step_timer.report().splitlines():
-            print(f"  {line}")
-    if a.history_out:
+            say(f"  {line}")
+    if a.history_out and first:
         with open(a.history_out, "w") as f:
             json.dump(history, f, indent=1)
     if history:
-        print(f"final loss {history[-1]['loss']:.4f} (from {history[0]['loss']:.4f})  "
+        say(f"final loss {history[-1]['loss']:.4f} (from {history[0]['loss']:.4f})  "
               f"{history[-1]['tokens_per_sec']:.0f} tok/s  "
               f"tokens_seen={history[-1]['tokens_seen']:.0f}")
 

@@ -59,11 +59,11 @@ def attention_defs(cfg: ModelConfig, cross: bool = False) -> Dict[str, P]:
 
 
 def _project_q(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """q (B,S,H,D)."""
+    """q (B,S,H,D); H is the heads ``wq`` holds (a head-TP rank's share)."""
     q = x @ params["wq"].to(x.dtype)
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
-    return q.reshape(*x.shape[:2], cfg.num_heads, cfg.resolved_head_dim)
+    return q.reshape(*x.shape[:2], -1, cfg.resolved_head_dim)
 
 
 def _project_qkv(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor,
@@ -79,13 +79,33 @@ def _project_qkv(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor,
     if "bk" in params:
         k = k + params["bk"].to(cdt)
         v = v + params["bv"].to(cdt)
-    return (_project_q(cfg, params, x), k.reshape(B, T, cfg.num_kv_heads, hd),
-            v.reshape(B, T, cfg.num_kv_heads, hd))
+    return (_project_q(cfg, params, x), k.reshape(B, T, -1, hd), v.reshape(B, T, -1, hd))
 
 
-def _out_proj(cfg: ModelConfig, params: Dict[str, Any], o: torch.Tensor) -> torch.Tensor:
+def _tp_kv(cfg: ModelConfig, ctx: Any, k: torch.Tensor, v: torch.Tensor, heads: int):
+    """Head-TP with the K/V heads replicated (``num_kv_heads % tp != 0``):
+    the K/V heads of this rank's ``heads`` query heads: the one K/V head
+    when they fall inside one group, else one K/V head per query head.
+    (They never cover whole groups: that would make the K/V heads divide
+    over ``tp``.)"""
+    if k.shape[2] != cfg.num_kv_heads:          # sharded with the query heads
+        return k, v
+    g = cfg.num_heads // cfg.num_kv_heads
+    first = ctx.coords["model"] * heads
+    if first // g == (first + heads - 1) // g:
+        return k.narrow(2, first // g, 1), v.narrow(2, first // g, 1)
+    idx = torch.arange(first, first + heads, device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _out_proj(cfg: ModelConfig, params: Dict[str, Any], o: torch.Tensor,
+              ctx: Any = None) -> torch.Tensor:
+    """Row-parallel under head-TP: the rank's heads' rows of ``wo``, one
+    all-reduce over ``model``, then ``bo`` once."""
     B, S = o.shape[:2]
-    out = o.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim) @ params["wo"].to(o.dtype)
+    out = o.reshape(B, S, -1) @ params["wo"].to(o.dtype)
+    if ctx is not None and ctx.head_tp:
+        out = ctx.reduce_from_model(out)
     if "bo" in params:
         out = out + params["bo"].to(o.dtype)
     return out
@@ -104,6 +124,7 @@ def attention_apply(
     window: Optional[int] = None,
     paged: Optional[Dict[str, torch.Tensor]] = None,   # paged layout's addressing
     cross_kv: Optional[torch.Tensor] = None,           # encoder output (B, T_enc, d_model)
+    ctx: Any = None,                                   # parallel.sharding.ShardingCtx
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Returns (out (B,S,d_model), cache): {"k", "v"} of this call's rows in
     prefill mode ({"k", "v", "len"} for cross-attention), the updated cache
@@ -121,7 +142,15 @@ def attention_apply(
     Chunk (paged cache, batch 1): the S rows sit at positions ``cache_pos
     + [0, S)``, and ``paged`` is ``paged_chunk_addressing`` of the chunk;
     rows past its valid count are bucket padding, whose K/V goes to the
-    null page and whose outputs the caller discards."""
+    null page and whose outputs the caller discards.
+
+    Train mode on a mesh (``ctx``): under head-TP the input passes
+    ``copy_to_model`` and the rank computes its query heads (and their K/V
+    heads) only, the output projection row-parallel; under context
+    parallelism x holds the rank's rows, which ``positions`` place in the
+    sequence, and K/V are all-gathered over ``model``, so the kernels see
+    the rank's S/tp query rows against all T keys at ``q_offset`` = its
+    first row."""
     if mode not in ("train", "prefill", "decode", "chunk"):
         raise ValueError(f"unknown attention mode {mode!r}")
     window = cfg.sliding_window if window is None else window
@@ -142,7 +171,16 @@ def attention_apply(
         return _out_proj(cfg, params, o), ({"k": k, "v": v, "len": lengths}
                                            if mode == "prefill" else None)
     causal = cfg.causal if causal is None else causal
+    head_tp = mode == "train" and ctx is not None and ctx.head_tp
+    seq_par = mode == "train" and ctx is not None and ctx.seq_parallel
+    if head_tp:
+        x = ctx.copy_to_model(x)
     q, k, v = _project_qkv(cfg, params, x)
+    if head_tp:
+        k, v = _tp_kv(cfg, ctx, k, v, q.shape[2])
+    q_offset = ctx.coords["model"] * x.shape[1] if seq_par else 0
+    if seq_par and positions is None:
+        positions = q_offset + torch.arange(x.shape[1], device=x.device)
     per_slot = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
     if cfg.use_rope:
         if positions is None:
@@ -202,9 +240,11 @@ def attention_apply(
                                  softcap=cfg.attn_logit_softcap, impl=cfg.kernel_impl)
         return _out_proj(cfg, params, o), cache
 
-    o = ops.attention(q, k, v, causal=causal, window=window,
-                      softcap=cfg.attn_logit_softcap, impl=cfg.kernel_impl)
-    out = _out_proj(cfg, params, o)
+    if seq_par:
+        k, v = ctx.gather_seq(k), ctx.gather_seq(v)
+    o = ops.attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_logit_softcap,
+                      q_offset=q_offset, impl=cfg.kernel_impl)
+    out = _out_proj(cfg, params, o, ctx if head_tp else None)
     return out, ({"k": k, "v": v} if mode == "prefill" else None)
 
 

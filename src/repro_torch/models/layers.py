@@ -78,8 +78,16 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     return F.relu(x)
 
 
-def mlp_apply(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor,
+              ctx: Any = None) -> torch.Tensor:
+    """Under head-TP (``ctx.head_tp`` and d_ff dividing over ``model``) the
+    weights are this rank's slice of d_ff: ``w_in`` and ``w_gate``
+    column-parallel, ``w_out`` row-parallel with one all-reduce over
+    ``model``, and ``b_out`` added once, after it."""
     cdt = x.dtype
+    tp = ctx is not None and ctx.head_tp and cfg.d_ff % ctx.tp == 0
+    if tp:
+        x = ctx.copy_to_model(x)
     h = x @ params["w_in"].to(cdt)
     if "b_in" in params:
         h = h + params["b_in"].to(cdt)
@@ -88,6 +96,8 @@ def mlp_apply(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor) -> torc
     else:
         h = _act(cfg.act, h)
     out = h @ params["w_out"].to(cdt)
+    if tp:
+        out = ctx.reduce_from_model(out)
     if "b_out" in params:
         out = out + params["b_out"].to(cdt)
     return out

@@ -18,17 +18,30 @@ reference package cross in through ``checkpoint/bridge.py``:
 ``Model(cfg, from_jax_params(tree))``.  A model keeps its
 ``ParallelConfig`` (``build_model(cfg, pc)``, ``Model(cfg, params, pc)``):
 in training each unit of the stack runs under its ``remat_policy``,
-``block`` by default, as the reference's.  ``loss_fn(params, batch)`` takes the
-param tree explicitly, as the reference's does, so the train step can run
-it on the compute-dtype view of its master copy; the serving entry points
-take it too.  To serve, build the model with bf16 parameters
-(``dataclasses.replace(cfg, param_dtype="bfloat16")``): each weight's cast
-to the compute dtype is then a no-op, instead of a re-read and re-cast of
-the fp32 master copy in every decode step.
+``block`` by default, as the reference's.
+
+On a mesh (``build_model(cfg, pc, mesh)``, ``Model(cfg, params, pc,
+mesh)``; ``parallel/sharding.py``) a model holds this rank's shard of each
+leaf: every rank draws each leaf whole from its own seed and keeps its
+part, so the weights are the mesh-free model's whatever the mesh's shape,
+and bridged weights shard the same way.  ``compute_params`` gathers the
+compute view a step works on, and ``loss_fn`` is the global token-weighted
+mean over every rank's rows.  The mesh path trains; serving on a mesh is
+not ported yet (ROADMAP item 14c), and MoE, SSM, encoder-decoder and
+frontend models train on a mesh whose ``model`` axis is 1 (item 14b).
+
+``loss_fn(params, batch)`` takes the param tree explicitly, as the
+reference's does, so the train step can run it on the compute-dtype view
+of its master copy; the serving entry points take it too.  To serve, build
+the model with bf16 parameters (``dataclasses.replace(cfg,
+param_dtype="bfloat16")``): each weight's cast to the compute dtype is then
+a no-op, instead of a re-read and re-cast of the fp32 master copy in every
+decode step.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -36,12 +49,15 @@ import torch
 from torch import nn
 
 from repro_torch.core.config import ModelConfig, ParallelConfig
-from repro_torch.core.module import P, ParamTree, materialize, tree_map
-from repro_torch.core.precision import policy_for
+from repro_torch.core.module import P, ParamTree, materialize, tree_get, tree_map
+from repro_torch.core.precision import compute_view, policy_for
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.parallel.sharding import ShardingCtx, mesh_axis_sizes, null_ctx
+
+log = logging.getLogger(__name__)
 
 
 def encoder_config(cfg: ModelConfig) -> ModelConfig:
@@ -75,24 +91,67 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
     return defs
 
 
+def check_mesh_support(cfg: ModelConfig, tp: int) -> None:
+    """Raise for a family whose ``model``-axis split is not ported: MoE
+    (expert parallelism), SSM and hybrid stacks, encoder-decoders and the
+    frontend models train on a mesh whose ``model`` axis is 1."""
+    if tp > 1 and (cfg.num_experts or cfg.family in ("ssm", "hybrid")
+                   or cfg.is_encoder_decoder or cfg.frontend):
+        raise NotImplementedError(
+            f"{cfg.name}: a {cfg.family} model over model={tp} is not ported yet (ROADMAP: "
+            "item 14b); train it on a mesh whose model axis is 1 (pure FSDP over data)")
+
+
 class Model(nn.Module):
     """``pc`` (default ``ParallelConfig()``) is kept as the reference keeps
     it in its model's ``ctx``: its ``remat_policy`` sets what a training
     step keeps of each unit of the stacks, and a trainer built on the
-    model reads its ``optimizer_state_dtype``."""
+    model reads its ``optimizer_state_dtype``.  On a ``mesh`` it is first
+    ``validate``d for the ``model`` axis's size, and ``params`` (whole
+    leaves or this rank's shards) are kept as this rank's shards."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
-                 pc: Optional[ParallelConfig] = None):
+                 pc: Optional[ParallelConfig] = None, mesh: Any = None):
         super().__init__()
         T.check_supported(cfg)
         self.cfg = cfg
-        self.pc = pc or ParallelConfig()
+        pc = pc or ParallelConfig()
+        self.pc = pc
+        self.ctx = null_ctx()
+        self.specs = None
+        if mesh is not None:
+            self.pc, self.ctx, self.specs = _mesh_layout(cfg, pc, mesh)
+            if self.pc is not pc and self.ctx.is_first:
+                log.warning("%s: %d heads do not divide over model=%d: attention_parallelism "
+                            "head_tp -> context", cfg.name, cfg.num_heads, self.ctx.tp)
+            params = self.ctx.shard_tree(self.specs, params, param_defs(cfg))
         self.policy = policy_for(cfg)
         self.params = ParamTree(params)
 
     @property
     def device(self) -> torch.device:
         return self.params.embed.tok.device
+
+    @property
+    def sharded(self) -> bool:
+        return self.ctx.mesh is not None
+
+    def spec_at(self, path: Tuple[str, ...]):
+        """The ``LeafSpec`` of the leaf at ``path`` (a model on a mesh)."""
+        return tree_get(self.specs, path)
+
+    def compute_params(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """The compute-dtype view of the master ``params`` that a train step
+        works on: ``compute_view``, or on a mesh each leaf gathered over the
+        axes its view is whole on (``ShardingCtx.gather_view``)."""
+        if not self.sharded:
+            return compute_view(self.policy, params)
+        return self.ctx.gather_view(self.specs, params, self.policy.cdt)
+
+    def _one_device(self, what: str) -> None:
+        if self.sharded and self.ctx.size(tuple(self.ctx.sizes)) > 1:
+            raise NotImplementedError(f"{what} on a mesh of several devices is not ported yet "
+                                      "(ROADMAP: item 14c); serve on one device")
 
     # ------------------------------------------------------------ encoder
     def _encode(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -135,7 +194,7 @@ class Model(nn.Module):
         final norm; returns (x, caches, aux_sum) — aux_sum the MoE layers'
         router vectors summed (``moe.aux_shape``)."""
         x, caches, aux = T.decoder_stack(self.cfg, params["layers"], x,
-                                         remat=self.pc.remat_policy, **kw)
+                                         remat=self.pc.remat_policy, ctx=self.ctx, **kw)
         return L.norm_apply(self.cfg, params["final_norm"], x), caches, aux
 
     def head_weight(self, params: Dict[str, Any]) -> torch.Tensor:
@@ -176,27 +235,44 @@ class Model(nn.Module):
         over the encoder output of ``src_tokens`` or ``enc_embeds``.  A
         vision model's stream is [image rows; text], and its loss is the
         text's: the first ``num_frontend_tokens`` rows are dropped, whether
-        or not the batch has ``img_embeds``, as in the reference."""
-        cfg = self.cfg
-        x = self._decoder_input(params, batch["tokens"], img=batch.get("img_embeds"))
-        x, _, aux = self._backbone(params, x, cross_kv=self._cross_kv(params, batch))
-        B, S, D = x.shape
-        if cfg.objective == "mlm":
-            hidden = x.reshape(B * S, D)
-            targets = batch["targets"].reshape(-1)
-            mask = batch["loss_mask"].reshape(-1).float()
-        else:  # clm / seq2seq / vlm: next-token over the text
-            n_front = cfg.num_frontend_tokens if cfg.frontend == "vision_stub" else 0
-            hidden = x[:, n_front:][:, :-1, :].reshape(-1, D)
-            targets = batch["tokens"][:, 1:].reshape(-1)
-            mask = batch.get("loss_mask")
-            mask = (mask[:, 1:].reshape(-1).float() if mask is not None
-                    else torch.ones(targets.shape, dtype=torch.float32, device=x.device))
+        or not the batch has ``img_embeds``, as in the reference.
+
+        On a mesh ``batch`` holds this rank's rows and ``params`` is the
+        compute view (``compute_params``).  The loss is the global mean:
+        the masked sum and the token count are summed over the ranks that
+        hold other tokens (``ShardingCtx.reduce_axes``), and the sum's
+        gradient is each rank's own part of it, so the gradients summed
+        over those ranks are the global mean's.  Under context parallelism
+        a rank takes its rows of the sequence first; a causal model's next
+        token then comes from the whole row (the last row, which has none,
+        weighs 0)."""
+        cfg, ctx = self.cfg, self.ctx
+        if ctx.seq_parallel:
+            aux, hidden, targets, mask = self._seq_shard_rows(params, batch)
+        else:
+            x = self._decoder_input(params, batch["tokens"], img=batch.get("img_embeds"))
+            x, _, aux = self._backbone(params, x, cross_kv=self._cross_kv(params, batch))
+            B, S, D = x.shape
+            if cfg.objective == "mlm":
+                hidden = x.reshape(B * S, D)
+                targets = batch["targets"].reshape(-1)
+                mask = batch["loss_mask"].reshape(-1).float()
+            else:  # clm / seq2seq / vlm: next-token over the text
+                n_front = cfg.num_frontend_tokens if cfg.frontend == "vision_stub" else 0
+                hidden = x[:, n_front:][:, :-1, :].reshape(-1, D)
+                targets = batch["tokens"][:, 1:].reshape(-1)
+                mask = batch.get("loss_mask")
+                mask = (mask[:, 1:].reshape(-1).float() if mask is not None
+                        else torch.ones(targets.shape, dtype=torch.float32, device=x.device))
         w_head = self.head_weight(params).to(self.policy.cdt)
         losses, _ = ops.cross_entropy(hidden, w_head, targets, vocab=cfg.vocab_size,
                                       impl=cfg.kernel_impl)
-        denom = mask.sum().clamp_min(1.0)
-        loss = (losses * mask).sum() / denom
+        num, den = (losses * mask).sum(), mask.sum()
+        if self.sharded:
+            num = ctx.reduce_sum(num, ctx.reduce_axes)
+            den = ctx.all_reduce(den, ctx.reduce_axes)
+        denom = den.clamp_min(1.0)
+        loss = num / denom
         metrics = {"ce_loss": loss, "aux_loss": aux, "tokens": denom}
         if cfg.num_experts:
             # aux: the layer-summed router vector (moe.aux_shape) —
@@ -211,6 +287,29 @@ class Model(nn.Module):
                            router_load=load / load.sum().clamp_min(1e-9))
         return loss, metrics
 
+    def _seq_shard_rows(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        """Context parallelism: the stack over this rank's rows of the
+        sequence; returns (aux, hidden (B·n, D), targets, mask) of them."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        off, n = self.ctx.seq_chunk(S)
+        pos = torch.arange(off, off + n, device=tokens.device)
+        x = L.embed_apply(cfg, params["embed"], tokens[:, off:off + n], pos,
+                          compute_dtype=self.policy.cdt)
+        x, _, aux = self._backbone(params, x, positions=pos)
+        if cfg.objective == "mlm":
+            targets = batch["targets"][:, off:off + n]
+            mask = batch["loss_mask"][:, off:off + n].float()
+        else:
+            pad = tokens.new_zeros((B, 1))
+            targets = torch.cat([tokens[:, 1:], pad], dim=1)[:, off:off + n]
+            m = batch.get("loss_mask")
+            m = (m[:, 1:].float() if m is not None
+                 else torch.ones((B, S - 1), dtype=torch.float32, device=tokens.device))
+            mask = torch.cat([m, m.new_zeros((B, 1))], dim=1)[:, off:off + n]
+        return aux, x.reshape(B * n, -1), targets.reshape(-1), mask.reshape(-1)
+
     # ------------------------------------------------------------ serving
     @torch.inference_mode()
     def embed_pool(self, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -221,6 +320,7 @@ class Model(nn.Module):
         (MLM) models the pad tokens are visible to attention exactly as in
         training — no key-padding mask — and only positions < lengths[b]
         enter the fp32 mean, as in the reference."""
+        self._one_device("embedding")
         p = self.params.tree()
         x, _, _ = self._backbone(p, self._decoder_input(p, tokens))
         mask = torch.arange(x.shape[1], device=x.device)[None, :] < lengths.to(x.device)[:, None]
@@ -247,6 +347,7 @@ class Model(nn.Module):
         too, and each layer's cache its ``xattn`` K/V over the encoder
         output.  A vision model's ``img_embeds`` rows go in front of the
         text: ``length`` then counts them, as the cache position does."""
+        self._one_device("prefill")
         x = self._decoder_input(params, batch["tokens"], img=batch.get("img_embeds"))
         S = x.shape[1]
         x, caches, _ = self._backbone(params, x, mode="prefill",
@@ -274,6 +375,7 @@ class Model(nn.Module):
         Vpad) of the last valid row — meaningful on the final chunk —,
         layers).  Sound only for causal attention-only stacks; the engine
         gates it."""
+        self._one_device("prefill")
         C = tokens.shape[1]
         positions = start + torch.arange(C, device=tokens.device)
         x = self._decoder_input(params, tokens, positions)
@@ -291,6 +393,7 @@ class Model(nn.Module):
         continuous-batching engine); the K/V buffers (or page pools, read
         and written through ``cache["block_table"]``) are updated in place
         and the returned cache holds them with ``pos + 1``."""
+        self._one_device("decoding")
         pos = cache["pos"]
         block_table = cache.get("block_table")
         paged = None
@@ -370,9 +473,27 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     return torch.device(device)
 
 
-def build_model(cfg: ModelConfig, pc: Optional[ParallelConfig] = None, *,
+def build_model(cfg: ModelConfig, pc: Optional[ParallelConfig] = None, mesh: Any = None, *,
                 device: Union[None, str, torch.device] = None, seed: int = 0) -> Model:
     """A model with seeded random weights on ``device`` (default: cuda),
-    keeping ``pc`` (default ``ParallelConfig()``: remat ``block``)."""
+    keeping ``pc`` (default ``ParallelConfig()``: remat ``block``).  On a
+    ``mesh`` each leaf is drawn whole from its seed and only this rank's
+    shard of it is kept, a leaf at a time: the mesh-free model's weights."""
     dev = resolve_device(device)
-    return Model(cfg, materialize(param_defs(cfg), seed, policy_for(cfg).pdt, dev), pc)
+    pdt = policy_for(cfg).pdt
+    if mesh is None:
+        return Model(cfg, materialize(param_defs(cfg), seed, pdt, dev), pc)
+    _, ctx, specs = _mesh_layout(cfg, pc or ParallelConfig(), mesh)
+    keep = lambda path, leaf: ctx.shard(leaf, tree_get(specs, path).store)  # noqa: E731
+    return Model(cfg, materialize(param_defs(cfg), seed, pdt, dev, keep=keep), pc, mesh)
+
+
+def _mesh_layout(cfg: ModelConfig, pc: ParallelConfig, mesh: Any):
+    """(pc validated for the ``model`` axis, its ShardingCtx, each leaf's
+    LeafSpec) of a model on ``mesh``; raises for a family the ``model`` axis
+    does not split."""
+    tp = mesh_axis_sizes(mesh).get("model", 1)
+    check_mesh_support(cfg, tp)
+    pc = pc.validate(cfg, tp)
+    ctx = ShardingCtx(mesh, pc)
+    return pc, ctx, ctx.param_specs(param_defs(cfg), cfg)

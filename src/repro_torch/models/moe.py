@@ -35,7 +35,15 @@ fractions…]``.  The first two carry the router's gradient, as in the
 reference; the statistics after them are detached.  ``Model.loss_fn`` adds
 the two router loss terms and reads the statistics into its metrics;
 serving drops the vector.  The reference's expert-parallel path
-(``_moe_expert_parallel``) comes with the multi-GPU slice.
+(``_moe_expert_parallel``) is not ported yet (ROADMAP item 14b).
+
+On a mesh (``ctx``; data ranks only, the ``model`` axis 1) each rank routes
+its rows of the batch, and the layer computes what the mesh-free layer
+computes over the whole batch: the capacity of all the batch's tokens, a
+slot's rank within its expert counted after the slots of the ranks before
+it (the global batch's token order), and the router statistics summed over
+the data ranks (the two loss terms through ``reduce_sum``, whose gradient
+is each rank's own part).
 """
 from __future__ import annotations
 
@@ -134,7 +142,7 @@ def _moe_ragged(cfg: ModelConfig, params: Dict[str, Any], xf: torch.Tensor,
     return out
 
 
-def moe_apply(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor
+def moe_apply(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor, ctx: Any = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d) in x.dtype, aux (AUX_BASE + E,) fp32 —
     see the module doc)."""
@@ -143,17 +151,27 @@ def moe_apply(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S
     M = T * K
-    C = capacity(cfg, T)
+    mesh = ctx is not None and ctx.mesh is not None
+    n_ranks = ctx.data_ranks if mesh else 1
+    C = capacity(cfg, T * n_ranks)
     xf = x.reshape(T, d)
     dev = x.device
 
     probs, gate, idx = _route(cfg, params, xf)
 
     # load-balance aux loss (Switch/GShard form) and router entropy deficit
-    me = probs.mean(dim=0)                                            # (E,)
-    ce = (idx[:, :1] == torch.arange(E, device=dev)).float().mean(dim=0)
+    top1 = (idx[:, :1] == torch.arange(E, device=dev)).float()
+    ent_t = -(probs * torch.log(probs + 1e-9)).sum(-1)
+    if mesh:
+        axes = ctx.batch_axes
+        me = ctx.reduce_sum(probs.sum(dim=0), axes) / (T * n_ranks)
+        ce = ctx.all_reduce(top1.sum(dim=0), axes) / (T * n_ranks)
+        ent = ctx.reduce_sum(ent_t.sum(), axes) / (T * n_ranks)
+    else:
+        me = probs.mean(dim=0)                                        # (E,)
+        ce = top1.mean(dim=0)
+        ent = ent_t.mean()
     lb = E * (me * ce).sum()
-    ent = -(probs * torch.log(probs + 1e-9)).sum(-1).mean()
     ent_def = math.log(float(E)) - ent
 
     # capacity: the rank of each slot within its expert (stable sort: token
@@ -164,6 +182,11 @@ def moe_apply(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor
     starts = torch.cumsum(counts, 0) - counts
     order0 = torch.argsort(flat_e, stable=True)
     rank_sorted = torch.arange(M, device=dev) - starts[flat_e[order0]]
+    if mesh:    # after the slots of the data ranks before this one
+        per_rank = ctx.all_gather(counts.long()[None], ctx.batch_axes)    # (ranks, E)
+        before = per_rank[:ctx.index(ctx.batch_axes)].sum(dim=0)
+        rank_sorted = rank_sorted + before[flat_e[order0]]
+        counts = per_rank.sum(dim=0)
     keep = torch.zeros((M,), dtype=torch.bool, device=dev).scatter_(0, order0, rank_sorted < C)
     gates = gate.reshape(M) * keep.float()
 
@@ -173,8 +196,9 @@ def moe_apply(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor
 
     kept = counts.clamp_max(C).float()                                # (E,)
     load = kept / kept.sum().clamp_min(1.0)
-    dropped = M - kept.sum()
-    stats = torch.cat([torch.stack([dropped, torch.full_like(dropped, M)]), load]).detach()
+    dropped = M * n_ranks - kept.sum()
+    stats = torch.cat([torch.stack([dropped, torch.full_like(dropped, M * n_ranks)]),
+                       load]).detach()
     return out, torch.cat([torch.stack([lb, ent_def]), stats])
 
 

@@ -106,7 +106,7 @@ def stack_defs(cfg: ModelConfig, cross: bool = False) -> Dict[str, Any]:
 
 
 def _apply_sublayer(cfg, li, params, x, *, mode, positions, causal, cache, cache_pos, paged,
-                    cross_kv):
+                    cross_kv, ctx):
     """Returns (x, cache, aux): cache is the layer's ``{"attn": …}`` or
     ``{"ssm": …}``, with ``"xattn"`` beside it in a cross layer's prefill
     (None in train mode); aux is the MoE layer's router vector
@@ -115,7 +115,7 @@ def _apply_sublayer(cfg, li, params, x, *, mode, positions, causal, cache, cache
     if "attn" in params:
         mix, c = attention_apply(cfg, params["attn"], h, positions=positions, mode=mode,
                                  causal=causal, cache=cache["attn"] if cache else None,
-                                 cache_pos=cache_pos, paged=paged)
+                                 cache_pos=cache_pos, paged=paged, ctx=ctx)
         kind = "attn"
     else:
         if mode == "chunk":
@@ -125,7 +125,7 @@ def _apply_sublayer(cfg, li, params, x, *, mode, positions, causal, cache, cache
         kind = "ssm"
     cache_in, cache = cache, ({kind: c} if c is not None else None)
     if cfg.parallel_residual and "ffn" in params:   # the reference's order: (x + mix) + ff
-        ff, aux = _ffn_apply(cfg, li, params["ffn"], h)
+        ff, aux = _ffn_apply(cfg, li, params["ffn"], h, ctx)
         return x + mix + ff, cache, aux
     x = x + mix
     if cross_kv is not None or (cache_in and "xattn" in cache_in):
@@ -137,16 +137,16 @@ def _apply_sublayer(cfg, li, params, x, *, mode, positions, causal, cache, cache
             cache["xattn"] = xc
     if "ffn" not in params:
         return x, cache, None
-    ff, aux = _ffn_apply(cfg, li, params["ffn"], L.norm_apply(cfg, params["norm2"], x))
+    ff, aux = _ffn_apply(cfg, li, params["ffn"], L.norm_apply(cfg, params["norm2"], x), ctx)
     return x + ff, cache, aux
 
 
-def _ffn_apply(cfg, li, params, h):
+def _ffn_apply(cfg, li, params, h, ctx):
     """(out, aux) of layer ``li``'s FFN: the MoE layer's router vector, or
     None for a dense MLP."""
     if cfg.is_moe_layer(li):
-        return moe.moe_apply(cfg, params, h)
-    return L.mlp_apply(cfg, params, h), None
+        return moe.moe_apply(cfg, params, h, ctx)
+    return L.mlp_apply(cfg, params, h, ctx), None
 
 
 def _unit_apply(x, aux_sum, *, cfg, layers, caches, **kw):
@@ -207,6 +207,7 @@ def decoder_stack(
     paged: Optional[Dict[str, torch.Tensor]] = None,
     cross_kv: Optional[torch.Tensor] = None,
     remat: str = "none",
+    ctx: Any = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
     """Runs every layer.  Returns (x, caches, aux_sum).  Caches are in the
     reference's stacked tree ``{"sub<i>": {"attn": {...}}}`` or
@@ -227,7 +228,19 @@ def decoder_stack(
     is the MoE layers' router vectors summed (``moe.aux_shape``; a zero
     scalar for a dense model).  In train mode with autograd on, each unit
     runs under ``_remat_wrap(·, remat)``; anything else (``no_grad``, the
-    other modes) runs it unwrapped."""
+    other modes) runs it unwrapped.
+
+    ``ctx`` (a ``parallel.sharding.ShardingCtx``) reaches every layer: on a
+    mesh the train mode's layers run their collectives (head-TP's
+    all-reduces, context parallelism's K/V gathers; ``models/attention.py``,
+    ``models/layers.py``).  Under context parallelism x holds the rank's
+    rows of the sequence, which ``positions`` place, and the norms see only
+    those rows: their gradients are summed over ``model`` with the other
+    leaves' (``ShardingCtx.reduce_axes``).  Under head-TP every ``model``
+    rank holds the same rows after each all-reduce, so the norms' gradients
+    are equal there and need no sum.  A remat unit reruns its forward
+    collectives in the backward; every rank runs the same graph, so every
+    rank reruns them in the same order."""
     check_supported(cfg)
     subs = [f"sub{i}" for i in range(unit_size(cfg))]
     # one unbind per stacked leaf: under autograd its backward stacks the
@@ -238,7 +251,7 @@ def decoder_stack(
     per_cache = ({s: tree_map(lambda c: c.unbind(0), caches[s]) for s in subs}
                  if in_place else None)
     kw = dict(cfg=cfg, mode=mode, positions=positions, causal=causal, cache_pos=cache_pos,
-              paged=paged, cross_kv=cross_kv)
+              paged=paged, cross_kv=cross_kv, ctx=ctx)
     train = mode == "train" and torch.is_grad_enabled()
     aux_sum = torch.zeros(moe.aux_shape(cfg), dtype=torch.float32, device=x.device)
     new = {s: [] for s in subs}

@@ -15,6 +15,11 @@ gradients in place.  The elementwise math is the same whatever the
 chunking, so the bits are too.  The optional ``ok`` flag (a device bool)
 keeps the old values where it is false, so a guarded step needs no host
 sync.
+
+On a mesh the params, gradients and moments are each rank's shards (the
+leaves keep their dims: a shard of a 2-D leaf is 2-D, so the decay rule
+reads the global leaf's ``ndim``), the update is elementwise on them, and
+``global_norm`` sums each distinct element once across the ranks.
 """
 from __future__ import annotations
 
@@ -73,18 +78,36 @@ def apply_updates(params: Any, grads: List[torch.Tensor], state: AdamWState,
     return AdamWState(step=step, mu=state.mu, nu=state.nu)
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+def global_norm(grads: List[torch.Tensor], ctx: Any = None,
+                owned: Optional[List[bool]] = None) -> torch.Tensor:
+    """‖g‖ in fp32, each leaf's squared sum (over its elements in row-major
+    order, whatever the gradient's strides) added in leaf order.  On a mesh
+    (``ctx``, with ``owned[i]`` true where this rank counts leaf i's shard:
+    ``ShardingCtx.owns``) the per-leaf sums of the owned shards are
+    all-reduced over every rank first, so a leaf sharded over an axis is
+    summed over it and a leaf replicated over an axis is counted once; the
+    leaves are then added in the same order as off the mesh."""
+    def sq(g):
+        return torch.sum(torch.square(g.float().contiguous()))
+
+    if ctx is None:
+        return torch.sqrt(sum(sq(g) for g in grads))
+    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    sums = torch.stack([sq(g) if o else zero for g, o in zip(grads, owned)])
+    sums = ctx.all_reduce(sums, tuple(ctx.sizes))
+    return torch.sqrt(sum(sums.unbind(0)))
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float, ctx: Any = None,
+                        owned: Optional[List[bool]] = None
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """(grads scaled by min(1, max_norm / ‖g‖), ‖g‖), the norm in fp32.
+    """(grads scaled by min(1, max_norm / ‖g‖), ‖g‖), the norm in fp32
+    (``global_norm``, over the mesh given ``ctx`` and ``owned``).
     The list's tensors are scaled in place (a tensor that shares its memory
     with an earlier one, or is not contiguous, is copied first, so nothing
     is scaled twice) and the list is returned."""
-    gn = global_norm(grads)
+    gn = global_norm(grads, ctx, owned)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     seen = set()
     for i, g in enumerate(grads):

@@ -1,5 +1,4 @@
-"""Single-GPU training engine (the port's copy of the reference's
-``training/loop.py`` without the mesh).
+"""Training engine (the port's copy of the reference's ``training/loop.py``).
 
 ``Trainer`` owns the training vertical:
 
@@ -32,6 +31,15 @@ port runs eagerly and caches nothing per shape.  A pipeline with
 
 The trainer trains the model in place: its TrainState's params are the
 model's own parameters (``init_train_state``).
+
+On a mesh (the model's, ``build_model(cfg, pc, mesh)``) every rank draws
+the same global batch from the same pipeline and keeps its rows of the
+batch axes (``ShardingCtx.batch_rows``, micro-batch by micro-batch); the
+metrics are already global (``Model.loss_fn``, ``adamw.global_norm``), so
+one host transfer a log interval still fetches them.  Only the mesh's
+first rank prints; every rank takes part in a checkpoint's gathers and the
+first one writes it, in the one-device format.  ``tokens_per_sec`` and the
+FLOP count cover the global batch.
 """
 from __future__ import annotations
 
@@ -79,8 +87,9 @@ class _DevicePrefetch:
 
     DEPTH = 2
 
-    def __init__(self, pipeline, device: torch.device):
+    def __init__(self, pipeline, device: torch.device, select=None):
         self.pipeline = pipeline
+        self.select = select        # a host batch leaf -> the rows this rank keeps
         self.src = iter(pipeline)
         self.device = device
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
@@ -93,6 +102,8 @@ class _DevicePrefetch:
         return sd() if callable(sd) else None
 
     def _place(self, batch: Dict[str, np.ndarray]):
+        if self.select is not None:
+            batch = {k: self.select(v) for k, v in batch.items()}
         host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
         if self.stream is None:
             return {k: v.to(self.device) for k, v in host.items()}, None
@@ -149,8 +160,9 @@ class Trainer:
                 f"{model.pc.remat_policy!r}: the stack reads the model's; build it with this "
                 "ParallelConfig (build_model(cfg, pc))")
         self.model, self.tc, self.pc = model, tc, pc or model.pc
+        self.ctx = model.ctx
         self.hooks = list(hooks or [])
-        self.verbose = verbose
+        self.verbose = verbose and self.ctx.is_first
         self.peak_flops = peak_flops
         self._step_fn = TS.make_train_step(model, tc)
         self.state: Optional[TrainState] = None
@@ -198,7 +210,11 @@ class Trainer:
             self.state = state
         if self.state is None:
             self.state = TS.init_train_state(self.model, self.pc)
-        self._it = _DevicePrefetch(batches, self.model.device)
+        select = None
+        if self.model.sharded:
+            accum = max(int(self.tc.accum_steps), 1)
+            select = lambda v: self.ctx.batch_rows(v, accum)  # noqa: E731
+        self._it = _DevicePrefetch(batches, self.model.device, select)
         self._t0 = self._t_log = time.perf_counter()
         return self
 
@@ -212,7 +228,8 @@ class Trainer:
                 annotate("train/step", enabled=timed):
             self.state, metrics = self._step_fn(self.state, batch)
         toks = batch["tokens"]
-        self._pending_flops += 6.0 * self.model.cfg.active_param_count() * toks.numel()
+        self._pending_flops += (6.0 * self.model.cfg.active_param_count() * toks.numel()
+                                * self.ctx.data_ranks)
         s = self.step_idx
         self.step_idx = s + 1
         self._pending.append(metrics)
@@ -311,13 +328,27 @@ class Trainer:
             "tokens_seen": self._tokens_seen + pending,
             "data": self._it.cursor if self._it is not None else None,
         }
-        ckpt.save_train_state(ckpt_dir, self.state, self.step_idx, extra=extra)
+        if not self.model.sharded:
+            ckpt.save_train_state(ckpt_dir, self.state, self.step_idx, extra=extra)
+            return
+        m = self.model
+
+        def gather(path, x):
+            return self.ctx.gather_whole(x, m.spec_at(path).store)
+
+        ckpt.save_train_state(ckpt_dir, self.state, self.step_idx, extra=extra, gather=gather,
+                              write=self.ctx.is_first)
+        self.ctx.barrier()
 
     def load(self, ckpt_dir: str, batches=None) -> "Trainer":
-        """Restore the full TrainState into the model's parameters and
-        rewind the data pipeline to the saved cursor."""
-        params = self.model.params.tree()
-        state, step, extra = ckpt.restore_train_state(ckpt_dir, params, self.model.device)
+        """Restore the full TrainState into the model's parameters (this
+        rank's shards on a mesh) and rewind the data pipeline to the saved
+        cursor."""
+        m = self.model
+        params = m.params.tree()
+        keep = ((lambda path, x: self.ctx.shard(x, m.spec_at(path).store)) if m.sharded
+                else None)
+        state, step, extra = ckpt.restore_train_state(ckpt_dir, params, m.device, keep=keep)
         with torch.no_grad():
             for p, r in zip(tree_leaves(params), tree_leaves(state.params)):
                 p.copy_(r)

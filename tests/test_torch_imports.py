@@ -252,3 +252,25 @@ def test_build_key_covers_the_shared_header(monkeypatch, tmp_path):
     (tmp_path / sources[0]).write_text((tmp_path / sources[0]).read_text() + "\n// edited\n")
     again = {n: _build.lib_path(n) for n in stems}
     assert [n for n in stems if again[n] != after[n]] == [stems[0]]
+
+
+def test_the_mesh_modules_are_held_to_these_rules():
+    """The mesh path's modules are among the files the import rules walk."""
+    names = {p.relative_to(PORT).as_posix() for p in PORT_FILES}
+    assert {"parallel/__init__.py", "parallel/sharding.py", "launch/mesh.py",
+            "launch/shapes.py"} <= names
+
+
+def test_launcher_on_a_mesh_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    """``--mesh 1x1`` resolves the device before it starts a process group:
+    no GPU and no ``--device`` raises; ``--device cpu`` trains a Gloo world
+    of one, launches no kernel and leaves no process group behind."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--arch", "esm2-650m", "--smoke", "--steps", "1", "--seq", "32", "--batch", "2",
+            "--mesh", "1x1", "--data-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(args)
+    assert not torch.distributed.is_initialized()
+    launch_train.main(args + ["--device", "cpu"])
+    assert not torch.distributed.is_initialized()
+    assert all(k.launches == 0 for k in KERNELS)

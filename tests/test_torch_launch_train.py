@@ -3,9 +3,9 @@ trace: ``main`` end to end on the CPU with the data plane, a resume and
 the history file, on reduced Mamba2's size-aware causal batches and on
 reduced MolMIM's seq2seq batches;
 ``make_batches`` against the reference launcher's (Geneformer's
-``--smoke`` MLM batches among them); the
-meshes it refuses; ``trace_ctx``; and the GPU it needs unless asked for
-the CPU."""
+``--smoke`` MLM batches among them); the meshes it refuses and a ``1x1``
+mesh on a Gloo world of one; ``trace_ctx``; and the GPU it needs unless
+asked for the CPU."""
 import json
 import os
 
@@ -124,12 +124,20 @@ def test_main_trains_molmim_on_seq2seq_batches(tmp_path):
 
 @pytest.mark.parametrize("mesh", ["2x1", "4x2", "auto-on-two-cards"])
 def test_meshes_other_than_one_card_raise(mesh, monkeypatch, tmp_path):
+    """A mesh the world cannot hold raises: 2x1 and 4x2 on a world of one
+    process, and on a world of two ranks (torchrun's ``WORLD_SIZE``) a
+    ``none`` that would train one replica a rank; ``auto`` on a world of
+    one trains without a mesh."""
     if mesh == "auto-on-two-cards":
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-        mesh = "auto"
-    with pytest.raises(NotImplementedError, match="slice 8"):
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        with pytest.raises(ValueError, match="one replica"):
+            train.main(ARGS[:-2] + ["--mesh", "none", "--steps", "1", "--data-dir",
+                                    str(tmp_path)])
+        monkeypatch.delenv("WORLD_SIZE")
+        assert train.build_mesh("auto", torch.device("cpu")) is None
+        return
+    with pytest.raises(ValueError, match="WORLD_SIZE"):
         train.main(ARGS[:-2] + ["--mesh", mesh, "--steps", "1", "--data-dir", str(tmp_path)])
-    train.check_mesh("none")
 
 
 def test_trace_ctx_writes_a_trace_and_is_a_noop_without_a_dir(tmp_path):
@@ -146,3 +154,18 @@ def test_trace_ctx_writes_a_trace_and_is_a_noop_without_a_dir(tmp_path):
             torch.ones(2) + 1
     assert not (tmp_path / "inner").exists() and os.listdir(tmp_path / "outer")
 
+
+
+def test_main_trains_on_a_1x1_mesh_as_without_one(tmp_path):
+    """``--mesh 1x1`` (a Gloo world of one, no torchrun): the sharded step
+    over groups of one rank gives the mesh-free run's history."""
+    hist = {}
+    for mesh in ("none", "1x1"):
+        out = tmp_path / f"hist_{mesh}.json"
+        train.main(["--arch", "esm2-650m", "--smoke", "--device", "cpu", "--batch", "4", "--seq",
+                    "32", "--steps", "3", "--mesh", mesh, "--data-dir", str(tmp_path / "data"),
+                    "--history-out", str(out)])
+        hist[mesh] = json.loads(out.read_text())
+    assert not torch.distributed.is_initialized()
+    assert [(h["loss"], h["grad_norm"]) for h in hist["1x1"]] == \
+        [(h["loss"], h["grad_norm"]) for h in hist["none"]]

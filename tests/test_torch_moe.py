@@ -293,8 +293,8 @@ def test_generate_matches_reference_with_idle_slots_taking_capacity(name, monkey
     seen = []
     apply = moe.moe_apply
 
-    def spy(cfg, params, x):
-        out, aux = apply(cfg, params, x)
+    def spy(cfg, params, x, ctx=None):
+        out, aux = apply(cfg, params, x, ctx)
         if x.shape[1] == 1:
             seen.append(float(aux[2]))
         return out, aux
