@@ -31,7 +31,13 @@ resume through it (2 of 33 layers) and the training launcher
 ``launch.train.main`` with a profiler trace; ESM-2 650M trained 3 steps by
 the sharded ``Trainer`` on a (1, 1) mesh in a world of one process over
 NCCL, bit for bit the mesh-free run, and by ``launch.train`` under
-``torchrun --mesh 1x1``; and SSM training through
+``torchrun --mesh 1x1``; Qwen2-7B served by the engine on a (1, 1) mesh
+over NCCL (16 prompts, dense and paged with prefix caching and 512-token
+chunks) and ESM-2 650M's embeddings there, bit for bit the mesh-free
+engine's, ``launch.serve`` under ``torchrun --mesh 1x1``, and two head-TP
+ranks of Qwen2-7B (8 of 28 layers) on the one card over Gloo against the
+mesh-free logits (the decode and prefill kernels' checks hold the ranks'
+head counts too); and SSM training through
 ``Trainer.run`` at the full width and depth of Mamba2-2.7B (fp32 master
 weights and AdamW moments, 6 steps of one 2 x 1024 micro-batch of packed
 tokens under remat ``block``), reduced Jamba's hybrid unit and
@@ -58,6 +64,7 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1862,6 +1869,426 @@ def mesh_train_phase(torch, counters, card):
     return launches, figures
 
 
+MESH_SERVE_LAUNCH = ["--arch", "qwen2-7b", "--mesh", "1x1", "--continuous", "--cache-layout",
+                     "paged", "--prefix-cache", "--prefill-chunk", "512", "--batch", "8",
+                     "--requests", "8", "--prompt-len", "512", "--gen", "8", "--health-every", "0"]
+MESH_SERVE_ROWS = ("flash_attention_fwd", "rmsnorm", "flash_decode", "fused_sample", "paged_decode",
+                   "paged_prefill", "paged_kv_write")
+TP2_DEPTH = 8          # Qwen2-7B's layers in the two-rank phase (of 28)
+TP2_STEPS = 8          # its forced decode steps
+
+
+def serve_decode_profile(torch, eng, prompts, steps=8, profiled=True, sync=None):
+    """Per steady decode step of ``eng``: wall ms, device busy ms and NCCL
+    kernel ms (the profiler), and the ``torch.distributed.all_reduce`` calls
+    and their host ms.  ``prompts`` (one a slot) are admitted for 64 tokens
+    each and run past their last prefill first; ``profiled=False`` steps
+    without the profiler (its device figures None).  ``sync``, when given,
+    runs just before the clock starts (the ranks of a world meet there, the
+    profiler's start-up behind them)."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.sampling import SamplingParams
+
+    for i, p in enumerate(prompts[:eng.slots]):
+        eng.submit(Request(uid=70_000 + i, prompt=np.asarray(p, np.int32),
+                           params=SamplingParams(max_new=64)))
+    while eng.queue or eng._prefilling:
+        eng.step()
+    for _ in range(2):
+        eng.step()
+    calls = [0, 0.0]
+    real = dist.all_reduce
+
+    def counted(*a, **kw):
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        calls[0] += 1
+        calls[1] += time.perf_counter() - t0
+        return out
+
+    dist.all_reduce = counted
+    try:
+        torch.cuda.synchronize()
+        ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+               else None)
+        with ctx if ctx is not None else contextlib.nullcontext():
+            if sync is not None:
+                sync()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        dist.all_reduce = real
+    out = {"wall_ms": wall / steps, "all_reduces": calls[0] / steps,
+           "all_reduce_host_ms": calls[1] * 1e3 / steps, "device_ms": None, "nccl_ms": None,
+           "idle_share": None}
+    if ctx is not None:
+        busy, _, kern = kernel_groups(ctx, DeviceType)
+        out.update(device_ms=busy / steps, idle_share=1 - busy / wall,
+                   nccl_ms=sum(t for n, t, _ in kern if "nccl" in n.lower()) / steps)
+    return out
+
+
+def mesh_serve_phase(torch, counters, card, free):
+    """Slice 8's serving half on the card, in a world of one process over
+    NCCL (a file store in a temporary directory): Qwen2-7B at full width and
+    depth (bf16 parameters, built from seed 0 on a (1, 1) mesh) serves 16
+    prompts of the generation load (64-1 024 tokens, the odd ones sampled
+    with their log-probabilities), 16 new tokens each, on 8 slots through
+    ``LLM.generate``, over the dense cache and over the paged one with
+    prefix caching (the even prompts behind one 512-token preamble) and
+    512-token chunks.  Its tokens, log-probabilities and each row's launches
+    must equal the mesh-free engine's on ``free`` (the dense phase's model,
+    the same seed) bit for bit, and no collective may run in a decode step
+    (at ``model`` = 1 there is none; read over 8 steady dense steps).
+    ESM-2 650M's ``LLM.embed`` on a (1, 1) mesh must equal the mesh-free
+    embeddings bit for bit.  Prints each engine's steady dense decode step
+    (wall, device, NCCL ms) and its peak memory.
+    Returns the mesh runs' launch counts and the figures."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import ParallelConfig
+    from repro_torch.data.tokenizer import ProteinTokenizer
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.api import LLM
+
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    cfg = free.cfg
+    n, slots, new = 16, 8, 16
+    lengths, prompts, params = generation_load(np, cfg.vocab_size, n, new)
+    pre = np.random.default_rng(5).integers(0, cfg.vocab_size, size=512).tolist()
+    paged_prompts = [pre + p if i % 2 == 0 else p for i, p in enumerate(prompts)]
+    layouts = {"dense": (dict(slots=slots, max_len=2048), prompts),
+               "paged": (dict(slots=slots, max_len=2048, cache_layout="paged", page_size=16,
+                              prefix_cache=True, prefill_chunk=512), paged_prompts)}
+    rows = [r for r in MESH_SERVE_ROWS if r in counters]
+
+    def run(model, layout):
+        kw, load = layouts[layout]
+        llm = LLM(model, **kw)
+        for r in rows:
+            counters[r].launches = 0
+        counters["paged_decode"].appends = 0
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs = llm.generate(load, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {r: counters[r].launches for r in rows}
+        launches["paged_decode.appends"] = counters["paged_decode"].appends
+        # a steady decode step's figures, on the dense cache alone (one
+        # layout keeps the phase short)
+        fig = serve_decode_profile(torch, llm.engine, load) if layout == "dense" else {}
+        fig.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9, resident_gb=resident,
+                   generate_s=wall, tokens=sum(len(c.tokens) for c in outs))
+        stats = dict(llm.engine.alloc.stats) if llm.engine.alloc is not None else {}
+        got = ([c.tokens for c in outs], [c.logprobs for c in outs], launches, fig, stats)
+        del llm
+        gc.collect()
+        torch.cuda.empty_cache()
+        return got
+
+    t0 = time.perf_counter()
+    want = {layout: run(free, layout) for layout in layouts}
+    t_free = time.perf_counter() - t0
+    free_gb = sum(p.numel() * p.element_size() for p in free.parameters()) / 1e9
+    tok = ProteinTokenizer()
+    rng = np.random.default_rng(6)
+    seqs = [tok.encode("".join(rng.choice(list(AMINO_ACIDS), size=int(L) - 2)))
+            for L in rng.integers(30, 1023, size=32)]
+    esm_cfg = get_config("esm2-650m")
+    esm = build_model(esm_cfg, device="cuda", seed=0)
+    emb_rows = ("flash_attention_fwd", "layernorm")
+
+    def embed(model):
+        for r in emb_rows:
+            counters[r].launches = 0
+        vecs = LLM(model, slots=32, max_len=1024).embed(seqs)
+        return vecs, {r: counters[r].launches for r in emb_rows}
+
+    f_vecs, f_emb = embed(esm)
+    del esm
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", store=dist.FileStore(f"{tmp.name}/store", 1), rank=0,
+                            world_size=1)
+    figures = {}
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        t0 = time.perf_counter()
+        model = build_model(cfg, ParallelConfig(), mesh, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        got = {layout: run(model, layout) for layout in layouts}
+        launches = {}
+        for layout in layouts:
+            toks, lps, lc, fig, stats = got[layout]
+            f_toks, f_lps, f_lc, f_fig, f_stats = want[layout]
+            same_toks, same_lps = toks == f_toks, lps == f_lps
+            print(f"main path: LLM.generate on a (1, 1) mesh over NCCL, Qwen2-7B bf16, {layout} "
+                  f"({n} prompts x {new} new on {slots} slots): tokens = the mesh-free engine's "
+                  f"{same_toks}, log-probabilities bit for bit {same_lps}; launches {lc} "
+                  f"(mesh-free {f_lc}); prefix stats {stats} (mesh-free {f_stats})")
+            print(f"  {layout}: peak {fig['peak_gb']:.2f} GB ({fig['resident_gb']:.2f} GB resident "
+                  f"before the engine, the mesh-free model's {free_gb:.2f} among them), mesh-free "
+                  f"{f_fig['peak_gb']:.2f} GB")
+            if "wall_ms" in fig:
+                print(f"  {layout} steady decode step on {card}: mesh wall {fig['wall_ms']:.2f} "
+                      f"ms, device {fmt_ms(fig['device_ms'])} ms, NCCL {fmt_ms(fig['nccl_ms'])} "
+                      f"ms, {fig['all_reduces']:g} all-reduces a step; mesh-free wall "
+                      f"{f_fig['wall_ms']:.2f} ms, device {fmt_ms(f_fig['device_ms'])} ms")
+                expect(fig["all_reduces"] == 0, f"{layout}: an all-reduce ran at model = 1")
+            expect(same_toks and same_lps, f"{layout}: the mesh engine's tokens differ")
+            expect(lc == f_lc, f"{layout}: the mesh engine's launches differ")
+            launches[layout] = lc
+            figures[layout] = {"mesh": fig, "free": f_fig}
+        del model, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        esm = build_model(esm_cfg, ParallelConfig(), mesh, device="cuda", seed=0)
+        vecs, emb = embed(esm)
+        del esm
+        same = bool(np.array_equal(vecs, f_vecs))
+        print(f"main path: ESM-2 650M LLM.embed of {len(seqs)} sequences on a (1, 1) mesh: = the "
+              f"mesh-free embeddings bit for bit {same}; launches {emb} (mesh-free {f_emb})")
+        expect(same and emb == f_emb, "the mesh embeddings differ from the mesh-free ones")
+        launches["embed"] = emb
+        figures["qwen2_mesh_build_s"] = t_build
+        figures["free_runs_s"] = t_free
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    tmp.cleanup()
+    check(not failed, "mesh serving phase: " + "; ".join(failed))
+    return launches, figures
+
+
+def mesh_serve_launch(card):
+    """The serving launcher a user runs on a mesh: ``launch.serve`` under
+    ``torchrun --standalone --nproc_per_node 1`` with ``MESH_SERVE_LAUNCH``
+    (Qwen2-7B at full width and depth, fp32 master weights, their bf16
+    serving view) must serve every request and exit 0."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "repro_torch.launch.serve", *MESH_SERVE_LAUNCH]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in r.stdout.splitlines() if "served" in ln or "health" in ln]
+    secs = time.perf_counter() - t0
+    print(f"main path: torchrun --standalone --nproc_per_node 1 -m repro_torch.launch.serve "
+          f"{' '.join(MESH_SERVE_LAUNCH)} on {card} ({secs:.1f} s): rc {r.returncode}; "
+          + " | ".join(lines))
+    if r.returncode != 0:
+        print(r.stderr[-3000:])
+    check(r.returncode == 0 and any("served 8/8 requests" in ln for ln in lines),
+          "the serving launcher under torchrun --mesh 1x1 failed")
+    return secs
+
+
+def tp2_inputs(np, vocab):
+    """The two-rank phase's load: 8 prompts of the generation load and
+    ``TP2_STEPS`` forced tokens a slot, and its two engine layouts."""
+    _, prompts, _ = generation_load(np, vocab, 8, 16, seed=3)
+    forced = np.random.default_rng(4).integers(0, vocab, size=(TP2_STEPS, 8)).astype(np.int32)
+    layouts = {"dense": dict(slots=8, max_len=2048),
+               "paged": dict(slots=8, max_len=2048, cache_layout="paged", page_size=16,
+                             prefix_cache=True, prefill_chunk=512)}
+    return prompts, forced, layouts
+
+
+def tp2_config():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("qwen2-7b"), param_dtype="bfloat16",
+                               num_layers=TP2_DEPTH)
+
+
+TP2_ROWS = ("flash_attention_fwd", "rmsnorm", "flash_decode", "fused_sample", "paged_decode",
+            "paged_prefill")
+
+
+def tp2_counters():
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.paged_attention import paged_decode, paged_prefill
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.sampling import fused_sample
+
+    return dict(zip(TP2_ROWS, (flash_attention_fwd, rmsnorm, flash_decode, fused_sample,
+                               paged_decode, paged_prefill)))
+
+
+def tp2_child(rank: int, d: str) -> None:
+    """One of the two ranks of ``mesh_serve_tp2_phase``, on ``cuda:0``: joins
+    a Gloo world of two over a file store in ``d``, builds the phase's
+    Qwen2-7B on a (1, 2) mesh (head-TP: 14 query and 2 K/V heads, 9 472 of
+    the 18 944 MLP columns a rank) and runs ``engine_logits`` over the
+    dense and the paged layout, counting each row's launches; rank 0
+    writes the logits.  Then a steady decode step's figures (rank 0 under
+    the profiler) and the rank's peak memory, into ``d/rank<r>.json``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.config import ParallelConfig
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.sharding import rank_kv_heads
+    from repro_torch.serving.api import LLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(f"{d}/store", 2), rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=600))
+    try:
+        counters = tp2_counters()
+        cfg = tp2_config()
+        prompts, forced, layouts = tp2_inputs(np, cfg.vocab_size)
+        mesh = make_test_mesh((1, 2), ("data", "model"))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(cfg, ParallelConfig(), mesh, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        gb = {"weights": torch.cuda.memory_allocated() / 1e9,
+              "build_peak": torch.cuda.max_memory_allocated() / 1e9}
+        view = model.serving_params()
+        gb["weights_and_view"] = torch.cuda.memory_allocated() / 1e9
+        layer = view["layers"]["sub0"]
+        out = {"build_s": time.perf_counter() - t0, "launches": {}, "gb": gb,
+               "q_heads": layer["attn"]["wq"].shape[-1] // cfg.resolved_head_dim,
+               "kv_heads": rank_kv_heads(cfg, model.ctx),
+               "d_ff": layer["ffn"]["w_in"].shape[-1]}
+        del view, layer
+        forced_d = torch.as_tensor(forced, device="cuda")
+        for layout, kw in layouts.items():
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            lg, _ = engine_logits(torch, np, model, kw, prompts, forced_d)
+            torch.cuda.synchronize()
+            out["launches"][layout] = {r: fn.launches for r, fn in counters.items()}
+            out[f"{layout}_s"] = time.perf_counter() - t0
+            gb[f"{layout}_peak"] = torch.cuda.max_memory_allocated() / 1e9
+            if rank == 0:
+                torch.save(lg.cpu(), f"{d}/logits_{layout}.pt")
+            del lg
+            # engine_logits's spies hold its engine (and the engine's view of
+            # the weights) in a reference cycle: collect it before the next
+            gc.collect()
+            torch.cuda.empty_cache()
+        llm = LLM(model, slots=8, max_len=2048)
+        out["decode"] = serve_decode_profile(torch, llm.engine, prompts, profiled=rank == 0,
+                                             sync=dist.barrier)
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with open(f"{d}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        del llm, model
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_serve_tp2_phase(torch, counters, card):
+    """Two head-TP ranks on the one card: Qwen2-7B at full width with
+    ``TP2_DEPTH`` of its 28 layers (bf16 parameters, seed 0) on a (1, 2)
+    mesh, each rank a process on ``cuda:0`` in a Gloo world of two (NCCL
+    takes one rank a GPU).  Against the mesh-free engine at the same depth
+    on the same card: ``engine_logits`` over 8 prompts, the first token and
+    ``TP2_STEPS`` forced decode steps, dense and paged (prefix caching,
+    512-token chunks); logit cosine >= 0.999 and top-1 equal where decided
+    (``compare_logits(..., margin=2.0)``: the bf16 partial sums of ``wo``
+    and ``w_out`` are added over two ranks, so bits may move); each rank's
+    launches of rows 1 and 6-10 equal the mesh-free run's.  Prints each
+    rank's steady decode step (wall, device on rank 0, its all-reduces and
+    their host ms: a correctness phase, not a speed figure) and peak memory.
+    Returns the ranks' launch counts and figures."""
+    import numpy as np
+
+    from repro_torch.models.model import build_model
+
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    cfg = tp2_config()
+    prompts, forced, layouts = tp2_inputs(np, cfg.vocab_size)
+    free = build_model(cfg, device="cuda", seed=0)
+    forced_d = torch.as_tensor(forced, device="cuda")
+    want, want_launches = {}, {}
+    for layout, kw in layouts.items():
+        for r in TP2_ROWS:
+            counters[r].launches = 0
+        want[layout], _ = engine_logits(torch, np, free, kw, prompts, forced_d)
+        want_launches[layout] = {r: counters[r].launches for r in TP2_ROWS}
+    del free
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    logs = [open(f"{tmp.name}/rank{r}.log", "w") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--tp2-rank", str(r),
+                               tmp.name], env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    secs = time.perf_counter() - t0
+    if rcs != [0, 0]:
+        for r in range(2):
+            print(f"--- tp2 rank {r} (rc {rcs[r]}) ---\n"
+                  + Path(f"{tmp.name}/rank{r}.log").read_text()[-3000:])
+    check(rcs == [0, 0], f"the two-rank serving world failed: rcs {rcs}")
+    ranks = [json.loads(Path(f"{tmp.name}/rank{r}.json").read_text()) for r in range(2)]
+    for r, res in enumerate(ranks):
+        print(f"main path: rank {r} of (1, 2) over Gloo on {card}, Qwen2-7B {TP2_DEPTH} layers: "
+              f"{res['q_heads']} query heads, K/V heads {res['kv_heads']}, d_ff {res['d_ff']}; "
+              f"built in {res['build_s']:.1f} s; launches {res['launches']} (mesh-free "
+              f"{want_launches}); peak {res['peak_gb']:.2f} GB (GB allocated or peak by stage: "
+              f"{res['gb']}); steady decode step {res['decode']}")
+        expect(res["launches"] == want_launches, f"rank {r}: launches differ from the mesh-free run")
+        expect(res["q_heads"] == 14 and res["kv_heads"] == [2 * r, 2 * r + 1]
+               and res["d_ff"] == 9472, f"rank {r}: not the head-TP rank shapes")
+    cosines = {}
+    for layout in layouts:
+        got = torch.load(f"{tmp.name}/logits_{layout}.pt").to(want[layout].device)
+        cosines[layout] = compare_logits(torch, got, want[layout],
+                                         f"two ranks on (1, 2) vs the mesh-free engine, {layout}",
+                                         expect, margin=2.0)
+    tmp.cleanup()
+    print(f"the two-rank phase took {secs:.1f} s (two processes on one card)")
+    check(not failed, "two-rank serving phase: " + "; ".join(failed))
+    return {"launches": [res["launches"] for res in ranks], "want": want_launches,
+            "cosine": cosines, "decode": [res["decode"] for res in ranks],
+            "peak_gb": [res["peak_gb"] for res in ranks], "seconds": secs}
+
+
 def check_rmsnorm(torch, F, ref, rmsnorm, randn, card):
     """Row 6 against ``rmsnorm_ref`` at the served widths (Mamba2's 2560,
     Qwen2-7B's 3584, Scout's 5120, InternVL2's 6144, Llama-3-405B's 16384,
@@ -2007,6 +2434,11 @@ def check_flash_decode(torch, F, ref, flash_decode, randn, card):
         ("D=64, group 16", dict(B=4, T=520, H=16, Hkv=1, D=64, lens=[0, 1, 256, 520])),
         ("softcap 30", dict(B=8, T=600, H=28, Hkv=4, D=128, softcap=30.0)),
         ("strided stacked-cache views", dict(B=8, T=640, H=28, Hkv=4, D=128, strided=True)),
+        # a head-TP rank's share of the heads (tensor-parallel serving)
+        ("qwen2-7b rank at model=2, group 7", dict(B=32, T=2048, H=14, Hkv=2, D=128, lens=mid)),
+        ("qwen2-7b rank at model=4, group 7", dict(B=32, T=2048, H=7, Hkv=1, D=128, lens=mid)),
+        ("llama3-405b rank at model=8, group 16", dict(B=32, T=2048, H=16, Hkv=1, D=128,
+                                                       lens=mid)),
     ]
     shapes = {}
     for label, c in cases:
@@ -2225,7 +2657,8 @@ def check_paged_decode(torch, F, ref, paged_decode, flash_decode, randn, card):
     shape over the default pool (4 097 pages of 16, 128 a row): ragged
     lengths that are not page multiples, a length-0 row, null-page entries
     past each length, shuffled page order; and at group 1 with pages of 8,
-    at D 64, and with pages of 32.  Each case: within 2e-2 of each row's
+    at D 64, and with pages of 32, and at head-TP ranks' shares of the
+    heads (Qwen2-7B at model 2 and 4, Llama-3-405B at 8).  Each case: within 2e-2 of each row's
     max, length-0 rows exactly 0, a repeat bit-identical, each row alone
     bit-equal to its row in the batch, and the output bit-equal to
     ``flash_decode`` over the same rows gathered into a dense cache (the
@@ -2256,6 +2689,13 @@ def check_paged_decode(torch, F, ref, paged_decode, flash_decode, randn, card):
             lens=np.random.default_rng(3).integers(4 + 32, 64 + 33, size=32))),
         ("internvl2-26b decode shape, group 6", dict(B=32, cap=1344, H=48, Hkv=8, D=128, page=16,
                                                      P=2689, lens=mid + 256)),
+        # head-TP ranks' shares of the heads over their pools (not timed)
+        ("qwen2-7b rank at model=2, group 7", dict(B=32, cap=2048, H=14, Hkv=2, D=128, page=16,
+                                                   P=4097, lens=mid, rank=True)),
+        ("qwen2-7b rank at model=4, group 7", dict(B=32, cap=2048, H=7, Hkv=1, D=128, page=16,
+                                                   P=4097, lens=mid, rank=True)),
+        ("llama3-405b rank at model=8, group 16", dict(B=32, cap=2048, H=16, Hkv=1, D=128,
+                                                       page=16, P=4097, lens=mid, rank=True)),
     ]
     main, timed = None, {}
     for label, c in cases:
@@ -2291,7 +2731,7 @@ def check_paged_decode(torch, F, ref, paged_decode, flash_decode, randn, card):
               f"{alone}, = flash_decode over the gathered rows bit for bit: {dense}")
         check(err <= tol and zero and repeat and alone and dense and bool(out.isfinite().all()),
               f"paged_decode {label}")
-        if main is None or "lens" in c:
+        if main is None or ("lens" in c and not c.get("rank")):
             timed[label] = (q, k_pool, v_pool, bt, lengths, lens,
                             (out.float() - want.float()).abs().max().item())
             main = main or label
@@ -2354,8 +2794,9 @@ def check_paged_prefill(torch, F, ref, paged_prefill, flash_attention_fwd, randn
     shape (a 512-token chunk, H 28, Hkv 4, D 128, pages of 16): at start 0,
     at start 512 over pages shared with another row (a cached preamble),
     with fewer valid rows than the bucket, and at a 64-token bucket; at
-    page 8, group 1, D 64 with a fully masked row; and at page 12 (rows
-    gathered one by one).  Each case within 2e-2 of each query row's max,
+    page 8, group 1, D 64 with a fully masked row; at page 12 (rows
+    gathered one by one); and at head-TP ranks' shares of the heads
+    (Qwen2-7B at model 2 and 4, Llama-3-405B at 8).  Each case within 2e-2 of each query row's max,
     and each row bit-equal to ``flash_attention_fwd`` with q_offset = start
     over the same rows gathered into a dense cache of length lengths[b]
     (the two share their consumer body and key tiles).  Times the
@@ -2392,6 +2833,11 @@ def check_paged_prefill(torch, F, ref, paged_prefill, flash_attention_fwd, randn
     bt12 = _paged_layout(torch, np, rng, [300, 100], 12, 30, 200, dev)
     k8, v8 = randn(300, 8, 4, 64), randn(300, 8, 4, 64)
     bt8 = _paged_layout(torch, np, rng, [200, 0], 8, 30, 300, dev)
+    # head-TP ranks' pools: Qwen2-7B's 2 K/V heads at model 2, one at model
+    # 4 (and Llama-3-405B's one at model 8), two rows over 1 024 positions
+    pools2 = (randn(140, page, 2, D), randn(140, page, 2, D))
+    pools1 = (randn(140, page, 1, D), randn(140, page, 1, D))
+    bt_rank = _paged_layout(torch, np, rng, [1024, 1024], page, 64, 140, dev)
     cases = [  # label, (S, H, pools, table), starts, valid rows
         ("512-token chunk at start 0", (512, H, pools, base), [0, 0], [512, 512]),
         ("512-token chunk at start 512 over shared pages", (512, H, pools, base), [512, 512],
@@ -2400,6 +2846,12 @@ def check_paged_prefill(torch, F, ref, paged_prefill, flash_attention_fwd, randn
         ("page 8, group 1, D=64, a fully masked row", (40, 4, (k8, v8), bt8), [150, 0], [40, 0]),
         ("page 12 (rows gathered one by one), group 7", (200, 14, (k12, v12), bt12), [130, 0],
          [170, 100]),
+        ("qwen2-7b rank at model=2, 512-token chunk, group 7", (512, 14, pools2, bt_rank),
+         [512, 0], [512, 300]),
+        ("qwen2-7b rank at model=4, 512-token chunk, group 7", (512, 7, pools1, bt_rank),
+         [512, 0], [512, 512]),
+        ("llama3-405b rank at model=8, 512-token chunk, group 16", (512, 16, pools1, bt_rank),
+         [0, 256], [512, 512]),
     ]
     recs = {}
     for label, (S, h, (kp, vp), bt), starts, valid in cases:
@@ -2573,7 +3025,9 @@ def check_paged_append(torch, ref, paged_kv_write, paged_decode, flash_decode, r
     decode shape over the default pool (pages of 16, check_paged_decode's
     lengths, slot 0 idle, slot 3 masked mid-prefill), at pages of 8 (group
     1) and at pages of 12 (D 64, group 7; lengths 1, the capacity and the
-    256-key split edge among them).  Each case: the live rows of the
+    256-key split edge among them), and at head-TP ranks' shares of the
+    heads (Qwen2-7B at model 2 and 4, Llama-3-405B at 8, and at 16 with
+    its K/V head inserted from a view of the projection's eight).  Each case: the live rows of the
     output equal to the pair's bit for bit and to flash_decode over the
     updated pools gathered, within 2e-2 of each row's max of the plain
     version; the pools equal to the pair's and the plain version's outside
@@ -2590,6 +3044,16 @@ def check_paged_append(torch, ref, paged_kv_write, paged_decode, flash_decode, r
                                                 P=4097)),
         ("group 1, page 8", dict(B=8, cap=704, H=8, Hkv=8, D=128, page=8, P=712)),
         ("D=64, group 7, page 12", dict(B=8, cap=720, H=14, Hkv=2, D=64, page=12, P=490)),
+        # head-TP ranks' shares of the heads; Llama-3-405B at model 16
+        # inserts its one K/V head as a view of the projection's 8
+        ("qwen2-7b rank at model=2, group 7", dict(B=32, cap=2048, H=14, Hkv=2, D=128, page=16,
+                                                   P=4097)),
+        ("qwen2-7b rank at model=4, group 7", dict(B=32, cap=2048, H=7, Hkv=1, D=128, page=16,
+                                                   P=4097)),
+        ("llama3-405b rank at model=8, group 16", dict(B=32, cap=2048, H=16, Hkv=1, D=128,
+                                                       page=16, P=4097)),
+        ("llama3-405b rank at model=16, K/V a narrow of 8 heads", dict(
+            B=32, cap=2048, H=8, Hkv=1, D=128, page=16, P=4097, narrow_of=8)),
     ]
     main, max_err = None, 0.0
     for label, c in cases:
@@ -2602,6 +3066,9 @@ def check_paged_append(torch, ref, paged_kv_write, paged_decode, flash_decode, r
             lens[1:6] = [1, cap, lens[3], 256, 257]
         x = _append_case(torch, np, rng, randn, B, cap, c["H"], c["Hkv"], c["D"], c["page"],
                          c["P"], lens, idle=[0], masked=[3])
+        if c.get("narrow_of"):     # the rank's K/V head: one head of the projection's
+            for n in ("k_new", "v_new"):
+                x[n] = randn(B, 1, c["narrow_of"], c["D"]).narrow(2, 5, 1)
         q, bt, lengths, live = x["q"], x["bt"], x["lengths"], x["live"]
         new = dict(k_new=x["k_new"], v_new=x["v_new"], page_idx=x["pi"], row=x["ri"])
         pk, pv = x["k_pool"].clone(), x["v_pool"].clone()
@@ -6078,7 +6545,22 @@ def main() -> int:
     counters.update(paged_decode=paged_decode, paged_prefill=paged_prefill,
                     paged_kv_write=paged_kv_write)
     paged_launches = paged_phase(torch, counters, card, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    clock.mark("8b mesh serve")
+    # ---- 8b. slice 8's serving half: the engine on a (1, 1) mesh over NCCL
+    # against the mesh-free engine on the same model's seed, ESM-2's
+    # embeddings on the mesh, the serving launcher under torchrun, then two
+    # head-TP ranks on the one card over Gloo
+    mesh_serve_launches, mesh_serve_figures = mesh_serve_phase(torch, counters, card, model)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock.mark("8b mesh serve launcher")
+    mesh_serve_figures["launcher_s"] = mesh_serve_launch(card)
+    clock.mark("8b mesh serve tp2")
+    tp2 = mesh_serve_tp2_phase(torch, counters, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6198,7 +6680,10 @@ def main() -> int:
     # rows 1-11 on the zoo's and slice 7's paths: each kernel's count in each run
     zoo_runs = {"geneformer_embed": gene["embed"], "geneformer_train": gene["train"],
                 **{f"{name}_{layout}": n for name, runs in zoo.items()
-                   for layout, n in runs.items()}, **slice7}
+                   for layout, n in runs.items()}, **slice7,
+                **{f"mesh_serve_{k}": n for k, n in mesh_serve_launches.items()},
+                **{f"mesh_tp2_rank{r}_{layout}": n for r, runs in enumerate(tp2["launches"])
+                   for layout, n in runs.items()}}
     for rec in kernels + gen_recs + paged_recs:
         key = "paged_decode.appends" if rec is ins else rec["name"]
         rec.setdefault("launches_by_phase", {}).update(
@@ -6210,7 +6695,9 @@ def main() -> int:
                       "remat_esm2": {p: dict(zip(("loss", "digest", "wall_ms", "device_ms",
                                                   "peak_gb", "peak_above_start_gb"), v))
                                      for p, v in remat.items()},
-                      "mamba2_train_peak_gb": ssm_peak_gb, "mesh_train_esm2": mesh_figures}))
+                      "mamba2_train_peak_gb": ssm_peak_gb, "mesh_train_esm2": mesh_figures,
+                      "mesh_serve_qwen2": mesh_serve_figures,
+                      "mesh_tp2_qwen2": {k: v for k, v in tp2.items() if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -6219,4 +6706,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp2-rank"]:       # a rank of mesh_serve_tp2_phase
+        tp2_child(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

@@ -170,14 +170,18 @@ class ParallelConfig:
     """How a model maps onto the mesh (``parallel/sharding.py``), with the
     reference's fields and defaults.
 
-    attention_parallelism — what the ``model`` axis splits in training:
+    attention_parallelism — what the ``model`` axis splits:
       * "head_tp" — the query heads and the MLP's d_ff (Megatron): the K/V
                     heads too where ``num_kv_heads % tp == 0``, else every
                     rank holds all K/V heads and uses its query heads' ones;
-                    needs ``num_heads % tp == 0`` (``validate``);
+                    needs ``num_heads % tp == 0`` (``validate``).  It trains
+                    and serves: prefill, chunked prefill and decode run at
+                    the rank's heads over K/V caches of its K/V heads;
       * "context" — the sequence: a rank holds its rows of the residual
                     stream and all-gathers K/V in attention; no head
-                    constraint.
+                    constraint.  It trains and embeds (``embed_pool``);
+                    generation under it is ROADMAP item 14e (the
+                    sequence-sharded cache) and raises.
     fsdp_axes — the mesh axes the master params and the AdamW moments are
       sharded over (FSDP); each step gathers their compute view over them.
     remat_policy — what a training step keeps of each unit of the stack
@@ -190,9 +194,12 @@ class ParallelConfig:
     optimizer_state_dtype — the AdamW moments' dtype.
 
     The reference's ``expert_axis`` and ``shard_cache_seq`` come with the
-    paths that read them (expert parallelism, the sharded serving cache);
-    until then ``axis_rules`` maps "experts" and "cache_seq" to ``model``,
-    their defaults.  Its ``scan_layers`` and ``donate_params`` have no
+    paths that read them (expert parallelism, item 14b; the
+    sequence-sharded dense cache, item 14e); until then ``axis_rules`` maps
+    "experts" and "cache_seq" to ``model``, their defaults.  Serving keeps
+    the K/V caches split by K/V head over ``model`` and whole over ``data``
+    (the data ranks are replicas; splitting the slots over ``data`` is item
+    14d).  Its ``scan_layers`` and ``donate_params`` have no
     counterpart: the port loops over the units and updates the state in
     place."""
 

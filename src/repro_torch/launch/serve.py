@@ -1,5 +1,4 @@
-"""Serving launcher (the port's copy of the reference's ``launch/serve.py``
-on one device).
+"""Serving launcher (the port's copy of the reference's ``launch/serve.py``).
 
 Continuous batching (decoder-only archs) drives the serving engine
 through ``serving/api.py::LLM``: ``--cache-layout paged`` serves from the
@@ -13,8 +12,18 @@ params (greedy by default; fused on-device sampling either way):
         --prefix-cache --prefill-chunk 32 --temperature 0.8 --top-k 40
 
 It runs on the GPU unless ``--device cpu`` asks for the CPU.  ``--mesh``
-takes only a one-device mesh (``1x1``): serving over several GPUs is not
-ported yet.
+(``launch/mesh.py::build_mesh``, as the training launcher's): ``auto``
+(the default) serves on one device, or on (world, 1) replicas when torchrun
+started several ranks; ``DxM`` serves tensor-parallel on a (data, model)
+mesh of D·M = ``WORLD_SIZE`` ranks, the heads split over ``model``
+(head-TP; ``serving/engine.py``, "Sharded serving") and the data ranks
+replicas, over NCCL with a rank a GPU (Gloo with ``--device cpu``):
+
+    PYTHONPATH=src torchrun --nproc_per_node 8 -m repro_torch.launch.serve \
+        --arch qwen2-7b --continuous --mesh 2x4 --cache-layout paged --prefix-cache
+
+Every rank serves the same requests; only rank 0 prints and writes the
+metrics, the trace and the profile.
 
 Telemetry (``repro_torch.obs``): ``--health-every N`` prints the engine's
 health snapshot every N steps while serving (default 64: a wedged engine
@@ -49,11 +58,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.config import ServeConfig
+from repro_torch.core.config import ParallelConfig, ServeConfig
 from repro_torch.kernels import ops
-from repro_torch.models.model import Model, build_model, resolve_device
+from repro_torch.launch.mesh import build_mesh, rank_device
+from repro_torch.models.model import Model, build_model
 
 
 @torch.no_grad()
@@ -63,13 +74,14 @@ def generate(model, params: Optional[Dict[str, Any]], batch: Dict[str, Any], *, 
     """Static-batch generation loop -> (tokens (B, steps) int32 on the
     model's device, generated tokens/s).
 
-    ``params`` is the model's tree (None: its own); ``batch`` holds
+    ``params`` is the model's tree (None: its serving view,
+    ``Model.serving_params``); ``batch`` holds
     ``tokens`` (B, S) and what the model's prefill takes beside them
     (``src_tokens``, ``enc_embeds``, ``img_embeds``), numpy or tensors,
     moved to the model's device.  Step ``i`` picks row b's token with
     seed ``b + seed`` (mod 2^32) at generation index ``i``; greedy when
     ``temperature`` <= 0.  The cache holds ``max_len`` rows."""
-    params = model.params.tree() if params is None else params
+    params = model.serving_params() if params is None else params
     dev = model.device
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     B = batch["tokens"].shape[0]
@@ -118,7 +130,8 @@ def serve_continuous(model, params: Optional[Dict[str, Any]], sc: ServeConfig, *
     Prometheus exposition and JSON snapshot there on the same cadence.
     ``trace_path`` writes the lifecycle JSONL at exit; ``profile`` turns
     on the engine's profiler scopes and step timer, whose report it
-    prints."""
+    prints.  On a mesh every rank serves the load and only the mesh's
+    first rank prints and writes."""
     from repro_torch.obs.metrics import MetricsRegistry
     from repro_torch.obs.trace import TraceRecorder
     from repro_torch.serving.api import LLM
@@ -126,8 +139,11 @@ def serve_continuous(model, params: Optional[Dict[str, Any]], sc: ServeConfig, *
 
     if params is not None:
         model = Model(model.cfg, params, model.pc)
-    reg = MetricsRegistry() if (metrics_dir or health_every) else None
-    tracer = TraceRecorder(capacity=16384) if trace_path else None
+    first = model.ctx.is_first
+    say = print if first else (lambda *_, **__: None)
+    health_every = health_every if first else 0
+    reg = MetricsRegistry() if first and (metrics_dir or health_every) else None
+    tracer = TraceRecorder(capacity=16384) if trace_path and first else None
 
     def _dump_metrics() -> None:
         if reg is not None and metrics_dir:
@@ -181,7 +197,7 @@ def serve_continuous(model, params: Optional[Dict[str, Any]], sc: ServeConfig, *
             f", prefix-cache: {st['hit_tokens']} tokens reused, "
             f"{st['evictions']} evictions, {st['cow_copies']} COW copies"
         )
-    print(
+    say(
         f"[{sc.cache_layout}] served {len(served)}/{len(outs)} requests / "
         f"{toks} tokens on {eng.slots} slots: {toks / wall:.1f} tok/s, "
         f"ttft {ttft:.1f}ms, itl {itl:.2f}ms{extra}"
@@ -190,32 +206,18 @@ def serve_continuous(model, params: Optional[Dict[str, Any]], sc: ServeConfig, *
         by_reason: Dict[str, int] = {}
         for c in degraded:
             by_reason[c.finish_reason] = by_reason.get(c.finish_reason, 0) + 1
-        print("  degraded outcomes: "
+        say("  degraded outcomes: "
               + ", ".join(f"{k}={v}" for k, v in sorted(by_reason.items())))
-    print(f"  health: {_health_line(eng.health())}")
+    say(f"  health: {_health_line(eng.health())}")
     _dump_metrics()
     if tracer is not None:
         tracer.write(trace_path)
         print(f"  trace: {len(tracer)} lifecycle events -> {trace_path}"
               + (f" ({tracer.dropped} older events dropped)" if tracer.dropped else ""))
-    if profile and eng.step_timer is not None and eng.step_timer.totals:
+    if profile and first and eng.step_timer is not None and eng.step_timer.totals:
         print("  step timer:")
         for line in eng.step_timer.report().splitlines():
             print(f"    {line}")
-
-
-def check_mesh(spec: str) -> None:
-    """``DATAxMODEL`` of one device (``1x1``), or no mesh: the port serves
-    on one card."""
-    if not spec:
-        return
-    try:
-        d, m = (int(x) for x in spec.lower().split("x"))
-    except ValueError:
-        raise SystemExit(f"--mesh wants DATAxMODEL (e.g. 2x4), got {spec!r}")
-    if d * m != 1:
-        raise SystemExit(f"--mesh {spec}: serving over several GPUs is not ported yet "
-                         "(ROADMAP: slice 8); serve on one device (no --mesh, or 1x1)")
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -236,9 +238,9 @@ def main(argv: Optional[List[str]] = None) -> None:
                    help="sampling seed (request i uses seed+i)")
     p.add_argument("--continuous", action="store_true",
                    help="continuous-batching engine instead of a static batch")
-    p.add_argument("--mesh", default="",
-                   help="DATAxMODEL; only a one-device mesh (1x1) until multi-GPU serving "
-                        "is ported")
+    p.add_argument("--mesh", default="auto",
+                   help="none | auto | DxM, e.g. 2x4 = (data=2, model=4): head-TP over model, "
+                        "replicas over data; D*M = WORLD_SIZE (torchrun)")
     p.add_argument("--cache-layout", choices=("dense", "paged"), default="dense")
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--requests", type=int, default=16)
@@ -270,10 +272,22 @@ def main(argv: Optional[List[str]] = None) -> None:
                         "directory (also turns on the engine's step timer)")
     a = p.parse_args(argv)
 
-    check_mesh(a.mesh)
-    device = resolve_device(a.device)
+    device = rank_device(a.device)
+    started = not dist.is_initialized()
+    try:
+        mesh = build_mesh(a.mesh, device)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    try:
+        _serve(a, device, mesh)
+    finally:
+        if mesh is not None and started:
+            dist.destroy_process_group()
+
+
+def _serve(a, device: torch.device, mesh) -> None:
     cfg = get_smoke_config(a.arch) if a.smoke else get_config(a.arch)
-    model = build_model(cfg, device=device, seed=0)
+    model = build_model(cfg, ParallelConfig(), mesh, device=device, seed=0)
     if a.continuous:
         max_prompt = a.prompt_len * (2 if a.prefix_cache else 1)
         sc = ServeConfig(
@@ -287,7 +301,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         )
         from repro_torch.obs.profile import trace_ctx
 
-        with trace_ctx(a.profile):
+        with trace_ctx(a.profile if model.ctx.is_first else ""):
             serve_continuous(model, None, sc, gen=a.gen, prompt_len=a.prompt_len,
                              requests=a.requests, health_every=a.health_every,
                              metrics_dir=a.metrics_dir, trace_path=a.trace_path,
@@ -309,8 +323,9 @@ def main(argv: Optional[List[str]] = None) -> None:
                          max_len=a.prompt_len + a.gen + cfg.num_frontend_tokens + 1,
                          steps=a.gen, temperature=a.temperature, seed=a.seed,
                          top_k=a.top_k, top_p=a.top_p)
-    print(f"generated {tuple(toks.shape)} tokens at {tps:.1f} tok/s")
-    print(toks[:, :12].cpu().numpy())
+    if model.ctx.is_first:
+        print(f"generated {tuple(toks.shape)} tokens at {tps:.1f} tok/s")
+        print(toks[:, :12].cpu().numpy())
 
 
 if __name__ == "__main__":

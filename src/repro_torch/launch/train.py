@@ -11,10 +11,10 @@
 
 The model runs on the GPU unless ``--device`` names another device
 (``--device cpu`` with ``--smoke``, the reduced config, is the practical
-mode on a CPU).  ``--mesh`` (``build_mesh``): ``none`` trains on one
-device; ``auto`` takes a (world, 1) mesh when torchrun started several
-ranks, else none; ``DxM`` a (data, model) mesh, whose D·M must equal
-torchrun's ``WORLD_SIZE``.  The ranks meet over NCCL, each on
+mode on a CPU).  ``--mesh`` (``launch/mesh.py::build_mesh``, shared with
+the serving launcher): ``none`` trains on one device; ``auto`` takes a
+(world, 1) mesh when torchrun started several ranks, else none; ``DxM`` a
+(data, model) mesh, whose D·M must equal torchrun's ``WORLD_SIZE``.  The ranks meet over NCCL, each on
 ``cuda:LOCAL_RANK``, or over Gloo with ``--device cpu``; without torchrun
 a ``1x1`` mesh is a world of one.  Size-aware batches then round their rows
 to the data ranks, and only rank 0 prints and writes files.
@@ -51,8 +51,8 @@ from repro_torch.data.pipeline import CLMBatches, MLMBatches
 from repro_torch.data.producer import BackgroundProducer
 from repro_torch.data.sampler import ClusterSampler, greedy_length_clusters
 from repro_torch.data.size_aware import SizeAwareSampler
-from repro_torch.launch.mesh import make_test_mesh
-from repro_torch.models.model import build_model, resolve_device
+from repro_torch.launch.mesh import build_mesh, rank_device
+from repro_torch.models.model import build_model
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.profile import trace_ctx
 from repro_torch.training.loop import Trainer
@@ -113,66 +113,6 @@ def make_batches(cfg, tc: TrainConfig, data_dir: str, seed: int = 0, *,
     if producer_depth:
         pipe = BackgroundProducer(pipe, depth=producer_depth)
     return pipe
-
-
-def _world() -> int:
-    if dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
-
-
-def rank_device(device: Optional[str]) -> torch.device:
-    """``resolve_device``, on torchrun's ``cuda:LOCAL_RANK`` for a GPU."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in os.environ:
-        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
-        torch.cuda.set_device(dev)
-    return dev
-
-
-def init_distributed(device: torch.device) -> bool:
-    """Start the process group unless one stands: from torchrun's
-    environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``),
-    else a world of one over a file store.  NCCL for a CUDA device, Gloo for
-    the CPU.  Returns whether it started one."""
-    if dist.is_initialized():
-        return False
-    backend = "nccl" if device.type == "cuda" else "gloo"
-    if "MASTER_ADDR" in os.environ:
-        dist.init_process_group(backend, init_method="env://")
-    else:
-        store = dist.FileStore(os.path.join(tempfile.mkdtemp(), "store"), 1)
-        dist.init_process_group(backend, store=store, rank=0, world_size=1)
-    return True
-
-
-def build_mesh(spec: str, device: torch.device):
-    """``none`` -> no mesh (one process); ``auto`` -> (world, 1) when the
-    world has several ranks, else no mesh; ``DxM`` -> a (data, model) mesh
-    of D·M = ``WORLD_SIZE`` ranks.  A mesh the world cannot hold raises, and
-    so does ``none`` on a world of several ranks (it would train one replica
-    a rank).  Starts the process group a mesh needs (``init_distributed``)."""
-    world = _world()
-    if spec == "none":
-        if world > 1:
-            raise ValueError(f"--mesh none on a world of {world} ranks would train one replica "
-                             "a rank; give --mesh auto or DxM")
-        return None
-    if spec == "auto":
-        if world == 1:
-            return None
-        shape = (world, 1)
-    else:
-        try:
-            shape = tuple(int(x) for x in spec.lower().split("x"))
-        except ValueError:
-            raise ValueError(f"--mesh wants none, auto or DxM (e.g. 2x4), got {spec!r}")
-        if len(shape) != 2 or shape[0] * shape[1] != world:
-            raise ValueError(f"--mesh {spec} needs a world of "
-                             f"{shape[0] * shape[-1]} ranks (torchrun's WORLD_SIZE); it has "
-                             f"{world}")
-    init_distributed(device)
-    return make_test_mesh(shape, ("data", "model"))
 
 
 def main(argv: Optional[List[str]] = None) -> None:

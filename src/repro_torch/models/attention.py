@@ -17,6 +17,12 @@ pages_per_seq) block table of physical page ids (``init_paged_cache``;
 the allocator is ``serving/paged_cache.py``).  The writes are in place,
 where the reference donates the pools and returns new ones.
 
+On a mesh under head-TP (``ctx.head_tp``) every mode computes the rank's
+query heads and their K/V heads (``parallel.sharding.rank_kv_heads``):
+the dense cache and the pools hold those K/V heads only, and the output
+projection is row-parallel, one all-reduce over ``model``.  Under context
+parallelism only train mode runs; generation raises.
+
 Cross-attention (an encoder-decoder's decoder layers): ``cross_kv``, the
 encoder output (B, T_enc, d_model), gives K and V; it is never causal and
 takes no RoPE.  In prefill mode it returns the write-once cross cache
@@ -35,6 +41,7 @@ from repro_torch.core.config import ModelConfig
 from repro_torch.core.module import P
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rope
+from repro_torch.parallel.sharding import rank_kv_heads
 
 
 def attention_defs(cfg: ModelConfig, cross: bool = False) -> Dict[str, P]:
@@ -82,19 +89,18 @@ def _project_qkv(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor,
     return (_project_q(cfg, params, x), k.reshape(B, T, -1, hd), v.reshape(B, T, -1, hd))
 
 
-def _tp_kv(cfg: ModelConfig, ctx: Any, k: torch.Tensor, v: torch.Tensor, heads: int):
+def _tp_kv(cfg: ModelConfig, ctx: Any, k: torch.Tensor, v: torch.Tensor):
     """Head-TP with the K/V heads replicated (``num_kv_heads % tp != 0``):
-    the K/V heads of this rank's ``heads`` query heads: the one K/V head
-    when they fall inside one group, else one K/V head per query head.
-    (They never cover whole groups: that would make the K/V heads divide
-    over ``tp``.)"""
+    the K/V heads of this rank's query heads (``rank_kv_heads``): the one
+    K/V head when they fall inside one group, else one K/V head per query
+    head.  (They never cover whole groups: that would make the K/V heads
+    divide over ``tp``.)"""
     if k.shape[2] != cfg.num_kv_heads:          # sharded with the query heads
         return k, v
-    g = cfg.num_heads // cfg.num_kv_heads
-    first = ctx.coords["model"] * heads
-    if first // g == (first + heads - 1) // g:
-        return k.narrow(2, first // g, 1), v.narrow(2, first // g, 1)
-    idx = torch.arange(first, first + heads, device=k.device) // g
+    idx = rank_kv_heads(cfg, ctx)
+    if len(idx) == 1:
+        return k.narrow(2, idx[0], 1), v.narrow(2, idx[0], 1)
+    idx = torch.tensor(idx, device=k.device)
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
@@ -144,13 +150,13 @@ def attention_apply(
     rows past its valid count are bucket padding, whose K/V goes to the
     null page and whose outputs the caller discards.
 
-    Train mode on a mesh (``ctx``): under head-TP the input passes
+    On a mesh (``ctx``), under head-TP in every mode, the input passes
     ``copy_to_model`` and the rank computes its query heads (and their K/V
-    heads) only, the output projection row-parallel; under context
-    parallelism x holds the rank's rows, which ``positions`` place in the
-    sequence, and K/V are all-gathered over ``model``, so the kernels see
-    the rank's S/tp query rows against all T keys at ``q_offset`` = its
-    first row."""
+    heads) only, the output projection row-parallel; a cache holds the
+    rank's K/V heads.  Under context parallelism (train mode only) x holds
+    the rank's rows, which ``positions`` place in the sequence, and K/V are
+    all-gathered over ``model``, so the kernels see the rank's S/tp query
+    rows against all T keys at ``q_offset`` = its first row."""
     if mode not in ("train", "prefill", "decode", "chunk"):
         raise ValueError(f"unknown attention mode {mode!r}")
     window = cfg.sliding_window if window is None else window
@@ -171,13 +177,18 @@ def attention_apply(
         return _out_proj(cfg, params, o), ({"k": k, "v": v, "len": lengths}
                                            if mode == "prefill" else None)
     causal = cfg.causal if causal is None else causal
-    head_tp = mode == "train" and ctx is not None and ctx.head_tp
-    seq_par = mode == "train" and ctx is not None and ctx.seq_parallel
+    head_tp = ctx is not None and ctx.head_tp
+    seq_par = ctx is not None and ctx.seq_parallel
+    if seq_par and mode != "train":
+        raise NotImplementedError(
+            f"{cfg.name}: {mode} under context parallelism is not ported yet (ROADMAP: item "
+            "14e, the sequence-sharded cache); serve with heads that divide over model")
     if head_tp:
         x = ctx.copy_to_model(x)
     q, k, v = _project_qkv(cfg, params, x)
     if head_tp:
-        k, v = _tp_kv(cfg, ctx, k, v, q.shape[2])
+        k, v = _tp_kv(cfg, ctx, k, v)
+    tp_ctx = ctx if head_tp else None
     q_offset = ctx.coords["model"] * x.shape[1] if seq_par else 0
     if seq_par and positions is None:
         positions = q_offset + torch.arange(x.shape[1], device=x.device)
@@ -214,7 +225,7 @@ def attention_apply(
             o = ops.paged_decode_append(q, k_pool, v_pool, k, v, paged["block_table"],
                                         paged["lengths"], paged["page_idx"], paged["row"],
                                         softcap=cfg.attn_logit_softcap, impl=cfg.kernel_impl)
-        return _out_proj(cfg, params, o), cache
+        return _out_proj(cfg, params, o, tp_ctx), cache
 
     if mode == "decode":
         if cache is None or cache_pos is None:
@@ -238,37 +249,40 @@ def attention_apply(
             lengths = torch.full((B,), min(pos + 1, T), dtype=torch.int32, device=x.device)
         o = ops.decode_attention(q, k_cache, v_cache, lengths,
                                  softcap=cfg.attn_logit_softcap, impl=cfg.kernel_impl)
-        return _out_proj(cfg, params, o), cache
+        return _out_proj(cfg, params, o, tp_ctx), cache
 
     if seq_par:
         k, v = ctx.gather_seq(k), ctx.gather_seq(v)
     o = ops.attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_logit_softcap,
                       q_offset=q_offset, impl=cfg.kernel_impl)
-    out = _out_proj(cfg, params, o, ctx if head_tp else None)
+    out = _out_proj(cfg, params, o, tp_ctx)
     return out, ({"k": k, "v": v} if mode == "prefill" else None)
 
 
-def cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> Tuple[int, int, int, int]:
+def cache_shape(cfg: ModelConfig, batch: int, max_len: int,
+                kv_heads: Optional[int] = None) -> Tuple[int, int, int, int]:
     """(batch, T, Hkv, D) of a dense cache; T = min(max_len, window) for a
-    sliding-window model (a rolling cache)."""
+    sliding-window model (a rolling cache).  ``kv_heads``: the K/V heads
+    a head-TP rank caches (``rank_kv_heads``; default all of them)."""
     T = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    return (batch, T, cfg.num_kv_heads, cfg.resolved_head_dim)
-
+    return (batch, T, kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim)
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, dtype: torch.dtype,
-                     device: torch.device, stack: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+                     device: torch.device, stack: Tuple[int, ...] = (),
+                     kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Zeroed K/V page pools, {"k_pool", "v_pool"} of shape (*stack,
     num_pages, page_size, Hkv, D); the stack builds all layers' pools at
-    once with ``stack=(num_layers,)``.  The block table lives at the engine
-    cache's top level: it is the same for every layer.  Raises for a
+    once with ``stack=(num_layers,)``; Hkv is ``kv_heads`` (a head-TP
+    rank's, default all).  The block table lives at the engine cache's top
+    level: it is the same for every layer and every rank.  Raises for a
     sliding-window model: the paged layout has no rolling cache."""
     if cfg.sliding_window:
         raise ValueError(
             "cache_layout='paged' does not support sliding-window (rolling) "
             "caches — use the dense layout"
         )
-    shape = (*stack, num_pages, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = (*stack, num_pages, page_size, kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim)
     return {n: torch.zeros(shape, dtype=dtype, device=device) for n in ("k_pool", "v_pool")}
 
 

@@ -26,9 +26,15 @@ leaf: every rank draws each leaf whole from its own seed and keeps its
 part, so the weights are the mesh-free model's whatever the mesh's shape,
 and bridged weights shard the same way.  ``compute_params`` gathers the
 compute view a step works on, and ``loss_fn`` is the global token-weighted
-mean over every rank's rows.  The mesh path trains; serving on a mesh is
-not ported yet (ROADMAP item 14c), and MoE, SSM, encoder-decoder and
-frontend models train on a mesh whose ``model`` axis is 1 (item 14b).
+mean over every rank's rows.  Serving reads ``serving_params()``, that
+view built once without a gradient: each leaf whole over ``data`` (the
+data ranks serve as replicas), the rank's heads and MLP columns over
+``model`` (head-TP), the embedding and the LM head whole, so the logits
+are whole on every rank.  ``init_cache`` sizes the K/V caches for the
+rank's K/V heads.  ``embed_pool`` runs under head-TP and under context
+parallelism; generation under context parallelism is not ported yet
+(ROADMAP item 14e), and MoE, SSM, encoder-decoder and frontend models
+train and serve on a mesh whose ``model`` axis is 1 (item 14b).
 
 ``loss_fn(params, batch)`` takes the param tree explicitly, as the
 reference's does, so the train step can run it on the compute-dtype view
@@ -55,7 +61,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.parallel.sharding import ShardingCtx, mesh_axis_sizes, null_ctx
+from repro_torch.parallel.sharding import ShardingCtx, mesh_axis_sizes, null_ctx, rank_kv_heads
 
 log = logging.getLogger(__name__)
 
@@ -94,12 +100,13 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
 def check_mesh_support(cfg: ModelConfig, tp: int) -> None:
     """Raise for a family whose ``model``-axis split is not ported: MoE
     (expert parallelism), SSM and hybrid stacks, encoder-decoders and the
-    frontend models train on a mesh whose ``model`` axis is 1."""
+    frontend models train and serve on a mesh whose ``model`` axis is 1."""
     if tp > 1 and (cfg.num_experts or cfg.family in ("ssm", "hybrid")
                    or cfg.is_encoder_decoder or cfg.frontend):
         raise NotImplementedError(
             f"{cfg.name}: a {cfg.family} model over model={tp} is not ported yet (ROADMAP: "
-            "item 14b); train it on a mesh whose model axis is 1 (pure FSDP over data)")
+            "item 14b); train or serve it on a mesh whose model axis is 1 (FSDP over data, "
+            "replicas when serving)")
 
 
 class Model(nn.Module):
@@ -125,6 +132,8 @@ class Model(nn.Module):
                 log.warning("%s: %d heads do not divide over model=%d: attention_parallelism "
                             "head_tp -> context", cfg.name, cfg.num_heads, self.ctx.tp)
             params = self.ctx.shard_tree(self.specs, params, param_defs(cfg))
+        # the serving entry points' context: the data ranks are replicas
+        self.serve_ctx = self.ctx.serving()
         self.policy = policy_for(cfg)
         self.params = ParamTree(params)
 
@@ -148,10 +157,24 @@ class Model(nn.Module):
             return compute_view(self.policy, params)
         return self.ctx.gather_view(self.specs, params, self.policy.cdt)
 
-    def _one_device(self, what: str) -> None:
-        if self.sharded and self.ctx.size(tuple(self.ctx.sizes)) > 1:
-            raise NotImplementedError(f"{what} on a mesh of several devices is not ported yet "
-                                      "(ROADMAP: item 14c); serve on one device")
+    @torch.no_grad()
+    def serving_params(self) -> Dict[str, Any]:
+        """The weights the serving entry points read: off a mesh the
+        model's own tree (no copy); on a mesh the compute view, built once
+        without a gradient (``compute_params``: whole over ``data``, the
+        rank's heads and MLP columns over ``model``, the embedding and the
+        LM head whole)."""
+        if not self.sharded:
+            return self.params.tree()
+        return self.compute_params(self.params.tree())
+
+    def _check_generation(self) -> None:
+        if self.ctx.seq_parallel:
+            raise NotImplementedError(
+                f"{self.cfg.name}: generation under context parallelism ({self.cfg.num_heads} "
+                f"heads do not divide over model={self.ctx.tp}) is not ported yet (ROADMAP: "
+                "item 14e, the sequence-sharded cache and flash_decode's partial LSE combined "
+                "over model); embed_pool runs, or serve with heads that divide")
 
     # ------------------------------------------------------------ encoder
     def _encode(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -189,12 +212,14 @@ class Model(nn.Module):
             x = torch.cat([img, x], dim=1)
         return x
 
-    def _backbone(self, params: Dict[str, Any], x: torch.Tensor, **kw):
+    def _backbone(self, params: Dict[str, Any], x: torch.Tensor, serving: bool = False, **kw):
         """The stack (train mode unless ``kw`` says otherwise), then the
         final norm; returns (x, caches, aux_sum) — aux_sum the MoE layers'
-        router vectors summed (``moe.aux_shape``)."""
+        router vectors summed (``moe.aux_shape``).  ``serving``: under the
+        serving context (``ShardingCtx.serving``)."""
         x, caches, aux = T.decoder_stack(self.cfg, params["layers"], x,
-                                         remat=self.pc.remat_policy, ctx=self.ctx, **kw)
+                                         remat=self.pc.remat_policy,
+                                         ctx=self.serve_ctx if serving else self.ctx, **kw)
         return L.norm_apply(self.cfg, params["final_norm"], x), caches, aux
 
     def head_weight(self, params: Dict[str, Any]) -> torch.Tensor:
@@ -312,22 +337,35 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------ serving
     @torch.inference_mode()
-    def embed_pool(self, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    def embed_pool(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                   params: Optional[Dict[str, Any]] = None) -> torch.Tensor:
         """Masked mean-pooled sequence embeddings: (B, S) tokens + (B,)
-        valid lengths -> (B, d_model) float32.
+        valid lengths -> (B, d_model) float32.  ``params``: the serving view
+        (default ``serving_params()``).
 
         Runs the full-sequence forward in train mode.  For bidirectional
         (MLM) models the pad tokens are visible to attention exactly as in
         training — no key-padding mask — and only positions < lengths[b]
-        enter the fp32 mean, as in the reference."""
-        self._one_device("embedding")
-        p = self.params.tree()
-        x, _, _ = self._backbone(p, self._decoder_input(p, tokens))
-        mask = torch.arange(x.shape[1], device=x.device)[None, :] < lengths.to(x.device)[:, None]
+        enter the fp32 mean, as in the reference.  On a mesh every rank
+        returns the same rows: under head-TP the layers all-reduce over
+        ``model``; under context parallelism a rank runs its rows of the
+        sequence (``ShardingCtx.seq_chunk``; S must divide over ``model``)
+        and the masked sums and counts are all-reduced over ``model``."""
+        p = self.serving_params() if params is None else params
+        ctx = self.ctx
+        off, n = ctx.seq_chunk(tokens.shape[1])
+        pos = torch.arange(off, off + n, device=tokens.device) if ctx.seq_parallel else None
+        x = self._decoder_input(p, tokens[:, off:off + n], pos)
+        x, _, _ = self._backbone(p, x, serving=True, positions=pos)
+        rows = off + torch.arange(n, device=x.device)
+        mask = rows[None, :] < lengths.to(x.device)[:, None]
         x = x.float() * mask[..., None]
-        denom = mask.sum(dim=1).clamp_min(1).float()
-        return x.sum(dim=1) / denom[:, None]
-
+        if not ctx.seq_parallel:
+            denom = mask.sum(dim=1).clamp_min(1).float()
+            return x.sum(dim=1) / denom[:, None]
+        sums = ctx.all_reduce(x.sum(dim=1), ("model",))
+        denom = ctx.all_reduce(mask.sum(dim=1).float(), ("model",)).clamp_min(1.0)
+        return sums / denom[:, None]
 
     # ------------------------------------------------------------ generation
     @torch.no_grad()
@@ -347,10 +385,10 @@ class Model(nn.Module):
         too, and each layer's cache its ``xattn`` K/V over the encoder
         output.  A vision model's ``img_embeds`` rows go in front of the
         text: ``length`` then counts them, as the cache position does."""
-        self._one_device("prefill")
+        self._check_generation()
         x = self._decoder_input(params, batch["tokens"], img=batch.get("img_embeds"))
         S = x.shape[1]
-        x, caches, _ = self._backbone(params, x, mode="prefill",
+        x, caches, _ = self._backbone(params, x, serving=True, mode="prefill",
                                       cross_kv=self._cross_kv(params, batch))
         pos = S if length is None else int(length)
         lg = self.logits(params, x[:, pos - 1 : pos, :])
@@ -375,14 +413,14 @@ class Model(nn.Module):
         Vpad) of the last valid row — meaningful on the final chunk —,
         layers).  Sound only for causal attention-only stacks; the engine
         gates it."""
-        self._one_device("prefill")
+        self._check_generation()
         C = tokens.shape[1]
         positions = start + torch.arange(C, device=tokens.device)
         x = self._decoder_input(params, tokens, positions)
         page = _page_size(layers)
         paged = A.paged_chunk_addressing(block_row, int(start), C, int(n_valid), page)
-        x, layers, _ = self._backbone(params, x, mode="chunk", positions=positions, caches=layers,
-                                   cache_pos=int(start), paged=paged)
+        x, layers, _ = self._backbone(params, x, serving=True, mode="chunk", positions=positions,
+                                      caches=layers, cache_pos=int(start), paged=paged)
         return self.logits(params, x[:, n_valid - 1 : n_valid, :]), layers
 
     @torch.no_grad()
@@ -393,7 +431,7 @@ class Model(nn.Module):
         continuous-batching engine); the K/V buffers (or page pools, read
         and written through ``cache["block_table"]``) are updated in place
         and the returned cache holds them with ``pos + 1``."""
-        self._one_device("decoding")
+        self._check_generation()
         pos = cache["pos"]
         block_table = cache.get("block_table")
         paged = None
@@ -403,8 +441,9 @@ class Model(nn.Module):
         per_slot = torch.is_tensor(pos)
         rope_pos = None if per_slot else torch.full((1,), int(pos), device=tokens.device)
         x = self._decoder_input(params, tokens, pos[:, None] if per_slot else rope_pos)
-        x, layers, _ = self._backbone(params, x, mode="decode", positions=rope_pos,
-                                   caches=cache["layers"], cache_pos=pos, paged=paged)
+        x, layers, _ = self._backbone(params, x, serving=True, mode="decode",
+                                      positions=rope_pos, caches=cache["layers"], cache_pos=pos,
+                                      paged=paged)
         new = {"layers": layers, "pos": pos + 1}
         if block_table is not None:
             new["block_table"] = block_table
@@ -418,7 +457,12 @@ class Model(nn.Module):
         top-level (batch, pages_per_seq) ``block_table`` of the null page 0
         that the engine's allocator maintains, and a per-slot (batch,)
         ``pos``.  An encoder-decoder with ``cross_len`` > 0 also gets each
-        layer's dense per-slot cross cache (``T.init_stack_cache``)."""
+        layer's dense per-slot cross cache (``T.init_stack_cache``).  On a
+        mesh the K/V buffers and pools hold the rank's K/V heads
+        (``rank_kv_heads``); the block table, ``pos`` and the cross cache
+        are whole on every rank."""
+        self._check_generation()
+        kv = len(rank_kv_heads(self.cfg, self.ctx))
         if layout == "paged":
             if page_size <= 0 or num_pages <= 1:
                 raise ValueError("paged layout needs page_size>0, num_pages>1")
@@ -426,12 +470,13 @@ class Model(nn.Module):
             dev = self.device
             return {"layers": T.init_stack_cache(self.cfg, batch, max_len, self.policy.cdt, dev,
                                                  cross_len=cross_len, layout="paged",
-                                                 page_size=page_size, num_pages=num_pages),
+                                                 page_size=page_size, num_pages=num_pages,
+                                                 kv_heads=kv),
                     "block_table": torch.zeros((batch, pages_per_seq), dtype=torch.int32,
                                                device=dev),
                     "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
         return {"layers": T.init_stack_cache(self.cfg, batch, max_len, self.policy.cdt,
-                                             self.device, cross_len=cross_len),
+                                             self.device, cross_len=cross_len, kv_heads=kv),
                 "pos": 0}
 
     def _pad_caches(self, caches: Dict[str, Any], S: int, max_len: int) -> Dict[str, Any]:

@@ -43,7 +43,8 @@ computes over the whole batch: the capacity of all the batch's tokens, a
 slot's rank within its expert counted after the slots of the ranks before
 it (the global batch's token order), and the router statistics summed over
 the data ranks (the two loss terms through ``reduce_sum``, whose gradient
-is each rank's own part).
+is each rank's own part).  Serving's context (``ctx.batch_replicated``:
+every data rank holds the same rows) runs the mesh-free layer.
 """
 from __future__ import annotations
 
@@ -151,7 +152,7 @@ def moe_apply(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor, ctx: An
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S
     M = T * K
-    mesh = ctx is not None and ctx.mesh is not None
+    mesh = ctx is not None and ctx.mesh is not None and not ctx.batch_replicated
     n_ranks = ctx.data_ranks if mesh else 1
     C = capacity(cfg, T * n_ranks)
     xf = x.reshape(T, d)

@@ -231,9 +231,9 @@ def decoder_stack(
     other modes) runs it unwrapped.
 
     ``ctx`` (a ``parallel.sharding.ShardingCtx``) reaches every layer: on a
-    mesh the train mode's layers run their collectives (head-TP's
-    all-reduces, context parallelism's K/V gathers; ``models/attention.py``,
-    ``models/layers.py``).  Under context parallelism x holds the rank's
+    mesh the layers run their collectives (head-TP's all-reduces in every
+    mode, context parallelism's K/V gathers in train mode;
+    ``models/attention.py``, ``models/layers.py``).  Under context parallelism x holds the rank's
     rows of the sequence, which ``positions`` place, and the norms see only
     those rows: their gradients are summed over ``model`` with the other
     leaves' (``ShardingCtx.reduce_axes``).  Under head-TP every ``model``
@@ -276,7 +276,8 @@ def decoder_stack(
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
                      device: torch.device, *, cross_len: int = 0, layout: str = "dense",
-                     page_size: int = 0, num_pages: int = 0) -> Dict[str, Any]:
+                     page_size: int = 0, num_pages: int = 0,
+                     kv_heads: Optional[int] = None) -> Dict[str, Any]:
     """The decode cache, one entry per layer of the unit, each stacked over
     the units and zeroed (the reference builds one unit's cache and
     broadcasts it).  An attention layer's, dense: leaves ``k``/``v``
@@ -287,13 +288,17 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dt
     encoder-decoder with ``cross_len`` > 0 adds each layer's dense
     ``xattn`` cache per slot in either layout: ``k``/``v`` (num_units,
     batch, cross_len, Hkv, D) and ``len`` (num_units, batch) int32 at
-    cross_len.  Each layer works on a contiguous view."""
+    cross_len.  Each layer works on a contiguous view.  ``kv_heads``: the
+    K/V heads a head-TP rank's self-attention caches hold
+    (``parallel.sharding.rank_kv_heads``; default all); the cross cache
+    keeps every head (an encoder-decoder serves on a ``model`` axis of 1)."""
     n = num_units(cfg)
 
     def attn():
         if layout == "paged":
-            return init_paged_cache(cfg, num_pages, page_size, dtype, device, stack=(n,))
-        shape = (n, *cache_shape(cfg, batch, max_len))
+            return init_paged_cache(cfg, num_pages, page_size, dtype, device, stack=(n,),
+                                    kv_heads=kv_heads)
+        shape = (n, *cache_shape(cfg, batch, max_len, kv_heads))
         return {name: torch.zeros(shape, dtype=dtype, device=device) for name in ("k", "v")}
 
     def xattn():

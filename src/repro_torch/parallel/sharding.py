@@ -28,6 +28,12 @@ itself, each on the process group of its axes:
   all-gathers K/V over ``model`` (``gather_seq``; its backward
   reduce-scatters dK/dV).
 
+Serving on a mesh runs head-TP over the same groups: a rank projects,
+caches and attends over its query heads and their K/V heads
+(``rank_kv_heads``), and the host decisions that read a clock take rank
+0's reading (``ShardingCtx.agree``, a broadcast over a Gloo group of the
+mesh's ranks kept beside the device groups, so no device is touched).
+
 A leaf's gradient is summed over the ranks that saw other tokens: the batch
 axes, and ``model`` under context parallelism (``ShardingCtx.reduce_axes``,
 the reference's ``"tokens"`` rule).  Under head-TP the K/V projections that
@@ -41,10 +47,12 @@ the rules, ``shard`` and the index math work on it, a collective does not.
 """
 from __future__ import annotations
 
+import copy
 import itertools
 import math
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -166,7 +174,7 @@ def shard_shape(shape: Sequence[int], pspec: Spec, sizes: Dict[str, int]) -> Tup
 # --------------------------------------------------------------------- #
 # process groups and collectives
 # --------------------------------------------------------------------- #
-_GROUPS: Dict[Any, Dict[Tuple[str, ...], Any]] = {}
+_GROUPS: Dict[Any, Tuple[Any, Dict[Any, Any]]] = {}
 
 
 def _mesh_groups(mesh) -> Dict[Tuple[str, ...], Any]:
@@ -177,14 +185,17 @@ def _mesh_groups(mesh) -> Dict[Tuple[str, ...], Any]:
     ranks' index over its axes."""
     names = tuple(mesh.mesh_dim_names)
     ranks = mesh.mesh.cpu()
-    key = (id(dist.group.WORLD), names, tuple(ranks.shape), tuple(ranks.flatten().tolist()))
+    world = dist.group.WORLD
+    key = (id(world), names, tuple(ranks.shape), tuple(ranks.flatten().tolist()))
     if key in _GROUPS:
-        return _GROUPS[key]
+        # the entry keeps its world alive, so a later world (after
+        # destroy_process_group) cannot take its id
+        return _GROUPS[key][1]
     flat = ranks.flatten()
     if not bool((flat[1:] > flat[:-1]).all()):
         raise ValueError(f"the mesh's ranks must rise in row-major order, got {ranks.tolist()}")
     me = dist.get_rank()
-    groups = {}
+    groups: Dict[Any, Any] = {}
     for k in range(1, len(names) + 1):
         for axes in itertools.combinations(names, k):
             dims = [names.index(a) for a in axes]
@@ -194,7 +205,10 @@ def _mesh_groups(mesh) -> Dict[Tuple[str, ...], Any]:
                 g = dist.new_group(row)
                 if me in row:
                     groups[axes] = g
-    _GROUPS[key] = groups
+    # the host group: every rank of the mesh over Gloo, for host values
+    # (``ShardingCtx.agree``) whatever the device groups' backend
+    groups["host"] = dist.new_group(flat.tolist(), backend="gloo")
+    _GROUPS[key] = (world, groups)
     return groups
 
 
@@ -338,6 +352,20 @@ class ShardingCtx:
         self.coords = dict(zip(self.sizes, mesh.get_coordinate())) if mesh is not None else {}
         self._groups = (_mesh_groups(mesh) if mesh is not None
                         and not isinstance(mesh, MeshCoords) else {})
+        # the mesh origin's global rank: the source of ``agree``
+        self._origin = int(mesh.mesh.flatten()[0]) if self._groups else 0
+        # serving: every data rank holds the same rows (``serving``)
+        self.batch_replicated = False
+
+    def serving(self) -> "ShardingCtx":
+        """This rank's context for the serving entry points: the same mesh
+        and groups, the batch's rows replicated over the batch axes (the
+        data ranks serve the same requests as replicas), so no layer sums
+        or orders rows across them (the MoE layer's capacity and router
+        statistics are then the mesh-free layer's)."""
+        c = copy.copy(self)
+        c.batch_replicated = True
+        return c
 
     # ---------------------------------------------------------- the layout
     @property
@@ -528,6 +556,35 @@ class ShardingCtx:
 
     def barrier(self) -> None:
         dist.barrier(group=self.group(tuple(self.sizes)))
+
+    def agree(self, x: float) -> float:
+        """The mesh origin's ``x`` on every rank: one broadcast of a host
+        value over the host group (Gloo, CPU memory).  Off a process group
+        (no mesh, a ``MeshCoords``) ``x`` itself."""
+        if not self._groups:
+            return x
+        buf = np.array([x], dtype=np.float64)
+        dist.broadcast(torch.from_numpy(buf), src=self._origin, group=self._groups["host"])
+        return float(buf[0])
+
+
+def rank_kv_heads(cfg: ModelConfig, ctx: Any) -> List[int]:
+    """The K/V heads (indices into the model's) that a head-TP rank
+    projects, caches and attends with: its block of ``num_kv_heads / tp``
+    where they divide over ``model``; else, every K/V head being
+    replicated, those of its query heads: the one head when they fall in
+    one group, else one per query head (a head may repeat).  Every head off
+    head-TP (no mesh, ``model`` of 1, context parallelism)."""
+    if ctx is None or not ctx.head_tp:
+        return list(range(cfg.num_kv_heads))
+    r, tp = ctx.coords["model"], ctx.tp
+    if cfg.num_kv_heads % tp == 0:
+        n = cfg.num_kv_heads // tp
+        return list(range(r * n, (r + 1) * n))
+    heads = cfg.num_heads // tp
+    g = cfg.num_heads // cfg.num_kv_heads
+    idx = [(r * heads + i) // g for i in range(heads)]
+    return idx[:1] if len(set(idx)) == 1 else idx
 
 
 def null_ctx() -> ShardingCtx:

@@ -28,7 +28,10 @@ and the paged cache layouts:
 * ``LLM.embed(prompts)`` — batched embedding extraction.
 
 The model holds its own weights, so the facade takes no separate param
-tree (the reference's takes one).  Serve from bf16 parameters: with the
+tree (the reference's takes one).  On a model built on a mesh every rank
+constructs the same ``LLM`` and makes the same calls: each returns the same
+completions, streams and embeddings (``serving/engine.py``, "Sharded
+serving").  Serve from bf16 parameters: with the
 default fp32 ``param_dtype`` every decode step re-reads and re-casts the
 fp32 master weights.
 """

@@ -81,6 +81,31 @@ non-finite sentinel that quarantines only the offending slot
 ``faults=FaultPlan(...)``.  ``health()`` snapshots the queue, the slots,
 the watchdog and the lifecycle counters.
 
+Sharded serving (tensor-parallel inference on a mesh): a model built on a
+(data, model) mesh (``build_model(cfg, pc, mesh)``, ``launch/serve.py
+--mesh DxM`` under torchrun) makes the engine mesh-aware with no API
+change.  Every rank runs this same host loop on the same requests (one
+SPMD engine).  The engine serves from ``Model.serving_params()``: each
+weight whole over ``data``, the rank's heads and MLP columns over
+``model``.  The dense K/V buffers and the paged pools hold the rank's K/V
+heads (``parallel.sharding.rank_kv_heads``); the page allocator,
+refcounts, prefix-hash index and LRU stay global host state, so a page id
+means the same on every rank and prefix sharing and copy-on-write do not
+depend on the mesh.  The block table, ``pos`` and every per-slot control
+tensor are whole on every rank.  Each layer all-reduces twice over
+``model`` (after ``wo`` and after ``w_out``); every kernel sees the rank's
+heads as plain local tensors.  The logits are whole on every rank, so the
+sampler reads the same row everywhere and a request's tokens depend only
+on its seed and generation index, not on the mesh's shape.  The data
+ranks are replicas: the same requests, the same tokens (splitting the
+slots over ``data`` is ROADMAP item 14d).  Every rank must take the same
+host decisions, or the collectives stop matching: the one input that can
+differ between ranks is the clock, so the deadline decisions read rank
+0's reading, agreed once a step (and at each submit) by a broadcast over
+the mesh's Gloo host group (``ShardingCtx.agree``): no device transfer,
+and still one ``to_host`` a decode step.  Telemetry timestamps read the
+rank's own clock (only rank 0 writes them out in the launcher).
+
 Telemetry: ``metrics=MetricsRegistry()`` makes the lifecycle counters,
 gauges and TTFT / ITL / queue-wait / end-to-end histograms registry-backed;
 ``trace=TraceRecorder()`` records one event per lifecycle transition,
@@ -246,6 +271,9 @@ class Engine:
         if cache_layout not in ("dense", "paged"):
             raise ValueError(f"unknown cache_layout {cache_layout!r}")
         self.model = model
+        # the one view of the weights every step reads (the model's own
+        # tree off a mesh)
+        self.params = model.serving_params()
         self.slots = slots
         self.max_len = max_len
         self.layout = cache_layout
@@ -294,6 +322,8 @@ class Engine:
             )
         self.faults = faults
         self._clock = clock
+        # on a mesh: rank 0's clock reading, agreed at each step and submit
+        self._agreed: Optional[float] = None
         self.alloc: Optional[PageAllocator] = None
         if cache_layout == "paged":
             if cfg.sliding_window:
@@ -372,6 +402,21 @@ class Engine:
                                               "submit -> slot admission", buckets=LATENCY_BUCKETS)
             self._h_e2e = metrics.histogram("engine_e2e_latency_seconds", "submit -> finish",
                                             buckets=LATENCY_BUCKETS)
+
+    # ---------------------------------------------------------- the clock
+    def _tick(self) -> float:
+        """Read the clock for a host decision: off a mesh the clock itself;
+        on one, rank 0's reading, agreed over the host group, which ``_now``
+        returns until the next tick."""
+        if not self.model.sharded:
+            return self._clock()
+        self._agreed = self.model.ctx.agree(self._clock())
+        return self._agreed
+
+    def _now(self) -> float:
+        """The time a deadline decision reads: the clock off a mesh, the
+        step's agreed reading on one."""
+        return self._clock() if self._agreed is None else self._agreed
 
     # ---------------------------------------------------------- telemetry
     def _bump(self, name: str, n: int = 1) -> None:
@@ -463,7 +508,7 @@ class Engine:
                        max_queue=self.max_queue)
             raise EngineOverloaded(req.uid, len(self.queue), self.max_queue)
         self._ensure_state()
-        req.t_submit = self._clock()
+        req.t_submit = self._tick()
         req._seq = self._next_seq
         self._next_seq += 1
         self._bump("submitted")
@@ -523,7 +568,7 @@ class Engine:
                     lens[r] = len(prompts[gi])
                 self._emit("prefill", embed=True, bucket=L, rows=len(chunk))
                 emb = self.model.embed_pool(torch.as_tensor(toks, device=dev),
-                                            torch.as_tensor(lens, device=dev))
+                                            torch.as_tensor(lens, device=dev), self.params)
                 order.extend(chunk)
                 parts.append(emb[: len(chunk)])
         host = torch.cat(parts).cpu().numpy()       # one device->host copy
@@ -741,7 +786,7 @@ class Engine:
         queue the slot for chunked prefill."""
         if self.faults is not None and self.faults.alloc_blocked(self.steps):
             return  # injected allocator outage: no admissions this step
-        params = self.model.params.tree()
+        params = self.params
         dev = self.model.device
         for slot in range(self.slots):
             if self.slot_req[slot] is not None or not self.queue:
@@ -817,7 +862,7 @@ class Engine:
         dev = self.model.device
         with annotate("engine/prefill_chunk", enabled=self.profile):
             logits, self.cache["layers"] = self.model.prefill_chunk(
-                self.model.params.tree(), self.cache["layers"], torch.as_tensor(toks, device=dev),
+                self.params, self.cache["layers"], torch.as_tensor(toks, device=dev),
                 torch.tensor(self.alloc.table[slot : slot + 1], device=dev), st.done, c)
         st.done += c
         self.prefill_chunks += 1
@@ -895,7 +940,7 @@ class Engine:
         ran (``finish_reason="timeout"``, no tokens)."""
         if not self.queue:
             return
-        now = self._clock()
+        now = self._now()
         kept: List[Request] = []
         for req in self.queue:
             dl = self._abs_deadline(req)
@@ -915,7 +960,7 @@ class Engine:
         boundary (they keep the tokens produced so far)."""
         if all(d is None for d in self.slot_deadline):
             return
-        now = self._clock()
+        now = self._now()
         for s in range(self.slots):
             dl = self.slot_deadline[s]
             if dl is None or self.slot_req[s] is None or now < dl:
@@ -935,7 +980,7 @@ class Engine:
         it cannot reach another slot's token), sampling, and the generation
         index bump.  Returns device (tok, logp, bad)."""
         s = self._samp
-        logits, self.cache = self.model.decode_step(self.model.params.tree(), self.cache,
+        logits, self.cache = self.model.decode_step(self.params, self.cache,
                                                     self._last_tok[:, None])
         # idle slots stepped in lockstep: reset their positions (their
         # writes touched no live data)
@@ -970,6 +1015,8 @@ class Engine:
         self.steps += 1
         self._progress = False
         done0 = len(self.done)
+        if self.model.sharded:
+            self._tick()
         self._expire_queued()
         self._admit()
         if self._prefilling:

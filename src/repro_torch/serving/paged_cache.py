@@ -442,7 +442,9 @@ def write_slot_paged(cache_layers: Dict, one_layers: Dict, page_ids: torch.Tenso
     W, Hkv, D)``) are cut into page tiles and written to that layer's
     ``k_pool``/``v_pool`` (``(units, P, page, Hkv, D)``) at `page_ids`.
     `page_ids` may be padded with the null page — those tiles land on page
-    0 and are never read.  Every other leaf (a cross layer's ``xattn`` K/V
+    0 and are never read.  On a mesh both hold the rank's K/V heads (Hkv is
+    the rank's) and the page ids are the global allocator's, the same on
+    every rank.  Every other leaf (a cross layer's ``xattn`` K/V
     and lengths) is dense per slot: it is written into row ``slot``, as
     the dense layout writes it."""
     for sub, dst in cache_layers.items():
@@ -466,7 +468,8 @@ def write_slot_paged(cache_layers: Dict, one_layers: Dict, page_ids: torch.Tenso
 @torch.no_grad()
 def copy_pages(cache_layers: Dict, src: torch.Tensor, dst: torch.Tensor) -> Dict:
     """Copy pool pages ``src`` -> ``dst`` in every layer, in place
-    (copy-on-write).  `src`/`dst` are (n,) physical page ids."""
+    (copy-on-write).  `src`/`dst` are (n,) physical page ids; on a mesh
+    each rank copies its K/V heads of the same pages."""
     for pool in _pools(cache_layers):
         pool[:, dst.long()] = pool[:, src.long()]
     return cache_layers

@@ -212,12 +212,43 @@ def test_the_model_axis_refuses_the_families_it_does_not_split():
         with pytest.raises(NotImplementedError, match="14b"):
             build_model(get_smoke_config(name), mesh=mc, device="cpu")
     m = build_model(get_smoke_config("esm2-650m"), mesh=mc, device="cpu")
-    with pytest.raises(NotImplementedError, match="14c"):
-        m.embed_pool(torch.ones((1, 4), dtype=torch.int32), torch.tensor([4]))
-    # six heads over four model ranks: validate's switch to context
+    # a dense model serves: its caches hold the rank's K/V heads (2 of 4)
+    cache = m.init_cache(2, 16, layout="paged", page_size=8, num_pages=5)
+    assert cache["layers"]["sub0"]["attn"]["k_pool"].shape[-2] == 2
+    assert cache["block_table"].shape == (2, 2)
+    # six heads over four model ranks: validate's switch to context, whose
+    # generation is not ported
     m = build_model(_dense(num_heads=6, d_model=48)[1], mesh=S.MeshCoords(("data", "model"), (1, 4),
                                                                            (0, 0)), device="cpu")
     assert m.pc.attention_parallelism == "context" and m.ctx.seq_parallel
+    with pytest.raises(NotImplementedError, match="14e"):
+        m.init_cache(2, 16)
+
+
+@pytest.mark.parametrize("heads,kv,tp", [(28, 4, 2), (28, 4, 4), (128, 8, 8), (12, 3, 2),
+                                         (8, 2, 4), (8, 8, 4), (6, 3, 2)])
+def test_rank_kv_heads_are_the_heads_attention_picks(heads, kv, tp):
+    """The K/V heads a rank caches (``rank_kv_heads``) are the ones its
+    attention computes with (``_tp_kv``), and a GQA group of each rank's
+    query heads over them stays within the decode kernels' 16."""
+    from repro_torch.models.attention import _tp_kv
+
+    cfg = ModelConfig(name="t", family="dense", num_layers=1, d_model=heads * 8, num_heads=heads,
+                      num_kv_heads=kv, head_dim=8, d_ff=64, vocab_size=64)
+    seen = set()
+    for mc in _coords((1, tp), ("data", "model")):
+        ctx = S.ShardingCtx(mc, ParallelConfig())
+        idx = S.rank_kv_heads(cfg, ctx)
+        # the projection: every K/V head whole where they do not divide
+        width = kv // tp if kv % tp == 0 else kv
+        first = idx[0] if kv % tp == 0 else 0
+        k = (first + torch.arange(width, dtype=torch.float32))[None, None, :, None].expand(1, 2, -1, 8)
+        got, _ = _tp_kv(cfg, ctx, k, k)
+        assert got[0, 0, :, 0].long().tolist() == idx
+        q_heads = heads // tp
+        assert q_heads % len(idx) == 0 and q_heads // len(idx) <= 16
+        seen.update(idx)
+    assert seen == set(range(kv))
 
 
 def test_batch_rows_keep_each_micro_batch_block():
